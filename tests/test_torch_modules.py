@@ -206,8 +206,9 @@ def test_unported_lm_options_raise():
     mpt = dataclasses.replace(cfg.lm, model_family="mpt")
     with pytest.raises(NotImplementedError, match="MPT"):
         lm_apply({}, mpt, torch.zeros(1, 1, 64), torch.zeros(1, 1))
-    with pytest.raises(NotImplementedError):
-        llama.KVCache.create(cfg.lm, 1, 8, dtype=torch.int8)
+    four_bit = {"layers": [], "lm_head": {"kernel": {"q4:nf4": torch.zeros(1)}}}
+    with pytest.raises(NotImplementedError, match="4-bit"):
+        llama.llama_logits(four_bit, torch.zeros(1, 64))
 
 
 # ---- models/splice -----------------------------------------------------------
@@ -238,8 +239,12 @@ def test_build_splice_plan_fields_equal_jax(ids, with_labels, pad_to):
 
 
 def test_splice_slice_mode_not_ported():
-    with pytest.raises(NotImplementedError):
-        splice.build_splice_plan([np.array([1, IMAGE_TOKEN_INDEX])], [[(2, 2)]], 4, "slice", 3, 4, 0)
+    """Slice mode is ported now (tests/test_torch_hd.py covers it): the plan
+    this call once refused equals JAX's."""
+    args = ([np.array([1, IMAGE_TOKEN_INDEX])], [[(2, 2)]], 4, "slice", 3, 4, 0)
+    got, want = splice.build_splice_plan(*args), jax_splice.build_splice_plan(*args)
+    np.testing.assert_array_equal(got.token_ids, want.token_ids)
+    np.testing.assert_array_equal(got.image_slot, want.image_slot)
 
 
 def test_assemble_embeds_matches_jax(vlm):
@@ -273,8 +278,13 @@ def test_process_image_matches_jax(size, mode):
 
 
 def test_process_image_slice_not_ported():
-    with pytest.raises(NotImplementedError):
-        processing.process_image(Image.new("RGB", (40, 30)), "slice")
+    """Slice mode is ported now (tests/test_torch_hd.py covers it): the crops
+    this call once refused equal JAX's."""
+    img = Image.new("RGB", (40, 30))
+    got, hb, wb = processing.process_image(img, "slice")
+    want, jhb, jwb = jax_processing.process_image(img, "slice")
+    assert (hb, wb) == (jhb, jwb)
+    np.testing.assert_array_equal(got, want)
 
 
 # ---- io/weights --------------------------------------------------------------
@@ -327,7 +337,8 @@ def test_port_imports_no_jax():
     """Neither JAX nor any module of the JAX package is imported."""
     code = (
         "import sys, tokenpacker_tpu_torch.generate, tokenpacker_tpu_torch.io.weights, "
-        "tokenpacker_tpu_torch.image.processing, tokenpacker_tpu_torch.ops._build; "
+        "tokenpacker_tpu_torch.image.processing, tokenpacker_tpu_torch.image.hd_tiler, "
+        "tokenpacker_tpu_torch.ops.fused_decode, tokenpacker_tpu_torch.ops._build; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'tokenpacker_tpu')]; "
         "assert not bad, bad"
     )

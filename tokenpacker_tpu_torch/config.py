@@ -1,9 +1,9 @@
 """Configuration dataclasses (counterpart of `tokenpacker_tpu/config.py`).
 
 The same fields and defaults as the JAX package, without JAX: `dtype` is
-a `torch.dtype`. Only what the bf16 single-image serving path reads is
-here; the HF `config.json` round trip and the preset table wait for the
-checkpoint loader.
+a `torch.dtype`. Only what the serving paths read is here, with the
+released-checkpoint preset table; the HF `config.json` round trip waits
+for the checkpoint loader.
 """
 
 from __future__ import annotations
@@ -138,6 +138,52 @@ class TokenPackerVLMConfig:
     @property
     def tokens_per_view(self) -> int:
         return (self.vision.grid // self.scale_factor) ** 2
+
+
+def vicuna_13b() -> LMConfig:
+    """Vicuna-13B-v1.5 geometry (TokenPacker-13b checkpoints)."""
+    return LMConfig(
+        hidden_size=5120,
+        intermediate_size=13824,
+        num_hidden_layers=40,
+        num_attention_heads=40,
+    )
+
+
+# Named presets of the released checkpoint family; patch_num applies to
+# the HD variants only.
+MODEL_PRESETS: dict[str, dict] = {
+    "tokenpacker-7b-144token": dict(scale_factor=2),
+    "tokenpacker-7b-64token": dict(scale_factor=3),
+    "tokenpacker-7b-36token": dict(scale_factor=4),
+    "tokenpacker-13b-144token": dict(scale_factor=2, lm_preset="13b"),
+    "tokenpacker-hd-7b-9patch-144token": dict(
+        scale_factor=2, patch_num=9, image_aspect_ratio="slice"
+    ),
+    "tokenpacker-hd-13b-9patch-144token": dict(
+        scale_factor=2, patch_num=9, image_aspect_ratio="slice", lm_preset="13b"
+    ),
+    "tokenpacker-hd-13b-16patch-144token": dict(
+        scale_factor=2, patch_num=16, image_aspect_ratio="slice", lm_preset="13b"
+    ),
+    "tokenpacker-hd-13b-16patch-64token": dict(
+        scale_factor=3, patch_num=16, image_aspect_ratio="slice", lm_preset="13b"
+    ),
+    "tokenpacker-hd-13b-16patch-36token": dict(
+        scale_factor=4, patch_num=16, image_aspect_ratio="slice", lm_preset="13b"
+    ),
+}
+
+
+def preset_config(name: str) -> TokenPackerVLMConfig:
+    """A config from a released-checkpoint preset name (case-insensitive;
+    `sunshine-lwt/TokenPacker-*` naming, a leading org path is dropped)."""
+    key = name.lower().lstrip("/").split("/")[-1]
+    if key not in MODEL_PRESETS:
+        raise KeyError(f"unknown preset {name!r}; known: {sorted(MODEL_PRESETS)}")
+    spec = dict(MODEL_PRESETS[key])
+    lm = vicuna_13b() if spec.pop("lm_preset", None) == "13b" else LMConfig()
+    return TokenPackerVLMConfig(lm=lm, **spec)
 
 
 def tiny_vlm_config(**overrides) -> TokenPackerVLMConfig:

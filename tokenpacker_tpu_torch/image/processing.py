@@ -1,10 +1,11 @@
-"""Image preprocessing with CLIP semantics, pad mode (counterpart of
+"""Image preprocessing with CLIP semantics (counterpart of
 `tokenpacker_tpu/image/processing.py`).
 
-numpy + PIL on the host: `expand2square` to the CLIP mean colour, then
-the HF `CLIPImageProcessor` defaults for openai/clip-vit-large-patch14-336
-(bicubic shortest-edge resize, centre crop, 1/255, CLIP mean/std). The HD
-slice tiler waits for the HD slice.
+numpy + PIL on the host. Pad mode: `expand2square` to the CLIP mean
+colour, then the HF `CLIPImageProcessor` defaults for
+openai/clip-vit-large-patch14-336 (bicubic shortest-edge resize, centre
+crop, 1/255, CLIP mean/std). Slice mode (HD): ToTensor + Normalize, then
+`hd_tiler.slice_image`.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 from PIL import Image
 
 from tokenpacker_tpu_torch.constants import CLIP_IMAGE_MEAN, CLIP_IMAGE_SIZE, CLIP_IMAGE_STD
+from tokenpacker_tpu_torch.image.hd_tiler import slice_image
 
 _MEAN = np.array(CLIP_IMAGE_MEAN, dtype=np.float32)
 _STD = np.array(CLIP_IMAGE_STD, dtype=np.float32)
@@ -55,17 +57,26 @@ def clip_preprocess(pil_img: Image.Image, size: int = CLIP_IMAGE_SIZE) -> np.nda
 
 
 def process_image(pil_img: Image.Image, image_aspect_ratio: str | None = "pad",
-                  image_size: int | None = None):
-    """Returns (crops [1, C, S, S], h_block, w_block) for "pad" or None."""
+                  patch_num: int = 9, image_size: int | None = None):
+    """Returns (crops [n, C, S, S], h_block, w_block); n == 1 unless
+    image_aspect_ratio == "slice". S defaults to the ViT-L/14-336 input."""
     size = image_size or CLIP_IMAGE_SIZE
     if image_aspect_ratio == "pad":
         bg = tuple(int(x * 255) for x in CLIP_IMAGE_MEAN)
         return clip_preprocess(expand2square(pil_img, bg), size)[None], 1, 1
-    if image_aspect_ratio is None:
-        return clip_preprocess(pil_img, size)[None], 1, 1
-    raise NotImplementedError(
-        f"image_aspect_ratio={image_aspect_ratio!r}: the HD slice tiler is not ported yet"
-    )
+    if image_aspect_ratio == "slice":
+        return slice_image(to_tensor_normalize(pil_img), patch_num, block=size)
+    return clip_preprocess(pil_img, size)[None], 1, 1
+
+
+def process_images(images, image_aspect_ratio="pad", patch_num=9, image_size=None):
+    """Batch wrapper: (crops [total, C, S, S], [(h_block, w_block)] per image)."""
+    tensors, blocks = [], []
+    for im in images:
+        t, hb, wb = process_image(im, image_aspect_ratio, patch_num, image_size)
+        tensors.append(t)
+        blocks.append((hb, wb))
+    return np.concatenate(tensors, axis=0), blocks
 
 
 def to_model_input(crops: np.ndarray, dtype: torch.dtype = torch.float32,

@@ -6,7 +6,8 @@ Linear kernels keep JAX's **[in, out]** layout (y = x @ W): nothing is
 transposed. The JAX package stacks each tower's and the LM's layers on a
 leading axis; here `"layers"` is a list with one dict per layer.
 `patch_embed.kernel` is the `[3*p*p, W]` conv-flatten matmul of
-`clip_vit.patchify`, in both packages.
+`clip_vit.patchify`, in both packages. An int8 kernel is the leaf
+{"q": int8 [in, out], "scale": f32 [1, out]} of `ops/quantize` in both.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from tokenpacker_tpu_torch.config import TokenPackerVLMConfig
+from tokenpacker_tpu_torch.ops.quantize import fuse_llama_layers, is_qleaf, quantize_tree
 
 
 def to_tensors(node):
@@ -25,7 +27,10 @@ def to_tensors(node):
         return [to_tensors(v) for v in node]
     if node is None:
         return None
-    return torch.from_numpy(np.array(node, copy=True))
+    arr = np.array(node, copy=True)
+    if arr.dtype.name == "bfloat16":  # JAX's bf16 arrays (ml_dtypes)
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _layer_slice(node, i: int):
@@ -35,14 +40,16 @@ def _layer_slice(node, i: int):
 
 
 def params_from_jax(tree, cfg: TokenPackerVLMConfig):
-    """The JAX `init_vlm`-shaped pytree (leaves as numpy arrays) -> the
-    port's parameters as CPU tensors of the same dtypes; `params_to` moves
-    and casts them."""
+    """The JAX `init_vlm`-shaped pytree (leaves as numpy arrays; any of its
+    "vision" / "projector" / "lm" parts) -> the port's parameters as CPU
+    tensors of the same dtypes; `params_to` moves and casts them."""
     if cfg.lm.model_family != "llama":
         raise NotImplementedError("only the llama family is ported")
     depth = {"vision": cfg.vision.num_hidden_layers, "lm": cfg.lm.num_hidden_layers}
     out = {}
     for part in ("vision", "projector", "lm"):
+        if part not in tree:  # a partial tree, e.g. the LM alone
+            continue
         node = dict(tree[part])
         if part in depth:
             stacked = node["layers"]
@@ -75,7 +82,9 @@ def params_to_jax(params):
 
 def params_to(params, device: torch.device | str, dtype: torch.dtype):
     """A copy of the parameters on `device`, floating-point tensors cast to
-    `dtype`."""
+    `dtype`, except the f32 scales of int8 kernels (int8 stays int8)."""
+    if is_qleaf(params):
+        return {"q": params["q"].to(device), "scale": params["scale"].to(device)}
     if isinstance(params, dict):
         return {k: params_to(v, device, dtype) for k, v in params.items()}
     if isinstance(params, list):
@@ -83,6 +92,65 @@ def params_to(params, device: torch.device | str, dtype: torch.dtype):
     if params is None:
         return None
     return params.to(device=device, dtype=dtype if params.is_floating_point() else None)
+
+
+def quantize_lm_int8(params, min_size: int = 1 << 16):
+    """The `load_8bit` serving form of the LM, in place: fuse q/k/v and
+    gate/up, then quantize every kernel of at least `min_size` elements
+    (counted over all layers, as the JAX package counts its stacked
+    leaves) to int8 {q, scale}. The layers are replaced one by one, so on
+    the card the bf16 and the int8 LM never coexist whole (once the caller
+    holds no other reference to the bf16 layers). Returns `params`."""
+    lm = params["lm"]
+    layers = lm["layers"]
+    per_layer = -(-min_size // len(layers))
+    for i, layer in enumerate(layers):
+        layers[i] = quantize_tree(fuse_llama_layers({"layers": [layer]}), per_layer)["layers"][0]
+    lm.update(quantize_tree({k: v for k, v in lm.items() if k != "layers"}, min_size))
+    return params
+
+
+def _normal_fn(seed: int, device, dtype):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def normal(*shape, std=0.02, mean=0.0):
+        x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+        return x.mul_(std).add_(mean).to(dtype)
+
+    return normal
+
+
+def _init_lm(lc, normal):
+    def scale(n):
+        return normal(n, std=0.1, mean=1.0)
+
+    def lin(i, o):
+        return {"kernel": normal(i, o)}
+
+    d, kvd, f = lc.hidden_size, lc.kv_heads * lc.head_dim, lc.intermediate_size
+    return {
+        "embed": normal(lc.vocab_size, d),
+        "layers": [
+            {
+                "input_ln": {"scale": scale(d)},
+                "attn": {"q": lin(d, d), "k": lin(d, kvd), "v": lin(d, kvd), "o": lin(d, d)},
+                "post_ln": {"scale": scale(d)},
+                "mlp": {"gate": lin(d, f), "up": lin(d, f), "down": lin(f, d)},
+            }
+            for _ in range(lc.num_hidden_layers)
+        ],
+        "norm": {"scale": scale(d)},
+        "lm_head": lin(d, lc.vocab_size),
+    }
+
+
+def init_lm_on_device(lm_cfg, seed: int = 0, device: torch.device | str = "cuda",
+                      dtype: torch.dtype = torch.bfloat16):
+    """The LM part of `init_vlm_on_device` alone, from its own seed."""
+    if lm_cfg.model_family != "llama":
+        raise NotImplementedError("only the llama family is ported")
+    return _init_lm(lm_cfg, _normal_fn(seed, device, dtype))
 
 
 def init_vlm_on_device(cfg: TokenPackerVLMConfig, seed: int = 0,
@@ -96,12 +164,7 @@ def init_vlm_on_device(cfg: TokenPackerVLMConfig, seed: int = 0,
     on these weights also sees a norm or bias that is dropped or swapped."""
     if cfg.lm.model_family != "llama":
         raise NotImplementedError("only the llama family is ported")
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-
-    def normal(*shape, std=0.02, mean=0.0):
-        x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-        return x.mul_(std).add_(mean).to(dtype)
+    normal = _normal_fn(seed, device, dtype)
 
     def scale(n):
         return normal(n, std=0.1, mean=1.0)
@@ -115,7 +178,7 @@ def init_vlm_on_device(cfg: TokenPackerVLMConfig, seed: int = 0,
     def ln(n):
         return {"scale": scale(n), "bias": normal(n)}
 
-    vc, pc, lc = cfg.vision, cfg.projector, cfg.lm
+    vc, pc = cfg.vision, cfg.projector
     w = vc.hidden_size
     vision = {
         "class_embedding": normal(w),
@@ -144,22 +207,4 @@ def init_vlm_on_device(cfg: TokenPackerVLMConfig, seed: int = 0,
         "attn": {name: lin(e, e) for name in ("q", "k", "v", "o")},
         "mlp": {"fc1": lin(e, pc.hidden_size), "fc2": lin(pc.hidden_size, pc.hidden_size)},
     }
-    d, kvd, f = lc.hidden_size, lc.kv_heads * lc.head_dim, lc.intermediate_size
-    lm = {
-        "embed": normal(lc.vocab_size, d),
-        "layers": [
-            {
-                "input_ln": {"scale": scale(d)},
-                "attn": {
-                    "q": lin(d, d, False), "k": lin(d, kvd, False),
-                    "v": lin(d, kvd, False), "o": lin(d, d, False),
-                },
-                "post_ln": {"scale": scale(d)},
-                "mlp": {"gate": lin(d, f, False), "up": lin(d, f, False), "down": lin(f, d, False)},
-            }
-            for _ in range(lc.num_hidden_layers)
-        ],
-        "norm": {"scale": scale(d)},
-        "lm_head": lin(d, lc.vocab_size, False),
-    }
-    return {"vision": vision, "projector": projector, "lm": lm}
+    return {"vision": vision, "projector": projector, "lm": _init_lm(cfg.lm, normal)}

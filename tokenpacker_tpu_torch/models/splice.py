@@ -2,8 +2,16 @@
 
 The plan (where each text token and each visual token lands) is built on
 the host in numpy, once per batch; the device does one gather and one
-select. Only single-image mode ("single": one view per image) is ported;
-the HD slice layout waits for the HD slice.
+select. Two modes:
+
+- "single": one view per image hole;
+- "slice" (HD): the crops row-major, `sep_id` between the views of a row,
+  `newline_id` after each row and, when there is more than one crop, the
+  global view followed by `newline_id`. The separators are real
+  vocabulary tokens and are labelled IGNORE_INDEX like the visual tokens.
+
+Crops are numbered across the batch in sample/image order (the crops of
+all images concatenated), including each image's global view.
 """
 
 from __future__ import annotations
@@ -23,35 +31,60 @@ class SplicePlan:
 
     token_ids: np.ndarray  # int32; pad_id at visual positions and padding
     is_image: np.ndarray  # bool; True where a visual token goes
-    image_slot: np.ndarray  # int32 index into the flat [views*tpv] visual tokens
+    image_slot: np.ndarray  # int32 index into the flat [crops*tpv] visual tokens
     attn_mask: np.ndarray  # bool validity
     labels: np.ndarray | None  # int32, IGNORE_INDEX at non-target positions
     lengths: np.ndarray  # [N] true sequence lengths
 
 
-def _expand_sample(ids: np.ndarray, labels: np.ndarray | None, view_base: list[int],
-                   tokens_per_view: int, pad_id: int):
-    """One sample's (tok, img, slot, lab) lists, one view per image hole."""
+def _expand_sample(ids: np.ndarray, labels: np.ndarray | None, blocks: list[tuple[int, int]],
+                   crop_base: list[int], tokens_per_view: int, mode: str, sep_id: int,
+                   newline_id: int, pad_id: int):
+    """One sample's (tok, img, slot, lab) lists."""
     tok, img, slot, lab = [], [], [], []
-    cursor = 0
-    for n_img, pos in enumerate(np.where(ids == IMAGE_TOKEN_INDEX)[0]):
-        tok.extend(ids[cursor:pos].tolist())
-        img.extend([False] * (pos - cursor))
-        slot.extend([0] * (pos - cursor))
+
+    def add_text(part_ids, part_labels):
+        tok.extend(part_ids.tolist())
+        img.extend([False] * len(part_ids))
+        slot.extend([0] * len(part_ids))
         if labels is not None:
-            lab.extend(labels[cursor:pos].tolist())
-        start = view_base[n_img] * tokens_per_view
+            lab.extend(part_labels.tolist())
+
+    def add_view(crop):
+        start = crop * tokens_per_view
         tok.extend([pad_id] * tokens_per_view)
         img.extend([True] * tokens_per_view)
         slot.extend(range(start, start + tokens_per_view))
         if labels is not None:
             lab.extend([IGNORE_INDEX] * tokens_per_view)
+
+    def add_sep(t):
+        tok.append(t)
+        img.append(False)
+        slot.append(0)
+        if labels is not None:
+            lab.append(IGNORE_INDEX)
+
+    cursor = 0
+    for n_img, pos in enumerate(np.where(ids == IMAGE_TOKEN_INDEX)[0]):
+        add_text(ids[cursor:pos], None if labels is None else labels[cursor:pos])
+        hb, wb = blocks[n_img]
+        crop = crop_base[n_img]
+        if mode == "slice":
+            for _ in range(hb):
+                for j in range(wb):
+                    add_view(crop)
+                    crop += 1
+                    if j < wb - 1:
+                        add_sep(sep_id)
+                add_sep(newline_id)
+            if hb * wb > 1:
+                add_view(crop)  # the global view
+                add_sep(newline_id)
+        else:
+            add_view(crop)
         cursor = pos + 1
-    tok.extend(ids[cursor:].tolist())
-    img.extend([False] * (len(ids) - cursor))
-    slot.extend([0] * (len(ids) - cursor))
-    if labels is not None:
-        lab.extend(labels[cursor:].tolist())
+    add_text(ids[cursor:], None if labels is None else labels[cursor:])
     return tok, img, slot, (lab if labels is not None else None)
 
 
@@ -67,26 +100,23 @@ def build_splice_plan(
     pad_to: int | None = None,
 ) -> SplicePlan:
     """input_ids: per-sample int arrays with IMAGE_TOKEN_INDEX holes; blocks:
-    per-sample (h_block, w_block) per image, (1, 1) in single mode. Views
-    are numbered across the batch in sample/image order. Same signature and
-    result as the JAX original; sep_id/newline_id only matter in slice mode.
-    """
-    if mode != "single":
-        raise NotImplementedError(f"splice mode {mode!r}: only 'single' is ported (HD slice waits)")
-    bases: list[list[int]] = []
+    per-sample (h_block, w_block) per image, (1, 1) in single mode. Same
+    signature and result as the JAX original; sep_id/newline_id only
+    matter in slice mode."""
+    crop_base: list[list[int]] = []
     nxt = 0
     for bs in blocks:
         row = []
         for hb, wb in bs:
             row.append(nxt)
-            nxt += hb * wb
-        bases.append(row)
+            nxt += hb * wb + (1 if hb * wb > 1 and mode == "slice" else 0)
+        crop_base.append(row)
 
     n = len(input_ids)
     rows = [
         _expand_sample(
             np.asarray(input_ids[i]), None if labels is None else np.asarray(labels[i]),
-            bases[i], tokens_per_view, pad_id,
+            blocks[i], crop_base[i], tokens_per_view, mode, sep_id, newline_id, pad_id,
         )
         for i in range(n)
     ]

@@ -14,13 +14,22 @@ import torch.nn.functional as F
 
 
 def linear(params, x: torch.Tensor) -> torch.Tensor:
-    """y = x @ kernel + bias. kernel: [in, out]; bias optional."""
+    """y = x @ kernel + bias. kernel: [in, out], or the int8 leaf {"q"
+    [in, out] int8, "scale" [1, out] f32} (`ops/quantize`); bias optional."""
     k = params["kernel"]
     if isinstance(k, dict):
-        raise NotImplementedError(
-            "quantized linear kernels wait for the int8/4-bit serving slice"
-        )
-    y = x @ k
+        if set(k) != {"q", "scale"}:
+            raise NotImplementedError(
+                f"quantized kernel {sorted(k)}: only the int8 {{q, scale}} leaf is ported "
+                "(4-bit comes with K6)"
+            )
+        # The JAX package's default int8 branch, a plain product it leaves
+        # to XLA. On the card the cast makes a bf16 copy of the weight for
+        # each call (180 MB for Vicuna-7B's gateup); the decode step avoids
+        # it through K4 (ops/fused_decode), prefill pays it once per layer.
+        y = (x @ k["q"].to(x.dtype)) * k["scale"].squeeze(-2).to(x.dtype)
+    else:
+        y = x @ k
     if params.get("bias") is not None:
         y = y + params["bias"]
     return y
