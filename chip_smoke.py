@@ -75,7 +75,7 @@ HD_PRESET = "tokenpacker-hd-7b-9patch-144token"
 # the slice-mode row separator and row end; no tokenizer is loaded
 SEP_ID, NEWLINE_ID = 29892, 13
 NEW_TOKENS = 32
-# NVIDIA's H100 SXM datasheet (on-chip-measurement guide): HBM3 rate and
+# NVIDIA's H100 SXM datasheet: HBM3 rate and
 # the dense bf16 tensor-core rate, at a 700 W power limit
 HBM_BYTES_PER_S, BF16_FLOP_PER_S = 3.35e12, 989e12
 
