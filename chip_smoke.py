@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py              # the smoke run, phases 1-7
+    python3 chip_smoke.py              # the smoke run, phases 1-9
     python3 chip_smoke.py --profile    # phases 1-2, then the profile below
+    python3 chip_smoke.py --profile-train  # phases 1-2, then a traced training step
 
 Phases, one result line each or more (every failure raises, so any
 failure exits non-zero and prints no final line):
@@ -15,7 +16,12 @@ failure exits non-zero and prints no final line):
      computes the same function, that call (CUDA events), and the least
      time the card could take (bound). K4 runs at the last decode step of
      phase 6: random Vicuna-7B layers quantized to int8, 4 requests,
-     S=2080, the HD requests' ranges, int8 and bf16 caches;
+     S=2080, the HD requests' ranges, int8 and bf16 caches. K2's forward
+     is also timed, and its backward checked and timed, at phase 8's
+     training shape [8, 2048, 32, 128], causal (the backward's plain
+     version runs sample by sample, its library yardstick is the
+     backward alone of one causal scaled_dot_product_attention); two
+     backward calls must give the same bits;
   4. TokenPacker-7b (ViT-L/14-336, projector s=2, Vicuna-7B) in bf16 with
      random weights made on the card from a seed answers 4 requests (one
      synthetic image each, different prompt lengths) with 32 greedy
@@ -30,24 +36,43 @@ failure exits non-zero and prints no final line):
      greedy tokens: one K4 call per decode step, no K3; checks as in 4;
   7. full widths at 2 LM layers, int8 weights and int8 cache: prefill and
      4 decode steps on the card (bf16, K4) against the CPU (fp32, K4's
-     plain version).
+     plain version);
+  8. stage 1 of TokenPacker-7b (the projector trains, tower and LM
+     frozen) at full width and depth through `Trainer.train()`: random
+     bf16 weights from the seed, a synthetic dataset of 24 records (random
+     images, plain-template captions, a stand-in word tokenizer), batch
+     8 padded to 2048, remat "full", 3 steps. Per step: loss, seconds,
+     valid and padded tokens/s, peak memory. Checks: finite losses, tower
+     and LM bitwise unchanged, projector unchanged after step 1 (lr = 0)
+     and changed after step 3, launches per step K1 23, K2-fwd 64 (32 +
+     32 recomputed), K2-bwd 32, and `mm_projector.bin` loads back;
+  9. full widths at 2 LM layers: one stage-2 step (LM and projector train)
+     on the card (bf16, kernels) and on the CPU (fp32, plain versions)
+     from the same weights and batch; loss and the projector's and LM's
+     gradients within the stated bands.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}.
 
 `--profile` instead traces phase 6's model and requests with
 torch.profiler over 8 decode steps after the prefill: device time per
 step by kernel family, the host-clock time per step and the device's busy
-share of it. It prints no final "ok" line.
+share of it. `--profile-train` traces one stage-1 step of phase 8's
+configuration (after one untraced step) the same way. Neither prints
+the final "ok" line.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -69,6 +94,15 @@ K4_HIDDEN_RTOL, K4_DEEP_REL_RMS = 2e-2, 0.1
 # card bf16 vs CPU fp32 next-token logits through the full tower, the
 # projector and 2 LM layers (phases 5 and 7)
 LOGIT_BAND = 0.1
+# phase 9, card bf16 vs CPU fp32 through the same chain and its backward:
+# the loss within 1% (relative) and each group's gradient within a
+# relative RMS difference of 0.05. bf16 rounds every activation and
+# gradient to 8 bits of mantissa (2^-9 relative) and K2 rounds P and dS
+# to bf16 as product operands; over the tower, the projector and 2
+# layers these give about 1% on the logits (phase 5); a wrong or missing
+# gradient term gives O(1).
+LOSS_BAND, GRAD_REL_RMS_BAND = 1e-2, 5e-2
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_RECORDS = 2048, 8, 24
 SEED = 0  # random weights, images and token ids
 HD_PRESET = "tokenpacker-hd-7b-9patch-144token"
 # stand-ins for the Vicuna (LLaMA SentencePiece) ids of "," and "\n",
@@ -264,6 +298,7 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
                                                    enable_gqa=hkv != 32),
             work=(nbytes, 4 * 2 * 32 * 128 * t * (t + 1) / 2)))
     rows["flash_attention"] = first_and_worst(cases)
+    rows.update(phase_kernels_training_shape(device, case))
 
     cases = []
     n, s = 4, 1040
@@ -374,6 +409,58 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
     del layers
     torch.cuda.empty_cache()
     return rows
+
+
+def phase_kernels_training_shape(device, case) -> dict:
+    """Phase 3, K2 at phase 8's training shape: the forward timed against
+    its plain version; the backward checked (dq, dk, dv), run twice for
+    determinism, and timed. Its plain version runs one sample at a time
+    (fp32 [32, 2048, 2048] scores are 512 MB a sample); the timed plain
+    call is that whole loop."""
+    from tokenpacker_tpu_torch.ops import flash_attention as k2
+
+    n, t, h, d = TRAIN_BATCH, TRAIN_SEQ, 32, 128
+    q, k, v, do = (bf16((n, t, h, d), 30 + i, device) for i in range(4))
+    pairs = n * h * t * (t + 1) / 2  # visible (query, key) pairs
+    elems = n * t * h * d
+    fwd = case(f"K2 flash causal q[{n},{t},{h},{d}] (training shape)", k2.flash_attention,
+               k2.flash_attention_plain, (q, k, v, True), pick=lambda x: x[0],
+               library=lambda: sdpa(q, k, v, is_causal=True),
+               work=(4 * elems * 2 + n * h * t * 4, 4 * d * pairs))
+    torch.cuda.empty_cache()
+    o, lse = k2.flash_attention(q, k, v, True)
+
+    def kernel():
+        return k2.flash_attention_bwd(q, k, v, o, lse, do, True)
+
+    def plain():
+        parts = [k2.flash_attention_bwd_plain(q[i:i + 1], k[i:i + 1], v[i:i + 1], o[i:i + 1],
+                                              lse[i * h:(i + 1) * h], do[i:i + 1], True)
+                 for i in range(n)]
+        return tuple(torch.cat(x) for x in zip(*parts))
+
+    tag = f"K2-bwd flash causal q[{n},{t},{h},{d}]"
+    got, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{tag}: two identical calls differ")
+    want = plain()
+    err = max(compare(f"{tag} {name}", g, w) for g, w, name in zip(got, want, ("dq", "dk", "dv")))
+    del got, again, want
+    print(f"  {tag}: two calls identical")
+    ql, kl, vl = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    dol = do.transpose(1, 2)
+    ms, plain_ms = time_ms(kernel), time_ms(plain, iters=3, warmup=1)
+    lib_ms = time_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), dol, retain_graph=True))
+    b_ms, b_by = bound(8 * elems * 2 + n * h * t * 4, 5 * 2 * d * pairs)
+    print(f"  {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (8 samples one by one), library "
+          f"{lib_ms:.4f} ms (SDPA backward alone), bound {b_ms:.4f} ms ({b_by})")
+    del q, k, v, do, o, lse, ql, kl, vl, out
+    torch.cuda.empty_cache()
+    return {"flash_attention_train": fwd,
+            "flash_attention_bwd": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                    "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}}
 
 
 def tower_blocks(cfg) -> int:
@@ -580,10 +667,270 @@ def phase_int8_parity(device, seed: int) -> None:
     torch.cuda.empty_cache()
 
 
+class WordTokenizer:
+    """Stand-in for the Vicuna tokenizer (no tokenizer is loaded): BOS, then
+    one id per word or newline, ids given in order of first sight from 100
+    up; "," and "\\n" keep their Vicuna ids SEP_ID and NEWLINE_ID."""
+
+    bos_token_id, pad_token_id = 1, 0
+
+    def __init__(self):
+        self.vocab = {",": SEP_ID, "\n": NEWLINE_ID}
+
+    def convert_tokens_to_ids(self, token: str) -> int:
+        return self.vocab.setdefault(token, 100 + len(self.vocab))
+
+    def __call__(self, text: str):
+        words = re.findall(r"\n|[^\s]+", text)
+        return SimpleNamespace(input_ids=[1] + [self.convert_tokens_to_ids(w) for w in words])
+
+
+def write_caption_dataset(root: Path, n: int, seed: int) -> Path:
+    """n records of the stage-1 (LCS-558K) form: a random RGB image of 240 to
+    720 pixels a side and a caption of 8 to 63 words from a 2,000-word list,
+    as "<image>\\n" / caption turns. Returns the JSON path."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    words = [f"w{i}" for i in range(2000)]
+    records = []
+    for i in range(n):
+        w, h = (int(x) for x in rng.integers(240, 721, 2))
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(root / f"im{i}.png")
+        caption = " ".join(rng.choice(words, int(rng.integers(8, 64))))
+        records.append({"id": str(i), "image": f"im{i}.png", "conversations": [
+            {"from": "human", "value": "<image>\n"}, {"from": "gpt", "value": caption}]})
+    path = root / "data.json"
+    path.write_text(json.dumps(records))
+    return path
+
+
+def fingerprints(tree) -> list[int]:
+    """A position-weighted sum (mod 2^64) of every leaf's bit patterns, leaf
+    by leaf: any change of a single value changes its leaf's sum."""
+    from tokenpacker_tpu_torch.train.step import leaves_with_paths
+
+    out = []
+    for _, t in leaves_with_paths(tree):
+        bits = t.detach().reshape(-1).view(torch.int16).to(torch.int64)
+        weights = torch.arange(1, bits.numel() + 1, device=bits.device, dtype=torch.int64)
+        out.append(int((bits * weights).sum()))
+    return out
+
+
+def phase_train_stage1(device, seed: int, rows: dict) -> dict:
+    """Phase 8: stage 1 of TokenPacker-7b at full width and depth through
+    `Trainer.train()`, 3 steps of 8 x 2048 with remat "full"."""
+    from tokenpacker_tpu_torch.config import TokenPackerVLMConfig
+    from tokenpacker_tpu_torch.data.dataset import SupervisedDataset
+    from tokenpacker_tpu_torch.io.hf_import import export_tokenpacker, import_tokenpacker, strip_prefix
+    from tokenpacker_tpu_torch.io.weights import init_vlm_on_device
+    from tokenpacker_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from tokenpacker_tpu_torch.ops.vit_attention import vit_attention
+    from tokenpacker_tpu_torch.train.step import TrainConfig
+    from tokenpacker_tpu_torch.train.trainer import RunConfig, Trainer
+
+    cfg = TokenPackerVLMConfig()
+    t0 = time.perf_counter()
+    params = init_vlm_on_device(cfg, seed=seed, device=device, dtype=torch.bfloat16)
+    frozen = {part: fingerprints(params[part]) for part in ("vision", "lm")}
+    projector0 = export_tokenpacker(params["projector"])
+    torch.cuda.synchronize()
+    print(f"phase 8: TokenPacker-7b stage 1 (projector trains) through Trainer.train(), random bf16 "
+          f"weights from seed {seed} in {time.perf_counter() - t0:.2f} s")
+    counters = {"vit_attention": vit_attention, "flash_attention": flash_attention,
+                "flash_attention_bwd": flash_attention_bwd}
+    steps = TRAIN_RECORDS // TRAIN_BATCH
+    depth = cfg.lm.num_hidden_layers
+    per_step = {"vit_attention": tower_blocks(cfg), "flash_attention": 2 * depth,
+                "flash_attention_bwd": depth}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        tok = WordTokenizer()
+        ds = SupervisedDataset(str(write_caption_dataset(root, TRAIN_RECORDS, seed)), tok,
+                               image_folder=str(root), version="plain",
+                               image_size=cfg.vision.image_size)
+        out = root / "out"
+        rcfg = RunConfig(output_dir=str(out), per_device_batch_size=TRAIN_BATCH,
+                         seq_pad_to=TRAIN_SEQ, remat="full", save_steps=1,
+                         save_total_limit=steps, seed=seed)
+        trainer = Trainer(cfg, TrainConfig(stage="pretrain", learning_rate=1e-3), rcfg, params,
+                          ds, tok)
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        want = {k: steps * v for k, v in per_step.items()}
+        print(f"  {TRAIN_RECORDS} records, batch {TRAIN_BATCH} padded to {TRAIN_SEQ}, remat full, "
+              f"{steps} steps in {wall:.2f} s (checkpoint writes included); launches {launches}, "
+              f"expected {want} (per step: 1 tower pass, 32 K2-fwd + 32 recomputed, 32 K2-bwd)")
+        if launches != want:
+            raise AssertionError(f"phase 8: kernel launch counts {launches} != {want}")
+        for r in trainer.history:
+            print(f"  step {r['step']}: loss {r['loss']:.4f}, {r['seconds'] * 1e3:.1f} ms, "
+                  f"{r['valid_tokens']} valid / {r['padded_tokens']} padded tokens = "
+                  f"{r['valid_tokens'] / r['seconds']:.1f} / {r['padded_tokens'] / r['seconds']:.1f} "
+                  f"tok/s, grad_norm {r['grad_norm']:.4f}, peak {r['peak_bytes'] / 2**30:.3f} GiB")
+        if not all(np.isfinite(r["loss"]) for r in trainer.history):
+            raise AssertionError("phase 8: a non-finite loss")
+        for part, before in frozen.items():
+            if fingerprints(params[part]) != before:
+                raise AssertionError(f"phase 8: the frozen {part} tensors changed")
+        saved = [torch.load(out / f"checkpoint-{i}" / "mm_projector.bin", weights_only=True)
+                 for i in (1, steps)]
+        prefix = "model.mm_projector."
+        same1 = all(np.array_equal(saved[0][prefix + k].numpy(), v) for k, v in projector0.items())
+        moved3 = any(not np.array_equal(saved[1][prefix + k].numpy(), v) for k, v in projector0.items())
+        if not (same1 and moved3):
+            raise AssertionError(f"phase 8: projector unchanged after step 1: {same1}, "
+                                 f"changed after step {steps}: {moved3}")
+        back = import_tokenpacker(strip_prefix(saved[1], prefix), cfg.projector, torch.bfloat16)
+        if fingerprints(back) != fingerprints(params["projector"]):
+            raise AssertionError("phase 8: mm_projector.bin does not load back to the live projector")
+        print(f"  frozen tower and LM bitwise unchanged; projector unchanged after step 1 (lr 0), "
+              f"changed after step {steps}; mm_projector.bin ({len(saved[1])} reference keys) "
+              f"loads back bit for bit")
+    step_s = statistics.median(r["seconds"] for r in trainer.history[1:])
+    parts = {"K1": rows["vit_attention"]["ms"] * per_step["vit_attention"],
+             "K2-fwd": rows["flash_attention_train"]["ms"] * per_step["flash_attention"],
+             "K2-bwd": rows["flash_attention_bwd"]["ms"] * per_step["flash_attention_bwd"]}
+    print(f"  step time (median of steps 2-{steps}) {step_s * 1e3:.1f} ms; kernel time x launches "
+          f"from phase 3: " + ", ".join(f"{k} {v:.1f} ms" for k, v in parts.items())
+          + f" = {sum(parts.values()) / (step_s * 1e3):.3f} of the step")
+    del params, trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_parity(device, seed: int) -> None:
+    """Phase 9: full widths, 2 LM layers; one stage-2 step (loss, gradients
+    of the projector and the LM, the optimizer update) on the card (bf16,
+    kernels) and on the CPU (fp32, plain versions) from the same weights
+    and batch."""
+    from tokenpacker_tpu_torch.config import TokenPackerVLMConfig
+    from tokenpacker_tpu_torch.data.dataset import SupervisedDataset, collate
+    from tokenpacker_tpu_torch.io.weights import init_vlm_on_device, params_to
+    from tokenpacker_tpu_torch.models.vlm import vlm_loss
+    from tokenpacker_tpu_torch.ops.flash_attention import flash_attention_bwd
+    from tokenpacker_tpu_torch.train.step import TrainConfig, make_optimizer
+    from tokenpacker_tpu_torch.train.trainer import device_train_batch
+
+    full = TokenPackerVLMConfig()
+    cfg = dataclasses.replace(full, lm=dataclasses.replace(full.lm, num_hidden_layers=2))
+    params = init_vlm_on_device(cfg, seed=seed + 2, device=device, dtype=torch.bfloat16)
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    cpu_params = params_to(params, "cpu", torch.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        tok = WordTokenizer()
+        ds = SupervisedDataset(str(write_caption_dataset(Path(tmp), 2, seed + 3)), tok,
+                               image_folder=tmp, version="plain", image_size=cfg.vision.image_size)
+        batch = collate([ds[0], ds[1]], cfg.tokens_per_view, SEP_ID, NEWLINE_ID, 0, pad_to=256)
+    tcfg = TrainConfig(stage="finetune", learning_rate=2e-5)
+    results = {}
+    t0 = time.perf_counter()
+    for side, (p, c, dev) in {"gpu": (params, cfg, device), "cpu": (cpu_params, cpu_cfg, "cpu")}.items():
+        opt = make_optimizer(tcfg, p)
+        state = opt.init()
+        flash_attention_bwd.launches = 0
+        loss, _ = vlm_loss(p, c, device_train_batch(batch, c.dtype, dev))
+        grads = torch.autograd.grad(loss, opt.params)
+        opt.update(grads, state)
+        if side == "gpu":
+            torch.cuda.synchronize()
+            if flash_attention_bwd.launches != 2:
+                raise AssertionError(f"phase 9: {flash_attention_bwd.launches} K2-bwd launches on "
+                                     "the card, expected 2")
+        n_proj = len(opt.groups["projector"])
+        results[side] = (loss.item(), {"projector": [g.float().cpu() for g in grads[:n_proj]],
+                                       "lm": [g.float().cpu() for g in grads[n_proj:]]})
+        del grads, opt, state
+    (gl, gg), (cl, cg) = results["gpu"], results["cpu"]
+    rel = {}
+    for group in ("projector", "lm"):
+        num = sum(float((a - b).square().sum()) for a, b in zip(gg[group], cg[group]))
+        den = sum(float(b.square().sum()) for b in cg[group])
+        rel[group] = (num / den) ** 0.5
+    loss_rel = abs(gl - cl) / abs(cl)
+    print(f"phase 9: full widths, 2 LM layers, 2 records padded to 256, one stage-2 step: card bf16 "
+          f"vs CPU fp32 ({time.perf_counter() - t0:.1f} s): loss {gl:.5f} vs {cl:.5f} (relative "
+          f"{loss_rel:.2e}, band {LOSS_BAND}); gradient relative RMS difference projector "
+          f"{rel['projector']:.4f}, LM {rel['lm']:.4f} (band {GRAD_REL_RMS_BAND}); 2 K2-bwd launches")
+    if not loss_rel <= LOSS_BAND:
+        raise AssertionError(f"phase 9: card vs CPU loss differ by {loss_rel} > {LOSS_BAND}")
+    for group, r in rel.items():
+        if not r <= GRAD_REL_RMS_BAND:
+            raise AssertionError(f"phase 9: {group} gradients differ by {r} > {GRAD_REL_RMS_BAND}")
+    del params, cpu_params, results
+    torch.cuda.empty_cache()
+
+
+def device_kernels(prof):
+    """(name, device ms, count) of every device-side event of a trace
+    (kernels, copies); CPU ops also carry the device time they launched."""
+    from torch.autograd import DeviceType
+
+    return [(a.key, a.self_device_time_total / 1e3, a.count) for a in prof.key_averages()
+            if a.device_type == DeviceType.CUDA and a.self_device_time_total > 0]
+
+
+def profile_train_step(device, seed: int) -> None:
+    """`--profile-train`: phase 8's model, batch and step (stage 1, 8 x 2048,
+    remat full), one untraced step, then torch.profiler over one step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tokenpacker_tpu_torch.config import TokenPackerVLMConfig
+    from tokenpacker_tpu_torch.data.dataset import SupervisedDataset, collate
+    from tokenpacker_tpu_torch.io.weights import init_vlm_on_device
+    from tokenpacker_tpu_torch.train.step import TrainConfig, make_optimizer, make_train_step
+    from tokenpacker_tpu_torch.train.trainer import device_train_batch
+
+    cfg = TokenPackerVLMConfig()
+    params = init_vlm_on_device(cfg, seed=seed, device=device, dtype=torch.bfloat16)
+    with tempfile.TemporaryDirectory() as tmp:
+        tok = WordTokenizer()
+        ds = SupervisedDataset(str(write_caption_dataset(Path(tmp), TRAIN_BATCH, seed)), tok,
+                               image_folder=tmp, version="plain", image_size=cfg.vision.image_size)
+        batch = collate([ds[i] for i in range(TRAIN_BATCH)], cfg.tokens_per_view, SEP_ID,
+                        NEWLINE_ID, 0, pad_to=TRAIN_SEQ)
+    opt = make_optimizer(TrainConfig(stage="pretrain", learning_rate=1e-3), params)
+    state = opt.init()
+    step = make_train_step(cfg, opt, remat="full")
+    dev = device_train_batch(batch, cfg.dtype, device)
+    step(params, state, dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, metrics = step(params, state, dev)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(prof)
+    busy = sum(ms for _, ms, _ in kernels)
+    rules = (("K2-bwd", ("flash_bwd",)), ("K2-fwd", ("flash_fwd",)), ("K1", ("vit_attention",)),
+             ("GEMM (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),
+             ("cross-entropy", ("softmax", "nll_loss", "cross_entropy")),
+             ("reductions (norms, sums)", ("reduce_kernel",)),
+             ("elementwise and copies", ("elementwise", "catarray", "copy_kernel", "index")))
+    families = {}
+    for name, ms, count in kernels:
+        fam = next((f for f, keys in rules if any(k in name.lower() for k in keys)), "other")
+        t, c = families.get(fam, (0.0, 0))
+        families[fam] = (t + ms, c + count)
+    print(f"profile-train: TokenPacker-7b stage 1, batch {TRAIN_BATCH} x {TRAIN_SEQ}, remat full, "
+          f"one step: host clock {wall:.1f} ms, device busy {busy:.1f} ms "
+          f"(idle share {1 - busy / wall:.3f})")
+    for fam, (ms, count) in sorted(families.items(), key=lambda x: -x[1][0]):
+        print(f"  {fam}: {ms:.1f} ms ({ms / busy:.3f} of busy), {count} launches")
+    for name, ms, count in sorted(kernels, key=lambda x: -x[1])[:15]:
+        print(f"    {ms:9.2f} ms {count:6d}x  {name[:110]}")
+
+
 def profile_hd_decode(device, seed: int, batch, steps: int = 8) -> None:
     """`--profile`: phase 6's model and requests; torch.profiler over
     `steps` decode steps after the prefill (two warm steps first)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from tokenpacker_tpu_torch.config import preset_config
@@ -609,10 +956,7 @@ def profile_hd_decode(device, seed: int, batch, steps: int = 8) -> None:
             tok = logits.argmax(-1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # device-side events only (kernels, copies); CPU ops also carry the
-    # device time of what they launched
-    kernels = [(a.key, a.self_device_time_total / 1e3, a.count) for a in prof.key_averages()
-               if a.device_type == DeviceType.CUDA and a.self_device_time_total > 0]
+    kernels = device_kernels(prof)
     busy = sum(ms for _, ms, _ in kernels)
     families = {}
     for name, ms, count in kernels:
@@ -656,6 +1000,9 @@ def main() -> None:
     _build.library()
     print(f"phase 2: built {path.name} in {seconds:.2f} s (0 = already built)")
 
+    if "--profile-train" in sys.argv[1:]:
+        profile_train_step(device, SEED)
+        return
     hd_cfg = preset_config(HD_PRESET)
     hd_batch, hd_blocks = make_hd_requests(hd_cfg, SEED)
     if "--profile" in sys.argv[1:]:
@@ -670,6 +1017,8 @@ def main() -> None:
     phase_parity(device, SEED)
     runs.append(phase_hd_int8(device, SEED, hd_batch, hd_blocks))
     phase_int8_parity(device, SEED)
+    runs.append(phase_train_stage1(device, SEED, rows))
+    phase_train_parity(device, SEED)
 
     meta = {
         "vit_attention": ("tokenpacker_tpu_torch/csrc/vit_attention.cu",
@@ -680,11 +1029,13 @@ def main() -> None:
                              "tokenpacker_tpu/ops/decode_attention.py:120"),
         "fused_decode": ("tokenpacker_tpu_torch/csrc/fused_decode.cu",
                          "tokenpacker_tpu/ops/fused_decode.py:1295"),
+        "flash_attention_bwd": ("tokenpacker_tpu_torch/csrc/flash_bwd.cu",
+                                "tokenpacker_tpu/ops/flash_attention.py:356"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
-        # launches: summed over the two main-path runs (phases 4 and 6),
-        # each counted from 0 just before its run and read just after
+        # launches: summed over the three main-path runs (phases 4, 6 and
+        # 8), each counted from 0 just before its run and read just after
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(r.get(name, 0) for r in runs), **rows[name]})
     print(json.dumps({"kernels": kernels}))

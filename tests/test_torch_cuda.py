@@ -22,7 +22,13 @@ from tokenpacker_tpu_torch.io.weights import init_lm_on_device, quantize_lm_int8
 from tokenpacker_tpu_torch.models.llama import KVCache
 from tokenpacker_tpu_torch.ops import fused_decode as k4
 from tokenpacker_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
-from tokenpacker_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from tokenpacker_tpu_torch.ops.flash_attention import (
+    FlashAttention,
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
+    flash_attention_plain,
+)
 from tokenpacker_tpu_torch.ops.kv_quant import dequantize_kv
 from tokenpacker_tpu_torch.ops.vit_attention import vit_attention, vit_attention_plain
 
@@ -81,6 +87,51 @@ def test_flash_kernel_matches_plain(cuda, n, tq, tk, h, hkv, d, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,tq,tk,h,hkv,causal", [
+    (2, 512, 512, 32, 32, True),
+    (1, 700, 700, 32, 8, True),
+    (1, 333, 333, 4, 4, False),
+    (2, 64, 300, 8, 2, True),  # queries aligned to the end of the keys
+    (1, 100, 40, 4, 4, True),  # first 60 rows see no key: zero gradients there
+    (1, 17, 17, 8, 4, False),
+])
+def test_flash_bwd_kernel_matches_plain(cuda, n, tq, tk, h, hkv, causal):
+    """K2's backward against its plain version (fp32 from the same bf16
+    inputs and the kernel forward's o and lse), within _close's bound: the
+    kernel rounds P and dS to bf16 as product operands. Two calls give the
+    same bits (no float atomics)."""
+    q = _bf16((n, tq, h, 128), 0, cuda)
+    k, v = _bf16((n, tk, hkv, 128), 1, cuda), _bf16((n, tk, hkv, 128), 2, cuda)
+    do = _bf16((n, tq, h, 128), 3, cuda)
+    o, lse = flash_attention(q, k, v, causal=causal)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal)
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        assert torch.equal(g, a)
+        _close(g, w)
+    if tq > tk:
+        assert not got[0][:, : tq - tk].any()
+
+
+@pytest.mark.cuda
+def test_flash_autograd_launches_both_kernels(cuda):
+    q = _bf16((1, 256, 8, 128), 0, cuda).requires_grad_()
+    k = _bf16((1, 256, 2, 128), 1, cuda).requires_grad_()
+    v = _bf16((1, 256, 2, 128), 2, cuda).requires_grad_()
+    do = _bf16((1, 256, 8, 128), 3, cuda)
+    fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+    o = FlashAttention.apply(q, k, v, True)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    assert (flash_attention.launches - fwd, flash_attention_bwd.launches - bwd) == (1, 1)
+    o2, lse = flash_attention(q.detach(), k.detach(), v.detach())
+    for g, w in zip(grads, flash_attention_bwd_plain(q, k, v, o2, lse, do)):
+        _close(g, w)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("hkv,d,span_start", [
     (32, 128, 1000), (32, 128, 0), (8, 128, 1000), (16, 128, 1000), (8, 128, 0), (4, 128, 1000),
 ])
@@ -128,6 +179,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q64 = _bf16((1, 64, 4, 64), 3, cuda)
     with pytest.raises(RuntimeError, match="not supported"):
         flash_attention(q64, q64, q64)  # head_dim 64: the LM's kernels take 128
+    lse64 = torch.zeros((4, 64), dtype=torch.float32, device=cuda)
+    with pytest.raises(RuntimeError, match="not supported"):
+        flash_attention_bwd(q64, q64, q64, q64, lse64, q64)
+    with pytest.raises(ValueError, match="float32"):
+        flash_attention_bwd(q, q, q, q, lse64.bfloat16(), q)
     with pytest.raises(RuntimeError, match="not supported"):
         decode_attention(q64[:, 0], q64, q64, torch.ones(1, dtype=torch.int32, device=cuda),
                          torch.ones(1, dtype=torch.int32, device=cuda))

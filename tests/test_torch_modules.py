@@ -338,7 +338,12 @@ def test_port_imports_no_jax():
     code = (
         "import sys, tokenpacker_tpu_torch.generate, tokenpacker_tpu_torch.io.weights, "
         "tokenpacker_tpu_torch.image.processing, tokenpacker_tpu_torch.image.hd_tiler, "
-        "tokenpacker_tpu_torch.ops.fused_decode, tokenpacker_tpu_torch.ops._build; "
+        "tokenpacker_tpu_torch.ops.fused_decode, tokenpacker_tpu_torch.ops._build, "
+        "tokenpacker_tpu_torch.ops.flash_attention, tokenpacker_tpu_torch.models.vlm, "
+        "tokenpacker_tpu_torch.data.conversation, tokenpacker_tpu_torch.data.mm_tokenize, "
+        "tokenpacker_tpu_torch.data.preprocess, tokenpacker_tpu_torch.data.dataset, "
+        "tokenpacker_tpu_torch.image.io, tokenpacker_tpu_torch.io.hf_import, "
+        "tokenpacker_tpu_torch.train.step, tokenpacker_tpu_torch.train.trainer; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'tokenpacker_tpu')]; "
         "assert not bad, bad"
     )
@@ -350,7 +355,7 @@ def test_constants_equal_jax():
     from tokenpacker_tpu_torch import constants
 
     names = [n for n in vars(constants) if n.isupper()]
-    assert len(names) == 7
+    assert len(names) == 10
     for name in names:
         assert getattr(constants, name) == getattr(jax_constants, name), name
 

@@ -1,8 +1,11 @@
 """Model constants of the port (the values of `tokenpacker_tpu/constants.py`
-that the serving path uses; a test holds them equal)."""
+that the serving and training paths use; a test holds them equal)."""
 
 IGNORE_INDEX = -100
 IMAGE_TOKEN_INDEX = -200
+DEFAULT_IMAGE_TOKEN = "<image>"
+DEFAULT_IM_START_TOKEN = "<im_start>"
+DEFAULT_IM_END_TOKEN = "<im_end>"
 
 # CLIP ViT-L/14-336 geometry
 CLIP_IMAGE_SIZE = 336

@@ -6,14 +6,24 @@ layouts are served: unfused q/k/v and gate/up, and the fused `qkv` /
 `gateup` of `ops/quantize.fuse_llama_layers` (the int8 serving tree).
 Attention runs on the port's kernels:
 
-- prefill (T > 1): K2 flash forward with a pure causal mask over the
-  current tokens. That is exact for right-padded batches: pad keys come
-  after every valid query, and pad rows' outputs are never read.
+- prefill and training (T > 1): K2 with a pure causal mask over the
+  current tokens, through `FlashAttention` (K2's forward, and its
+  backward when a gradient is asked for). That is exact for right-padded
+  batches: pad keys come after every valid query, and pad rows' outputs
+  are never read (their labels are IGNORE_INDEX).
 - decode (T == 1): K3 over the cache with `decode_info = (lengths,
   needed, span_start)`, the two valid ranges of `generate.decode_step`.
   An int8 cache is dequantized layer by layer before K3, as the JAX
   package dequantizes before its attention. (Eligible int8 trees decode
   through K4 instead, `generate._decode_step_fused`.)
+
+Per-layer rematerialization of the cache-less (training) path is the
+explicit `remat` argument of `llama_apply` (the JAX package reads
+TOKENPACKER_REMAT): "" off; "full" checkpoints every layer
+(`torch.utils.checkpoint`, non-reentrant); "dots" saves the outputs of
+the projection products (`aten.mm` / `aten.addmm`) and recomputes the
+rest, attention included, as `dots_with_no_batch_dims_saveable` does;
+"dots:K" is full on the first L-K layers and dots on the last K.
 
 The KV cache is preallocated and **written in place**: a layer stores
 its new k/v rows into `cache.k[layer]` / `cache.v[layer]` at
@@ -26,10 +36,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from tokenpacker_tpu_torch.config import LMConfig
 from tokenpacker_tpu_torch.ops.decode_attention import decode_attention
-from tokenpacker_tpu_torch.ops.flash_attention import flash_attention
+from tokenpacker_tpu_torch.ops.flash_attention import FlashAttention
 from tokenpacker_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
 from tokenpacker_tpu_torch.ops.layers import linear, rms_norm, silu
 
@@ -117,7 +128,7 @@ def _layer(p, cfg: LMConfig, x, cos, sin, cache: KVCache | None, layer: int,
             cache.k[layer, :, start : start + t] = k
             cache.v[layer, :, start : start + t] = v
     if t > 1:
-        attn, _ = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+        attn = FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), True)
     else:
         if cache is None or decode_info is None:
             raise ValueError("a single-token step needs the cache and decode_info")
@@ -132,20 +143,48 @@ def _layer(p, cfg: LMConfig, x, cos, sin, cache: KVCache | None, layer: int,
     return x + mlp_block(p["mlp"], cfg, h)
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def remat_layers(remat: str, n_layers: int) -> list[str]:
+    """The checkpoint mode of each layer ("", "full" or "dots") for a
+    `remat` argument; raises on an unknown one."""
+    if remat in ("", "full", "dots"):
+        return [remat] * n_layers
+    head, _, k = remat.partition(":")
+    if head != "dots" or not k.isdigit():
+        raise ValueError(f"remat={remat!r}: expected '', 'full', 'dots' or 'dots:K'")
+    k = min(int(k), n_layers)
+    return ["full"] * (n_layers - k) + ["dots"] * k
+
+
 def llama_apply(params, cfg: LMConfig, inputs_embeds: torch.Tensor,
                 positions: torch.Tensor, cache: KVCache | None = None,
-                decode_info=None):
+                decode_info=None, remat: str = ""):
     """Run the decoder stack over [N, T, D] embeddings at `positions`.
 
     With a cache, the new k/v rows are written at `cache.length` and the
     length advances by T. decode_info = (lengths [N] int32, needed [N]
-    int32, span_start) is required for T == 1. Returns the final-norm
+    int32, span_start) is required for T == 1. `remat` applies to the
+    cache-less path only (module docstring). Returns the final-norm
     hidden states [N, T, D]."""
     x = inputs_embeds
     # cast once here rather than in every layer's apply_rope (same values)
     cos, sin = (c.to(x.dtype) for c in rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta))
+    modes = remat_layers(remat, len(params["layers"]))
     for i, p in enumerate(params["layers"]):
-        x = _layer(p, cfg, x, cos, sin, cache, i, decode_info)
+        if cache is None and modes[i]:
+            selective = {"context_fn": _dots_context} if modes[i] == "dots" else {}
+            x = checkpoint(_layer, p, cfg, x, cos, sin, None, i, use_reentrant=False, **selective)
+        else:
+            x = _layer(p, cfg, x, cos, sin, cache, i, decode_info)
     if cache is not None:
         cache.length += inputs_embeds.shape[1]
     return rms_norm(params["norm"], x, cfg.rms_norm_eps)

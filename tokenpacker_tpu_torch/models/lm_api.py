@@ -23,9 +23,10 @@ def lm_embed(params, cfg: LMConfig, input_ids):
     return _llama.embed_tokens(params, input_ids)
 
 
-def lm_apply(params, cfg: LMConfig, inputs_embeds, positions, cache=None, decode_info=None):
+def lm_apply(params, cfg: LMConfig, inputs_embeds, positions, cache=None, decode_info=None,
+             remat: str = ""):
     _require_llama(cfg)
-    return _llama.llama_apply(params, cfg, inputs_embeds, positions, cache, decode_info)
+    return _llama.llama_apply(params, cfg, inputs_embeds, positions, cache, decode_info, remat)
 
 
 def lm_logits(params, cfg: LMConfig, hidden):

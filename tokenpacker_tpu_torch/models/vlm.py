@@ -1,35 +1,41 @@
-"""The composed model: tower -> projector -> LM (counterpart of
-`tokenpacker_tpu/models/vlm.py`). Params: {"vision", "projector", "lm"}.
+"""The composed model: tower -> projector -> LM, and the training loss
+(counterpart of `tokenpacker_tpu/models/vlm.py`). Params: {"vision",
+"projector", "lm"}.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from tokenpacker_tpu_torch.config import TokenPackerVLMConfig
+from tokenpacker_tpu_torch.constants import IGNORE_INDEX
 from tokenpacker_tpu_torch.models.clip_vit import clip_tower_features
 from tokenpacker_tpu_torch.models.llama import KVCache
-from tokenpacker_tpu_torch.models.lm_api import lm_apply
+from tokenpacker_tpu_torch.models.lm_api import lm_apply, lm_logits
 from tokenpacker_tpu_torch.models.splice import assemble_embeds
 from tokenpacker_tpu_torch.models.tokenpacker import tokenpacker_forward
 
 
 def encode_images(params, cfg: TokenPackerVLMConfig, images: torch.Tensor) -> torch.Tensor:
     """images [views, H, W, 3] normalized -> [views, tokens_per_view, lm_hidden].
-    The tower is frozen, so it runs without autograd."""
+    The tower is frozen in every recipe, so it runs without autograd (the
+    JAX package's stop_gradient)."""
     with torch.no_grad():
         feats, multi = clip_tower_features(params["vision"], cfg.vision, images)
     return tokenpacker_forward(params["projector"], cfg.projector, feats, multi)
 
 
 def vlm_hidden(params, cfg: TokenPackerVLMConfig, batch: dict,
-               cache: KVCache | None = None) -> torch.Tensor:
+               cache: KVCache | None = None, remat: str = "") -> torch.Tensor:
     """Splice + decoder over a batch of device tensors: images [views, H, W,
     3] or None, token_ids / is_image / image_slot / positions [N, L].
 
     Batches must be right-padded (as build_splice_plan makes them): the
     prefill attention is causal over the current tokens, so pad keys are
-    never seen by a valid query. Returns the final-norm hidden [N, L, D]."""
+    never seen by a valid query. `remat`: `llama_apply`'s per-layer
+    rematerialization of the cache-less path. Returns the final-norm
+    hidden [N, L, D]."""
     lm = params["lm"]
     if batch.get("images") is not None:
         visual = encode_images(params, cfg, batch["images"])
@@ -41,4 +47,19 @@ def vlm_hidden(params, cfg: TokenPackerVLMConfig, batch: dict,
     embeds = assemble_embeds(
         lm, visual, batch["token_ids"], batch["is_image"], batch["image_slot"], cfg.lm
     )
-    return lm_apply(lm, cfg.lm, embeds, batch["positions"], cache)
+    return lm_apply(lm, cfg.lm, embeds, batch["positions"], cache, remat=remat)
+
+
+def vlm_loss(params, cfg: TokenPackerVLMConfig, batch: dict, remat: str = ""):
+    """Shifted next-token cross-entropy in fp32 over the labels that are not
+    IGNORE_INDEX (`batch["labels"]` [N, L]), averaged over them (at least
+    one). Returns (loss, {"loss", "n_tokens"})."""
+    hidden = vlm_hidden(params, cfg, batch, remat=remat)
+    logits = lm_logits(params["lm"], cfg.lm, hidden)
+    labels = batch["labels"][:, 1:].long()
+    n_valid = (labels != IGNORE_INDEX).sum().clamp(min=1)
+    shift_logits = logits[:, :-1].float()
+    total = F.cross_entropy(shift_logits.reshape(-1, shift_logits.shape[-1]), labels.reshape(-1),
+                            ignore_index=IGNORE_INDEX, reduction="sum")
+    loss = total / n_valid
+    return loss, {"loss": loss, "n_tokens": n_valid}

@@ -42,6 +42,8 @@ SIGNATURES = {
     "tp_vit_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # q, k, v, o, lse, n, tq, tk, h, hkv, d, causal, stream
     "tp_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # q, k, v, o, lse, dout, dq, dk, dv, delta, n, tq, tk, h, hkv, d, causal, stream
+    "tp_flash_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, lengths, needed, o, n, s, h, hkv, d, span_start, stream
     "tp_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # weight table, layers, b, d, f, heads, head_dim, s, eps, theta, h,
