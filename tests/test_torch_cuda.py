@@ -59,6 +59,25 @@ def _close(got, want):
     assert err <= 1e-2 + 1e-2 * want[~inf].abs().max().item(), err
 
 
+def _blocks_close(got, want, tile=64, limit=2e-2):
+    """K2's outputs [N, T, H, d], held block by block: the relative RMS
+    difference ||got - want|| / ||want|| of every (sample, 64-position
+    tile, head) block within `limit`. Unlike `_close` it does not scale
+    with the tensor's largest value, so blocks of small values (the last
+    keys' dk/dv, late rows' dq) are held as tightly as large ones; bf16
+    rounding of P, dS and the outputs gives ~2^-9 per element (K2 at
+    the training shape reads 0.0031-0.0075 in `chip_smoke.py`). A block
+    that is zero in the plain version must be zero in the kernel's."""
+    n, t, h, d = want.shape
+    pad = (0, 0, 0, 0, 0, -t % tile)
+    num = torch.nn.functional.pad((got.float() - want.float()).square(), pad)
+    den = torch.nn.functional.pad(want.float().square(), pad)
+    num, den = (x.view(n, -1, tile, h, d).sum((2, 4)) for x in (num, den))
+    assert not num[den == 0].any()
+    rel = (num[den > 0] / den[den > 0]).sqrt()
+    assert rel.max().item() <= limit, rel.max().item()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,t,w,heads", [(2, 577, 1024, 16), (3, 17, 256, 4), (1, 130, 512, 8)])
 def test_vit_attention_kernel_matches_plain(cuda, n, t, w, heads):
@@ -84,6 +103,7 @@ def test_flash_kernel_matches_plain(cuda, n, tq, tk, h, hkv, d, causal):
     want_o, want_lse = flash_attention_plain(q, k, v, causal=causal)
     _close(o, want_o)
     _close(lse, want_lse)
+    _blocks_close(o, want_o)
 
 
 @pytest.mark.cuda
@@ -97,9 +117,9 @@ def test_flash_kernel_matches_plain(cuda, n, tq, tk, h, hkv, d, causal):
 ])
 def test_flash_bwd_kernel_matches_plain(cuda, n, tq, tk, h, hkv, causal):
     """K2's backward against its plain version (fp32 from the same bf16
-    inputs and the kernel forward's o and lse), within _close's bound: the
-    kernel rounds P and dS to bf16 as product operands. Two calls give the
-    same bits (no float atomics)."""
+    inputs and the kernel forward's o and lse), within _close's and
+    _blocks_close's bounds: the kernel rounds P and dS to bf16 as product
+    operands. Two calls give the same bits (no float atomics)."""
     q = _bf16((n, tq, h, 128), 0, cuda)
     k, v = _bf16((n, tk, hkv, 128), 1, cuda), _bf16((n, tk, hkv, 128), 2, cuda)
     do = _bf16((n, tq, h, 128), 3, cuda)
@@ -112,6 +132,7 @@ def test_flash_bwd_kernel_matches_plain(cuda, n, tq, tk, h, hkv, causal):
         assert g.shape == w.shape and g.dtype == torch.bfloat16
         assert torch.equal(g, a)
         _close(g, w)
+        _blocks_close(g, w)
     if tq > tk:
         assert not got[0][:, : tq - tk].any()
 
