@@ -11,7 +11,14 @@ kernel; the others cover ragged lengths and groupings at the path's head
 sizes (d=64 for the tower, d=128 for the LM), the only ones the kernels
 take. K4 (the fused int8 decode step) runs at smaller widths than
 Vicuna-7B's with the same head size; `chip_smoke.py` runs it at full
-width.
+width. K5 (paged attention) runs at the paged serving path's shapes.
+
+Outputs are held by block measures that do not scale with the tensor's
+largest value: the relative RMS difference of every (sample, 64-row
+tile, head) block (K1, K2) or of every (sample, head) row (K3, K4, K5).
+Each check also shows that it fails an output that lost something: K1's
+with its last tile zeroed, and the plain version of K3, K4 and K5 run
+with the last valid range or page dropped.
 """
 
 import pytest
@@ -29,8 +36,14 @@ from tokenpacker_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_plain,
     flash_attention_plain,
 )
-from tokenpacker_tpu_torch.ops.kv_quant import dequantize_kv
+from tokenpacker_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
+from tokenpacker_tpu_torch.ops.paged_attention import paged_attention, paged_attention_plain
 from tokenpacker_tpu_torch.ops.vit_attention import vit_attention, vit_attention_plain
+
+# bf16 on the card: the kernels round the probabilities (as product
+# operands) and the outputs to bf16, ~2^-9 per element; a lost tile, range
+# or page reads O(0.1-1)
+BLOCK_REL_RMS = 2e-2
 
 
 @pytest.fixture
@@ -48,10 +61,9 @@ def _bf16(shape, seed, device):
 
 
 def _close(got, want):
-    """bf16 on the card: the kernels keep fp32 logits and round only the
-    probabilities, the plain versions also round the logits, so allow
-    1e-2 absolute plus 1e-2 of the largest reference value. Infinite
-    entries (lse of a row with no key) must match exactly."""
+    """K2's lse and o, besides the block measure: 1e-2 absolute plus 1e-2
+    of the largest reference value. Infinite entries (lse of a row with
+    no key) must match exactly."""
     got, want = got.float(), want.float()
     inf = torch.isinf(want)
     assert torch.equal(torch.isinf(got), inf) and torch.equal(got[inf], want[inf])
@@ -59,30 +71,62 @@ def _close(got, want):
     assert err <= 1e-2 + 1e-2 * want[~inf].abs().max().item(), err
 
 
-def _blocks_close(got, want, tile=64, limit=2e-2):
-    """K2's outputs [N, T, H, d], held block by block: the relative RMS
-    difference ||got - want|| / ||want|| of every (sample, 64-position
-    tile, head) block within `limit`. Unlike `_close` it does not scale
-    with the tensor's largest value, so blocks of small values (the last
-    keys' dk/dv, late rows' dq) are held as tightly as large ones; bf16
-    rounding of P, dS and the outputs gives ~2^-9 per element (K2 at
-    the training shape reads 0.0031-0.0075 in `chip_smoke.py`). A block
-    that is zero in the plain version must be zero in the kernel's."""
+def _blocks_rel(got, want, tile=64):
+    """[N, tiles, H]: ||got - want|| / ||want|| over every (sample, `tile`
+    positions, head) block of [N, T, H, d] outputs; a block that is zero
+    in `want` reads 0 if it is zero in `got` too, else inf."""
     n, t, h, d = want.shape
     pad = (0, 0, 0, 0, 0, -t % tile)
     num = torch.nn.functional.pad((got.float() - want.float()).square(), pad)
     den = torch.nn.functional.pad(want.float().square(), pad)
     num, den = (x.view(n, -1, tile, h, d).sum((2, 4)) for x in (num, den))
-    assert not num[den == 0].any()
-    rel = (num[den > 0] / den[den > 0]).sqrt()
-    assert rel.max().item() <= limit, rel.max().item()
+    return torch.where(den > 0, (num / den.clamp_min(1e-30)).sqrt(),
+                       torch.where(num > 0, torch.inf, 0.0))
+
+
+def _blocks_close(got, want, tile=64, limit=BLOCK_REL_RMS):
+    """[N, T, H, d] outputs held block by block (`_blocks_rel`): blocks of
+    small values (the last keys' dk/dv, late rows' dq) are held as
+    tightly as large ones (K2 at the training shape reads 0.0031-0.0075
+    in `chip_smoke.py`)."""
+    assert torch.isfinite(got.float()).all()
+    rel = _blocks_rel(got, want, tile).max().item()
+    assert rel <= limit, rel
+
+
+def _rows_rel(got, want):
+    """||got - want|| / ||want|| over the last axis: one reading per
+    (sample, head) row of [..., d] outputs (0 where both rows are zero,
+    inf where only `want`'s is)."""
+    num = (got.float() - want.float()).square().sum(-1)
+    den = want.float().square().sum(-1)
+    return torch.where(den > 0, (num / den.clamp_min(1e-30)).sqrt(),
+                       torch.where(num > 0, torch.inf, 0.0))
+
+
+def _rows_close(got, want, lost, limit=BLOCK_REL_RMS):
+    """Every (sample, head) row within `limit`; `lost`, the plain version's
+    output for an input that lost its last valid range or page, must read
+    above it (the measure sees such a loss)."""
+    assert torch.isfinite(got.float()).all()
+    worst = _rows_rel(got, want).max().item()
+    assert worst <= limit, worst
+    lost_reads = _rows_rel(lost, want).max().item()
+    assert lost_reads > limit, lost_reads
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,t,w,heads", [(2, 577, 1024, 16), (3, 17, 256, 4), (1, 130, 512, 8)])
 def test_vit_attention_kernel_matches_plain(cuda, n, t, w, heads):
+    """Held per (image, 64 rows, head); the output with its last 64 rows
+    zeroed must fail that hold."""
     q, k, v = (_bf16((n, t, w), s, cuda) for s in range(3))
-    _close(vit_attention(q, k, v, heads), vit_attention_plain(q, k, v, heads))
+    got, want = (x.view(n, t, heads, w // heads) for x in
+                 (vit_attention(q, k, v, heads), vit_attention_plain(q, k, v, heads)))
+    _blocks_close(got, want)
+    lost = got.clone()
+    lost[:, -64:] = 0
+    assert _blocks_rel(lost, want).max().item() > BLOCK_REL_RMS
 
 
 @pytest.mark.cuda
@@ -157,16 +201,22 @@ def test_flash_autograd_launches_both_kernels(cuda):
     (32, 128, 1000), (32, 128, 0), (8, 128, 1000), (16, 128, 1000), (8, 128, 0), (4, 128, 1000),
 ])
 def test_decode_kernel_matches_plain(cuda, hkv, d, span_start):
+    """Held per (sample, head); the plain version without the decoded span
+    (span_start > 0), or without the last 64 keys of samples that have
+    more (span_start 0), must fail that hold."""
     n, s, h = 4, 1040, 32
     q = _bf16((n, h, d), 0, cuda)
     ck, cv = _bf16((n, s, hkv, d), 1, cuda), _bf16((n, s, hkv, d), 2, cuda)
     lengths = torch.tensor([1, 333, 650, 1000], dtype=torch.int32, device=cuda)
     if span_start:
         needed = torch.full((n,), span_start + 7, dtype=torch.int32, device=cuda)
+        fewer = torch.full_like(needed, span_start)
     else:
         needed = torch.tensor([1, 40, 650, 1040], dtype=torch.int32, device=cuda)
-    _close(decode_attention(q, ck, cv, lengths, needed, span_start),
-           decode_attention_plain(q, ck, cv, lengths, needed, span_start))
+        fewer = torch.where(needed > 64, needed - 64, needed)
+    _rows_close(decode_attention(q, ck, cv, lengths, needed, span_start),
+                decode_attention_plain(q, ck, cv, lengths, needed, span_start),
+                decode_attention_plain(q, ck, cv, lengths, fewer, span_start))
 
 
 @pytest.mark.cuda
@@ -181,7 +231,8 @@ def test_decode_kernel_reads_only_valid_keys(cuda):
     ck[0, 10:200] = float("nan")
     cv[:, 205:] = float("nan")
     got = decode_attention(q, ck, cv, lengths, needed, span_start=200)
-    _close(got, want)
+    assert torch.isfinite(got.float()).all()
+    assert _rows_rel(got, want).max().item() <= BLOCK_REL_RMS
 
 
 @pytest.mark.cuda
@@ -210,10 +261,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                          torch.ones(1, dtype=torch.int32, device=cuda))
 
 
+# K4's cache values are scaled so that the layers' attention moves the
+# hidden state about as much as the MLP does (random V of unit size
+# averages to ~1/sqrt(keys), which the MLP's ~1 buries, and then no
+# check of the hidden state could see a lost range)
+K4_V_GAIN = 20.0
+
+
 def _k4_inputs(cuda, b, s, int8, layers=2, d=1024, f=2816, seed=0):
-    """Random int8 fused layers, a random cache and HD-like ranges: prompt
-    rows [0, len0), a decoded span [s - 24, s - 24 + 7), the new row at
-    the span's end."""
+    """Random int8 fused layers, a random cache (V scaled by K4_V_GAIN)
+    and HD-like ranges: prompt rows [0, len0), a decoded span [s - 24,
+    s - 24 + 7), the new row at the span's end."""
     cfg = LMConfig(vocab_size=64, hidden_size=d, intermediate_size=f, num_hidden_layers=layers,
                    num_attention_heads=d // 128)
     lm = quantize_lm_int8({"lm": init_lm_on_device(cfg, seed, cuda, torch.bfloat16)})["lm"]
@@ -224,9 +282,11 @@ def _k4_inputs(cuda, b, s, int8, layers=2, d=1024, f=2816, seed=0):
             t.copy_(torch.randint(-127, 128, t.shape, generator=g, device=cuda))
         for t in (cache.k_scale, cache.v_scale):
             t.copy_(torch.rand(t.shape, generator=g, device=cuda) * 0.02)
+        cache.v_scale.mul_(K4_V_GAIN)
     else:
         for t in (cache.k, cache.v):
             t.copy_(torch.randn(t.shape, generator=g, device=cuda))
+        cache.v.mul_(K4_V_GAIN)
     lengths = torch.randint(1, s - 24, (b,), generator=g, device=cuda).int()
     start2 = torch.full_like(lengths, s - 24)
     end2 = start2 + 7
@@ -236,6 +296,8 @@ def _k4_inputs(cuda, b, s, int8, layers=2, d=1024, f=2816, seed=0):
 
 def _k4_run(cfg, lm, cache, args, fn):
     h0, len0, start2, end2, wpos, pos = args
+    if fn == "lost":  # the plain version without the decoded span
+        end2 = start2
     c = KVCache(cache.k.clone(), cache.v.clone(), 0,
                 None if cache.k_scale is None else cache.k_scale.clone(),
                 None if cache.v_scale is None else cache.v_scale.clone())
@@ -262,22 +324,23 @@ def _rows(c, wpos):
 @pytest.mark.parametrize("b,s,int8", [(4, 544, True), (4, 544, False), (1, 96, True),
                                       (10, 160, True), (6, 200, False)])
 def test_fused_decode_kernel_matches_plain(cuda, b, s, int8):
-    """hidden within 2e-2 of max|hidden| (the JAX fused-decode test's bound),
-    the new cache rows within 0.05 after dequantization; the kernel is
-    deterministic (fixed-order split-K sums) and writes nothing but the
-    new rows (checked by the plain run on an untouched copy)."""
+    """The hidden state per (sample, 128-wide head slice), the new rows
+    and the cache rows written per (layer, sample, head), each within
+    BLOCK_REL_RMS; the plain version without the decoded span must fail
+    the hidden state's and the new rows' hold. The kernel is deterministic
+    (fixed-order split-K sums) and writes nothing but the new rows
+    (checked by the plain run on an untouched copy)."""
     cfg, lm, cache, args = _k4_inputs(cuda, b, s, int8)
     (h, kn, vn), c = _k4_run(cfg, lm, cache, args, k4.fused_decode_hidden)
     (h2, _, _), _ = _k4_run(cfg, lm, cache, args, k4.fused_decode_hidden)
     (hp, knp, vnp), cp = _k4_run(cfg, lm, cache, args, None)
+    (hl, knl, vnl), _ = _k4_run(cfg, lm, cache, args, "lost")
     torch.cuda.synchronize()
     assert torch.equal(h, h2)
-    err = (h.float() - hp.float()).abs().max().item()
-    assert err <= 2e-2 * hp.float().abs().max().item(), err
-    for got, want in zip((kn, vn), (knp, vnp)):
-        assert (got.float() - want.float()).abs().max().item() < 0.05
+    _rows_close(h.view(b, -1, 128), hp.view(b, -1, 128), hl.view(b, -1, 128))
+    _rows_close(torch.stack((kn, vn)), torch.stack((knp, vnp)), torch.stack((knl, vnl)))
     for got, want in zip(_rows(c, args[4]), _rows(cp, args[4])):
-        assert (got - want).abs().max().item() < 0.05
+        assert _rows_rel(got, want).max().item() <= BLOCK_REL_RMS
     wpos = args[4].long()
     rows = torch.arange(b, device=cuda)
     for t in ((c.k, cp.k), (c.v, cp.v)) + (((c.k_scale, cp.k_scale),) if int8 else ()):
@@ -312,3 +375,99 @@ def test_fused_decode_rejects_what_it_does_not_take(cuda):
     with pytest.raises(NotImplementedError):
         k4.fused_decode_hidden(lm, cfg, h0, cache.k, cache.v, len0, start2, end2, wpos, pos,
                                k_scale=cache.k_scale, v_scale=cache.v_scale, slot_lora={})
+
+
+# ---- K5: paged attention -------------------------------------------------------
+
+# the paged serving path's shapes: 8 sequences over pages of 64, 40 blocks
+# each, lengths 65-2080 (chip_smoke.py phase 3)
+PAGED_LENGTHS = [65, 300, 701, 1000, 1200, 1500, 1751, 2080]
+
+
+def _paged_inputs(cuda, n, h, hkv, ps, mp, lengths, int8, seed=0):
+    """A pool of n * mp + 1 pages handed out in a shuffled order, so that
+    no sequence's pages are contiguous; table entries past each length
+    point at other sequences' pages."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    p_total = n * mp + 1
+    k = torch.randn((p_total, ps, hkv, 128), generator=g)
+    v = torch.randn((p_total, ps, hkv, 128), generator=g)
+    q = torch.randn((n, h, 128), generator=g).to(device=cuda, dtype=torch.bfloat16)
+    table = (torch.randperm(n * mp, generator=g) + 1).view(n, mp).int().to(cuda)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    if int8:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        scales = (ks.to(cuda), vs.to(cuda))
+    else:
+        k, v, scales = k.bfloat16(), v.bfloat16(), (None, None)
+    return q, k.to(cuda), v.to(cuda), table, lens, scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,hkv,ps,mp,int8", [
+    (8, 32, 64, 40, True), (8, 32, 64, 40, False), (8, 8, 64, 40, True), (8, 8, 64, 40, False),
+    (3, 16, 16, 12, True), (3, 4, 32, 6, False), (5, 16, 32, 8, False),
+])
+def test_paged_attention_kernel_matches_plain(cuda, n, hkv, ps, mp, int8):
+    """Held per (sample, head); the plain version with each sequence's last
+    valid page dropped must fail that hold. Two calls give the same bits."""
+    lengths = (PAGED_LENGTHS if n == 8 else [1, ps, mp * ps - 3, ps + 1, 2 * ps][:n])
+    q, k, v, table, lens, (ks, vs) = _paged_inputs(cuda, n, 32, hkv, ps, mp, lengths, int8)
+    got = paged_attention(q, k, v, table, lens, ks, vs)
+    again = paged_attention(q, k, v, table, lens, ks, vs)
+    want = paged_attention_plain(q, k, v, table, lens, ks, vs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    dropped = lens - ((lens - 1) % ps + 1)
+    _rows_close(got, want, paged_attention_plain(q, k, v, table, dropped, ks, vs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [True, False])
+def test_paged_attention_reads_no_page_past_the_length(cuda, int8):
+    """Pages past each length, the rows past it in its last page and the
+    pages of stale table entries are poisoned with NaN: the output stays
+    finite and equal to that of the clean pool."""
+    n, ps, mp = 4, 64, 10
+    q, k, v, table, lens, (ks, vs) = _paged_inputs(cuda, n, 32, 8, ps, mp, [1, 64, 130, 600],
+                                                   int8)
+    want = paged_attention(q, k, v, table, lens, ks, vs)
+    # past length 1: stale entries (two pages that sequence 2 does not
+    # reach) and the null page 0
+    table[0, 1:4] = torch.stack((table[2, 5], table[2, 6], torch.zeros_like(table[2, 6])))
+    for i, length in enumerate(lens.tolist()):
+        used = -(-length // ps)
+        for j in range(used, mp):
+            pid = int(table[i, j])
+            if int8:
+                ks[pid], vs[pid] = float("nan"), float("nan")
+            else:
+                k[pid], v[pid] = float("nan"), float("nan")
+        last = int(table[i, used - 1])
+        (ks if int8 else k)[last, length - (used - 1) * ps:] = float("nan")
+        (vs if int8 else v)[last, length - (used - 1) * ps:] = float("nan")
+    got = paged_attention(q, k, v, table, lens, ks, vs)
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_paged_attention_rejects_what_it_does_not_take(cuda):
+    q, k, v, table, lens, _ = _paged_inputs(cuda, 2, 32, 8, 64, 4, [10, 100], False)
+    with pytest.raises(RuntimeError, match="not supported"):
+        paged_attention(q[..., :64].contiguous(), k[..., :64].contiguous(),
+                        v[..., :64].contiguous(), table, lens)  # head_dim 64
+    small = k[:, :8].contiguous()
+    with pytest.raises(RuntimeError, match="not supported"):
+        paged_attention(q, small, small, table, lens)  # pages of 8
+    q6 = q[:, :6].contiguous()
+    with pytest.raises(RuntimeError, match="not supported"):
+        paged_attention(q6, k[:, :, :2].contiguous(), v[:, :, :2].contiguous(), table, lens)
+    with pytest.raises(ValueError, match="bfloat16"):
+        paged_attention(q, k.float(), v.float(), table, lens)
+    with pytest.raises(ValueError, match="int32"):
+        paged_attention(q, k, v, table.long(), lens)
+    with pytest.raises(ValueError, match="scales"):
+        paged_attention(q, k.to(torch.int8), v.to(torch.int8), table, lens)
+    with pytest.raises(ValueError, match="shapes"):
+        paged_attention(q, k, v, table[:1], lens)

@@ -343,7 +343,9 @@ def test_port_imports_no_jax():
         "tokenpacker_tpu_torch.data.conversation, tokenpacker_tpu_torch.data.mm_tokenize, "
         "tokenpacker_tpu_torch.data.preprocess, tokenpacker_tpu_torch.data.dataset, "
         "tokenpacker_tpu_torch.image.io, tokenpacker_tpu_torch.io.hf_import, "
-        "tokenpacker_tpu_torch.train.step, tokenpacker_tpu_torch.train.trainer; "
+        "tokenpacker_tpu_torch.train.step, tokenpacker_tpu_torch.train.trainer, "
+        "tokenpacker_tpu_torch.ops.paged_attention, tokenpacker_tpu_torch.ops.paged_kv, "
+        "tokenpacker_tpu_torch.serve.prefix_cache, tokenpacker_tpu_torch.serve.scheduler; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'tokenpacker_tpu')]; "
         "assert not bad, bad"
     )

@@ -30,8 +30,9 @@ import numpy as np
 import torch
 
 from tokenpacker_tpu_torch.config import TokenPackerVLMConfig
-from tokenpacker_tpu_torch.models.llama import KVCache
+from tokenpacker_tpu_torch.models.llama import KVCache, make_attention_bias
 from tokenpacker_tpu_torch.models.lm_api import lm_apply, lm_embed, lm_logits
+from tokenpacker_tpu_torch.models.splice import assemble_embeds
 from tokenpacker_tpu_torch.models.vlm import vlm_hidden
 from tokenpacker_tpu_torch.ops.fused_decode import FusedWeights, fused_decode_hidden, fused_eligible
 from tokenpacker_tpu_torch.ops.layers import rms_norm
@@ -85,6 +86,36 @@ def prefill(params, cfg: TokenPackerVLMConfig, batch: dict, s_max: int,
     idx = (batch["lengths"].long() - 1).clamp(min=0)
     last = hidden[torch.arange(n, device=device), idx]
     return lm_logits(params["lm"], cfg.lm, last), cache
+
+
+def prefill_chunk(params, cfg: TokenPackerVLMConfig, cache: KVCache, visual: torch.Tensor,
+                  token_ids: torch.Tensor, is_image: torch.Tensor, image_slot: torch.Tensor,
+                  offset: int, chunk_len: int, kv_cache_dtype: torch.dtype | None = None):
+    """One chunk of an incremental batch-1 prefill (chunked admission and
+    prefix-cache suffixes in `serve/scheduler`).
+
+    cache: a batch-1 KVCache whose positions [0, offset) are filled, made
+    by the caller with storage `kv_cache_dtype` (cfg.dtype by default, or
+    torch.int8; a cache of another dtype raises). visual [views, tpv, D]:
+    the request's projector output. token_ids / is_image / image_slot
+    [1, chunk_len]: slices of the splice plan (image_slot global, as
+    `visual`). The chunk's rows are written at [offset, offset +
+    chunk_len) and it attends every cache position up to its own (K2,
+    which sees the current tokens only, would be wrong for offset > 0).
+    Returns (final-norm hidden [1, chunk_len, D], cache with length
+    offset + chunk_len)."""
+    dtype = kv_cache_dtype or cfg.dtype
+    if cache.k.dtype != dtype:
+        raise ValueError(f"prefill_chunk: the cache holds {cache.k.dtype}, expected {dtype}")
+    s_max = cache.k.shape[2]
+    device = token_ids.device
+    embeds = assemble_embeds(params["lm"], visual, token_ids, is_image, image_slot, cfg.lm)
+    positions = offset + torch.arange(chunk_len, device=device)[None, :]
+    key_valid = torch.arange(s_max, device=device)[None, :] < offset + chunk_len
+    bias = make_attention_bias(positions, key_valid)
+    cache.length = offset
+    hidden = lm_apply(params["lm"], cfg.lm, embeds, positions, cache, attn_bias=bias)
+    return hidden, cache
 
 
 def fused_weights(params, cfg: TokenPackerVLMConfig) -> FusedWeights | bool:

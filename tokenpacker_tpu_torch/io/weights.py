@@ -80,6 +80,24 @@ def params_to_jax(params):
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
+def paged_from_jax(paged):
+    """The JAX package's `PagedKV` (or its fields in order: k_pages,
+    v_pages, page_table, lengths[, k_scales, v_scales]) -> the port's
+    `ops/paged_kv.PagedKV` on the CPU, same dtypes."""
+    from tokenpacker_tpu_torch.ops.paged_kv import PagedKV
+
+    return PagedKV(*(None if x is None else to_tensors(np.asarray(x)) for x in paged))
+
+
+def paged_to_jax(paged) -> tuple:
+    """Inverse of `paged_from_jax`: the pool's fields as numpy arrays in
+    the JAX `PagedKV` order (fp32 for a bf16 pool; None for the scales of
+    a float pool), so that `PagedKV(*map(jnp.asarray, ...))` rebuilds it."""
+    fields = (paged.k_pages, paged.v_pages, paged.page_table, paged.lengths, paged.k_scales,
+              paged.v_scales)
+    return tuple(params_to_jax(x) for x in fields)
+
+
 def params_to(params, device: torch.device | str, dtype: torch.dtype):
     """A copy of the parameters on `device`, floating-point tensors cast to
     `dtype`, except the f32 scales of int8 kernels (int8 stays int8)."""

@@ -11,6 +11,13 @@ Attention runs on the port's kernels:
   backward when a gradient is asked for). That is exact for right-padded
   batches: pad keys come after every valid query, and pad rows' outputs
   are never read (their labels are IGNORE_INDEX).
+- a chunk over a cache at an offset (T > 1 with `attn_bias`, the
+  additive fp32 bias of `make_attention_bias`): the chunk's rows are
+  written first (quantized for an int8 cache), then `sdpa`, the masked
+  softmax attention of the JAX package's `_sdpa`, runs over the whole
+  cache layer, dequantized for an int8 cache. The JAX package computes
+  this in XLA outside any Pallas kernel; here it is plain PyTorch
+  (`generate.prefill_chunk`, the paged admissions).
 - decode (T == 1): K3 over the cache with `decode_info = (lengths,
   needed, span_start)`, the two valid ranges of `generate.decode_step`.
   An int8 cache is dequantized layer by layer before K3, as the JAX
@@ -111,8 +118,32 @@ def mlp_block(p_mlp, cfg: LMConfig, h: torch.Tensor) -> torch.Tensor:
     return linear(p_mlp["down"], silu(gate) * up)
 
 
+def make_attention_bias(positions: torch.Tensor, key_valid: torch.Tensor) -> torch.Tensor:
+    """Additive fp32 bias [N, 1, T, S]: 0 where key slot j is valid
+    (key_valid [N, S]) and j <= the query's position (positions [N, T],
+    the cache offset already included), else the fp32 minimum. (The JAX
+    package's signature also takes a cache length it does not use and
+    S, which is key_valid's width.)"""
+    key_pos = torch.arange(key_valid.shape[1], device=positions.device)[None, None, :]
+    ok = (key_pos <= positions[..., None]) & key_valid[:, None, :]
+    return torch.where(ok[:, None], 0.0, torch.finfo(torch.float32).min)
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The JAX package's `_sdpa`: q [N, T, H, d], k/v [N, S, Hkv, d], bias
+    [N, 1, T, S] fp32. Logits in q's dtype scaled by d^-0.5, then fp32
+    plus the bias, softmax, probabilities cast to q's dtype for the value
+    product. GQA groups the query heads instead of repeating K/V."""
+    n, t, h, d = q.shape
+    hkv = k.shape[2]
+    qg = q.view(n, t, hkv, h // hkv, d)
+    logits = torch.einsum("ntkgd,nskd->nkgts", qg, k) * d**-0.5
+    probs = torch.softmax(logits.float() + bias[:, :, None], dim=-1).to(q.dtype)
+    return torch.einsum("nkgts,nskd->ntkgd", probs, v).reshape(n, t, h, d)
+
+
 def _layer(p, cfg: LMConfig, x, cos, sin, cache: KVCache | None, layer: int,
-           decode_info=None):
+           decode_info=None, attn_bias=None):
     h = rms_norm(p["input_ln"], x, cfg.rms_norm_eps)
     n, t, _ = h.shape
     q, k, v = qkv_proj(p["attn"], cfg, h)
@@ -127,7 +158,15 @@ def _layer(p, cfg: LMConfig, x, cos, sin, cache: KVCache | None, layer: int,
         else:
             cache.k[layer, :, start : start + t] = k
             cache.v[layer, :, start : start + t] = v
-    if t > 1:
+    if t > 1 and attn_bias is not None:
+        if cache is None:
+            raise ValueError("attn_bias is for a chunk over a cache")
+        ck, cv = cache.k[layer], cache.v[layer]
+        if cache.k_scale is not None:
+            ck = dequantize_kv(ck, cache.k_scale[layer], q.dtype)
+            cv = dequantize_kv(cv, cache.v_scale[layer], q.dtype)
+        attn = sdpa(q, ck.to(q.dtype), cv.to(q.dtype), attn_bias)
+    elif t > 1:
         attn = FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), True)
     else:
         if cache is None or decode_info is None:
@@ -167,12 +206,14 @@ def remat_layers(remat: str, n_layers: int) -> list[str]:
 
 def llama_apply(params, cfg: LMConfig, inputs_embeds: torch.Tensor,
                 positions: torch.Tensor, cache: KVCache | None = None,
-                decode_info=None, remat: str = ""):
+                decode_info=None, remat: str = "", attn_bias: torch.Tensor | None = None):
     """Run the decoder stack over [N, T, D] embeddings at `positions`.
 
     With a cache, the new k/v rows are written at `cache.length` and the
     length advances by T. decode_info = (lengths [N] int32, needed [N]
-    int32, span_start) is required for T == 1. `remat` applies to the
+    int32, span_start) is required for T == 1. attn_bias [N, 1, T, S]
+    (`make_attention_bias`) sends T > 1 through `sdpa` over the whole
+    cache instead of K2 over the current tokens. `remat` applies to the
     cache-less path only (module docstring). Returns the final-norm
     hidden states [N, T, D]."""
     x = inputs_embeds
@@ -184,7 +225,7 @@ def llama_apply(params, cfg: LMConfig, inputs_embeds: torch.Tensor,
             selective = {"context_fn": _dots_context} if modes[i] == "dots" else {}
             x = checkpoint(_layer, p, cfg, x, cos, sin, None, i, use_reentrant=False, **selective)
         else:
-            x = _layer(p, cfg, x, cos, sin, cache, i, decode_info)
+            x = _layer(p, cfg, x, cos, sin, cache, i, decode_info, attn_bias)
     if cache is not None:
         cache.length += inputs_embeds.shape[1]
     return rms_norm(params["norm"], x, cfg.rms_norm_eps)

@@ -24,9 +24,10 @@ def lm_embed(params, cfg: LMConfig, input_ids):
 
 
 def lm_apply(params, cfg: LMConfig, inputs_embeds, positions, cache=None, decode_info=None,
-             remat: str = ""):
+             remat: str = "", attn_bias=None):
     _require_llama(cfg)
-    return _llama.llama_apply(params, cfg, inputs_embeds, positions, cache, decode_info, remat)
+    return _llama.llama_apply(params, cfg, inputs_embeds, positions, cache, decode_info, remat,
+                              attn_bias)
 
 
 def lm_logits(params, cfg: LMConfig, hidden):

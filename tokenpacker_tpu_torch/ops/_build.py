@@ -46,6 +46,9 @@ SIGNATURES = {
     "tp_flash_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, lengths, needed, o, n, s, h, hkv, d, span_start, stream
     "tp_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # q, k_pages, v_pages, k_scales, v_scales, page_table, lengths, o, n, h,
+    # hkv, d, ps, mp, kv_int8, stream
+    "tp_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # weight table, layers, b, d, f, heads, head_dim, s, eps, theta, h,
     # len0, start2, end2, write_pos, positions, cache_k, cache_v, k_scale,
     # v_scale, kv_int8, k_new, v_new, work, stream
