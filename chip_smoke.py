@@ -1,10 +1,12 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py              # the smoke run, phases 1-11
+    python3 chip_smoke.py              # the smoke run, phases 1-15
     python3 chip_smoke.py --profile    # phases 1-2, then the profile below
     python3 chip_smoke.py --profile-train  # phases 1-2, then a traced training step
     python3 chip_smoke.py --profile-paged  # phases 1-2, then traced paged decode steps
+    python3 chip_smoke.py --profile-quantized  # phases 1-2, traced E and F decode steps
     python3 chip_smoke.py --kernels        # phases 1-3 only
+    python3 chip_smoke.py --quantized      # phases 1-2, K6-K8 of phase 3, phases 12-15
 
 Phases, one result line each or more (every failure raises, so any
 failure exits non-zero and prints no final line):
@@ -23,7 +25,13 @@ failure exits non-zero and prints no final line):
      int8, 4 requests, S=2080, the HD requests' ranges, int8 and bf16
      caches. K5 runs at phase 10's pool shape: 8 sequences of 65-2080
      keys over shuffled pages of 64, 32 and 8 kv heads, int8 and bf16
-     pools. K2's forward is also timed, and its backward checked
+     pools. K6 (nf4 and int4), K7 and K8 run at TokenPacker-HD-7b's
+     product shapes (`quantized_kernel_cases`): K6 held per (row,
+     128-wide slice), K7's int32 and K8's int8 rows and int32 sums bit
+     for bit, each shown to fail the product without the last 64 or 128
+     rows of K; their bound is at the int8 rate for K7 and K8, their
+     library yardstick torch._int_mm (K7, K8) or the bf16 product with
+     the dequantized weight (K6). K2's forward is also timed, and its backward checked
      and timed, at phase 8's training shape [8, 2048, 32, 128], causal
      (the backward's plain version runs sample by sample, its library
      yardstick is the backward alone of one causal
@@ -73,7 +81,24 @@ failure exits non-zero and prints no final line):
  11. full widths at 2 LM layers, int8 weights and an int8 pool: one HD
      request admitted cold and one warm on its pages (`prefix_admit`),
      then 8 paged decode steps on the card (bf16, K5) against the CPU
-     (fp32, K5's plain version).
+     (fp32, K5's plain version);
+ 12. TokenPacker-HD-7b with its LM quantized to nf4 (`quantize_lm_4bit`,
+     the load_4bit form) and a bf16 cache answers phase 6's 4 HD requests
+     with 32 greedy tokens (configuration E): per-layer decode, K3 for
+     attention, K6 for every product of a step; checks as in 4;
+ 13. full widths at 2 LM layers, 4-bit LM: prefill and 8 decode steps
+     (nf4), prefill and 1 step (int4) on the card (K6) against the CPU;
+ 14. phase 10's batcher and requests with the tower quantized too
+     (`quantize_tower_int8`) and `w8a8=True` (configuration F): K8 for
+     the tower and the admission chunks of 256 rows, K7 for every decode
+     step and first-token head, the launch counts checked against the
+     chunks' rows (shorter chunks' products take the weight-only route);
+ 15. phase 11 in the w8a8 mode with the quantized tower, card vs CPU:
+     first the tower's features per view (W8A8_TOWER_REL_RMS), then the
+     admissions and 8 steps in W8A8_LOGIT_BAND (the w8a8 scheme spreads
+     bf16-vs-fp32 logits 3-4x wider than weight-only int8); each band
+     fails the same run with the w8a8 products losing their last 128
+     rows of K.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}.
 
@@ -83,8 +108,11 @@ step by kernel family, the host-clock time per step and the device's busy
 share of it. `--profile-train` traces one stage-1 step of phase 8's
 configuration (after one untraced step) the same way; `--profile-paged`
 traces 8 paged decode steps of phase 10's model and pool (8 slots at
-K5's phase-3 lengths); `--kernels` stops after phase 3. None prints the
-final "ok" line.
+K5's phase-3 lengths); `--profile-quantized` traces 8 decode steps of
+phase 12's nf4 model (as `--profile`) and 8 paged steps in phase 14's
+w8a8 mode (as `--profile-paged`); `--kernels` stops after phase 3; `--quantized`
+runs only this slice's checks (K6-K8 in phase 3, phases 12-15) and
+prints their kernel rows. None prints the final "ok" line.
 """
 
 from __future__ import annotations
@@ -117,8 +145,25 @@ K4_DEEP_REL_RMS = 0.1
 # lost range
 K4_V_GAIN = 30.0
 # card bf16 vs CPU fp32 next-token logits through the full tower, the
-# projector and 2 LM layers (phases 5 and 7)
+# projector and 2 LM layers (phases 5, 7, 11, 13 and 15)
 LOGIT_BAND = 0.1
+# phase 15, the int8 tower in the w8a8 mode: card bf16 vs CPU fp32
+# features, relative RMS per view. The card rounds every activation to
+# bf16 before quantizing it to int8, and an activation within that
+# rounding of a half step takes the other int8 step, so the w8a8 tower's
+# spread is twice the dense tower's (0.030 against 0.014, both measured
+# on the CPU at full width, bf16 against fp32); through the projector and
+# the LM that is 0.24 in the logits (H100), outside LOGIT_BAND. The
+# same tower with K8 losing the last 128 rows of K reads 0.54.
+W8A8_TOWER_REL_RMS = 0.1
+# phase 15's logits in the w8a8 mode, card bf16 vs CPU fp32: each int8
+# activation step is ~8 bf16 roundings of a typical activation, so the
+# activations that the two sides round to different steps spread the
+# logits 3-4x wider than the weight-only path's. Phase 15 run on the CPU
+# at full width, bf16 against fp32, reads max |dlogit| 0.23-0.28 over the
+# admission and 8 steps (one top-1 flip at a margin of 0.15); the same
+# run with every w8a8 product losing the last 128 rows of K reads 2.8-3.4.
+W8A8_LOGIT_BAND = 0.5
 # Every kernel against its plain version, by a block measure: the relative
 # RMS difference ||got - plain|| / ||plain|| of every (sample, 64-position
 # tile, head) block (K1, and K2's o, dq, dk, dv: `tile_rel_rms`) or of
@@ -163,8 +208,8 @@ HD_PRESET = "tokenpacker-hd-7b-9patch-144token"
 SEP_ID, NEWLINE_ID = 29892, 13
 NEW_TOKENS = 32
 # NVIDIA's H100 SXM datasheet: HBM3 rate and
-# the dense bf16 tensor-core rate, at a 700 W power limit
-HBM_BYTES_PER_S, BF16_FLOP_PER_S = 3.35e12, 989e12
+# the dense bf16 and int8 tensor-core rates, at a 700 W power limit
+HBM_BYTES_PER_S, BF16_FLOP_PER_S, INT8_OPS_PER_S = 3.35e12, 989e12, 1979e12
 
 
 def sh(cmd: list[str]) -> str:
@@ -190,10 +235,11 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, rate: float = BF16_FLOP_PER_S) -> tuple[float, str]:
     """Least time (ms) for the work: bytes over the HBM rate or operations
-    over the bf16 tensor-core rate, whichever is larger, and which."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    over the tensor-core rate of their type (bf16 by default, int8 for K7
+    and K8), whichever is larger, and which."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -207,11 +253,13 @@ def row_rel_rms(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
                        torch.where(num > 0, torch.inf, 0.0))
 
 
-def compare_rows(name: str, got: torch.Tensor, want: torch.Tensor, lost: torch.Tensor) -> float:
+def compare_rows(name: str, got: torch.Tensor, want: torch.Tensor, lost: torch.Tensor,
+                 lost_what: str = "the last range or page") -> float:
     """Hold [..., d] kernel outputs to TILE_REL_RMS row by row
     (`row_rel_rms`), and show the measure's power: `lost`, the plain
-    version's output for the same input without its last valid range or
-    page, must fail. Returns the largest absolute error."""
+    version's output for the same input without `lost_what` (its last
+    valid range or page, K6's last 64 weight rows), must fail. Returns the
+    largest absolute error."""
     rel = row_rel_rms(got, want)
     worst = rel.max().item()
     where = np.unravel_index(int(rel.argmax()), tuple(rel.shape))
@@ -219,12 +267,52 @@ def compare_rows(name: str, got: torch.Tensor, want: torch.Tensor, lost: torch.T
     err = (got.float() - want.float()).abs().max().item()
     ok = worst <= TILE_REL_RMS and bool(torch.isfinite(got.float()).all())
     print(f"  {name}: worst row relative RMS {worst:.4e} (at {tuple(int(i) for i in where)}), "
-          f"median {rel.median().item():.4e}, limit {TILE_REL_RMS}; without the last range or "
-          f"page {lost_reads:.4f}; max_abs_err {err:.3e} {'OK' if ok else 'FAIL'}")
+          f"median {rel.median().item():.4e}, limit {TILE_REL_RMS}; without {lost_what} "
+          f"{lost_reads:.4f}; max_abs_err {err:.3e} {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version ({worst})")
     if not lost_reads > TILE_REL_RMS:
-        raise AssertionError(f"{name}: the row measure does not see a lost range or page")
+        raise AssertionError(f"{name}: the row measure does not see the loss of {lost_what}")
+    return err
+
+
+def compare_exact(name: str, got: torch.Tensor, want: torch.Tensor, lost: torch.Tensor) -> float:
+    """K7: the int32 products bit-equal to the plain version's, and the
+    product without the last 128 rows of K (`lost`) must not be. Returns
+    the largest absolute error (0)."""
+    ok, lost_equal = torch.equal(got, want), torch.equal(lost, want)
+    print(f"  {name}: int32 bit-equal {ok}; without the last 128 rows of K bit-equal "
+          f"{lost_equal} {'OK' if ok and not lost_equal else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: int32 products differ from the plain version's")
+    if lost_equal:
+        raise AssertionError(f"{name}: the check does not see the last 128 rows lost")
+    return 0.0
+
+
+def compare_s8_gemm(name: str, x, wq, wscale) -> float:
+    """K8: the kernel's int8 rows, their scales and its int32 sums bit-equal
+    to the plain version's, its bf16 output within one bf16 step; the sums
+    without the last 128 rows of K must differ. Returns the largest
+    absolute error of the output."""
+    from tokenpacker_tpu_torch.ops.q8_matmul import s8_matmul_plain
+    from tokenpacker_tpu_torch.ops.s8_gemm import s8_gemm, s8_gemm_plain
+
+    y, xq, ax, acc = s8_gemm(x, wq, wscale, parts=True)
+    py, pxq, pax, pacc = s8_gemm_plain(x, wq, wscale, parts=True)
+    rows_eq = torch.equal(xq, pxq) and torch.equal(ax, pax)
+    acc_eq = torch.equal(acc, pacc)
+    steps = (y.view(torch.int16).int() - py.view(torch.int16).int()).abs().max().item()
+    lost_eq = torch.equal(s8_matmul_plain(pxq[:, :-128], wq[:-128]), pacc)
+    ok = rows_eq and acc_eq and steps <= 1 and bool(torch.isfinite(y.float()).all())
+    err = (y.float() - py.float()).abs().max().item()
+    print(f"  {name}: int8 rows and scales bit-equal {rows_eq}, int32 sums bit-equal {acc_eq}, "
+          f"output within {steps} bf16 steps (limit 1), max_abs_err {err:.3e}; without the last "
+          f"128 rows of K the sums bit-equal {lost_eq} {'OK' if ok and not lost_eq else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    if lost_eq:
+        raise AssertionError(f"{name}: the check does not see the last 128 rows lost")
     return err
 
 
@@ -369,8 +457,10 @@ def k4_bytes_flops(lc, b: int, keys: int, int8: bool) -> tuple[float, float]:
     return nbytes, flops
 
 
-def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, int]) -> dict:
-    """Phase 3: every kernel vs its plain version at the paths' shapes."""
+def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, int],
+                  quantized_only: bool = False) -> dict:
+    """Phase 3: every kernel vs its plain version at the paths' shapes
+    (K6-K8 alone with `quantized_only`)."""
     from tokenpacker_tpu_torch.config import preset_config
     from tokenpacker_tpu_torch.io.weights import init_lm_on_device, quantize_lm_int8
     from tokenpacker_tpu_torch.models.llama import KVCache
@@ -382,12 +472,13 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
 
     rows = {}
 
-    def case(name, kernel, plain, args, library=None, work=None, check=None):
+    def case(name, kernel, plain, args, library=None, work=None, check=None,
+             rate=BF16_FLOP_PER_S):
         out, want = kernel(*args), plain(*args)
         err = check(name, out, want)
         ms, plain_ms = time_ms(lambda: kernel(*args)), time_ms(lambda: plain(*args))
         lib_ms = time_ms(library) if library else None
-        b_ms, b_by = bound(*work)
+        b_ms, b_by = bound(*work, rate)
         print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {b_ms:.4f} ms ({b_by})")
         return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -399,6 +490,9 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
         return row
 
     print("phase 3: kernels vs plain versions (bf16, median of 20 CUDA-event-timed calls)")
+    if quantized_only:
+        return {name: first_and_worst(cases)
+                for name, cases in quantized_kernel_cases(device, case).items()}
     n, t, w, heads = 8, 577, 1024, 16
     q, k, v = (bf16((n, t, w), s, device) for s in range(3))
     qh, kh, vh = (x.view(n, t, heads, w // heads) for x in (q, k, v))
@@ -454,6 +548,8 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
                 name, out, want, k3.decode_attention_plain(*lost_args))))
     rows["decode_attention"] = first_and_worst(cases)
     rows["paged_attention"] = first_and_worst(paged_kernel_cases(device, case))
+    for name, cases in quantized_kernel_cases(device, case).items():
+        rows[name] = first_and_worst(cases)
 
     # K4 at phase 6's last decode step: the HD requests' prompt rows
     # [0, len0) plus the decoded span [L, L + 30), the new row at L + 30.
@@ -610,6 +706,101 @@ def paged_kernel_cases(device, case) -> list[dict]:
     return cases
 
 
+def int_mm_call(xq: torch.Tensor, wq: torch.Tensor):
+    """The library yardstick of K7 and K8: one torch._int_mm on the same
+    int8 operands (rows zero-padded to 32 where there are 16 or fewer,
+    which it refuses), or None where it refuses the shapes."""
+    a = xq if xq.shape[0] > 16 else torch.nn.functional.pad(xq, (0, 0, 0, 32 - xq.shape[0]))
+    try:
+        torch._int_mm(a, wq)
+    except RuntimeError as e:
+        print(f"  torch._int_mm refuses [{a.shape[0]},{a.shape[1]}] x [{wq.shape[0]},"
+              f"{wq.shape[1]}]: {str(e).splitlines()[0]}")
+        return None
+    return lambda: torch._int_mm(a, wq)
+
+
+def quantized_kernel_cases(device, case) -> dict:
+    """Phase 3, K6, K7 and K8 at TokenPacker-HD-7b's product shapes (the
+    fused Vicuna-7B layout, [K, N]: qkv, o, gateup, down, lm_head; CLIP-L's
+    q/k/v/o, fc1, fc2), random weights quantized on the card. K6, nf4 and
+    int4, at M = 4 (E's decode), 1, 8, 32, held per (row, 128-wide output
+    slice) against its plain version, which must fail that hold without
+    the last 64 rows of K; library: x @ the already dequantized bf16
+    weight. K7 at M = 8 (F's decode) and 64, K8 at M = 256 (F's admission
+    chunks) and 2048 on the LM and 26 x 577 (B's 26 crops) on the tower,
+    held bit for bit (`compare_exact`, `compare_s8_gemm`); library:
+    torch._int_mm on the same int8 operands; bound at the int8 rate.
+    Returns {kernel name: [case rows]}, the first row the main path's."""
+    from tokenpacker_tpu_torch.config import preset_config
+    from tokenpacker_tpu_torch.ops import q4_matmul as k6
+    from tokenpacker_tpu_torch.ops import q8_matmul as k7
+    from tokenpacker_tpu_torch.ops import s8_gemm as k8
+    from tokenpacker_tpu_torch.ops.quantize import dequantize_4bit, quantize_4bit, quantize_int8
+
+    cfg = preset_config(HD_PRESET)
+    d, f, vocab = cfg.lm.hidden_size, cfg.lm.intermediate_size, cfg.lm.vocab_size
+    lm_shapes = {"qkv": (d, 3 * d), "o": (d, d), "gateup": (d, 2 * f), "down": (f, d),
+                 "lm_head": (d, vocab)}
+    w, wi = cfg.vision.hidden_size, cfg.vision.intermediate_size
+    tower_shapes = {"tower q/k/v/o": (w, w), "tower fc1": (w, wi), "tower fc2": (wi, w)}
+    g = torch.Generator(device=device).manual_seed(SEED + 11)
+
+    def weight(k, n):
+        return torch.randn((k, n), generator=g, device=device) * 0.02
+
+    def acts(m, k):
+        return torch.randn((m, k), generator=g, device=device).bfloat16()
+
+    def slices(y):  # [M, N] -> [M, N / 128, 128]
+        return y.view(y.shape[0], -1, 128)
+
+    out = {"q4_matmul": [], "s8_matmul": [], "s8_gemm": []}
+    for qt in ("nf4", "int4"):
+        for name, (k, n) in lm_shapes.items():
+            leaf = quantize_4bit(weight(k, n), 64, qt)
+            dense = dequantize_4bit(leaf, torch.bfloat16)
+            for m in (4, 1, 8, 32):
+                x = acts(m, k)
+                lost = x.clone()
+                lost[:, -64:] = 0
+                out["q4_matmul"].append(case(
+                    f"K6 q4_matmul {qt} {name} x[{m},{k}] W[{k},{n}]", k6.q4_matmul,
+                    k6.q4_matmul_plain, (x, leaf), library=lambda x=x, dense=dense: x @ dense,
+                    work=(m * k * 2 + k * n // 2 + k // 64 * n * 4 + m * n * 2, 2 * m * k * n),
+                    check=lambda nm, got, want, lost=lost, leaf=leaf: compare_rows(
+                        nm + " per (row, 128-wide slice)", slices(got), slices(want),
+                        slices(k6.q4_matmul_plain(lost, leaf)), "the last 64 rows of K")))
+            del leaf, dense
+    for name, (k, n) in lm_shapes.items():
+        wq, _ = quantize_int8(weight(k, n))
+        for m in (8, 64):
+            xq, _ = k7.quantize_activations(acts(m, k))
+            out["s8_matmul"].append(case(
+                f"K7 s8_matmul {name} xq[{m},{k}] wq[{k},{n}]", k7.s8_matmul, k7.s8_matmul_plain,
+                (xq, wq), library=int_mm_call(xq, wq), rate=INT8_OPS_PER_S,
+                work=(m * k + k * n + m * n * 4, 2 * m * k * n),
+                check=lambda nm, got, want, xq=xq, wq=wq: compare_exact(
+                    nm, got, want, k7.s8_matmul_plain(xq[:, :-128], wq[:-128]))))
+        del wq
+    k8_shapes = [(nm, sh, (256, 2048)) for nm, sh in lm_shapes.items() if nm != "lm_head"]
+    k8_shapes += [(nm, sh, (26 * 577,)) for nm, sh in tower_shapes.items()]
+    for name, (k, n), ms in k8_shapes:
+        wq, ws = quantize_int8(weight(k, n))
+        for m in ms:
+            x = acts(m, k)
+            xq, _ = k7.quantize_activations(x)
+            out["s8_gemm"].append(case(
+                f"K8 s8_gemm {name} x[{m},{k}] wq[{k},{n}]", k8.s8_gemm, k8.s8_gemm_plain,
+                (x, wq, ws), library=int_mm_call(xq, wq), rate=INT8_OPS_PER_S,
+                work=(m * k * 2 + k * n + n * 4 + m * n * 2, 2 * m * k * n),
+                check=lambda nm, got, want, args=(x, wq, ws): compare_s8_gemm(nm, *args)))
+            del x, xq
+        del wq, ws
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels_training_shape(device, case) -> dict:
     """Phase 3, K2 at phase 8's training shape: the forward checked and
     timed against its plain version; the backward checked (dq, dk, dv
@@ -764,16 +955,16 @@ def phase_parity(device, seed: int) -> None:
           f"{[round(m, 4) for m in margins]}, top-1 agree {agree}")
 
 
-def band_check(name, gpu_logits, cpu_logits):
-    """Card logits within LOGIT_BAND of the CPU's; top-1 equal where the CPU
+def band_check(name, gpu_logits, cpu_logits, band: float = LOGIT_BAND):
+    """Card logits within `band` of the CPU's; top-1 equal where the CPU
     margin exceeds the band."""
     diff = (gpu_logits - cpu_logits).abs().max().item()
     top2 = cpu_logits.topk(2, dim=-1).values
     margin = top2[:, 0] - top2[:, 1]
     agree = gpu_logits.argmax(-1) == cpu_logits.argmax(-1)
-    if diff > LOGIT_BAND:
-        raise AssertionError(f"{name}: card vs CPU logits differ by {diff} > {LOGIT_BAND}")
-    if not bool(agree[margin > LOGIT_BAND].all()):
+    if diff > band:
+        raise AssertionError(f"{name}: card vs CPU logits differ by {diff} > {band}")
+    if not bool(agree[margin > band].all()):
         raise AssertionError(f"{name}: top-1 differs where the CPU margin exceeds the band")
     return diff, margin.tolist(), agree.tolist()
 
@@ -865,6 +1056,105 @@ def phase_int8_parity(device, seed: int) -> None:
           f"{[r[2] for r in results]}")
     del params, state, sides
     torch.cuda.empty_cache()
+
+
+def phase_hd_4bit(device, seed: int, batch, blocks) -> dict:
+    """Phase 12 (configuration E): TokenPacker-HD-7b with its LM quantized
+    by `quantize_lm_4bit` (nf4, blocks of 64; the load_4bit form) and a
+    bf16 KV cache (the JAX default) answers phase 6's 4 HD requests with 32
+    greedy tokens: the per-layer decode, K3 for attention and K6 for every
+    product of a step (4 a layer and the LM head), besides the prefill's
+    LM head over the 4 last positions."""
+    from tokenpacker_tpu_torch.config import preset_config
+    from tokenpacker_tpu_torch.generate import Generator
+    from tokenpacker_tpu_torch.io.weights import init_vlm_on_device, quantize_lm_4bit
+    from tokenpacker_tpu_torch.ops.decode_attention import decode_attention
+    from tokenpacker_tpu_torch.ops.flash_attention import flash_attention
+    from tokenpacker_tpu_torch.ops.fused_decode import fused_decode_hidden
+    from tokenpacker_tpu_torch.ops.q4_matmul import q4_matmul
+    from tokenpacker_tpu_torch.ops.quantize import tree_bytes
+    from tokenpacker_tpu_torch.ops.vit_attention import vit_attention
+
+    cfg = preset_config(HD_PRESET)
+    t0 = time.perf_counter()
+    params = init_vlm_on_device(cfg, seed=seed, device=device, dtype=torch.bfloat16)
+    bf16_lm = tree_bytes(params["lm"])
+    quantize_lm_4bit(params, "nf4")
+    torch.cuda.synchronize()
+    print(f"phase 12: {HD_PRESET}, random weights from seed {seed}, LM quantized to nf4 on the "
+          f"card ({bf16_lm / 2**30:.3f} -> {tree_bytes(params['lm']) / 2**30:.3f} GiB) in "
+          f"{time.perf_counter() - t0:.2f} s; bf16 KV cache")
+    n, l = batch["token_ids"].shape
+    print(f"  requests: {n}, grids {blocks}, crops {batch['images'].shape[0]}, spliced lengths "
+          f"{batch['lengths'].tolist()}, bucket {l}")
+    gen = Generator(params, cfg)
+    if gen.fused is not False:
+        raise AssertionError("phase 12: a 4-bit tree must decode per layer")
+    depth = cfg.lm.num_hidden_layers
+    counters = {"vit_attention": vit_attention, "flash_attention": flash_attention,
+                "decode_attention": decode_attention, "fused_decode": fused_decode_hidden,
+                "q4_matmul": q4_matmul}
+    want = {"vit_attention": tower_blocks(cfg), "flash_attention": depth,
+            "decode_attention": depth * (NEW_TOKENS - 1), "fused_decode": 0,
+            "q4_matmul": (4 * depth + 1) * (NEW_TOKENS - 1) + 1}
+    launches = check_generation("phase 12", gen, batch, cfg, want, counters)
+    del params, gen
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_4bit_parity(device, seed: int) -> None:
+    """Phase 13: full widths, 2 LM layers, the LM 4-bit, a bf16 cache:
+    prefill and 8 decode steps (nf4), prefill and 1 step (int4) on the
+    card (bf16, K6) against the CPU (fp32, K6's plain version) from the
+    same 4-bit leaves; both sides fed the CPU's greedy tokens."""
+    from tokenpacker_tpu_torch.config import preset_config
+    from tokenpacker_tpu_torch.generate import decode_step, device_batch, prefill
+    from tokenpacker_tpu_torch.io.weights import init_vlm_on_device, params_to, quantize_lm_4bit
+    from tokenpacker_tpu_torch.ops.q4_matmul import q4_matmul
+
+    full = preset_config(HD_PRESET)
+    cfg = dataclasses.replace(full, lm=dataclasses.replace(full.lm, num_hidden_layers=2))
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    batch, blocks = make_hd_requests(cfg, seed + 1, sizes=((672, 336), (336, 336)),
+                                     text_lens=(40, 70))
+    l = batch["token_ids"].shape[1]
+    lengths = {"gpu": torch.as_tensor(batch["lengths"], device=device),
+               "cpu": torch.as_tensor(batch["lengths"])}
+    for quant_type, steps in (("nf4", 8), ("int4", 1)):
+        params = quantize_lm_4bit(init_vlm_on_device(cfg, seed=seed, device=device,
+                                                     dtype=torch.bfloat16), quant_type)
+        sides = {
+            "gpu": (params, cfg, device_batch(batch, torch.bfloat16, device)),
+            "cpu": (params_to(params, "cpu", torch.float32), cpu_cfg,
+                    device_batch(batch, torch.float32, "cpu")),
+        }
+        q4_matmul.launches = 0
+        t0 = time.perf_counter()
+        state = {k: prefill(p, c, b, l + steps) for k, (p, c, b) in sides.items()}
+        results = []
+        for step in range(steps + 1):
+            gpu_logits, cpu_logits = state["gpu"][0].float().cpu(), state["cpu"][0].float()
+            results.append(band_check(f"phase 13 {quant_type} step {step}", gpu_logits,
+                                      cpu_logits))
+            if step == steps:
+                break
+            tok = cpu_logits.argmax(-1)
+            for k, (p, c, _) in sides.items():
+                state[k] = decode_step(p, c, state[k][1], tok.to(lengths[k].device), lengths[k],
+                                       step, l)
+        want = 1 + steps * (4 * 2 + 1)
+        if q4_matmul.launches != want:
+            raise AssertionError(f"phase 13: {q4_matmul.launches} K6 launches on the card, "
+                                 f"expected {want}")
+        print(f"phase 13: full widths, 2 LM layers, {quant_type} LM + bf16 cache, 2 HD requests "
+              f"(grids {blocks}): card bf16 (K6) vs CPU fp32 (plain K6), prefill + {steps} decode "
+              f"steps ({time.perf_counter() - t0:.1f} s, {want} K6 launches) max|dlogit| per step "
+              f"{[round(r[0], 4) for r in results]} band={LOGIT_BAND}; top-1 margins "
+              f"{[[round(m, 4) for m in r[1]] for r in results]}, top-1 agree "
+              f"{[r[2] for r in results]}")
+        del params, state, sides
+        torch.cuda.empty_cache()
 
 
 class WordTokenizer:
@@ -1106,6 +1396,73 @@ def phase_train_parity(device, seed: int) -> None:
     torch.cuda.empty_cache()
 
 
+def w8a8_tower_parity(phase: str, vision_q, cfg, images: np.ndarray, device) -> None:
+    """Phase 15's first part: the int8 tower (`quantize_tower_int8`, made on
+    the card) in the w8a8 mode over one request's views, the card (bf16,
+    K8) against the CPU (fp32, K8's plain version) on the same int8 bytes:
+    the features of every view within W8A8_TOWER_REL_RMS, and the card's
+    tower with K8 losing the last 128 rows of K outside it."""
+    from tokenpacker_tpu_torch.io.weights import params_to
+    from tokenpacker_tpu_torch.models.clip_vit import clip_tower_features
+    from tokenpacker_tpu_torch.ops import q8_matmul as k7
+    from tokenpacker_tpu_torch.ops import s8_gemm as k8
+
+    vc = cfg.vision
+    imgs = torch.as_tensor(images)
+    route = w8a8_route(imgs.shape[0] * vc.seq_len, vc.hidden_size, vc.hidden_size)
+    counters = {"s8_gemm": k8.s8_gemm, "s8_matmul": k7.s8_matmul}
+    for fn in counters.values():
+        fn.launches = 0
+    got = clip_tower_features(vision_q, vc, imgs.to(device, torch.bfloat16), w8a8=True)[0]
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = clip_tower_features(params_to(vision_q, "cpu", torch.float32), vc, imgs.float(),
+                               w8a8=True)[0]
+    with lossy_w8a8_products():
+        lost = clip_tower_features(vision_q, vc, imgs.to(device, torch.bfloat16), w8a8=True)[0]
+
+    def per_view(x):
+        x = x.float().cpu()
+        return ((x - want).square().sum((1, 2)) / want.square().sum((1, 2))).sqrt()
+
+    rel, lost_rel = per_view(got), per_view(lost)
+    expected = {name: 6 * tower_blocks(cfg) * (route == name) for name in counters}
+    print(f"  {phase}: int8 tower, w8a8, {imgs.shape[0]} views x {vc.seq_len} rows: card "
+          f"({route}, launches {launches}) vs CPU features, relative RMS per view "
+          f"{[round(x, 4) for x in rel.tolist()]} (band {W8A8_TOWER_REL_RMS}); with K8 losing "
+          f"the last 128 rows of K {[round(x, 4) for x in lost_rel.tolist()]}")
+    if launches != expected:
+        raise AssertionError(f"{phase}: tower launches {launches}, expected {expected}")
+    if not rel.max().item() <= W8A8_TOWER_REL_RMS:
+        raise AssertionError(f"{phase}: w8a8 tower features differ by {rel.max().item()}")
+    if not lost_rel.min().item() > W8A8_TOWER_REL_RMS:
+        raise AssertionError(f"{phase}: the tower band does not see K8 losing its last rows")
+
+
+@contextlib.contextmanager
+def lossy_w8a8_products():
+    """Within the block, every product of the w8a8 mode (`ops/layers`' K7
+    and K8 routes) loses the last 128 rows of K, as a kernel that drops
+    its last K block would: phase 15 shows that its band fails that."""
+    from tokenpacker_tpu_torch.ops import layers
+
+    real = {name: getattr(layers, name) for name in ("w8a8_matmul", "w8a8_gemm")}
+
+    def lossy(fn):
+        def run(x, leaf):
+            x = x.clone()
+            x[..., -128:] = 0
+            return fn(x, leaf)
+        return run
+
+    for name, fn in real.items():
+        setattr(layers, name, lossy(fn))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(layers, name, fn)
+
+
 @contextlib.contextmanager
 def lossy_flash_bwd(which: str):
     """Within the block, K2's backward returns zeros for dq ("dq") or for
@@ -1170,39 +1527,61 @@ def paged_requests(cfg, seed: int) -> list[dict]:
 CANCEL_AFTER = 4  # phase 10 cancels its last request after this many tokens
 
 
-def phase_paged_serving(device, seed: int) -> dict:
-    """Phase 10: TokenPacker-HD-7b with int8 weights serves phase 10's 10
-    requests through `PagedContinuousBatcher.submit` -> `Future.result()`
-    over an int8 paged pool, with the JAX worker's paged settings (8
-    slots, pages of 64, 40 pages a sequence, 2 x 8 x 40 + 1 pages,
-    chunked admissions of 256, the prefix cache on), 32 greedy tokens
-    each, one request cancelled after its 4th token."""
+def w8a8_route(rows: int, k: int = 4096, n: int = 4096) -> str:
+    """Where `ops/layers.linear` sends an int8 product of `rows` rows in the
+    w8a8 mode (Vicuna-7B's widths are multiples of 128)."""
+    if rows <= 64:
+        return "s8_matmul"
+    if rows >= 256 and k % 128 == 0 and n % 128 == 0:
+        return "s8_gemm"
+    return "weight-only"
+
+
+def phase_paged_serving(device, seed: int, w8a8: bool = False) -> dict:
+    """Phase 10 (configuration D): TokenPacker-HD-7b with int8 weights
+    serves phase 10's 10 requests through `PagedContinuousBatcher.submit`
+    -> `Future.result()` over an int8 paged pool, with the JAX worker's
+    paged settings (8 slots, pages of 64, 40 pages a sequence, 2 x 8 x 40
+    + 1 pages, chunked admissions of 256, the prefix cache on), 32 greedy
+    tokens each, one request cancelled after its 4th token. With `w8a8`,
+    phase 14 (configuration F): the same with the tower quantized by
+    `quantize_tower_int8` and the batcher in the w8a8 mode (K8 for the
+    tower and the admission chunks of 256, K7 for every decode step and
+    first-token head)."""
     from tokenpacker_tpu_torch.config import preset_config
     from tokenpacker_tpu_torch.generate import pick_bucket
     from tokenpacker_tpu_torch.io.weights import init_vlm_on_device, quantize_lm_int8
+    from tokenpacker_tpu_torch.models.clip_vit import quantize_tower_int8
     from tokenpacker_tpu_torch.ops.decode_attention import decode_attention
     from tokenpacker_tpu_torch.ops.flash_attention import flash_attention
     from tokenpacker_tpu_torch.ops.fused_decode import fused_decode_hidden
     from tokenpacker_tpu_torch.ops.paged_attention import paged_attention
+    from tokenpacker_tpu_torch.ops.q4_matmul import q4_matmul
+    from tokenpacker_tpu_torch.ops.q8_matmul import s8_matmul
+    from tokenpacker_tpu_torch.ops.s8_gemm import s8_gemm
     from tokenpacker_tpu_torch.ops.vit_attention import vit_attention
     from tokenpacker_tpu_torch.serve import scheduler as sched
 
+    phase = "phase 14" if w8a8 else "phase 10"
     cfg = preset_config(HD_PRESET)
     t0 = time.perf_counter()
     params = quantize_lm_int8(init_vlm_on_device(cfg, seed=seed, device=device,
                                                  dtype=torch.bfloat16))
+    if w8a8:
+        params["vision"] = quantize_tower_int8(params["vision"])
     num_pages = 2 * PAGED_SLOTS * PAGES_PER_SEQ + 1
     batcher = sched.PagedContinuousBatcher(
         params, cfg, num_slots=PAGED_SLOTS, num_pages=num_pages, page_size=PAGE_SIZE,
         max_pages_per_seq=PAGES_PER_SEQ, prefill_chunk_size=256, prefix_cache=True,
-        kv_cache_dtype=torch.int8, device=device)
+        kv_cache_dtype=torch.int8, w8a8=w8a8, device=device)
     torch.cuda.synchronize()
     pool_bytes = sum(t.numel() * t.element_size() for t in (
         batcher.paged.k_pages, batcher.paged.v_pages, batcher.paged.k_scales,
         batcher.paged.v_scales))
     reqs = paged_requests(cfg, seed)
     lens = [int(r["lengths"][0]) for r in reqs]
-    print(f"phase 10: {HD_PRESET} int8 weights from seed {seed} through PagedContinuousBatcher "
+    print(f"{phase}: {HD_PRESET} int8 weights{' (LM and tower), w8a8 mode' if w8a8 else ''} "
+          f"from seed {seed} through PagedContinuousBatcher "
           f"({time.perf_counter() - t0:.2f} s to build): {PAGED_SLOTS} slots, {num_pages} pages "
           f"of {PAGE_SIZE}, {PAGES_PER_SEQ} a sequence, int8 pool {pool_bytes / 2**30:.3f} GiB, "
           f"chunks of 256, prefix cache on; {len(reqs)} requests, grids "
@@ -1210,9 +1589,19 @@ def phase_paged_serving(device, seed: int) -> dict:
           f"the last cancelled after its {CANCEL_AFTER}th")
 
     # the first-token logits of each admission and every decode step's
-    # logits, recorded by reference (no extra device work) for the checks
-    first_logits, step_logits = {}, []
+    # logits, recorded by reference (no extra device work) for the checks,
+    # and the rows of every admission chunk
+    first_logits, step_logits, chunks, tower_rows = {}, [], [], []
     real_step, real_lm_logits = sched.paged_decode_step, sched.lm_logits
+    real_chunk, real_encode = sched.prefill_chunk, sched.encode_images
+
+    def recording_chunk(*args):
+        chunks.append(args[4].shape[1])  # token_ids [1, chunk_len]
+        return real_chunk(*args)
+
+    def recording_encode(*args):
+        tower_rows.append(args[2].shape[0] * cfg.vision.seq_len)  # views x positions
+        return real_encode(*args)
 
     def recording_step(*args):
         logits, paged = real_step(*args)
@@ -1227,7 +1616,8 @@ def phase_paged_serving(device, seed: int) -> dict:
 
     counters = {"vit_attention": vit_attention, "flash_attention": flash_attention,
                 "decode_attention": decode_attention, "fused_decode": fused_decode_hidden,
-                "paged_attention": paged_attention}
+                "paged_attention": paged_attention, "q4_matmul": q4_matmul,
+                "s8_matmul": s8_matmul, "s8_gemm": s8_gemm}
     submitted, first_at, futs = {}, {}, []
 
     def on_token(i):
@@ -1238,6 +1628,7 @@ def phase_paged_serving(device, seed: int) -> dict:
         return hook
 
     sched.paged_decode_step, sched.lm_logits = recording_step, recording_lm_logits
+    sched.prefill_chunk, sched.encode_images = recording_chunk, recording_encode
     try:
         for fn in counters.values():
             fn.launches = 0
@@ -1253,6 +1644,7 @@ def phase_paged_serving(device, seed: int) -> dict:
         torch.cuda.synchronize()
     finally:
         sched.paged_decode_step, sched.lm_logits = real_step, real_lm_logits
+        sched.prefill_chunk, sched.encode_images = real_chunk, real_encode
         batcher.stop()
     launches = {k: fn.launches for k, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
@@ -1282,18 +1674,38 @@ def phase_paged_serving(device, seed: int) -> dict:
           f"{retained} blocks retained, {leaked} pages leaked")
     print(f"  launches {launches} ({launches['paged_attention'] / steps:.2f} K5 per decode step)")
 
-    want = {"vit_attention": tower_blocks(cfg) * (len(reqs) - pc["prefix_vision_encodes_skipped"]),
+    layers = cfg.lm.num_hidden_layers
+    encodes = len(reqs) - pc["prefix_vision_encodes_skipped"]
+    routes = [w8a8_route(c) for c in chunks]
+    # every admission's first token comes from one LM head over one row
+    heads = len(first_logits)
+    want = {"vit_attention": tower_blocks(cfg) * encodes,
             "flash_attention": 0, "decode_attention": 0, "fused_decode": 0,
-            "paged_attention": cfg.lm.num_hidden_layers * steps}
+            "paged_attention": layers * steps, "q4_matmul": 0, "s8_matmul": 0, "s8_gemm": 0}
+    if w8a8:
+        towers = [w8a8_route(r, cfg.vision.hidden_size, cfg.vision.hidden_size)
+                  for r in tower_rows]
+        tower_products = 6 * tower_blocks(cfg)
+        want["s8_gemm"] = (tower_products * towers.count("s8_gemm")
+                           + 4 * layers * routes.count("s8_gemm"))
+        want["s8_matmul"] = ((4 * layers + 1) * steps + heads
+                             + tower_products * towers.count("s8_matmul")
+                             + 4 * layers * routes.count("s8_matmul"))
+        print(f"  admission chunks (rows) {chunks}: {routes.count('s8_gemm')} of 256+ rows (K8), "
+              f"{routes.count('s8_matmul')} of 64 or fewer (K7), {routes.count('weight-only')} "
+              f"of 65-255 rows whose {4 * layers * routes.count('weight-only')} products take the "
+              f"weight-only route; tower passes of {tower_rows} rows take {towers} "
+              f"({tower_blocks(cfg)} blocks x 6 products each); {heads} first-token heads and "
+              f"{steps} steps x {4 * layers + 1} products on K7")
     if launches != want:
-        raise AssertionError(f"phase 10: launch counts {launches} != {want}")
+        raise AssertionError(f"{phase}: launch counts {launches} != {want}")
     if leaked:
-        raise AssertionError(f"phase 10: {leaked} pages leaked")
+        raise AssertionError(f"{phase}: {leaked} pages leaked")
     if pc["prefix_vision_encodes_skipped"] < 1 or pc["prefix_cache_hits"] < 4:
-        raise AssertionError(f"phase 10: the warm requests did not hit the prefix cache: {pc}")
+        raise AssertionError(f"{phase}: the warm requests did not hit the prefix cache: {pc}")
     if not (0 < len(tokens[-1]) < NEW_TOKENS) or any(
             not all(0 <= t < cfg.lm.vocab_size for t in seq) for seq in tokens):
-        raise AssertionError(f"phase 10: tokens {[len(t) for t in tokens]}")
+        raise AssertionError(f"{phase}: tokens {[len(t) for t in tokens]}")
 
     # the warm repeats against the cold request: first-token logits within
     # the band, tokens equal wherever the cold request's top-2 margin is
@@ -1313,38 +1725,52 @@ def phase_paged_serving(device, seed: int) -> dict:
         for j, (a, b) in enumerate(zip(tokens[i], tokens[0])):
             if a != b:
                 if margins[j] > LOGIT_BAND:
-                    raise AssertionError(f"phase 10: warm request {i} token {j} differs where "
+                    raise AssertionError(f"{phase}: warm request {i} token {j} differs where "
                                          f"the cold margin {margins[j]} is decisive")
                 break
             agree += 1
         print(f"  warm repeat {i}: first-token max|dlogit| {diff:.4f} against the cold "
               f"request (band {LOGIT_BAND}); {agree} of {len(tokens[0])} tokens equal")
         if not diff <= LOGIT_BAND:
-            raise AssertionError(f"phase 10: warm first-token logits differ by {diff}")
+            raise AssertionError(f"{phase}: warm first-token logits differ by {diff}")
     del params, batcher, step_logits, first_logits
     torch.cuda.empty_cache()
     return launches
 
 
-def phase_paged_parity(device, seed: int) -> None:
+def phase_paged_parity(device, seed: int, w8a8: bool = False) -> None:
     """Phase 11: full widths, 2 LM layers, int8 weights and an int8 pool on
     the card (bf16, K5) and on the CPU (fp32, K5's plain version): request
     A admitted cold (prefill, insert_prefill), request B (A's image and
     first 30 text ids, then its own) warm from A's pages (prefix_admit),
-    then 8 paged decode steps; both sides fed the CPU's greedy tokens."""
+    then 8 paged decode steps; both sides fed the CPU's greedy tokens.
+    With `w8a8`, phase 15 (F at 2 layers): first A's images through the
+    int8 tower in the w8a8 mode (K8), card against CPU features per view
+    (W8A8_TOWER_REL_RMS), which the same tower with K8 losing the last 128
+    rows of K must fail; then the admissions and steps above with the int8
+    tower, in the w8a8 mode (K7 and K8 on the card, their plain versions
+    on the CPU), held to W8A8_LOGIT_BAND, which the card's admissions with
+    every w8a8 product losing the last 128 rows of K must fail."""
     from PIL import Image
 
     from tokenpacker_tpu_torch.config import preset_config
     from tokenpacker_tpu_torch.generate import device_batch, prefill
     from tokenpacker_tpu_torch.io.weights import init_vlm_on_device, params_to, quantize_lm_int8
+    from tokenpacker_tpu_torch.models.clip_vit import quantize_tower_int8
     from tokenpacker_tpu_torch.ops.paged_attention import paged_attention
     from tokenpacker_tpu_torch.ops.paged_kv import (PagedKV, insert_prefill, map_page,
                                                     paged_decode_step, prefix_admit)
+    from tokenpacker_tpu_torch.ops.q8_matmul import s8_matmul
+    from tokenpacker_tpu_torch.ops.s8_gemm import s8_gemm
 
+    phase = "phase 15" if w8a8 else "phase 11"
     full = preset_config(HD_PRESET)
     cfg = dataclasses.replace(full, lm=dataclasses.replace(full.lm, num_hidden_layers=2))
     params = quantize_lm_int8(init_vlm_on_device(cfg, seed=seed, device=device,
                                                  dtype=torch.bfloat16))
+    if w8a8:
+        params["vision"] = quantize_tower_int8(params["vision"])
+    band = W8A8_LOGIT_BAND if w8a8 else LOGIT_BAND
     rng = np.random.default_rng(seed + 9)
     image = Image.fromarray(rng.integers(0, 256, (336, 672, 3), dtype=np.uint8))
     text = rng.integers(3, cfg.lm.vocab_size, 40)
@@ -1374,24 +1800,28 @@ def phase_paged_parity(device, seed: int) -> None:
         """First-token logits of A and B [2, V], then each step's [2, V]."""
         pool = PagedKV.create(c.lm, 1 + pages_a[-1] + len(fresh_b) + 2 * mp, ps, 2, mp,
                               torch.int8, dev)
-        la, small = prefill(p, c, padded(a, pad_a, c.dtype, dev), pad_a, torch.int8)
+        la, small = prefill(p, c, padded(a, pad_a, c.dtype, dev), pad_a, torch.int8, w8a8)
         insert_prefill(pool, small, 0, pages_a, len_a)
         db = padded(b, pad_b, c.dtype, dev)
         visual = torch.zeros((1, c.tokens_per_view, c.lm.hidden_size), dtype=c.dtype, device=dev)
         lb, _ = prefix_admit(pool, p, c, pages_a[:m], fresh_b, visual,
                              db["token_ids"][:, m * ps:], db["is_image"][:, m * ps:],
-                             db["image_slot"][:, m * ps:], 1, len_b, m, pad_b - m * ps)
+                             db["image_slot"][:, m * ps:], 1, len_b, m, pad_b - m * ps, w8a8)
         return pool, torch.cat([la, lb]).float().cpu()
 
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     cpu_params = params_to(params, "cpu", torch.float32)
     if b["is_image"][0, m * ps:len_b].any():
-        raise AssertionError("phase 11: B's suffix holds image positions")
+        raise AssertionError(f"{phase}: B's suffix holds image positions")
+    if w8a8:
+        w8a8_tower_parity(phase, params["vision"], cfg, a["images"], device)
     t0 = time.perf_counter()
-    paged_attention.launches = 0
+    for fn in (paged_attention, s8_matmul, s8_gemm):
+        fn.launches = 0
     sides = {"gpu": (params, cfg, device), "cpu": (cpu_params, cpu_cfg, "cpu")}
     state = {k: side(*v) for k, v in sides.items()}
-    results = [band_check("phase 11 admission", state["gpu"][1], state["cpu"][1])]
+    cpu_first = state["cpu"][1]
+    results = [band_check(f"{phase} admission", state["gpu"][1], cpu_first, band)]
     lens, held = [len_a, len_b], [pad_a // ps, pad_b // ps]
     active = torch.ones(2, dtype=torch.bool)
     for step in range(steps):
@@ -1403,18 +1833,44 @@ def phase_paged_parity(device, seed: int) -> None:
                     map_page(state[k][0], i, held[i], pid)
                 held[i] += 1
         for k, (p, c, dev) in sides.items():
-            logits, _ = paged_decode_step(p, c, state[k][0], tok.to(dev), active.to(dev))
+            logits, _ = paged_decode_step(p, c, state[k][0], tok.to(dev), active.to(dev), w8a8)
             state[k] = (state[k][0], logits.float().cpu())
         lens = [x + 1 for x in lens]
-        results.append(band_check(f"phase 11 step {step}", state["gpu"][1], state["cpu"][1]))
+        results.append(band_check(f"{phase} step {step}", state["gpu"][1], state["cpu"][1],
+                                  band))
     if paged_attention.launches != 2 * steps:
-        raise AssertionError(f"phase 11: {paged_attention.launches} K5 launches on the card, "
+        raise AssertionError(f"{phase}: {paged_attention.launches} K5 launches on the card, "
                              f"expected {2 * steps}")
-    print(f"phase 11: full widths, 2 LM layers, int8 weights + int8 pool, request A (grid "
+    if w8a8:
+        # A's prefill (pad_a rows) and B's suffix chunk each run 2 layers x 4
+        # products on the route their rows pick; the tower (A only: B's
+        # image positions are all cached) 6 products a block on K8; the 2
+        # first-token heads and each step's 2 x 4 + 1 products on K7
+        routes = [w8a8_route(pad_a), w8a8_route(pad_b - m * ps)]
+        rows_a = a["images"].shape[0] * cfg.vision.seq_len
+        tower = w8a8_route(rows_a, cfg.vision.hidden_size, cfg.vision.hidden_size)
+        want = {"s8_gemm": 6 * tower_blocks(cfg) * (tower == "s8_gemm")
+                + 8 * routes.count("s8_gemm"),
+                "s8_matmul": 2 + steps * 9 + 6 * tower_blocks(cfg) * (tower == "s8_matmul")
+                + 8 * routes.count("s8_matmul")}
+        got = {"s8_gemm": s8_gemm.launches, "s8_matmul": s8_matmul.launches}
+        print(f"  {phase}: tower of {rows_a} rows takes {tower}, prefill of {pad_a} rows and "
+              f"suffix of {pad_b - m * ps} rows take {routes}; launches {got}, expected {want}")
+        if got != want:
+            raise AssertionError(f"{phase}: launches {got} != {want}")
+        with lossy_w8a8_products():
+            lost = side(params, cfg, device)[1]
+        lost_diff = (lost - cpu_first).abs().max().item()
+        print(f"  {phase}: the card's admissions with every w8a8 product losing the last 128 "
+              f"rows of K: max|dlogit| {lost_diff:.4f} (band {band})")
+        if not lost_diff > band:
+            raise AssertionError(f"{phase}: the band does not see w8a8 products losing rows")
+    print(f"{phase}: full widths, 2 LM layers, int8 weights{', w8a8' if w8a8 else ''} "
+          f"+ int8 pool, request A (grid "
           f"{a['grid']}, {len_a} positions) cold, B ({len_b} positions) warm on {m} of A's pages: "
-          f"card bf16 (K5) vs CPU fp32 (plain K5), admission + {steps} paged decode steps "
+          f"card bf16 (kernels) vs CPU fp32 (plain versions), admission + {steps} paged decode steps "
           f"({time.perf_counter() - t0:.1f} s) max|dlogit| {[round(r[0], 4) for r in results]} "
-          f"band={LOGIT_BAND}; top-1 margins {[[round(x, 4) for x in r[1]] for r in results]}, "
+          f"band={band}; top-1 margins {[[round(x, 4) for x in r[1]] for r in results]}, "
           f"top-1 agree {[r[2] for r in results]}")
     del params, state, sides
     torch.cuda.empty_cache()
@@ -1490,22 +1946,26 @@ def profile_train_step(device, seed: int) -> None:
         ("elementwise and copies", ("elementwise", "catarray", "copy_kernel", "index"))))
 
 
-def profile_hd_decode(device, seed: int, batch, steps: int = 8) -> None:
+def profile_hd_decode(device, seed: int, batch, steps: int = 8, four_bit: bool = False) -> None:
     """`--profile`: phase 6's model and requests; torch.profiler over
-    `steps` decode steps after the prefill (two warm steps first)."""
+    `steps` decode steps after the prefill (two warm steps first). With
+    `four_bit` (`--profile-quantized`), phase 12's: the nf4 LM and a bf16
+    cache, each step per layer with K6 and K3."""
     from torch.profiler import ProfilerActivity, profile
 
     from tokenpacker_tpu_torch.config import preset_config
     from tokenpacker_tpu_torch.generate import decode_step, device_batch, fused_weights, prefill
-    from tokenpacker_tpu_torch.io.weights import init_vlm_on_device, quantize_lm_int8
+    from tokenpacker_tpu_torch.io.weights import (init_vlm_on_device, quantize_lm_4bit,
+                                                  quantize_lm_int8)
 
     cfg = preset_config(HD_PRESET)
-    params = quantize_lm_int8(init_vlm_on_device(cfg, seed=seed, device=device,
-                                                 dtype=torch.bfloat16))
+    params = init_vlm_on_device(cfg, seed=seed, device=device, dtype=torch.bfloat16)
+    params = quantize_lm_4bit(params) if four_bit else quantize_lm_int8(params)
     fused = fused_weights(params, cfg)
     dev = device_batch(batch, cfg.dtype, device)
     l = batch["token_ids"].shape[1]
-    logits, cache = prefill(params, cfg, dev, l + steps + 2, kv_cache_dtype=torch.int8)
+    cache_dtype = None if four_bit else torch.int8
+    logits, cache = prefill(params, cfg, dev, l + steps + 2, kv_cache_dtype=cache_dtype)
     tok = logits.argmax(-1)
     for step in range(2):
         logits, cache = decode_step(params, cfg, cache, tok, dev["lengths"], step, l, fused)
@@ -1520,18 +1980,28 @@ def profile_hd_decode(device, seed: int, batch, steps: int = 8) -> None:
         wall = time.perf_counter() - t0
     kernels = device_kernels(prof)
     busy = sum(ms for _, ms, _ in kernels)
-    print(f"profile: {HD_PRESET} int8, B={dev['token_ids'].shape[0]}, S={cache.k.shape[2]}, "
+    print(f"profile: {HD_PRESET} {'nf4, bf16 cache' if four_bit else 'int8'}, "
+          f"B={dev['token_ids'].shape[0]}, S={cache.k.shape[2]}, "
           f"{steps} decode steps: host clock {wall / steps * 1e3:.3f} ms/step, device busy "
           f"{busy / steps:.3f} ms/step (idle share {1 - busy / (wall * 1e3):.3f})")
+    if four_bit:
+        print_families(kernels, (
+            ("K6", ("q4_partial", "q4_epilogue")), ("K3", ("decode_attention",)),
+            ("GEMM (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),
+            ("copies and casts", ("copy",)), ("reductions (norms, argmax)", ("reduce",)),
+            ("index and scatter (embedding, cache writes)", ("index", "scatter")),
+            ("elementwise", ("elementwise",))), steps)
+        return
     print_families(kernels, tuple((f, (f,)) for f in (
         "gemv_partial", "qkv_epilogue", "attention_kernel", "residual_epilogue",
         "gateup_epilogue")), steps)
 
 
-def profile_paged_decode(device, seed: int, steps: int = 8) -> None:
+def profile_paged_decode(device, seed: int, steps: int = 8, w8a8: bool = False) -> None:
     """`--profile-paged`: phase 10's model and pool, 8 slots at K5's phase-3
     lengths (less 10) over shuffled pages of random int8 rows; torch.profiler
-    over `steps` paged decode steps after two untraced ones."""
+    over `steps` paged decode steps after two untraced ones. With `w8a8`
+    (`--profile-quantized`), phase 14's mode: every product on K7."""
     from torch.profiler import ProfilerActivity, profile
 
     from tokenpacker_tpu_torch.config import preset_config
@@ -1553,24 +2023,25 @@ def profile_paged_decode(device, seed: int, steps: int = 8) -> None:
     tok = torch.randint(3, cfg.lm.vocab_size, (n,), generator=g, device=device)
     active = torch.ones(n, dtype=torch.bool, device=device)
     for _ in range(2):
-        logits, _ = paged_decode_step(params, cfg, paged, tok, active)
+        logits, _ = paged_decode_step(params, cfg, paged, tok, active, w8a8)
         tok = logits.argmax(-1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            logits, _ = paged_decode_step(params, cfg, paged, tok, active)
+            logits, _ = paged_decode_step(params, cfg, paged, tok, active, w8a8)
             tok = logits.argmax(-1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = device_kernels(prof)
     busy = sum(ms for _, ms, _ in kernels)
-    print(f"profile-paged: {HD_PRESET} int8, int8 pool, {n} slots, lengths "
+    print(f"profile-paged: {HD_PRESET} int8{', w8a8' if w8a8 else ''}, int8 pool, {n} slots, lengths "
           f"{paged.lengths.tolist()} at the end, {steps} decode steps: host clock "
           f"{wall / steps * 1e3:.3f} ms/step, device busy {busy / steps:.3f} ms/step (idle share "
           f"{1 - busy / (wall * 1e3):.3f})")
     print_families(kernels, (
-        ("K5", ("paged_attention",)), ("GEMM (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),
+        ("K5", ("paged_attention",)), ("K7", ("s8_matmul",)),
+        ("GEMM (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),
         ("casts and copies (int8 weights to bf16)", ("copy",)),
         ("reductions (norms, quantize_kv, argmax)", ("reduce",)),
         ("index and scatter (embedding, pool writes)", ("index", "scatter")),
@@ -1615,12 +2086,26 @@ def main() -> None:
     if "--profile" in sys.argv[1:]:
         profile_hd_decode(device, SEED, hd_batch)
         return
+    if "--profile-quantized" in sys.argv[1:]:
+        profile_hd_decode(device, SEED, hd_batch, four_bit=True)
+        torch.cuda.empty_cache()
+        profile_paged_decode(device, SEED, w8a8=True)
+        return
     l = hd_batch["token_ids"].shape[1]
     s_hd = -(-(l + NEW_TOKENS) // 32) * 32  # generate.prefill's int8 cache length
     # the last decode step writes slot l + NEW_TOKENS - 2 and attends the
     # decoded span [l, l + NEW_TOKENS - 2) besides the prompt
-    rows = phase_kernels(device, hd_batch["lengths"], s_hd, (l, l + NEW_TOKENS - 2))
+    quantized = "--quantized" in sys.argv[1:]
+    rows = phase_kernels(device, hd_batch["lengths"], s_hd, (l, l + NEW_TOKENS - 2), quantized)
     if "--kernels" in sys.argv[1:]:
+        return
+    if quantized:
+        runs = [phase_hd_4bit(device, SEED, hd_batch, hd_blocks)]
+        phase_4bit_parity(device, SEED)
+        runs.append(phase_paged_serving(device, SEED, w8a8=True))
+        phase_paged_parity(device, SEED, w8a8=True)
+        print(json.dumps({name: {**row, "launches": sum(r.get(name, 0) for r in runs)}
+                          for name, row in rows.items()}))
         return
     runs = [phase_end_to_end(device, SEED)]
     phase_parity(device, SEED)
@@ -1630,6 +2115,10 @@ def main() -> None:
     phase_train_parity(device, SEED)
     runs.append(phase_paged_serving(device, SEED))
     phase_paged_parity(device, SEED)
+    runs.append(phase_hd_4bit(device, SEED, hd_batch, hd_blocks))
+    phase_4bit_parity(device, SEED)
+    runs.append(phase_paged_serving(device, SEED, w8a8=True))
+    phase_paged_parity(device, SEED, w8a8=True)
 
     meta = {
         "vit_attention": ("tokenpacker_tpu_torch/csrc/vit_attention.cu",
@@ -1644,11 +2133,17 @@ def main() -> None:
                                 "tokenpacker_tpu/ops/flash_attention.py:356"),
         "paged_attention": ("tokenpacker_tpu_torch/csrc/paged_attention.cu",
                             "tokenpacker_tpu/ops/paged_attention.py:127"),
+        "q4_matmul": ("tokenpacker_tpu_torch/csrc/q4_matmul.cu",
+                      "tokenpacker_tpu/ops/q4_matmul.py:132"),
+        "s8_matmul": ("tokenpacker_tpu_torch/csrc/s8_matmul.cu",
+                      "tokenpacker_tpu/ops/q8_matmul.py:59"),
+        "s8_gemm": ("tokenpacker_tpu_torch/csrc/s8_gemm.cu", "tokenpacker_tpu/ops/s8_gemm.py:108"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
-        # launches: summed over the four main-path runs (phases 4, 6, 8 and
-        # 10), each counted from 0 just before its run and read just after
+        # launches: summed over the six main-path runs (phases 4, 6, 8, 10,
+        # 12 and 14), each counted from 0 just before its run and read just
+        # after
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(r.get(name, 0) for r in runs), **rows[name]})
     print(json.dumps({"kernels": kernels}))

@@ -11,14 +11,20 @@ kernel; the others cover ragged lengths and groupings at the path's head
 sizes (d=64 for the tower, d=128 for the LM), the only ones the kernels
 take. K4 (the fused int8 decode step) runs at smaller widths than
 Vicuna-7B's with the same head size; `chip_smoke.py` runs it at full
-width. K5 (paged attention) runs at the paged serving path's shapes.
+width. K5 (paged attention) runs at the paged serving path's shapes. K6
+(4-bit GEMV), K7 (int8 GEMV) and K8 (w8a8 GEMM) run at Vicuna-7B's and
+CLIP-L's product shapes and at ragged row counts.
 
 Outputs are held by block measures that do not scale with the tensor's
 largest value: the relative RMS difference of every (sample, 64-row
 tile, head) block (K1, K2) or of every (sample, head) row (K3, K4, K5).
 Each check also shows that it fails an output that lost something: K1's
 with its last tile zeroed, and the plain version of K3, K4 and K5 run
-with the last valid range or page dropped.
+with the last valid range or page dropped. K6 is held per (row, 128-wide
+output slice), and its plain version without the last 64 rows of the
+weight must fail that; K7's int32 output and K8's int8 rows and int32
+sums are held bit for bit (K8's bf16 output within one bf16 step), and
+the product without the last 128 rows must differ.
 """
 
 import pytest
@@ -37,7 +43,12 @@ from tokenpacker_tpu_torch.ops.flash_attention import (
     flash_attention_plain,
 )
 from tokenpacker_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
+from tokenpacker_tpu_torch.ops import layers
 from tokenpacker_tpu_torch.ops.paged_attention import paged_attention, paged_attention_plain
+from tokenpacker_tpu_torch.ops.q4_matmul import q4_matmul, q4_matmul_plain
+from tokenpacker_tpu_torch.ops.q8_matmul import s8_matmul, s8_matmul_plain, w8a8_matmul
+from tokenpacker_tpu_torch.ops.quantize import quantize_4bit, quantize_int8
+from tokenpacker_tpu_torch.ops.s8_gemm import s8_gemm, s8_gemm_plain, w8a8_gemm
 from tokenpacker_tpu_torch.ops.vit_attention import vit_attention, vit_attention_plain
 
 # bf16 on the card: the kernels round the probabilities (as product
@@ -471,3 +482,126 @@ def test_paged_attention_rejects_what_it_does_not_take(cuda):
         paged_attention(q, k.to(torch.int8), v.to(torch.int8), table, lens)
     with pytest.raises(ValueError, match="shapes"):
         paged_attention(q, k, v, table[:1], lens)
+
+
+# ---- K6, K7, K8: the quantized products -----------------------------------------
+
+
+def _slices_rel(got, want):
+    """||got - want|| / ||want|| of every (row, 128-wide output slice) of
+    [M, N] outputs (`_rows_rel` over [M, N / 128, 128])."""
+    m, n = want.shape
+    return _rows_rel(got.reshape(m, n // 128, 128), want.reshape(m, n // 128, 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant_type", ["nf4", "int4"])
+@pytest.mark.parametrize("m,k,n", [(4, 4096, 12288), (1, 4096, 4096), (32, 11008, 4096),
+                                   (3, 1024, 640), (17, 512, 1024), (8, 4096, 32000)])
+def test_q4_matmul_kernel_matches_plain(cuda, quant_type, m, k, n):
+    """Per (row, 128-wide slice) within BLOCK_REL_RMS; the plain version
+    without the weight's last 64 rows must fail that. Two calls give the
+    same bits."""
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+    w = torch.randn((k, n), generator=g, device=cuda) * 0.02
+    leaf = quantize_4bit(w, 64, quant_type)
+    x = torch.randn((m, k), generator=g, device=cuda).bfloat16()
+    got, again = q4_matmul(x, leaf), q4_matmul(x, leaf)
+    want = q4_matmul_plain(x, leaf)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and got.dtype == torch.bfloat16
+    lost_x = x.clone()
+    lost_x[:, -64:] = 0
+    assert torch.isfinite(got.float()).all()
+    assert _slices_rel(got, want).max().item() <= BLOCK_REL_RMS
+    assert _slices_rel(q4_matmul_plain(lost_x, leaf), want).max().item() > BLOCK_REL_RMS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 12288), (64, 11008, 4096), (1, 4096, 32000),
+                                   (5, 96, 48), (17, 1024, 1040), (40, 4096, 22016)])
+def test_s8_matmul_kernel_bit_equal_plain(cuda, m, k, n):
+    """int32 output bit-equal to the plain (float64) product; the product
+    without the last 128 rows (or 32 for k < 256) must differ."""
+    g = torch.Generator(device=cuda).manual_seed(m + n)
+    xq = torch.randint(-127, 128, (m, k), generator=g, device=cuda, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (k, n), generator=g, device=cuda, dtype=torch.int8)
+    got = s8_matmul(xq, wq)
+    want = s8_matmul_plain(xq, wq)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    cut = 128 if k >= 256 else 32
+    lost = s8_matmul_plain(xq[:, :-cut], wq[:-cut])
+    assert not torch.equal(lost, want)
+
+
+def _bf16_steps(got, want):
+    """How many bf16 steps apart two bf16 tensors are, element by element
+    (signs equal or both zero on the serving values)."""
+    return (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(256, 4096, 12288), (300, 1024, 4096), (2048, 11008, 4096),
+                                   (577 * 3, 1024, 1024), (129, 4096, 128)])
+def test_s8_gemm_kernel_matches_plain(cuda, m, k, n):
+    """The kernel's int8 rows, their scales and its int32 sums bit-equal to
+    the plain version's, the bf16 output within one bf16 step; the sums
+    without the last 128 rows must differ."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=g, device=cuda).bfloat16()
+    x[3] *= 50
+    wq, scale = quantize_int8(torch.randn((k, n), generator=g, device=cuda) * 0.02)
+    y, xq, ax, acc = s8_gemm(x, wq, scale, parts=True)
+    py, pxq, pax, pacc = s8_gemm_plain(x, wq, scale, parts=True)
+    torch.cuda.synchronize()
+    assert torch.equal(ax, pax), (ax - pax).abs().max().item()
+    assert torch.equal(xq, pxq), int((xq != pxq).sum())
+    assert torch.equal(acc, pacc)
+    assert _bf16_steps(y, py).max().item() <= 1
+    assert torch.equal(s8_gemm(x, wq, scale), y)
+    assert not torch.equal(s8_matmul_plain(pxq[:, :-128], wq[:-128]), pacc)
+
+
+@pytest.mark.cuda
+def test_quantized_linear_routes_on_the_card(cuda):
+    """`linear` launches K6 for M <= 32 rows of a 4-bit leaf and K7 / K8 in
+    the w8a8 mode; M = 33 (4-bit) and M = 100 (w8a8) launch none."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    w = torch.randn((1024, 2048), generator=g, device=cuda) * 0.02
+    q, scale = quantize_int8(w)
+    p4, p8 = {"kernel": quantize_4bit(w)}, {"kernel": {"q": q, "scale": scale}}
+    counts = (q4_matmul, s8_matmul, s8_gemm)
+    for fn in counts:
+        fn.launches = 0
+    for rows, p, w8a8, want in ((32, p4, False, (1, 0, 0)), (33, p4, False, (1, 0, 0)),
+                                (8, p8, True, (1, 1, 0)), (100, p8, True, (1, 1, 0)),
+                                (256, p8, True, (1, 1, 1)), (8, p8, False, (1, 1, 1))):
+        x = torch.randn((rows, 1024), generator=g, device=cuda).bfloat16()
+        y = layers.linear(p, x, w8a8)
+        assert y.shape == (rows, 2048) and torch.isfinite(y.float()).all()
+        assert tuple(fn.launches for fn in counts) == want, (rows, w8a8)
+    x = torch.randn((3, 1024), generator=g, device=cuda).bfloat16()
+    torch.testing.assert_close(w8a8_matmul(x, p8["kernel"]).float(),
+                               (x.float() @ w).float(), rtol=0.05, atol=0.05)
+    x = torch.randn((256, 1024), generator=g, device=cuda).bfloat16()
+    torch.testing.assert_close(w8a8_gemm(x, p8["kernel"]).float(),
+                               (x.float() @ w).float(), rtol=0.05, atol=0.05)
+
+
+@pytest.mark.cuda
+def test_quantized_products_reject_what_the_kernels_do_not_take(cuda):
+    w = torch.randn((256, 200), device=cuda)
+    x = torch.randn((2, 256), device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="N % 16"):
+        q4_matmul(x, quantize_4bit(w[:, :200]))
+    with pytest.raises(ValueError, match="blocks of 64"):
+        q4_matmul(x, quantize_4bit(w[:, :192], block=128))
+    with pytest.raises(ValueError, match="bfloat16"):
+        q4_matmul(x.float(), quantize_4bit(w[:, :192]))
+    xq = torch.zeros((2, 80), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="K % 32"):
+        s8_matmul(xq, torch.zeros((80, 64), dtype=torch.int8, device=cuda))
+    q, scale = quantize_int8(w[:, :192])
+    with pytest.raises(ValueError, match="multiples of 128"):
+        s8_gemm(torch.zeros((256, 256), dtype=torch.bfloat16, device=cuda), q, scale)

@@ -206,9 +206,12 @@ def test_unported_lm_options_raise():
     mpt = dataclasses.replace(cfg.lm, model_family="mpt")
     with pytest.raises(NotImplementedError, match="MPT"):
         lm_apply({}, mpt, torch.zeros(1, 1, 64), torch.zeros(1, 1))
-    four_bit = {"layers": [], "lm_head": {"kernel": {"q4:nf4": torch.zeros(1)}}}
-    with pytest.raises(NotImplementedError, match="4-bit"):
-        llama.llama_logits(four_bit, torch.zeros(1, 64))
+    lora = {"layers": [], "lm_head": {"kernel": {"q": torch.zeros((64, 8), dtype=torch.int8),
+                                                 "scale": torch.ones((1, 8)),
+                                                 "lora_a": torch.zeros((64, 2)),
+                                                 "lora_b": torch.zeros((2, 8))}}}
+    with pytest.raises(NotImplementedError, match="train/lora"):
+        llama.llama_logits(lora, torch.zeros(1, 64))
 
 
 # ---- models/splice -----------------------------------------------------------
@@ -345,7 +348,9 @@ def test_port_imports_no_jax():
         "tokenpacker_tpu_torch.image.io, tokenpacker_tpu_torch.io.hf_import, "
         "tokenpacker_tpu_torch.train.step, tokenpacker_tpu_torch.train.trainer, "
         "tokenpacker_tpu_torch.ops.paged_attention, tokenpacker_tpu_torch.ops.paged_kv, "
-        "tokenpacker_tpu_torch.serve.prefix_cache, tokenpacker_tpu_torch.serve.scheduler; "
+        "tokenpacker_tpu_torch.serve.prefix_cache, tokenpacker_tpu_torch.serve.scheduler, "
+        "tokenpacker_tpu_torch.ops.q4_matmul, tokenpacker_tpu_torch.ops.q8_matmul, "
+        "tokenpacker_tpu_torch.ops.s8_gemm; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'tokenpacker_tpu')]; "
         "assert not bad, bad"
     )

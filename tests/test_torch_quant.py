@@ -125,8 +125,14 @@ def test_int8_linear_matches_jax():
     x = _randn((3, 5, 64), 5)
     got = layers.linear(to_tensors(leaf), torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(jax_layers.linear(leaf, x)), **TOL)
-    with pytest.raises(NotImplementedError, match="4-bit"):
-        layers.linear({"kernel": {"q4:nf4": torch.zeros(1)}}, torch.zeros(1, 64))
+    # a 4-bit leaf goes through linear as JAX's does (4-bit parity in
+    # tests/test_torch_q4.py); a leaf of another form raises
+    q4 = jax_quant.quantize_4bit(jnp.asarray(w), 64, "nf4")
+    leaf4 = {"kernel": {k: np.asarray(v) for k, v in q4.items()}, "bias": leaf["bias"]}
+    got = layers.linear(to_tensors(leaf4), torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_layers.linear(leaf4, x)), **TOL)
+    with pytest.raises(NotImplementedError, match="not a ported leaf"):
+        layers.linear({"kernel": {"qp": torch.zeros(1)}}, torch.zeros(1, 64))
 
 
 @pytest.mark.parametrize("kv_heads", [None, 2])

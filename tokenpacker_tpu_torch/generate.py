@@ -16,6 +16,10 @@ reads TOKENPACKER_KV_CACHE. A decode step goes through K4
 (`_decode_step_fused`) whenever `fused_eligible` holds for the tree (the
 int8 fused layout of `io/weights.quantize_lm_int8`), where the JAX
 package also reads TOKENPACKER_FUSED_DECODE and the TPU's cache gates.
+A 4-bit tree (`io/weights.quantize_lm_4bit`) decodes per layer, each
+product through K6. The w8a8 mode of the int8 products is the explicit
+`w8a8` (the JAX package reads TOKENPACKER_W8A8): prefill's products take
+K8, the LM head of a step K7; K4's step is unchanged by it.
 
 This slice is greedy only: sampling, penalties, beams and speculation
 raise NotImplementedError.
@@ -71,10 +75,11 @@ def device_batch(batch: dict, dtype: torch.dtype, device: torch.device | str) ->
 
 
 def prefill(params, cfg: TokenPackerVLMConfig, batch: dict, s_max: int,
-            kv_cache_dtype: torch.dtype | None = None):
+            kv_cache_dtype: torch.dtype | None = None, w8a8: bool = False):
     """batch: device tensors from `device_batch`. kv_cache_dtype: the cache
-    storage, cfg.dtype by default or torch.int8. Returns (next-token logits
-    [N, V], cache) with the prompt's keys in cache slots [0, L)."""
+    storage, cfg.dtype by default or torch.int8; w8a8: `ops/layers.linear`'s
+    w8a8 mode. Returns (next-token logits [N, V], cache) with the prompt's
+    keys in cache slots [0, L)."""
     dtype = kv_cache_dtype or cfg.dtype
     tile = cache_len_tile(dtype)
     s_max = -(-s_max // tile) * tile
@@ -82,15 +87,16 @@ def prefill(params, cfg: TokenPackerVLMConfig, batch: dict, s_max: int,
     device = batch["token_ids"].device
     cache = KVCache.create(cfg.lm, n, s_max, dtype=dtype, device=device)
     positions = torch.arange(l, device=device).expand(n, l)
-    hidden = vlm_hidden(params, cfg, {**batch, "positions": positions}, cache)
+    hidden = vlm_hidden(params, cfg, {**batch, "positions": positions}, cache, w8a8=w8a8)
     idx = (batch["lengths"].long() - 1).clamp(min=0)
     last = hidden[torch.arange(n, device=device), idx]
-    return lm_logits(params["lm"], cfg.lm, last), cache
+    return lm_logits(params["lm"], cfg.lm, last, w8a8), cache
 
 
 def prefill_chunk(params, cfg: TokenPackerVLMConfig, cache: KVCache, visual: torch.Tensor,
                   token_ids: torch.Tensor, is_image: torch.Tensor, image_slot: torch.Tensor,
-                  offset: int, chunk_len: int, kv_cache_dtype: torch.dtype | None = None):
+                  offset: int, chunk_len: int, kv_cache_dtype: torch.dtype | None = None,
+                  w8a8: bool = False):
     """One chunk of an incremental batch-1 prefill (chunked admission and
     prefix-cache suffixes in `serve/scheduler`).
 
@@ -114,7 +120,7 @@ def prefill_chunk(params, cfg: TokenPackerVLMConfig, cache: KVCache, visual: tor
     key_valid = torch.arange(s_max, device=device)[None, :] < offset + chunk_len
     bias = make_attention_bias(positions, key_valid)
     cache.length = offset
-    hidden = lm_apply(params["lm"], cfg.lm, embeds, positions, cache, attn_bias=bias)
+    hidden = lm_apply(params["lm"], cfg.lm, embeds, positions, cache, attn_bias=bias, w8a8=w8a8)
     return hidden, cache
 
 
@@ -129,7 +135,7 @@ def fused_weights(params, cfg: TokenPackerVLMConfig) -> FusedWeights | bool:
 
 
 def _decode_step_fused(params, cfg: TokenPackerVLMConfig, cache: KVCache, tokens, lengths,
-                       step: int, prefill_len: int, weights):
+                       step: int, prefill_len: int, weights, w8a8: bool = False):
     """decode_step on K4: the attendable ranges are the prompt [0, lengths_i)
     and the decoded span [prefill_len, prefill_len + step); the current
     token is attended in the kernel, which writes its row at slot
@@ -144,30 +150,34 @@ def _decode_step_fused(params, cfg: TokenPackerVLMConfig, cache: KVCache, tokens
         weights=weights if isinstance(weights, FusedWeights) else None,
     )
     cache.length = prefill_len + step + 1
-    return lm_logits(lm, cfg.lm, rms_norm(lm["norm"], hidden, cfg.lm.rms_norm_eps)), cache
+    return lm_logits(lm, cfg.lm, rms_norm(lm["norm"], hidden, cfg.lm.rms_norm_eps), w8a8), cache
 
 
 def decode_step(params, cfg: TokenPackerVLMConfig, cache: KVCache, tokens: torch.Tensor,
-                lengths: torch.Tensor, step: int, prefill_len: int, fused=None):
+                lengths: torch.Tensor, step: int, prefill_len: int, fused=None,
+                w8a8: bool = False):
     """One token for every sample: tokens [N] go in at cache slot
     prefill_len + step, at query position lengths + step. Writes the cache
     in place; returns (logits [N, V], cache).
 
     fused: what `fused_weights` returned for these params (Generator
     computes it once); None decides here. Eligible trees go through K4,
-    the others through the per-layer path (K3)."""
+    the others through the per-layer path (K3). w8a8: `ops/layers.linear`'s
+    w8a8 mode for the int8 products outside K4."""
     if fused is None:
         fused = fused_weights(params, cfg)
     if fused:
-        return _decode_step_fused(params, cfg, cache, tokens, lengths, step, prefill_len, fused)
+        return _decode_step_fused(params, cfg, cache, tokens, lengths, step, prefill_len, fused,
+                                  w8a8)
     positions = (lengths.long() + step)[:, None]
     emb = lm_embed(params["lm"], cfg.lm, tokens[:, None])
     cache.length = prefill_len + step
     needed = torch.full_like(lengths, prefill_len + step + 1)
     hidden = lm_apply(
-        params["lm"], cfg.lm, emb, positions, cache, decode_info=(lengths, needed, prefill_len)
+        params["lm"], cfg.lm, emb, positions, cache, decode_info=(lengths, needed, prefill_len),
+        w8a8=w8a8,
     )
-    return lm_logits(params["lm"], cfg.lm, hidden[:, 0]), cache
+    return lm_logits(params["lm"], cfg.lm, hidden[:, 0], w8a8), cache
 
 
 @dataclass
@@ -182,14 +192,16 @@ class GenerationResult:
 
 class Generator:
     """Greedy generation over the port's parameters (on one device).
-    kv_cache_dtype: the cache storage, cfg.dtype by default or torch.int8."""
+    kv_cache_dtype: the cache storage, cfg.dtype by default or torch.int8;
+    w8a8: `ops/layers.linear`'s w8a8 mode for the int8 products."""
 
     def __init__(self, params, cfg: TokenPackerVLMConfig, tokenizer=None,
-                 kv_cache_dtype: torch.dtype | None = None):
+                 kv_cache_dtype: torch.dtype | None = None, w8a8: bool = False):
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.kv_cache_dtype = kv_cache_dtype
+        self.w8a8 = w8a8
         self.device = params["lm"]["embed"].device
         self.fused = fused_weights(params, cfg)
 
@@ -234,7 +246,8 @@ class Generator:
         n, l = batch["token_ids"].shape
         t0 = time.perf_counter()
         dev = device_batch(batch, cfg.dtype, self.device)
-        logits, cache = prefill(self.params, cfg, dev, l + max_new_tokens, self.kv_cache_dtype)
+        logits, cache = prefill(self.params, cfg, dev, l + max_new_tokens, self.kv_cache_dtype,
+                                self.w8a8)
         lengths = dev["lengths"]
         eos = cfg.lm.eos_token_id
         done = np.zeros(n, dtype=bool)
@@ -267,7 +280,8 @@ class Generator:
             toks = []
             for i in range(chunk):
                 logits, cache = decode_step(
-                    self.params, cfg, cache, tok, lengths, produced - 1 + i, l, self.fused
+                    self.params, cfg, cache, tok, lengths, produced - 1 + i, l, self.fused,
+                    self.w8a8,
                 )
                 tok = logits.argmax(dim=-1)
                 toks.append(tok)

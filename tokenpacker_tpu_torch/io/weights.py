@@ -7,7 +7,9 @@ transposed. The JAX package stacks each tower's and the LM's layers on a
 leading axis; here `"layers"` is a list with one dict per layer.
 `patch_embed.kernel` is the `[3*p*p, W]` conv-flatten matmul of
 `clip_vit.patchify`, in both packages. An int8 kernel is the leaf
-{"q": int8 [in, out], "scale": f32 [1, out]} of `ops/quantize` in both.
+{"q": int8 [in, out], "scale": f32 [1, out]} of `ops/quantize` in both,
+a 4-bit one {"q4:<type>:<block>": uint8 [in/2, out], "absmax": f32
+[in/block, out]}.
 """
 
 from __future__ import annotations
@@ -16,7 +18,13 @@ import numpy as np
 import torch
 
 from tokenpacker_tpu_torch.config import TokenPackerVLMConfig
-from tokenpacker_tpu_torch.ops.quantize import fuse_llama_layers, is_qleaf, quantize_tree
+from tokenpacker_tpu_torch.ops.quantize import (
+    fuse_llama_layers,
+    is_q4leaf,
+    is_qleaf,
+    quantize_tree,
+    quantize_tree_4bit,
+)
 
 
 def to_tensors(node):
@@ -100,9 +108,10 @@ def paged_to_jax(paged) -> tuple:
 
 def params_to(params, device: torch.device | str, dtype: torch.dtype):
     """A copy of the parameters on `device`, floating-point tensors cast to
-    `dtype`, except the f32 scales of int8 kernels (int8 stays int8)."""
-    if is_qleaf(params):
-        return {"q": params["q"].to(device), "scale": params["scale"].to(device)}
+    `dtype`, except inside quantized kernels: the int8 and uint8 codes and
+    their f32 scales keep their dtypes."""
+    if is_qleaf(params) or is_q4leaf(params):
+        return {k: v.to(device) for k, v in params.items()}
     if isinstance(params, dict):
         return {k: params_to(v, device, dtype) for k, v in params.items()}
     if isinstance(params, list):
@@ -112,20 +121,35 @@ def params_to(params, device: torch.device | str, dtype: torch.dtype):
     return params.to(device=device, dtype=dtype if params.is_floating_point() else None)
 
 
-def quantize_lm_int8(params, min_size: int = 1 << 16):
-    """The `load_8bit` serving form of the LM, in place: fuse q/k/v and
-    gate/up, then quantize every kernel of at least `min_size` elements
-    (counted over all layers, as the JAX package counts its stacked
-    leaves) to int8 {q, scale}. The layers are replaced one by one, so on
-    the card the bf16 and the int8 LM never coexist whole (once the caller
+def _quantize_lm(params, quantize, min_size: int):
+    """Fuse q/k/v and gate/up, then `quantize(tree, min_size)` the LM, in
+    place, layer by layer (the layer threshold is min_size over the layer
+    count, as the JAX package counts its stacked leaves), so on the card
+    the bf16 and the quantized LM never coexist whole (once the caller
     holds no other reference to the bf16 layers). Returns `params`."""
     lm = params["lm"]
     layers = lm["layers"]
     per_layer = -(-min_size // len(layers))
     for i, layer in enumerate(layers):
-        layers[i] = quantize_tree(fuse_llama_layers({"layers": [layer]}), per_layer)["layers"][0]
-    lm.update(quantize_tree({k: v for k, v in lm.items() if k != "layers"}, min_size))
+        layers[i] = quantize(fuse_llama_layers({"layers": [layer]}), per_layer)["layers"][0]
+    lm.update(quantize({k: v for k, v in lm.items() if k != "layers"}, min_size))
     return params
+
+
+def quantize_lm_int8(params, min_size: int = 1 << 16):
+    """The `load_8bit` serving form of the LM, in place: every kernel of at
+    least `min_size` elements (counted over all layers) becomes int8
+    {q, scale} (`_quantize_lm`). Returns `params`."""
+    return _quantize_lm(params, quantize_tree, min_size)
+
+
+def quantize_lm_4bit(params, quant_type: str = "nf4", min_size: int = 1 << 16):
+    """The `load_4bit` serving form of the LM (the JAX `api.py` slot), in
+    place: every kernel of at least `min_size` elements (counted over all
+    layers) whose in dim divides by 64 becomes a 4-bit leaf (nf4 or int4,
+    blocks of 64; `_quantize_lm`). Returns `params`."""
+    return _quantize_lm(params, lambda tree, size: quantize_tree_4bit(tree, quant_type,
+                                                                      min_size=size), min_size)
 
 
 def _normal_fn(seed: int, device, dtype):

@@ -4,6 +4,10 @@ HF `CLIPVisionModel` semantics: patch embed as a matmul over HF's conv
 flatten order (no bias), CLS + learned positions, pre-LayerNorm, pre-LN
 blocks with quick-GELU MLPs. Attention runs on K1 (`ops/vit_attention`).
 The tower is frozen, so this is inference only.
+
+`quantize_tower_int8` makes the blocks' products int8 {q, scale} leaves;
+with `w8a8` their batched products (M = views x 577 rows) then route to
+K8 (`ops/layers.linear`), where the JAX package reads TOKENPACKER_W8A8.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ import torch
 
 from tokenpacker_tpu_torch.config import VisionConfig
 from tokenpacker_tpu_torch.ops.layers import layer_norm, linear, quick_gelu
+from tokenpacker_tpu_torch.ops.quantize import quantize_int8
 from tokenpacker_tpu_torch.ops.vit_attention import vit_attention
 
 
@@ -25,17 +30,34 @@ def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
     return x.reshape(n, gh * gw, c * patch_size * patch_size)
 
 
-def _attn(p, x: torch.Tensor, num_heads: int) -> torch.Tensor:
-    q = linear(p["q"], x)
-    k = linear(p["k"], x)
-    v = linear(p["v"], x)
-    return linear(p["o"], vit_attention(q, k, v, num_heads))
+def quantize_tower_int8(params):
+    """int8-quantize the blocks' products (attn q/k/v/o, mlp fc1/fc2) per
+    out channel; embeddings, LayerNorms and biases stay dense. Returns a
+    new tree that shares the untouched tensors."""
+
+    def quant_leaf(leaf):
+        q, scale = quantize_int8(leaf["kernel"])
+        return {**leaf, "kernel": {"q": q, "scale": scale}}
+
+    layers = [{**layer,
+               "attn": {name: quant_leaf(layer["attn"][name]) for name in ("q", "k", "v", "o")},
+               "mlp": {name: quant_leaf(layer["mlp"][name]) for name in ("fc1", "fc2")}}
+              for layer in params["layers"]]
+    return {**params, "layers": layers}
 
 
-def _block(p, x: torch.Tensor, cfg: VisionConfig) -> torch.Tensor:
-    x = x + _attn(p["attn"], layer_norm(p["ln1"], x, cfg.layer_norm_eps), cfg.num_attention_heads)
+def _attn(p, x: torch.Tensor, num_heads: int, w8a8: bool = False) -> torch.Tensor:
+    q = linear(p["q"], x, w8a8)
+    k = linear(p["k"], x, w8a8)
+    v = linear(p["v"], x, w8a8)
+    return linear(p["o"], vit_attention(q, k, v, num_heads), w8a8)
+
+
+def _block(p, x: torch.Tensor, cfg: VisionConfig, w8a8: bool = False) -> torch.Tensor:
+    x = x + _attn(p["attn"], layer_norm(p["ln1"], x, cfg.layer_norm_eps), cfg.num_attention_heads,
+                  w8a8)
     h = layer_norm(p["ln2"], x, cfg.layer_norm_eps)
-    h = linear(p["mlp"]["fc2"], quick_gelu(linear(p["mlp"]["fc1"], h)))
+    h = linear(p["mlp"]["fc2"], quick_gelu(linear(p["mlp"]["fc1"], h, w8a8)), w8a8)
     return x + h
 
 
@@ -47,7 +69,7 @@ def _embed(params, cfg: VisionConfig, images: torch.Tensor) -> torch.Tensor:
     return layer_norm(params["pre_ln"], x, cfg.layer_norm_eps)
 
 
-def clip_tower_features(params, cfg: VisionConfig, images: torch.Tensor):
+def clip_tower_features(params, cfg: VisionConfig, images: torch.Tensor, w8a8: bool = False):
     """(features [N, P, W] at select_layer, multi-level concat [N, P, 4W]),
     P = patches (CLS dropped when select_feature == "patch").
 
@@ -60,7 +82,7 @@ def clip_tower_features(params, cfg: VisionConfig, images: torch.Tensor):
     x = _embed(params, cfg, images)
     outputs = {0: x} if 0 in needed else {}
     for i in range(max(needed)):
-        x = _block(params["layers"][i], x, cfg)
+        x = _block(params["layers"][i], x, cfg, w8a8)
         if i + 1 in needed:
             outputs[i + 1] = x
 

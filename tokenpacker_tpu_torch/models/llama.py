@@ -97,25 +97,25 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return x * c + rotated * s
 
 
-def qkv_proj(p_attn, cfg: LMConfig, h: torch.Tensor):
+def qkv_proj(p_attn, cfg: LMConfig, h: torch.Tensor, w8a8: bool = False):
     """h [N, T, D] -> q [N, T, H, d], k/v [N, T, Hkv, d], from the unfused
     q/k/v layout or the fused `qkv` one."""
     n, t, _ = h.shape
     heads = (cfg.num_attention_heads, cfg.kv_heads, cfg.kv_heads)
     if "qkv" in p_attn:
-        parts = linear(p_attn["qkv"], h).split([x * cfg.head_dim for x in heads], dim=-1)
+        parts = linear(p_attn["qkv"], h, w8a8).split([x * cfg.head_dim for x in heads], dim=-1)
     else:
-        parts = [linear(p_attn[name], h) for name in ("q", "k", "v")]
+        parts = [linear(p_attn[name], h, w8a8) for name in ("q", "k", "v")]
     return tuple(x.reshape(n, t, hh, cfg.head_dim) for x, hh in zip(parts, heads))
 
 
-def mlp_block(p_mlp, cfg: LMConfig, h: torch.Tensor) -> torch.Tensor:
+def mlp_block(p_mlp, cfg: LMConfig, h: torch.Tensor, w8a8: bool = False) -> torch.Tensor:
     """SwiGLU MLP, gate/up or the fused `gateup` layout."""
     if "gateup" in p_mlp:
-        gate, up = linear(p_mlp["gateup"], h).split(cfg.intermediate_size, dim=-1)
+        gate, up = linear(p_mlp["gateup"], h, w8a8).split(cfg.intermediate_size, dim=-1)
     else:
-        gate, up = linear(p_mlp["gate"], h), linear(p_mlp["up"], h)
-    return linear(p_mlp["down"], silu(gate) * up)
+        gate, up = linear(p_mlp["gate"], h, w8a8), linear(p_mlp["up"], h, w8a8)
+    return linear(p_mlp["down"], silu(gate) * up, w8a8)
 
 
 def make_attention_bias(positions: torch.Tensor, key_valid: torch.Tensor) -> torch.Tensor:
@@ -143,10 +143,10 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor) 
 
 
 def _layer(p, cfg: LMConfig, x, cos, sin, cache: KVCache | None, layer: int,
-           decode_info=None, attn_bias=None):
+           decode_info=None, attn_bias=None, w8a8: bool = False):
     h = rms_norm(p["input_ln"], x, cfg.rms_norm_eps)
     n, t, _ = h.shape
-    q, k, v = qkv_proj(p["attn"], cfg, h)
+    q, k, v = qkv_proj(p["attn"], cfg, h, w8a8)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if cache is not None:
@@ -177,9 +177,9 @@ def _layer(p, cfg: LMConfig, x, cos, sin, cache: KVCache | None, layer: int,
             ck = dequantize_kv(ck, cache.k_scale[layer], q.dtype)
             cv = dequantize_kv(cv, cache.v_scale[layer], q.dtype)
         attn = decode_attention(q[:, 0].contiguous(), ck, cv, lengths, needed, span_start)[:, None]
-    x = x + linear(p["attn"]["o"], attn.reshape(n, t, -1))
+    x = x + linear(p["attn"]["o"], attn.reshape(n, t, -1), w8a8)
     h = rms_norm(p["post_ln"], x, cfg.rms_norm_eps)
-    return x + mlp_block(p["mlp"], cfg, h)
+    return x + mlp_block(p["mlp"], cfg, h, w8a8)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -206,7 +206,8 @@ def remat_layers(remat: str, n_layers: int) -> list[str]:
 
 def llama_apply(params, cfg: LMConfig, inputs_embeds: torch.Tensor,
                 positions: torch.Tensor, cache: KVCache | None = None,
-                decode_info=None, remat: str = "", attn_bias: torch.Tensor | None = None):
+                decode_info=None, remat: str = "", attn_bias: torch.Tensor | None = None,
+                w8a8: bool = False):
     """Run the decoder stack over [N, T, D] embeddings at `positions`.
 
     With a cache, the new k/v rows are written at `cache.length` and the
@@ -214,8 +215,9 @@ def llama_apply(params, cfg: LMConfig, inputs_embeds: torch.Tensor,
     int32, span_start) is required for T == 1. attn_bias [N, 1, T, S]
     (`make_attention_bias`) sends T > 1 through `sdpa` over the whole
     cache instead of K2 over the current tokens. `remat` applies to the
-    cache-less path only (module docstring). Returns the final-norm
-    hidden states [N, T, D]."""
+    cache-less path only (module docstring). `w8a8`: `ops/layers.linear`'s
+    w8a8 mode for the int8 kernels. Returns the final-norm hidden states
+    [N, T, D]."""
     x = inputs_embeds
     # cast once here rather than in every layer's apply_rope (same values)
     cos, sin = (c.to(x.dtype) for c in rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta))
@@ -223,16 +225,17 @@ def llama_apply(params, cfg: LMConfig, inputs_embeds: torch.Tensor,
     for i, p in enumerate(params["layers"]):
         if cache is None and modes[i]:
             selective = {"context_fn": _dots_context} if modes[i] == "dots" else {}
-            x = checkpoint(_layer, p, cfg, x, cos, sin, None, i, use_reentrant=False, **selective)
+            x = checkpoint(_layer, p, cfg, x, cos, sin, None, i, None, None, w8a8,
+                           use_reentrant=False, **selective)
         else:
-            x = _layer(p, cfg, x, cos, sin, cache, i, decode_info, attn_bias)
+            x = _layer(p, cfg, x, cos, sin, cache, i, decode_info, attn_bias, w8a8)
     if cache is not None:
         cache.length += inputs_embeds.shape[1]
     return rms_norm(params["norm"], x, cfg.rms_norm_eps)
 
 
-def llama_logits(params, hidden: torch.Tensor) -> torch.Tensor:
-    return linear(params["lm_head"], hidden)
+def llama_logits(params, hidden: torch.Tensor, w8a8: bool = False) -> torch.Tensor:
+    return linear(params["lm_head"], hidden, w8a8)
 
 
 def embed_tokens(params, input_ids: torch.Tensor) -> torch.Tensor:

@@ -24,12 +24,12 @@ def lm_embed(params, cfg: LMConfig, input_ids):
 
 
 def lm_apply(params, cfg: LMConfig, inputs_embeds, positions, cache=None, decode_info=None,
-             remat: str = "", attn_bias=None):
+             remat: str = "", attn_bias=None, w8a8: bool = False):
     _require_llama(cfg)
     return _llama.llama_apply(params, cfg, inputs_embeds, positions, cache, decode_info, remat,
-                              attn_bias)
+                              attn_bias, w8a8)
 
 
-def lm_logits(params, cfg: LMConfig, hidden):
+def lm_logits(params, cfg: LMConfig, hidden, w8a8: bool = False):
     _require_llama(cfg)
-    return _llama.llama_logits(params, hidden)
+    return _llama.llama_logits(params, hidden, w8a8)

@@ -17,28 +17,30 @@ from tokenpacker_tpu_torch.models.splice import assemble_embeds
 from tokenpacker_tpu_torch.models.tokenpacker import tokenpacker_forward
 
 
-def encode_images(params, cfg: TokenPackerVLMConfig, images: torch.Tensor) -> torch.Tensor:
+def encode_images(params, cfg: TokenPackerVLMConfig, images: torch.Tensor,
+                  w8a8: bool = False) -> torch.Tensor:
     """images [views, H, W, 3] normalized -> [views, tokens_per_view, lm_hidden].
     The tower is frozen in every recipe, so it runs without autograd (the
-    JAX package's stop_gradient)."""
+    JAX package's stop_gradient). `w8a8`: the tower's int8 products (after
+    `clip_vit.quantize_tower_int8`) in the w8a8 mode."""
     with torch.no_grad():
-        feats, multi = clip_tower_features(params["vision"], cfg.vision, images)
+        feats, multi = clip_tower_features(params["vision"], cfg.vision, images, w8a8)
     return tokenpacker_forward(params["projector"], cfg.projector, feats, multi)
 
 
 def vlm_hidden(params, cfg: TokenPackerVLMConfig, batch: dict,
-               cache: KVCache | None = None, remat: str = "") -> torch.Tensor:
+               cache: KVCache | None = None, remat: str = "", w8a8: bool = False) -> torch.Tensor:
     """Splice + decoder over a batch of device tensors: images [views, H, W,
     3] or None, token_ids / is_image / image_slot / positions [N, L].
 
     Batches must be right-padded (as build_splice_plan makes them): the
     prefill attention is causal over the current tokens, so pad keys are
     never seen by a valid query. `remat`: `llama_apply`'s per-layer
-    rematerialization of the cache-less path. Returns the final-norm
-    hidden [N, L, D]."""
+    rematerialization of the cache-less path; `w8a8`: `ops/layers.linear`'s
+    w8a8 mode for the int8 products. Returns the final-norm hidden [N, L, D]."""
     lm = params["lm"]
     if batch.get("images") is not None:
-        visual = encode_images(params, cfg, batch["images"])
+        visual = encode_images(params, cfg, batch["images"], w8a8)
     else:
         visual = torch.zeros(
             (1, cfg.tokens_per_view, cfg.lm.hidden_size), dtype=lm["embed"].dtype,
@@ -47,7 +49,7 @@ def vlm_hidden(params, cfg: TokenPackerVLMConfig, batch: dict,
     embeds = assemble_embeds(
         lm, visual, batch["token_ids"], batch["is_image"], batch["image_slot"], cfg.lm
     )
-    return lm_apply(lm, cfg.lm, embeds, batch["positions"], cache, remat=remat)
+    return lm_apply(lm, cfg.lm, embeds, batch["positions"], cache, remat=remat, w8a8=w8a8)
 
 
 def vlm_loss(params, cfg: TokenPackerVLMConfig, batch: dict, remat: str = ""):

@@ -11,7 +11,8 @@ Pointers and the stream are passed as `ctypes.c_void_p`; every entry
 point returns 0, a `cudaError_t` code from `cudaGetLastError()` right
 after the launch, or -1 for a shape the kernel does not take, and
 `check` turns anything but 0 into an exception. The flags leave IEEE
-division and square roots on (no fast math): K4's int8 rows depend on it.
+division and square roots on (no fast math): K4's int8 cache rows and
+K8's int8 activation rows depend on it.
 """
 
 from __future__ import annotations
@@ -54,6 +55,12 @@ SIGNATURES = {
     # v_scale, kv_int8, k_new, v_new, work, stream
     "tp_fused_decode": (ctypes.POINTER(_P), _I, _I, _I, _I, _I, _I, _I, _F, _F, _P,
                         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P),
+    # x, packed, absmax, out, work, m, k, n, nf4, stream
+    "tp_q4_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # xq, wq, out, m, k, n, stream
+    "tp_s8_matmul": (_P, _P, _P, _I, _I, _I, _P),
+    # x, wq, wscale, y, m, k, n, xq_out, ax_out, acc_out, stream
+    "tp_s8_gemm": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
 }
 
 
@@ -130,6 +137,8 @@ def library() -> ctypes.CDLL:
     lib.tp_error_string.restype = ctypes.c_char_p
     lib.tp_fused_decode_workspace.argtypes = (_I, _I, _I)
     lib.tp_fused_decode_workspace.restype = ctypes.c_longlong
+    lib.tp_q4_matmul_workspace.argtypes = (_I, _I, _I)
+    lib.tp_q4_matmul_workspace.restype = ctypes.c_longlong
     return lib
 
 

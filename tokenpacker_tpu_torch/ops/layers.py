@@ -12,22 +12,49 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tokenpacker_tpu_torch.ops.q4_matmul import q4_matmul
+from tokenpacker_tpu_torch.ops.q8_matmul import w8a8_matmul
+from tokenpacker_tpu_torch.ops.quantize import dequantize_4bit, is_q4leaf, is_qleaf
+from tokenpacker_tpu_torch.ops.s8_gemm import w8a8_gemm
 
-def linear(params, x: torch.Tensor) -> torch.Tensor:
-    """y = x @ kernel + bias. kernel: [in, out], or the int8 leaf {"q"
-    [in, out] int8, "scale" [1, out] f32} (`ops/quantize`); bias optional."""
+
+def linear(params, x: torch.Tensor, w8a8: bool = False) -> torch.Tensor:
+    """y = x @ kernel + bias. kernel: [in, out], the int8 leaf {"q" [in,
+    out] int8, "scale" [1, out] f32} or a 4-bit leaf (`ops/quantize`);
+    bias optional.
+
+    Quantized kernels route by M (the rows of x) as the JAX package routes
+    them on a TPU, on every device (on the CPU each kernel's wrapper runs
+    its plain version, so the CPU walks the card's route):
+    - 4-bit: K6 (`q4_matmul`) for M <= 32, else a dense product with the
+      dequantized weight;
+    - int8 with `w8a8` (the JAX package's TOKENPACKER_W8A8=1): K7
+      (`w8a8_matmul`) for M <= 64, K8 (`w8a8_gemm`) for M >= 256 with
+      in and out multiples of 128, else the weight-only product;
+    - int8: the weight-only product."""
     k = params["kernel"]
+    if params.get("slot_lora_a") is not None:
+        raise NotImplementedError("slot-LoRA terms come with serve/multi_lora")
     if isinstance(k, dict):
-        if set(k) != {"q", "scale"}:
-            raise NotImplementedError(
-                f"quantized kernel {sorted(k)}: only the int8 {{q, scale}} leaf is ported "
-                "(4-bit comes with K6)"
-            )
-        # The JAX package's default int8 branch, a plain product it leaves
-        # to XLA. On the card the cast makes a bf16 copy of the weight for
-        # each call (180 MB for Vicuna-7B's gateup); the decode step avoids
-        # it through K4 (ops/fused_decode), prefill pays it once per layer.
-        y = (x @ k["q"].to(x.dtype)) * k["scale"].squeeze(-2).to(x.dtype)
+        if "lora_a" in k:
+            raise NotImplementedError("LoRA over a quantized base comes with train/lora")
+        m = x.numel() // x.shape[-1]
+        if is_q4leaf(k):
+            y = q4_matmul(x, k) if m <= 32 else x @ dequantize_4bit(k, x.dtype)
+        elif not is_qleaf(k):
+            raise NotImplementedError(f"quantized kernel {sorted(k)}: not a ported leaf")
+        elif w8a8 and k["q"].dim() == 2 and m <= 64:
+            y = w8a8_matmul(x, k)
+        elif (w8a8 and k["q"].dim() == 2 and m >= 256 and x.shape[-1] % 128 == 0
+              and k["q"].shape[1] % 128 == 0):
+            y = w8a8_gemm(x, k)
+        else:
+            # The JAX package's default int8 branch, a plain product it
+            # leaves to XLA. On the card the cast makes a bf16 copy of the
+            # weight for each call (180 MB for Vicuna-7B's gateup); the
+            # decode step avoids it through K4 (ops/fused_decode) or, with
+            # w8a8, through K7.
+            y = (x @ k["q"].to(x.dtype)) * k["scale"].squeeze(-2).to(x.dtype)
     else:
         y = x @ k
     if params.get("bias") is not None:

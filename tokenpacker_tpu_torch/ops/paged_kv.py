@@ -17,7 +17,8 @@ copies): every function here mutates the `PagedKV` it is given and
 returns it. Decode attention is K5 (`ops/paged_attention`), which reads
 the pages through the table; on CPU tensors its plain version gathers
 them. The pool's storage dtype is an explicit argument of
-`PagedKV.create`, where the JAX package reads TOKENPACKER_KV_CACHE.
+`PagedKV.create`, where the JAX package reads TOKENPACKER_KV_CACHE, and
+the w8a8 mode of the int8 products the explicit `w8a8` (TOKENPACKER_W8A8).
 Speculation's `paged_verify_step` is not ported yet.
 """
 
@@ -112,7 +113,7 @@ class PageAllocator:
 
 
 def _paged_layer(p, cfg: LMConfig, x, cos, sin, paged: PagedKV, layer: int, cur_lens,
-                 write_page):
+                 write_page, w8a8: bool = False):
     """One decode layer over the pool. x [N, 1, D]; the new K/V row of
     sequence n goes to (write_page[n], cur_lens[n] % ps), as int8 rows and
     scales for an int8 pool; attention is K5 over cur_lens + 1 keys."""
@@ -120,7 +121,7 @@ def _paged_layer(p, cfg: LMConfig, x, cos, sin, paged: PagedKV, layer: int, cur_
     kp, vp = paged.k_pages[layer], paged.v_pages[layer]
     off = (cur_lens % paged.page_size).long()
     h = rms_norm(p["input_ln"], x, cfg.rms_norm_eps)
-    q, k, v = qkv_proj(p["attn"], cfg, h)
+    q, k, v = qkv_proj(p["attn"], cfg, h, w8a8)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if paged.k_scales is not None:
@@ -132,18 +133,20 @@ def _paged_layer(p, cfg: LMConfig, x, cos, sin, paged: PagedKV, layer: int, cur_
         kp[write_page, off] = k[:, 0].to(kp.dtype)
         vp[write_page, off] = v[:, 0].to(vp.dtype)
     attn = paged_attention(q[:, 0].contiguous(), kp, vp, paged.page_table, cur_lens + 1, ks, vs)
-    x = x + linear(p["attn"]["o"], attn.reshape(n, 1, -1))
+    x = x + linear(p["attn"]["o"], attn.reshape(n, 1, -1), w8a8)
     h2 = rms_norm(p["post_ln"], x, cfg.rms_norm_eps)
-    return x + mlp_block(p["mlp"], cfg, h2)
+    return x + mlp_block(p["mlp"], cfg, h2, w8a8)
 
 
-def paged_decode_step(params, cfg, paged: PagedKV, tokens: torch.Tensor, active: torch.Tensor):
+def paged_decode_step(params, cfg, paged: PagedKV, tokens: torch.Tensor, active: torch.Tensor,
+                      w8a8: bool = False):
     """One token for every slot over the pool. tokens [N]; active [N] bool;
     paged.lengths are the current lengths (the write positions). Inactive
     slots may hold stale table rows whose pages were freed and handed out
     again, so their writes go to the null page 0. Writes the pool in place
     and advances the active slots' lengths; returns (logits [N, V],
-    paged). cfg: TokenPackerVLMConfig."""
+    paged). cfg: TokenPackerVLMConfig; w8a8: `ops/layers.linear`'s w8a8
+    mode (K7 for the int8 products of a step)."""
     lm_cfg = cfg.lm
     lm = params["lm"]
     n = tokens.shape[0]
@@ -156,9 +159,9 @@ def paged_decode_step(params, cfg, paged: PagedKV, tokens: torch.Tensor, active:
     cos, sin = (c.to(x.dtype) for c in
                 rope_cos_sin(cur_lens[:, None], lm_cfg.head_dim, lm_cfg.rope_theta))
     for i, layer in enumerate(lm["layers"]):
-        x = _paged_layer(layer, lm_cfg, x, cos, sin, paged, i, cur_lens, write_page)
+        x = _paged_layer(layer, lm_cfg, x, cos, sin, paged, i, cur_lens, write_page, w8a8)
     x = rms_norm(lm["norm"], x, lm_cfg.rms_norm_eps)
-    logits = lm_logits(lm, lm_cfg, x[:, 0])
+    logits = lm_logits(lm, lm_cfg, x[:, 0], w8a8)
     paged.lengths += active.to(paged.lengths.dtype)
     return logits, paged
 
@@ -234,7 +237,7 @@ def gather_prefix(paged: PagedKV, page_ids, l_pad: int) -> KVCache:
 
 def prefix_admit(paged: PagedKV, params, cfg, shared_ids, fresh_ids, visual, token_chunk,
                  is_image_chunk, image_slot_chunk, seq: int, true_len: int, first_block: int,
-                 chunk_len: int):
+                 chunk_len: int, w8a8: bool = False):
     """Warm admission on a prefix-cache hit: gather the shared pages into a
     dense prefix, prefill only the suffix chunk [first_block * ps,
     + chunk_len) against it, write the suffix rows into the fresh pages,
@@ -244,8 +247,8 @@ def prefix_admit(paged: PagedKV, params, cfg, shared_ids, fresh_ids, visual, tok
     start = first_block * ps
     small = gather_prefix(paged, shared_ids, start + chunk_len)
     hidden, small = prefill_chunk(params, cfg, small, visual, token_chunk, is_image_chunk,
-                                  image_slot_chunk, start, chunk_len, small.k.dtype)
+                                  image_slot_chunk, start, chunk_len, small.k.dtype, w8a8)
     idx = min(max(true_len - 1 - start, 0), chunk_len - 1)
-    logits = lm_logits(params["lm"], cfg.lm, hidden[:, idx])
+    logits = lm_logits(params["lm"], cfg.lm, hidden[:, idx], w8a8)
     insert_prefill(paged, small, seq, fresh_ids, true_len, first_block)
     return logits, map_blocks(paged, seq, 0, shared_ids)

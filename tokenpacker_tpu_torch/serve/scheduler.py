@@ -23,7 +23,10 @@ Streaming: `on_token=callable(token_id)`; `cancel(fut)` stops a request
 before the next step.
 
 The pool dtype is the explicit `kv_cache_dtype` (JAX reads
-TOKENPACKER_KV_CACHE) and the device the explicit `device` (the params
+TOKENPACKER_KV_CACHE), the w8a8 mode of the int8 products the explicit
+`w8a8` (JAX reads TOKENPACKER_W8A8: K8 for the tower and admission chunks
+of 256 rows and more, K7 for decode steps and the first-token logits), and
+the device the explicit `device` (the params
 must be there; "cpu" runs every kernel's plain version). This port is
 greedy: sampling, penalties, logprobs, LoRA adapters and speculation
 raise NotImplementedError when the batcher is made or the request is
@@ -96,6 +99,7 @@ class PagedContinuousBatcher:
         prefill_chunk_size: int | None = None,
         adapters: dict | None = None,
         kv_cache_dtype: torch.dtype | None = None,
+        w8a8: bool = False,
         device: torch.device | str = "cuda",
     ):
         unported = {"temperature > 0": temperature > 0.0, "speculative_k > 0": speculative_k > 0,
@@ -116,6 +120,7 @@ class PagedContinuousBatcher:
         self.page_size = page_size
         self.max_pages_per_seq = max_pages_per_seq
         self.kv_cache_dtype = kv_cache_dtype or cfg.dtype
+        self.w8a8 = w8a8
         self.prefill_chunk_size = prefill_chunk_size
         self.queue: queue.Queue[_Request] = queue.Queue()
         self._stop = threading.Event()
@@ -301,7 +306,7 @@ class PagedContinuousBatcher:
         are cached: the tower and projector are skipped when no image
         token falls in [start, true_len)."""
         if dev["images"] is not None and bool(np.any(np.asarray(b["is_image"])[0, start:true_len])):
-            return encode_images(self.params, self.cfg, dev["images"])
+            return encode_images(self.params, self.cfg, dev["images"], self.w8a8)
         if self.prefix is not None and dev["images"] is not None:
             self.prefix.vision_skipped += 1
         lm_embed = self.params["lm"]["embed"]
@@ -343,7 +348,8 @@ class PagedContinuousBatcher:
             self._admit_with_prefix(slot, req, l_pad, true_len, m, shared, hashes)
             return
         dev = self._padded_plan(b, l_pad)
-        logits, small_cache = prefill(self.params, self.cfg, dev, l_pad, self.kv_cache_dtype)
+        logits, small_cache = prefill(self.params, self.cfg, dev, l_pad, self.kv_cache_dtype,
+                                      self.w8a8)
         self._finish_admission(slot, req, small_cache, logits, l_pad, true_len, 0, [], hashes)
 
     def _admit_with_prefix(self, slot: int, req: _Request, l_pad: int, true_len: int, m: int,
@@ -361,7 +367,7 @@ class PagedContinuousBatcher:
         logits, _ = prefix_admit(
             self.paged, self.params, self.cfg, shared, fresh, visual,
             dev["token_ids"][:, start:], dev["is_image"][:, start:], dev["image_slot"][:, start:],
-            slot, true_len, m, l_pad - start,
+            slot, true_len, m, l_pad - start, self.w8a8,
         )
         self._finish_bookkeeping(slot, req, logits, true_len, list(shared) + fresh, m, hashes)
 
@@ -404,11 +410,12 @@ class PagedContinuousBatcher:
         hidden, p["cache"] = prefill_chunk(
             self.params, self.cfg, p["cache"], p["visual"], dev["token_ids"][:, window],
             dev["is_image"][:, window], dev["image_slot"][:, window], start, cs,
-            self.kv_cache_dtype,
+            self.kv_cache_dtype, self.w8a8,
         )
         p["offset"] = start + cs
         if p["offset"] >= p["true_len"]:
-            logits = lm_logits(self.params["lm"], self.cfg.lm, hidden[:, p["true_len"] - 1 - start])
+            logits = lm_logits(self.params["lm"], self.cfg.lm, hidden[:, p["true_len"] - 1 - start],
+                               self.w8a8)
             self._pending = None
             self._finish_admission(p["slot"], p["req"], p["cache"], logits, l_pad,
                                    p["true_len"], p["m"], p["shared"], p["hashes"])
@@ -467,7 +474,7 @@ class PagedContinuousBatcher:
         logits, _ = paged_decode_step(
             self.params, self.cfg, self.paged,
             torch.as_tensor(self.next_tokens, device=self.device),
-            torch.as_tensor(active, device=self.device))
+            torch.as_tensor(active, device=self.device), self.w8a8)
         toks = logits.argmax(dim=-1).cpu().numpy()
         seconds = time.perf_counter() - t0
         self.stats["decode_s"] += seconds
