@@ -1,12 +1,13 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py              # the smoke run, phases 1-15
+    python3 chip_smoke.py              # the smoke run, phases 1-17
     python3 chip_smoke.py --profile    # phases 1-2, then the profile below
     python3 chip_smoke.py --profile-train  # phases 1-2, then a traced training step
     python3 chip_smoke.py --profile-paged  # phases 1-2, then traced paged decode steps
     python3 chip_smoke.py --profile-quantized  # phases 1-2, traced E and F decode steps
     python3 chip_smoke.py --kernels        # phases 1-3 only
     python3 chip_smoke.py --quantized      # phases 1-2, K6-K8 of phase 3, phases 12-15
+    python3 chip_smoke.py --speculative    # phases 1-2, K9 and K4-verify of phase 3, 16-17
 
 Phases, one result line each or more (every failure raises, so any
 failure exits non-zero and prints no final line):
@@ -98,7 +99,37 @@ failure exits non-zero and prints no final line):
      admissions and 8 steps in W8A8_LOGIT_BAND (the w8a8 scheme spreads
      bf16-vs-fp32 logits 3-4x wider than weight-only int8); each band
      fails the same run with the w8a8 products losing their last 128
-     rows of K.
+     rows of K;
+ 16. TokenPacker-HD-7b with its LM from `quantize_lm_int8`, an int8 cache
+     and the fused tower (`vit_block=True`) through `ContinuousBatcher`
+     (4 slots, the worker's default; max_seq_len 2080; chunks of 256;
+     speculative_k 4): phase 6's 4 HD requests, a repeat of the 3x3 one
+     and one cancelled after its 4th token, 32 greedy tokens each. Checks:
+     K9 23 times per admission, K4 once per plain step, K4's verify form
+     once per verify round, K1 and K3 never; tokens equal phase 6's plain
+     run (recorded on the same weights) wherever its top-2 margin exceeds
+     LOGIT_BAND, the repeat's too; no state left in the batcher. Printed:
+     rounds, tokens a round, tok/s, ms per verify round and per plain
+     step, admission latency, peak memory. Then the rigged repeater (64
+     tokens, at least 3 tokens a forward, tokens equal its plain decode),
+     `Generator.generate(speculative=4)` and phase 10's paged batcher with
+     `speculative_k=4` on the 3x3 request and its repeat;
+ 17. full widths at 2 LM layers, card bf16 vs CPU fp32: the fused tower's
+     update of the patch rows per view within K9_TOWER_REL_RMS (failing K9
+     with its MLP's last 128 units lost), then one HD admission and 4
+     verify rounds at k = 4 within LOGIT_BAND, which the verify without
+     its fed keys (each fed token alone) must fail.
+Phase 3 also holds K9 at [8, 577, 1024] and [26, 577, 1024] by its
+block's update out - x per (image, 64 rows, 128-wide slice), failing the
+plain block that lost its last 64 keys or its MLP's last 128 units, with
+the per-op block (cuBLAS products, SDPA, F.layer_norm: several calls) as
+its library column, and times the 23-block tower fused against per op;
+K4's verify form (B = 4, T = 5, S = 2080, int8 and bf16 caches) per
+(sample, token, 128-wide slice) and per (sample, token, head) row,
+failing the plain version without the last range or (at 1-4 row prompts)
+with each fed token alone, timed beside K4's T = 1 step in the same
+call; and the int8 rows that `quantize_kv` gives on the card, and K4
+writes at T = 1 and T = 5, bit-equal to the CPU's and `quantize_kv`'s.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}.
 
@@ -111,8 +142,10 @@ traces 8 paged decode steps of phase 10's model and pool (8 slots at
 K5's phase-3 lengths); `--profile-quantized` traces 8 decode steps of
 phase 12's nf4 model (as `--profile`) and 8 paged steps in phase 14's
 w8a8 mode (as `--profile-paged`); `--kernels` stops after phase 3; `--quantized`
-runs only this slice's checks (K6-K8 in phase 3, phases 12-15) and
-prints their kernel rows. None prints the final "ok" line.
+runs only the quantized slice's checks (K6-K8 in phase 3, phases 12-15)
+and `--speculative` only the speculative slice's (the int8 rows' bit
+check, K9 and K4-verify in phase 3, phases 16-17), each printing their
+kernel rows. None prints the final "ok" line.
 """
 
 from __future__ import annotations
@@ -442,33 +475,31 @@ def make_hd_requests(cfg, seed: int, sizes=((1008, 1008), (900, 600), (400, 1100
     }, blocks
 
 
-def k4_bytes_flops(lc, b: int, keys: int, int8: bool) -> tuple[float, float]:
+def k4_bytes_flops(lc, b: int, keys: int, int8: bool, t: int = 1) -> tuple[float, float]:
     """What one K4 call must move and compute: every weight once (int8 +
     f32 scales + bf16 norms), each valid cache row once (K and V, int8 +
     f32 scale or bf16), h in and out, the new rows out (k/v bf16 rows and
-    the cache rows). `keys`: valid cache rows summed over the samples."""
+    the cache rows). `keys`: valid cache rows summed over the samples,
+    which all t fed tokens of a sample attend (the verify form, t > 1)."""
     d, f, h, layers = lc.hidden_size, lc.intermediate_size, lc.num_attention_heads, lc.num_hidden_layers
+    rows = b * t
     weights = d * 3 * d + d * d + d * 2 * f + f * d
     scales = 4 * (3 * d + d + 2 * f + d) + 2 * 2 * d
     row = d * (1 if int8 else 2) + (4 * h if int8 else 0)  # one position, K or V
-    per_layer = weights + scales + 2 * keys * row + 2 * b * (2 * d + row)
-    nbytes = layers * per_layer + 2 * b * d * 2
-    flops = layers * (2 * b * weights + 4 * keys * d)
+    per_layer = weights + scales + 2 * keys * row + 2 * rows * (2 * d + row)
+    nbytes = layers * per_layer + 2 * rows * d * 2
+    fed = b * t * (t - 1) // 2  # (query, earlier fed key) pairs
+    flops = layers * (2 * rows * weights + 4 * (keys * t + fed) * d)
     return nbytes, flops
 
 
 def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, int],
-                  quantized_only: bool = False) -> dict:
+                  only: str = "") -> dict:
     """Phase 3: every kernel vs its plain version at the paths' shapes
-    (K6-K8 alone with `quantized_only`)."""
+    (`only` "quantized": K6-K8 alone; "speculative": the int8 rows' bit
+    check, K9 and K4's verify form alone)."""
     from tokenpacker_tpu_torch.config import preset_config
     from tokenpacker_tpu_torch.io.weights import init_lm_on_device, quantize_lm_int8
-    from tokenpacker_tpu_torch.models.llama import KVCache
-    from tokenpacker_tpu_torch.ops import decode_attention as k3
-    from tokenpacker_tpu_torch.ops import flash_attention as k2
-    from tokenpacker_tpu_torch.ops import fused_decode as k4
-    from tokenpacker_tpu_torch.ops import vit_attention as k1
-    from tokenpacker_tpu_torch.ops.kv_quant import dequantize_kv
 
     rows = {}
 
@@ -490,9 +521,32 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
         return row
 
     print("phase 3: kernels vs plain versions (bf16, median of 20 CUDA-event-timed calls)")
-    if quantized_only:
+    if only == "quantized":
         return {name: first_and_worst(cases)
                 for name, cases in quantized_kernel_cases(device, case).items()}
+    if only != "speculative":
+        rows.update(earlier_kernel_rows(device, case, first_and_worst))
+    check_int8_rows(device)
+    rows["vit_block"] = first_and_worst(k9_cases(device, case))
+    # K4 and its verify form at phase 6's last decode step: random
+    # Vicuna-7B layers quantized to int8, the HD requests' ranges
+    lc = preset_config(HD_PRESET).lm
+    layers = quantize_lm_int8({"lm": init_lm_on_device(lc, SEED + 5, device)})["lm"]["layers"]
+    if only != "speculative":
+        rows["fused_decode"] = first_and_worst(k4_cases(device, lc, layers, hd_lengths, s_hd, span))
+    rows["fused_verify"] = verify_kernel_cases(device, lc, layers, hd_lengths, s_hd, span)
+    del layers
+    torch.cuda.empty_cache()
+    return rows
+
+
+def earlier_kernel_rows(device, case, first_and_worst) -> dict:
+    """Phase 3's rows of K1, K2 (both directions), K3, K5 and K6-K8."""
+    from tokenpacker_tpu_torch.ops import decode_attention as k3
+    from tokenpacker_tpu_torch.ops import flash_attention as k2
+    from tokenpacker_tpu_torch.ops import vit_attention as k1
+
+    rows = {}
     n, t, w, heads = 8, 577, 1024, 16
     q, k, v = (bf16((n, t, w), s, device) for s in range(3))
     qh, kh, vh = (x.view(n, t, heads, w // heads) for x in (q, k, v))
@@ -551,12 +605,20 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
     for name, cases in quantized_kernel_cases(device, case).items():
         rows[name] = first_and_worst(cases)
 
+    return rows
+
+
+def k4_cases(device, lc, layers, hd_lengths: np.ndarray, s_hd: int,
+             span: tuple[int, int]) -> list[dict]:
+    """Phase 3, K4 at phase 6's last decode step, int8 and bf16 caches."""
+    from tokenpacker_tpu_torch.models.llama import KVCache
+    from tokenpacker_tpu_torch.ops import fused_decode as k4
+    from tokenpacker_tpu_torch.ops.kv_quant import dequantize_kv
+
     # K4 at phase 6's last decode step: the HD requests' prompt rows
     # [0, len0) plus the decoded span [L, L + 30), the new row at L + 30.
     # Held against the plain version at 2 full-width layers (the JAX
     # package's own depth and bound for this check); timed at all 32.
-    lc = preset_config(HD_PRESET).lm
-    layers = quantize_lm_int8({"lm": init_lm_on_device(lc, SEED + 5, device)})["lm"]["layers"]
     b = len(hd_lengths)
     len0 = torch.as_tensor(hd_lengths, dtype=torch.int32, device=device)
     start2 = torch.full_like(len0, span[0])
@@ -567,18 +629,7 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
     keys = int(np.minimum(hd_lengths, s_hd).sum()) + b * (span[1] - span[0])
     cases = []
     for int8 in (True, False):
-        cache = KVCache.create(lc, b, s_hd, dtype=torch.int8 if int8 else torch.bfloat16,
-                               device=device)
-        g = torch.Generator(device=device).manual_seed(SEED + 7)
-        if int8:
-            for c in (cache.k, cache.v):
-                c.copy_(torch.randint(-127, 128, c.shape, generator=g, device=device,
-                                      dtype=torch.int8))
-            for c in (cache.k_scale, cache.v_scale):
-                c.copy_(torch.rand(c.shape, generator=g, device=device) * 0.02 + 0.001)
-        else:
-            for c in (cache.k, cache.v):
-                c.copy_(torch.randn(c.shape, generator=g, device=device))
+        cache = random_cache(lc, b, s_hd, int8, SEED + 7, device)
         tag = f"K4 fused_decode B={b} S={s_hd} {'int8' if int8 else 'bf16'} cache"
 
         # 2 layers on a copy of the first 2 with V scaled by K4_V_GAIN:
@@ -646,10 +697,7 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
         cases.append({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
                       "bound_ms": b_ms, "bound_by": b_by})
         del cache, c2, kc, vc, weights, lm
-    rows["fused_decode"] = first_and_worst(cases)  # the int8 cache: phase 6's
-    del layers
-    torch.cuda.empty_cache()
-    return rows
+    return cases
 
 
 PAGED_LENGTHS = (65, 300, 701, 1000, 1200, 1500, 1751, 2080)
@@ -1876,6 +1924,719 @@ def phase_paged_parity(device, seed: int, w8a8: bool = False) -> None:
     torch.cuda.empty_cache()
 
 
+# ---- K9, K4's verify form and speculative serving (phases 3, 16, 17) --------
+
+
+def check_int8_rows(device) -> None:
+    """Phase 3: the int8 cache rows and the int4 codes are the same bytes
+    on the card as on the CPU. `quantize_kv` over 200,000 random bf16 rows
+    of 128 (magnitudes 1e-3 to 1e2, one zero row): int8 values and scales
+    bit-equal to the CPU's. `dequantize_4bit` of an int4 leaf: bit-equal
+    to the CPU's, and K6 fed one-hot rows reads the same weights (its code
+    table times the block's absmax, rounded to bf16)."""
+    from tokenpacker_tpu_torch.ops.kv_quant import quantize_kv
+    from tokenpacker_tpu_torch.ops.q4_matmul import q4_matmul
+    from tokenpacker_tpu_torch.ops.quantize import dequantize_4bit, quantize_4bit
+
+    g = torch.Generator().manual_seed(SEED + 30)
+    x = torch.randn((200_000, 128), generator=g) * torch.logspace(-3, 2, 200_000)[:, None]
+    x[0] = 0
+    x = x.bfloat16()
+    (qc, sc), (qg, sg) = quantize_kv(x), quantize_kv(x.to(device))
+    rows_eq = torch.equal(qg.cpu(), qc) and torch.equal(sg.cpu(), sc)
+    leaf = quantize_4bit(torch.randn((256, 256), generator=g), 64, "int4")
+    gleaf = {key: v.to(device) for key, v in leaf.items()}
+    want = dequantize_4bit(leaf, torch.float32)
+    deq_eq = torch.equal(dequantize_4bit(gleaf, torch.float32).cpu(), want)
+    eye = torch.eye(256, dtype=torch.bfloat16, device=device)
+    k6 = torch.cat([q4_matmul(eye[i:i + 32], gleaf) for i in range(0, 256, 32)]).cpu()
+    k6_eq = torch.equal(k6, want.bfloat16())
+    print(f"  int8 rows: quantize_kv of 200000 rows of 128 on the card bit-equal to the CPU's "
+          f"{rows_eq}; int4 dequantize_4bit bit-equal {deq_eq}, K6's code table bit-equal {k6_eq}")
+    if not (rows_eq and deq_eq and k6_eq):
+        raise AssertionError("int8 rows or int4 codes differ between the card and the CPU")
+
+
+# K9's phase-3 check scales the block's o product by this gain, so that
+# attention moves the block's update about as much as the MLP: with
+# random weights the attention output averages ~577 values and is ~1/20
+# of the MLP's, and no measure of the update could see lost keys
+K9_O_GAIN = 20.0
+# phase 17: the fused tower's update of the patch rows (its features less
+# the embedded input) per view, card bf16 (K9) against CPU fp32 (its plain
+# version), relative RMS. The dense tower's bf16 spread in its features is
+# 0.014 at full width (the note on W8A8_TOWER_REL_RMS); the band must fail
+# K9 with its MLP's last 128 hidden units lost
+K9_TOWER_REL_RMS = 0.05
+SPEC_K = 4  # draft length of phases 16-17 (and T = 5 in phase 3's K4-verify row)
+SPEC_SLOTS, SPEC_SEQ = 4, 2080  # the worker's default slots; phase 6's cache length
+
+
+def vit_layer(vc, seed: int, device, o_gain: float = 1.0) -> dict:
+    """One CLIP layer of random bf16 params: kernels ~N(0, 1/fan_in),
+    random biases and LayerNorm scales, the o kernel times `o_gain`."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    w, f = vc.hidden_size, vc.intermediate_size
+
+    def rnd(*shape, scale=1.0, mean=0.0):
+        return (mean + scale * torch.randn(shape, generator=g, device=device)).bfloat16()
+
+    def lin(k, n, gain=1.0):
+        return {"kernel": rnd(k, n, scale=gain / k**0.5), "bias": rnd(n, scale=0.1)}
+
+    return {"ln1": {"scale": rnd(w, scale=0.1, mean=1.0), "bias": rnd(w, scale=0.1)},
+            "attn": {"q": lin(w, w), "k": lin(w, w), "v": lin(w, w), "o": lin(w, w, o_gain)},
+            "ln2": {"scale": rnd(w, scale=0.1, mean=1.0), "bias": rnd(w, scale=0.1)},
+            "mlp": {"fc1": lin(w, f), "fc2": lin(f, w)}}
+
+
+def mlp_lost(p: dict) -> dict:
+    """The CLIP layer `p` with its MLP's last 128 hidden units dropped."""
+    fc1, fc2 = p["mlp"]["fc1"], p["mlp"]["fc2"]
+    return {**p, "mlp": {"fc1": {"kernel": fc1["kernel"][:, :-128].contiguous(),
+                                 "bias": fc1["bias"][:-128].contiguous()},
+                         "fc2": {"kernel": fc2["kernel"][:-128].contiguous(),
+                                 "bias": fc2["bias"]}}}
+
+
+def per_op_block(x, p, heads: int, eps: float):
+    """K9's library yardstick, several calls (timed only, never used): the
+    block per op with F.layer_norm, cuBLAS products (addmm) and one
+    scaled_dot_product_attention."""
+    fn = torch.nn.functional
+    n, t, w = x.shape
+
+    def ln(v, lp):
+        return fn.layer_norm(v, (w,), lp["scale"], lp["bias"], eps)
+
+    def lin(v, lp):
+        return torch.addmm(lp["bias"], v.reshape(n * t, -1), lp["kernel"]).view(n, t, -1)
+
+    h = ln(x, p["ln1"])
+    q, k, v = (lin(h, p["attn"][name]).view(n, t, heads, -1).transpose(1, 2) for name in "qkv")
+    a = fn.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(n, t, w)
+    x1 = x + lin(a, p["attn"]["o"])
+    g = lin(ln(x1, p["ln2"]), p["mlp"]["fc1"])
+    return x1 + lin(g * torch.sigmoid(1.702 * g), p["mlp"]["fc2"])
+
+
+def k9_bytes_flops(n: int, t: int, w: int, f: int) -> tuple[float, float]:
+    """What one K9 call must move and compute: x in and out (bf16), every
+    weight, bias and LayerNorm parameter once; the six products and the
+    attention's two."""
+    m = n * t
+    params = 2 * (4 * w * w + 2 * w * f + 9 * w + f)
+    return 2 * 2 * m * w + params, 2 * m * (4 * w * w + 2 * w * f) + 4 * n * t * t * w
+
+
+def compare_update(name: str, got, want, x, losts: dict) -> float:
+    """K9: the block's update out - x held per (image, 64-row tile,
+    128-wide slice) block (`tile_rel_rms`), not the output, in which the
+    residual would hide a lost term; each of `losts` (the plain block's
+    output after losing what its key names) must fail. Returns the largest
+    absolute error."""
+    def update(out):
+        return (out.float() - x.float()).view(*x.shape[:2], -1, 128)
+
+    rel = tile_rel_rms(update(got), update(want))
+    worst = rel.max().item()
+    reads = {what: tile_rel_rms(update(out), update(want)).max().item()
+             for what, out in losts.items()}
+    err = (got.float() - want.float()).abs().max().item()
+    ok = worst <= TILE_REL_RMS and bool(torch.isfinite(got.float()).all())
+    print(f"  {name}: update out - x, worst (image, 64 rows, 128-wide slice) block relative RMS "
+          f"{worst:.4e}, median {rel.median().item():.4e}, limit {TILE_REL_RMS}; "
+          + ", ".join(f"without {what} {r:.4f}" for what, r in reads.items())
+          + f"; max_abs_err {err:.3e} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version ({worst})")
+    for what, r in reads.items():
+        if not r > TILE_REL_RMS:
+            raise AssertionError(f"{name}: the block measure does not see {what} lost")
+    return err
+
+
+def k9_cases(device, case) -> list[dict]:
+    """Phase 3, K9 at the tower's shapes: [8, 577, 1024] and [26, 577,
+    1024] (B's crops) with CLIP-L's F = 4096 and 16 heads, against its
+    plain version by the update measure, failing the plain block whose
+    attention lost the last 64 keys (rows [0, 513) of the block run on
+    x[:, :513]) and whose MLP lost the last 128 hidden units; then the
+    tower's 23 blocks fused (K9) against per op (K1 and cuBLAS products),
+    timed."""
+    from tokenpacker_tpu_torch.config import preset_config
+    from tokenpacker_tpu_torch.models import clip_vit
+    from tokenpacker_tpu_torch.ops import vit_block as k9
+
+    cfg = preset_config(HD_PRESET)
+    vc = cfg.vision
+    t, w, f, heads, eps = (vc.seq_len, vc.hidden_size, vc.intermediate_size,
+                           vc.num_attention_heads, vc.layer_norm_eps)
+    p = vit_layer(vc, SEED + 20, device, K9_O_GAIN)
+
+    def losts(x, want):
+        keys = want.clone()
+        keys[:, :t - 64] = k9.vit_block_plain(x[:, :t - 64].contiguous(), p, heads, eps)
+        return {"the last 64 keys": keys,
+                "the last 128 MLP units": k9.vit_block_plain(x, mlp_lost(p), heads, eps)}
+
+    cases = []
+    for n in (8, 26):
+        x = bf16((n, t, w), SEED + 21, device)
+        cases.append(case(
+            f"K9 vit_block [{n},{t},{w}] F {f}, {heads} heads", k9.vit_block, k9.vit_block_plain,
+            (x, p, heads, eps), library=lambda x=x: per_op_block(x, p, heads, eps),
+            work=k9_bytes_flops(n, t, w, f),
+            check=lambda name, out, want, x=x: compare_update(name, out, want, x,
+                                                              losts(x, want))))
+        print(f"  (K9's library column is the per-op block: 3 LayerNorm/activation passes, 6 "
+              f"cuBLAS products, 1 scaled_dot_product_attention, 2 adds: several calls)")
+    layer = vit_layer(vc, SEED + 22, device)
+    blocks = tower_blocks(cfg)
+    for n in (8, 26):
+        x = bf16((n, t, w), SEED + 23, device)
+
+        def tower(fused, x=x):
+            h = x
+            for _ in range(blocks):
+                h = clip_vit._block(layer, h, vc, vit_block=fused)
+            return h
+
+        fused_ms = time_ms(lambda: tower(True), iters=5, warmup=1)
+        per_op_ms = time_ms(lambda: tower(False), iters=5, warmup=1)
+        b_ms, b_by = bound(*(blocks * v for v in k9_bytes_flops(n, t, w, f)))
+        print(f"  tower of {blocks} blocks on [{n},{t},{w}]: fused (K9) {fused_ms:.3f} ms, per op "
+              f"(K1 and cuBLAS products) {per_op_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+    del p, layer
+    torch.cuda.empty_cache()
+    return cases
+
+
+def random_cache(lc, b: int, s: int, int8: bool, seed: int, device):
+    """A [L, b, s] KV cache of random rows (int8 with random scales, or
+    bf16), as phase 3's K4 check makes it."""
+    from tokenpacker_tpu_torch.models.llama import KVCache
+
+    cache = KVCache.create(lc, b, s, dtype=torch.int8 if int8 else torch.bfloat16, device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    if int8:
+        for c in (cache.k, cache.v):
+            c.copy_(torch.randint(-127, 128, c.shape, generator=g, device=device,
+                                  dtype=torch.int8))
+        for c in (cache.k_scale, cache.v_scale):
+            c.copy_(torch.rand(c.shape, generator=g, device=device) * 0.02 + 0.001)
+    else:
+        for c in (cache.k, cache.v):
+            c.copy_(torch.randn(c.shape, generator=g, device=device))
+    return cache
+
+
+def written_rows_equal(cache, k_new, v_new, write_pos0) -> bool:
+    """The int8 rows and scales that K4 wrote for fed tokens [L, B, T, H,
+    d] from write_pos0 equal `quantize_kv` of the rows it returned."""
+    from tokenpacker_tpu_torch.ops.kv_quant import quantize_kv
+
+    b, t = k_new.shape[1:3]
+    rows = torch.arange(b, device=k_new.device)[:, None].expand(b, t)
+    cols = write_pos0.long()[:, None] + torch.arange(t, device=k_new.device)
+    ok = True
+    for c, sc, new in ((cache.k, cache.k_scale, k_new), (cache.v, cache.v_scale, v_new)):
+        q, scale = quantize_kv(new)
+        ok &= torch.equal(c[:, rows, cols], q) and torch.equal(sc[:, rows, cols], scale)
+    return ok
+
+
+def verify_kernel_cases(device, lc, layers, hd_lengths: np.ndarray, s_hd: int,
+                        span: tuple[int, int]) -> dict:
+    """Phase 3, K4's verify form at B = 4, T = SPEC_K + 1, phase 6's ranges
+    and cache length (the decoded span k rows shorter, so that the round's
+    rows end where phase 6's last step writes), int8 and bf16 caches. At 2 full-width layers (V
+    scaled by K4_V_GAIN) the hidden state per (sample, token, 128-wide
+    slice) and the new rows per (k|v, layer, sample, token, head) against
+    the plain version, failing it without the decoded span; at prompts of
+    1-4 rows (where the fed tokens hold a large share of the attention)
+    the hidden state failing the plain version with each fed token alone;
+    with an int8 cache the written rows and scales bit-equal to
+    `quantize_kv` of the returned rows, at T = 5 and at T = 1 (K4). At 32
+    layers: deterministic, within K4_DEEP_REL_RMS, and timed with K4's
+    T = 1 step on the same cache in the same call. Returns the int8
+    cache's row (the path's)."""
+    from tokenpacker_tpu_torch.models.llama import KVCache
+    from tokenpacker_tpu_torch.ops import fused_decode as k4
+
+    b, t = len(hd_lengths), SPEC_K + 1
+    gap = span[1] - span[0] - (t - 1)  # the round's t rows end where phase 6's last step writes
+    len0 = torch.as_tensor(hd_lengths, dtype=torch.int32, device=device)
+    start2 = torch.full_like(len0, span[0])
+    end2 = start2 + gap
+    short = torch.tensor([1, 2, 3, 4][:b], dtype=torch.int32, device=device)
+    offs = torch.arange(t, device=device, dtype=torch.int32)
+    h0 = (0.02 * torch.randn((b, t, lc.hidden_size), device=device,
+                             generator=torch.Generator(device=device).manual_seed(SEED + 31))
+          ).bfloat16()
+    keys = int(np.minimum(hd_lengths, s_hd).sum()) + b * gap
+    lc2 = dataclasses.replace(lc, num_hidden_layers=2)
+    out = {}
+    for int8 in (True, False):
+        cache = random_cache(lc, b, s_hd, int8, SEED + 7, device)
+        tag = f"K4-verify B={b} T={t} S={s_hd} {'int8' if int8 else 'bf16'} cache"
+
+        def copy(c, n_layers=None):
+            sl = slice(None, n_layers)
+            return KVCache(c.k[sl].clone(), c.v[sl].clone(), 0,
+                           *((c.k_scale[sl].clone(), c.v_scale[sl].clone()) if int8
+                             else (None, None)))
+
+        c2 = copy(cache, 2)
+        (c2.v_scale if int8 else c2.v).mul_(K4_V_GAIN)
+
+        def run(lens, end, fn="kernel"):
+            """2 layers on a copy of c2: the kernel, its plain version, or
+            each fed token alone through the plain version."""
+            c = copy(c2)
+            pos = (lens + gap)[:, None] + offs
+            if fn == "kernel":
+                return k4.fused_verify_hidden({"layers": layers[:2]}, lc2, h0, c.k, c.v, lens,
+                                              start2, end, end2, pos, k_scale=c.k_scale,
+                                              v_scale=c.v_scale), c
+            if fn == "plain":
+                return k4.fused_verify_hidden_plain(layers[:2], lc2, h0, c.k, c.v, lens, start2,
+                                                    end, pos, c.k_scale, c.v_scale), c
+            alone = [k4.fused_decode_hidden_plain(layers[:2], lc2, h0[:, j], c.k, c.v, lens,
+                                                  start2, end, pos[:, j], c.k_scale, c.v_scale)
+                     for j in range(t)]
+            return (torch.stack([a[0] for a in alone], 1), None, None), c
+
+        def slices(hidden):  # [B, T, D] -> (sample, token, 128-wide slice)
+            return hidden.view(b, t, -1, 128)
+
+        (hidden, k_new, v_new), ck = run(len0, end2)
+        (p_hidden, p_k, p_v), _ = run(len0, end2, "plain")
+        (l_hidden, l_k, l_v), _ = run(len0, start2, "plain")
+        err = compare_rows(tag + " 2 layers hidden per (sample, token, 128-wide slice)",
+                           slices(hidden), slices(p_hidden), slices(l_hidden))
+        compare_rows(tag + " 2 layers new k, v rows per (k|v, layer, sample, token, head)",
+                     torch.stack((k_new, v_new)), torch.stack((p_k, p_v)),
+                     torch.stack((l_k, l_v)))
+        (s_hidden, _, _), _ = run(short, end2)
+        (sp_hidden, _, _), _ = run(short, end2, "plain")
+        (sa_hidden, _, _), _ = run(short, end2, "alone")
+        compare_rows(tag + " 2 layers, prompts of 1-4 rows, hidden", slices(s_hidden),
+                     slices(sp_hidden), slices(sa_hidden), "the fed tokens before each token")
+        if int8:
+            c1 = copy(c2)
+            pos1 = len0 + gap
+            _, k1_new, v1_new = k4.fused_decode_hidden(
+                {"layers": layers[:2]}, lc2, h0[:, 0].contiguous(), c1.k, c1.v, len0, start2, end2,
+                end2, pos1,
+                k_scale=c1.k_scale, v_scale=c1.v_scale)
+            eq5 = written_rows_equal(ck, k_new, v_new, end2)
+            eq1 = written_rows_equal(c1, k1_new[:, :, None], v1_new[:, :, None], end2)
+            print(f"  {tag}: int8 rows and scales written bit-equal to quantize_kv of the "
+                  f"returned rows at T = {t} {eq5}, at T = 1 (K4) {eq1}")
+            if not (eq5 and eq1):
+                raise AssertionError(f"{tag}: written int8 rows differ from quantize_kv's")
+        del c2, ck
+
+        lm = {"layers": layers}
+        weights = k4.FusedWeights(lm, lc)
+        kc, vc_ = cache.k.clone(), cache.v.clone()
+        pos = (len0 + gap)[:, None] + offs
+        h1, pos1 = h0[:, 0].contiguous(), pos[:, 0].contiguous()
+
+        def kernel():
+            return k4.fused_verify_hidden(lm, lc, h0, cache.k, cache.v, len0, start2, end2, end2,
+                                          pos, k_scale=cache.k_scale, v_scale=cache.v_scale,
+                                          weights=weights)[0]
+
+        def step():
+            return k4.fused_decode_hidden(lm, lc, h1, cache.k, cache.v, len0, start2, end2,
+                                          end2, pos1, k_scale=cache.k_scale,
+                                          v_scale=cache.v_scale, weights=weights)[0]
+
+        def plain():
+            return k4.fused_verify_hidden_plain(layers, lc, h0, kc, vc_, len0, start2, end2, pos,
+                                                cache.k_scale, cache.v_scale)[0]
+
+        hidden, again, p_hidden = kernel(), kernel(), plain()
+        if not torch.equal(again, hidden):
+            raise AssertionError(f"{tag}: two identical calls differ")
+        rel = ((hidden.float() - p_hidden.float()).pow(2).mean().sqrt()
+               / p_hidden.float().pow(2).mean().sqrt()).item()
+        print(f"  {tag} {lc.num_hidden_layers} layers hidden: relative RMS difference {rel:.4f} "
+              f"(bound {K4_DEEP_REL_RMS}), two calls identical")
+        if not rel <= K4_DEEP_REL_RMS:
+            raise AssertionError(f"{tag}: 32-layer hidden differs from the plain version ({rel})")
+        ms, step_ms = time_ms(kernel), time_ms(step)
+        plain_ms = time_ms(plain, iters=3, warmup=1)
+        b_ms, b_by = bound(*k4_bytes_flops(lc, b, keys, int8, t))
+        print(f"  {tag} {lc.num_hidden_layers} layers: kernel {ms:.4f} ms (K4 at T = 1 on the same "
+              f"cache in this call {step_ms:.4f} ms, ratio {ms / step_ms:.3f}), plain "
+              f"{plain_ms:.4f} ms, library none, bound {b_ms:.4f} ms ({b_by}; {keys} valid cache "
+              f"rows)")
+        out[int8] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                     "bound_ms": b_ms, "bound_by": b_by, "t1_ms": step_ms}
+        del cache, kc, vc_, weights, lm
+    torch.cuda.empty_cache()
+    return out[True]
+
+
+def plain_reference(params, cfg, batch, device) -> tuple[list, list]:
+    """Phase 6's plain run of the HD requests, recorded: a batched prefill
+    (the per-op tower) and K4 decode steps, NEW_TOKENS greedy tokens. Per
+    request its tokens and the top-2 margin of the logits behind each."""
+    from tokenpacker_tpu_torch.generate import decode_step, device_batch, fused_weights, prefill
+
+    n, l = batch["token_ids"].shape
+    dev = device_batch(batch, torch.bfloat16, device)
+    logits, cache = prefill(params, cfg, dev, l + NEW_TOKENS, torch.int8)
+    fused = fused_weights(params, cfg)
+    toks, margins = [], []
+    for step in range(NEW_TOKENS):
+        top2 = logits.float().topk(2, dim=-1).values
+        margins.append(top2[:, 0] - top2[:, 1])
+        toks.append(logits.argmax(dim=-1))
+        if step < NEW_TOKENS - 1:
+            logits, cache = decode_step(params, cfg, cache, toks[-1], dev["lengths"], step, l,
+                                        fused)
+    del cache
+    return torch.stack(toks, 1).tolist(), torch.stack(margins, 1).tolist()
+
+
+def decisive_agree(name: str, got: list, want: list, margins: list) -> int:
+    """`got` equals `want` token by token up to the first difference, which
+    must come where the reference's top-2 margin is within LOGIT_BAND (bf16
+    roundings that differ, here the fused tower's and the verify form's,
+    may flip such a token, and the sequences part there). Returns how many
+    leading tokens are equal."""
+    agree = 0
+    for j, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            if margins[j] > LOGIT_BAND:
+                raise AssertionError(f"{name}: token {j} differs where the reference margin "
+                                     f"{margins[j]:.4f} is decisive")
+            break
+        agree += 1
+    return agree
+
+
+def phase_spec_serving(device, seed: int) -> dict:
+    """Phase 16: TokenPacker-HD-7b with the LM from `quantize_lm_int8`, an
+    int8 cache and the fused tower (`vit_block=True`) through
+    `ContinuousBatcher(num_slots=4, max_seq_len=2080, prefill_chunk_size=
+    256, speculative_k=4)`: phase 6's 4 HD requests, a repeat of the 3x3
+    one and one cancelled after its 4th token, 32 greedy tokens each. K9
+    runs tower_blocks times per admission, K4 once per plain step, K4's
+    verify form once per verify round, K1 and K3 never; the tokens equal
+    phase 6's plain run (recorded here on the same weights) wherever its
+    margin is decisive, the repeat's as well; nothing is left in a slot.
+    Then three short runs: the rigged repeater (o and down zeroed, the head
+    tied to the embedding) with one request of 64 tokens, whose drafts
+    must land (produced / rounds >= 3) with tokens equal to its plain
+    decode; `Generator.generate(speculative=4)` on the 3x3 request; phase
+    10's paged batcher with `speculative_k=4` on the 3x3 request and its
+    repeat."""
+    from tokenpacker_tpu_torch.config import preset_config
+    from tokenpacker_tpu_torch.generate import Generator
+    from tokenpacker_tpu_torch.io.weights import init_vlm_on_device, quantize_lm_int8
+    from tokenpacker_tpu_torch.ops.decode_attention import decode_attention
+    from tokenpacker_tpu_torch.ops.flash_attention import flash_attention
+    from tokenpacker_tpu_torch.ops.fused_decode import fused_decode_hidden, fused_verify_hidden
+    from tokenpacker_tpu_torch.ops.vit_attention import vit_attention
+    from tokenpacker_tpu_torch.ops.vit_block import vit_block
+    from tokenpacker_tpu_torch.serve import scheduler as sched
+
+    cfg = preset_config(HD_PRESET)
+    t0 = time.perf_counter()
+    params = quantize_lm_int8(init_vlm_on_device(cfg, seed=seed, device=device,
+                                                 dtype=torch.bfloat16))
+    batch, blocks = make_hd_requests(cfg, seed)
+    ref_tokens, ref_margins = plain_reference(params, cfg, batch, device)
+    torch.cuda.synchronize()
+    reqs = paged_requests(cfg, seed)
+    reqs = reqs[:4] + [reqs[0], reqs[-1]]
+    print(f"phase 16: {HD_PRESET} int8 LM, int8 cache, fused tower (K9) from seed {seed} through "
+          f"ContinuousBatcher: {SPEC_SLOTS} slots, max_seq_len {SPEC_SEQ}, chunks of 256, "
+          f"speculative_k {SPEC_K}; {len(reqs)} requests, grids {[r['grid'] for r in reqs]}, "
+          f"lengths {[int(r['lengths'][0]) for r in reqs]}, {NEW_TOKENS} greedy tokens each, the "
+          f"last cancelled after its {CANCEL_AFTER}th ({time.perf_counter() - t0:.2f} s to build "
+          f"and record phase 6's plain run)")
+    batcher = sched.ContinuousBatcher(
+        params, cfg, num_slots=SPEC_SLOTS, max_seq_len=SPEC_SEQ, prefill_chunk_size=256,
+        speculative_k=SPEC_K, kv_cache_dtype=torch.int8, vit_block=True, device=device)
+    views, real_encode = [], sched.encode_images
+
+    def recording_encode(*args):
+        views.append(args[2].shape[0])
+        return real_encode(*args)
+
+    counters = {"vit_block": vit_block, "vit_attention": vit_attention,
+                "flash_attention": flash_attention, "decode_attention": decode_attention,
+                "fused_decode": fused_decode_hidden, "fused_verify": fused_verify_hidden}
+    submitted, first_at, futs = {}, {}, []
+
+    def on_token(i):
+        def hook(tok):
+            first_at.setdefault(i, time.perf_counter())
+            if i == len(reqs) - 1 and len(futs[i]._tp_request.tokens) == CANCEL_AFTER:
+                batcher.cancel(futs[i])
+        return hook
+
+    sched.encode_images = recording_encode
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        batcher.start()
+        t0 = time.perf_counter()
+        for i, r in enumerate(reqs):
+            submitted[i] = time.perf_counter()
+            futs.append(batcher.submit(r, max_new_tokens=NEW_TOKENS, on_token=on_token(i)))
+        tokens = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        batcher.stop()
+        torch.cuda.synchronize()
+    finally:
+        sched.encode_images = real_encode
+        batcher.stop()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    st = batcher.stats
+    steps, rounds = st["decode_steps"], st["verify_rounds"]
+    latency = [first_at[i] - submitted[i] for i in range(len(reqs))]
+    n_tok = sum(map(len, tokens))
+    print(f"  served in {wall:.3f} s (host clock): tokens per request {[len(t) for t in tokens]}, "
+          f"{n_tok / wall:.2f} tok/s over the run; admission latency (submit -> first token, "
+          f"host clock) {[round(x * 1e3, 2) for x in latency]} ms; peak memory "
+          f"{peak / 2**30:.3f} GiB")
+    print(f"  {rounds} verify rounds emitted {st['verify_tokens']} tokens "
+          f"({st['verify_tokens'] / max(rounds, 1):.3f} a round), "
+          f"{st['verify_s'] / max(rounds, 1) * 1e3:.3f} ms a round; {steps} plain steps after the "
+          f"backoff, {st['decode_s'] / max(steps, 1) * 1e3:.3f} ms a step (host clock, to the "
+          f"argmax on the host)")
+    print(f"  launches {launches}; tower passes of {views} views")
+    want = {"vit_block": tower_blocks(cfg) * len(views), "vit_attention": 0,
+            "flash_attention": 0, "decode_attention": 0, "fused_decode": steps,
+            "fused_verify": rounds}
+    if launches != want:
+        raise AssertionError(f"phase 16: launch counts {launches} != {want}")
+    if rounds == 0:
+        raise AssertionError("phase 16: no verify round ran")
+    leftover = ([s for s in batcher.slots if s is not None], batcher.lengths.any(),
+                batcher._pending, batcher.queue.qsize())
+    if leftover != ([], False, None, 0):
+        raise AssertionError(f"phase 16: the batcher holds state after the run: {leftover}")
+    if not 0 < len(tokens[-1]) < NEW_TOKENS:
+        raise AssertionError(f"phase 16: the cancelled request got {len(tokens[-1])} tokens")
+    agree = [decisive_agree(f"phase 16 request {i}", tokens[i], ref_tokens[j], ref_margins[j])
+             for i, j in ((0, 0), (1, 1), (2, 2), (3, 3), (4, 0))]
+    agree.append(decisive_agree("phase 16 repeat against the original", tokens[4], tokens[0],
+                                ref_margins[0]))
+    print(f"  tokens equal to phase 6's plain run (per request, then the repeat against the "
+          f"original) for the first {agree} of {NEW_TOKENS}; reference margins at the first "
+          f"difference within the band {LOGIT_BAND}")
+
+    # the same batcher without speculation on phase 6's 4 requests: its
+    # plain steps against the verify rounds above, in this call
+    plain = sched.ContinuousBatcher(
+        params, cfg, num_slots=SPEC_SLOTS, max_seq_len=SPEC_SEQ, prefill_chunk_size=256,
+        kv_cache_dtype=torch.int8, vit_block=True, device=device)
+    plain.start()
+    try:
+        t0 = time.perf_counter()
+        p_toks = [f.result(timeout=600) for f in
+                  [plain.submit(r, max_new_tokens=NEW_TOKENS) for r in reqs[:4]]]
+        p_wall = time.perf_counter() - t0
+    finally:
+        plain.stop()
+    pst = plain.stats
+    print(f"  without speculation (speculative_k 0), phase 6's 4 requests: {pst['decode_steps']} "
+          f"plain steps, {pst['decode_s'] / max(pst['decode_steps'], 1) * 1e3:.3f} ms a step "
+          f"({pst['alone_s'] / max(pst['alone_steps'], 1) * 1e3:.3f} with no admission work); "
+          f"{sum(map(len, p_toks)) / p_wall:.2f} tok/s over the run (the speculative run "
+          f"above: {n_tok / wall:.2f} over its 6 requests)")
+    del plain
+
+    # Generator with speculation, and the paged batcher with speculation
+    gen = Generator(params, cfg, kv_cache_dtype=torch.int8, vit_block=True)
+    fused_verify_hidden.launches = 0
+    res = gen.generate(reqs[0], max_new_tokens=NEW_TOKENS, speculative=SPEC_K)
+    g_agree = decisive_agree("phase 16 Generator(speculative=4)", res.sequences[0],
+                             ref_tokens[0], ref_margins[0])
+    print(f"  Generator.generate(speculative={SPEC_K}) on the 3x3 request: "
+          f"{res.stats['verify_rounds']} rounds ({fused_verify_hidden.launches} K4-verify "
+          f"launches) for {len(res.sequences[0])} tokens, {g_agree} equal to phase 6's")
+    paged = sched.PagedContinuousBatcher(
+        params, cfg, num_slots=PAGED_SLOTS, num_pages=2 * PAGED_SLOTS * PAGES_PER_SEQ + 1,
+        page_size=PAGE_SIZE, max_pages_per_seq=PAGES_PER_SEQ, prefill_chunk_size=256,
+        speculative_k=SPEC_K, kv_cache_dtype=torch.int8, vit_block=True, device=device)
+    paged.start()
+    try:
+        p_tokens = [paged.submit(r, max_new_tokens=NEW_TOKENS).result(timeout=600)
+                    for r in (reqs[0], reqs[0])]
+    finally:
+        paged.stop()
+    p_agree = [decisive_agree("phase 16 paged speculation", t, ref_tokens[0], ref_margins[0])
+               for t in p_tokens]
+    print(f"  PagedContinuousBatcher(speculative_k={SPEC_K}) on the 3x3 request and its warm "
+          f"repeat: {paged.stats['verify_rounds']} rounds, {paged.stats['verify_tokens']} tokens "
+          f"from rounds, {p_agree} equal to phase 6's; prefix cache {paged.prefix.stats()}")
+    if paged.prefix.stats()["prefix_cache_hits"] < 1:
+        raise AssertionError("phase 16: the paged repeat did not hit the prefix cache")
+    del gen, paged
+
+    # the repeater: attention and MLP outputs zeroed, the head tied to the
+    # embedding, so that it predicts its input token and every draft lands
+    for layer in params["lm"]["layers"]:
+        layer["attn"]["o"]["kernel"]["q"].zero_()
+        layer["mlp"]["down"]["kernel"]["q"].zero_()
+    params["lm"]["lm_head"] = {"kernel": params["lm"]["embed"].T.contiguous()}
+    want = Generator(params, cfg, kv_cache_dtype=torch.int8, vit_block=True).generate(
+        reqs[1], max_new_tokens=64).sequences[0]
+    rep = sched.ContinuousBatcher(
+        params, cfg, num_slots=SPEC_SLOTS, max_seq_len=SPEC_SEQ, prefill_chunk_size=256,
+        speculative_k=SPEC_K, kv_cache_dtype=torch.int8, vit_block=True, device=device)
+    rep.start()
+    try:
+        got = rep.submit(reqs[1], max_new_tokens=64).result(timeout=600)
+    finally:
+        rep.stop()
+    ratio = (rep.stats["verify_tokens"] + rep.stats["decode_steps"]) / max(
+        rep.stats["verify_rounds"] + rep.stats["decode_steps"], 1)
+    print(f"  repeater: 64 tokens in {rep.stats['verify_rounds']} verify rounds and "
+          f"{rep.stats['decode_steps']} plain steps, {ratio:.3f} tokens a forward, "
+          f"{rep.stats['verify_s'] / max(rep.stats['verify_rounds'], 1) * 1e3:.3f} ms a round; "
+          f"tokens equal to its plain decode {got == want}")
+    if got != want or ratio < 3:
+        raise AssertionError(f"phase 16: repeater tokens equal {got == want}, {ratio} tokens a "
+                             "forward (at least 3 expected)")
+    del params, batcher, rep
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_spec_parity(device, seed: int) -> None:
+    """Phase 17: full widths, 2 LM layers, int8 weights and cache, card bf16
+    (kernels) against CPU fp32 (plain versions). The fused tower's update of
+    the patch rows per view within K9_TOWER_REL_RMS, which K9 with its
+    MLP's last 128 hidden units lost must fail; one HD admission then 4 verify rounds at
+    k = 4 (fed: the CPU's greedy token and 4 prompt tokens), every
+    position's logits within LOGIT_BAND, which the verify without its fed
+    keys (each fed token through K4 alone) must fail."""
+    from tokenpacker_tpu_torch.config import preset_config
+    from tokenpacker_tpu_torch.generate import device_batch, fused_weights, prefill
+    from tokenpacker_tpu_torch.io.weights import init_vlm_on_device, params_to, quantize_lm_int8
+    from tokenpacker_tpu_torch.models.clip_vit import _embed, clip_tower_features
+    from tokenpacker_tpu_torch.models.lm_api import lm_embed, lm_logits
+    from tokenpacker_tpu_torch.ops.fused_decode import fused_decode_hidden, fused_verify_hidden_plain
+    from tokenpacker_tpu_torch.ops.layers import rms_norm
+    from tokenpacker_tpu_torch.speculative import verify_step
+
+    full = preset_config(HD_PRESET)
+    cfg = dataclasses.replace(full, lm=dataclasses.replace(full.lm, num_hidden_layers=2))
+    params = quantize_lm_int8(init_vlm_on_device(cfg, seed=seed, device=device,
+                                                 dtype=torch.bfloat16))
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    cpu_params = params_to(params, "cpu", torch.float32)
+    batch, blocks = make_hd_requests(cfg, seed + 1, sizes=((672, 336),), text_lens=(40,))
+    vc = cfg.vision
+    t0 = time.perf_counter()
+    imgs = torch.as_tensor(batch["images"])
+
+    def update(vision, images):
+        """The tower's update of the patch rows: the selected features less
+        the embedded input (the residual stream would hide a lost term)."""
+        x0 = _embed(vision, vc, images)[:, 1:]
+        return (clip_tower_features(vision, vc, images, vit_block=True)[0] - x0).float().cpu()
+
+    gpu_imgs = imgs.to(device, torch.bfloat16)
+    got = update(params["vision"], gpu_imgs)
+    want = update(cpu_params["vision"], imgs.float())
+    lost = update({**params["vision"],
+                   "layers": [mlp_lost(p) for p in params["vision"]["layers"]]}, gpu_imgs)
+
+    def per_view(x):
+        return ((x - want).square().sum((1, 2)) / want.square().sum((1, 2))).sqrt()
+
+    rel, lost_rel = per_view(got), per_view(lost)
+    print(f"phase 17: full widths, 2 LM layers, int8 weights + int8 cache, 1 HD request (grid "
+          f"{blocks}): the fused tower's update of the patch rows (features less the embedded "
+          f"input), card bf16 (K9) vs CPU fp32 (plain), relative RMS per view {[round(x, 4) for x in rel.tolist()]} (band {K9_TOWER_REL_RMS}); with "
+          f"K9's MLP losing its last 128 units {[round(x, 4) for x in lost_rel.tolist()]}")
+    if not rel.max().item() <= K9_TOWER_REL_RMS:
+        raise AssertionError(f"phase 17: fused tower features differ by {rel.max().item()}")
+    if not lost_rel.min().item() > K9_TOWER_REL_RMS:
+        raise AssertionError("phase 17: the tower band does not see K9 losing MLP units")
+
+    def sides_for(b):
+        return {"gpu": (params, cfg, device_batch(b, torch.bfloat16, device),
+                        fused_weights(params, cfg)),
+                "cpu": (cpu_params, cpu_cfg, device_batch(b, torch.float32, "cpu"), True)}
+
+    def fed_alone(cache, fed, lengths, step, l):
+        """The card's verify logits with each fed token attending the cache
+        and itself only (K4, T = 1, per token, on a copy of the cache)."""
+        lm = params["lm"]
+        c = [x.clone() for x in (cache.k, cache.v, cache.k_scale, cache.v_scale)]
+        emb = lm_embed(lm, cfg.lm, fed.to(device))
+        start2 = torch.full_like(lengths, l)
+        out = []
+        for j in range(fed.shape[1]):
+            hidden, _, _ = fused_decode_hidden(
+                lm, cfg.lm, emb[:, j], c[0], c[1], lengths, start2, start2 + step,
+                start2 + step + j, lengths + step + j, k_scale=c[2], v_scale=c[3])
+            out.append(lm_logits(lm, cfg.lm, rms_norm(lm["norm"], hidden, cfg.lm.rms_norm_eps)))
+        return torch.stack(out, 1).float().cpu()
+
+    def plain_on_card(cache, fed, lengths, step, l):
+        """The same round through K4-verify's plain version on the card."""
+        lm = params["lm"]
+        start2 = torch.full_like(lengths, l)
+        pos = (lengths + step)[:, None] + torch.arange(fed.shape[1], device=device)
+        hidden = fused_verify_hidden_plain(
+            lm["layers"], cfg.lm, lm_embed(lm, cfg.lm, fed.to(device)), cache.k, cache.v,
+            lengths, start2, start2 + step, pos.int(), cache.k_scale, cache.v_scale)[0]
+        return lm_logits(lm, cfg.lm, rms_norm(lm["norm"], hidden, cfg.lm.rms_norm_eps))[0]
+
+    def rounds(b, n_rounds, tag):
+        """Admission, then n_rounds verify rounds on both sides, held to
+        LOGIT_BAND; returns the readings, the fed-alone reading and the
+        kernel against its plain version on the card, each round."""
+        sides = sides_for(b)
+        l = b["token_ids"].shape[1]
+        lengths = {k: v[2]["lengths"] for k, v in sides.items()}
+        state = {k: prefill(p, c, d, l + 5 * n_rounds + 8, torch.int8, vit_block=True)
+                 for k, (p, c, d, _) in sides.items()}
+        res = [band_check(f"phase 17 {tag} admission", state["gpu"][0].float().cpu(),
+                          state["cpu"][0].float())]
+        drafts = torch.as_tensor(np.asarray(b["token_ids"])[0, 1:1 + SPEC_K])
+        tok, step, alone, vs_plain = state["cpu"][0].argmax(-1), 0, [], []
+        for r in range(n_rounds):
+            fed = torch.cat([tok, drafts])[None]
+            alone.append(fed_alone(state["gpu"][1], fed, lengths["gpu"], step, l))
+            vs_plain.append(plain_on_card(state["gpu"][1], fed, lengths["gpu"], step, l))
+            out = {k: verify_step(p, c, state[k][1], fed.to(lengths[k].device), lengths[k], step,
+                                  l, fw)[0][0].float().cpu()
+                   for k, (p, c, _, fw) in sides.items()}
+            res.append(band_check(f"phase 17 {tag} round {r}", out["gpu"], out["cpu"]))
+            alone[-1] = (alone[-1][0] - out["cpu"]).abs().max().item()
+            vs_plain[-1] = (vs_plain[-1].float().cpu() - out["gpu"]).abs().max().item()
+            step += fed.shape[1]
+            tok = out["cpu"][-1:].argmax(-1)
+        return res, alone, vs_plain
+
+    res, alone, vs_plain = rounds(batch, 4, "HD")
+    print(f"  1 HD admission + 4 verify rounds at k = {SPEC_K}, card bf16 (K4-verify) vs CPU fp32 "
+          f"(plain) ({time.perf_counter() - t0:.1f} s): max|dlogit| "
+          f"{[round(r[0], 4) for r in res]} band={LOGIT_BAND}; the fed tokens each alone (must "
+          f"fail the band) {[round(x, 4) for x in alone]}; top-1 agree {[r[2] for r in res]}; K4-verify vs "
+          f"its plain version on the card (bf16 both) {[round(x, 4) for x in vs_plain]}")
+    if not min(alone) > LOGIT_BAND:
+        raise AssertionError("phase 17: the band does not see a verify without its fed keys")
+    del params, cpu_params
+    torch.cuda.empty_cache()
+
+
 def device_kernels(prof):
     """(name, device ms, count) of every device-side event of a trace
     (kernels, copies); CPU ops also carry the device time they launched."""
@@ -2096,8 +2857,16 @@ def main() -> None:
     # the last decode step writes slot l + NEW_TOKENS - 2 and attends the
     # decoded span [l, l + NEW_TOKENS - 2) besides the prompt
     quantized = "--quantized" in sys.argv[1:]
-    rows = phase_kernels(device, hd_batch["lengths"], s_hd, (l, l + NEW_TOKENS - 2), quantized)
+    speculative = "--speculative" in sys.argv[1:]
+    only = "quantized" if quantized else "speculative" if speculative else ""
+    rows = phase_kernels(device, hd_batch["lengths"], s_hd, (l, l + NEW_TOKENS - 2), only)
     if "--kernels" in sys.argv[1:]:
+        return
+    if speculative:
+        runs = [phase_spec_serving(device, SEED)]
+        phase_spec_parity(device, SEED)
+        print(json.dumps({name: {**row, "launches": sum(r.get(name, 0) for r in runs)}
+                          for name, row in rows.items()}))
         return
     if quantized:
         runs = [phase_hd_4bit(device, SEED, hd_batch, hd_blocks)]
@@ -2119,6 +2888,8 @@ def main() -> None:
     phase_4bit_parity(device, SEED)
     runs.append(phase_paged_serving(device, SEED, w8a8=True))
     phase_paged_parity(device, SEED, w8a8=True)
+    runs.append(phase_spec_serving(device, SEED))
+    phase_spec_parity(device, SEED)
 
     meta = {
         "vit_attention": ("tokenpacker_tpu_torch/csrc/vit_attention.cu",
@@ -2138,12 +2909,16 @@ def main() -> None:
         "s8_matmul": ("tokenpacker_tpu_torch/csrc/s8_matmul.cu",
                       "tokenpacker_tpu/ops/q8_matmul.py:59"),
         "s8_gemm": ("tokenpacker_tpu_torch/csrc/s8_gemm.cu", "tokenpacker_tpu/ops/s8_gemm.py:108"),
+        "vit_block": ("tokenpacker_tpu_torch/csrc/vit_block.cu",
+                      "tokenpacker_tpu/ops/vit_block.py:125"),
+        "fused_verify": ("tokenpacker_tpu_torch/csrc/fused_decode.cu",
+                         "tokenpacker_tpu/ops/fused_decode.py:1390"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
-        # launches: summed over the six main-path runs (phases 4, 6, 8, 10,
-        # 12 and 14), each counted from 0 just before its run and read just
-        # after
+        # launches: summed over the seven main-path runs (phases 4, 6, 8,
+        # 10, 12, 14 and 16), each counted from 0 just before its run and
+        # read just after
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(r.get(name, 0) for r in runs), **rows[name]})
     print(json.dumps({"kernels": kernels}))

@@ -13,7 +13,9 @@ take. K4 (the fused int8 decode step) runs at smaller widths than
 Vicuna-7B's with the same head size; `chip_smoke.py` runs it at full
 width. K5 (paged attention) runs at the paged serving path's shapes. K6
 (4-bit GEMV), K7 (int8 GEMV) and K8 (w8a8 GEMM) run at Vicuna-7B's and
-CLIP-L's product shapes and at ragged row counts.
+CLIP-L's product shapes and at ragged row counts. K9 (the fused CLIP
+block) runs at CLIP-L's widths and at a small ragged one; K4's verify form
+(T = k+1 fed tokens a sample) at K4's test widths.
 
 Outputs are held by block measures that do not scale with the tensor's
 largest value: the relative RMS difference of every (sample, 64-row
@@ -24,7 +26,15 @@ with the last valid range or page dropped. K6 is held per (row, 128-wide
 output slice), and its plain version without the last 64 rows of the
 weight must fail that; K7's int32 output and K8's int8 rows and int32
 sums are held bit for bit (K8's bf16 output within one bf16 step), and
-the product without the last 128 rows must differ.
+the product without the last 128 rows must differ. K9 is held by its
+block's update out - x per (image, 64-row tile, 128-wide slice), which
+its plain version must fail when its attention loses the last 64 keys or
+its MLP the last 128 hidden units; K4's verify form per (sample, token,
+128-wide slice) and per (sample, token, head) row, failing the plain
+version without the last valid range or without the fed tokens before
+each token. The int8 cache rows and scales that `quantize_kv` gives on
+the card, and that K4 writes at T = 1 and T = k+1, are held bit for bit
+against the CPU's and `quantize_kv`'s, as is the int4 code table.
 """
 
 import pytest
@@ -49,7 +59,9 @@ from tokenpacker_tpu_torch.ops.q4_matmul import q4_matmul, q4_matmul_plain
 from tokenpacker_tpu_torch.ops.q8_matmul import s8_matmul, s8_matmul_plain, w8a8_matmul
 from tokenpacker_tpu_torch.ops.quantize import quantize_4bit, quantize_int8
 from tokenpacker_tpu_torch.ops.s8_gemm import s8_gemm, s8_gemm_plain, w8a8_gemm
+from tokenpacker_tpu_torch.ops.quantize import dequantize_4bit
 from tokenpacker_tpu_torch.ops.vit_attention import vit_attention, vit_attention_plain
+from tokenpacker_tpu_torch.ops.vit_block import vit_block, vit_block_plain
 
 # bf16 on the card: the kernels round the probabilities (as product
 # operands) and the outputs to bf16, ~2^-9 per element; a lost tile, range
@@ -605,3 +617,204 @@ def test_quantized_products_reject_what_the_kernels_do_not_take(cuda):
     q, scale = quantize_int8(w[:, :192])
     with pytest.raises(ValueError, match="multiples of 128"):
         s8_gemm(torch.zeros((256, 256), dtype=torch.bfloat16, device=cuda), q, scale)
+
+
+# ---- K9: the fused CLIP block ----------------------------------------------------
+
+# the block's o product is scaled by this gain so that attention moves the
+# update as much as the MLP does: with random weights the attention output
+# averages ~577 values and is ~1/20 of the MLP's, and no measure of the
+# update could see lost keys
+VIT_O_GAIN = 20.0
+
+
+def _vit_layer(cuda, w, f, seed):
+    """One CLIP layer of random bf16 params: kernels ~N(0, 1/fan_in), random
+    biases and LayerNorm scales (the o kernel times VIT_O_GAIN)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, mean=0.0):
+        return (mean + scale * torch.randn(shape, generator=g)).to(cuda, torch.bfloat16)
+
+    def lin(k, n, gain=1.0):
+        return {"kernel": rnd(k, n, scale=gain / k**0.5), "bias": rnd(n, scale=0.1)}
+
+    return {"ln1": {"scale": rnd(w, scale=0.1, mean=1.0), "bias": rnd(w, scale=0.1)},
+            "attn": {"q": lin(w, w), "k": lin(w, w), "v": lin(w, w), "o": lin(w, w, VIT_O_GAIN)},
+            "ln2": {"scale": rnd(w, scale=0.1, mean=1.0), "bias": rnd(w, scale=0.1)},
+            "mlp": {"fc1": lin(w, f), "fc2": lin(f, w)}}
+
+
+def vit_lossy(x, p, heads, eps):
+    """The plain block's update with its attention losing the last 64 keys
+    (rows [0, T - 64) from the block run on x[:, :T - 64]; the last rows
+    as the full block) and with its MLP losing the last 128 hidden units."""
+    t = x.shape[1]
+    full = vit_block_plain(x, p, heads, eps)
+    keys = full.clone()
+    keys[:, :t - 64] = vit_block_plain(x[:, :t - 64].contiguous(), p, heads, eps)
+    mlp = {**p, "mlp": {"fc1": {"kernel": p["mlp"]["fc1"]["kernel"][:, :-128],
+                                "bias": p["mlp"]["fc1"]["bias"][:-128]},
+                        "fc2": {"kernel": p["mlp"]["fc2"]["kernel"][:-128],
+                                "bias": p["mlp"]["fc2"]["bias"]}}}
+    return keys - x, vit_block_plain(x, mlp, heads, eps) - x
+
+
+def _slices(u):
+    """[N, T, W] -> [N, T, W / 128, 128]: (image, row, 128-wide slice)."""
+    return u.view(*u.shape[:2], -1, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,w,f,heads", [(2, 577, 1024, 4096, 16), (3, 130, 256, 512, 4)])
+def test_vit_block_kernel_matches_plain(cuda, n, t, w, f, heads):
+    """The update out - x per (image, 64 rows, 128-wide slice); the plain
+    version that lost the last 64 keys, or the last 128 MLP units, must
+    fail that hold. Two calls give the same bits."""
+    p = _vit_layer(cuda, w, f, seed=n)
+    x = _bf16((n, t, w), 7, cuda)
+    got, again, want = vit_block(x, p, heads, 1e-5), vit_block(x, p, heads, 1e-5), \
+        vit_block_plain(x, p, heads, 1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _blocks_close(_slices(got - x), _slices(want - x))
+    for lost in vit_lossy(x, p, heads, 1e-5):
+        assert _blocks_rel(_slices(lost), _slices(want - x)).max().item() > BLOCK_REL_RMS
+
+
+@pytest.mark.cuda
+def test_vit_block_rejects_what_it_does_not_take(cuda):
+    from tokenpacker_tpu_torch.models.clip_vit import quantize_tower_int8
+
+    p = _vit_layer(cuda, 256, 512, seed=0)
+    x = _bf16((1, 17, 256), 1, cuda)
+    with pytest.raises(ValueError, match="quantized"):
+        vit_block(x, quantize_tower_int8({"layers": [p]})["layers"][0], 4, 1e-5)
+    with pytest.raises(RuntimeError, match="not supported"):
+        vit_block(x, p, 2, 1e-5)  # head_dim 128
+    with pytest.raises(ValueError, match="bfloat16"):
+        vit_block(x.float(), p, 4, 1e-5)
+
+
+# ---- K4's verify form (T = k+1) --------------------------------------------------
+
+
+def _verify_run(cfg, lm, cache, args, fn):
+    """K4-verify ("kernel"), its plain version ("plain"), the plain version
+    without the last valid range ("lost range") or with each fed token alone
+    ("lost fed"), on a copy of the cache. Returns ((hidden, k_new, v_new),
+    cache copy)."""
+    h0, len0, start2, end2, wpos0, pos = args
+    c = KVCache(cache.k.clone(), cache.v.clone(), 0,
+                None if cache.k_scale is None else cache.k_scale.clone(),
+                None if cache.v_scale is None else cache.v_scale.clone())
+    if fn == "kernel":
+        out = k4.fused_verify_hidden(lm, cfg, h0, c.k, c.v, len0, start2, end2, wpos0, pos,
+                                     k_scale=c.k_scale, v_scale=c.v_scale)
+    elif fn == "lost fed":
+        outs = [k4.fused_decode_hidden_plain(lm["layers"], cfg, h0[:, t], c.k, c.v, len0, start2,
+                                             end2, pos[:, t], c.k_scale, c.v_scale)
+                for t in range(h0.shape[1])]
+        out = (torch.stack([o[0] for o in outs], 1), torch.stack([o[1] for o in outs], 2),
+               torch.stack([o[2] for o in outs], 2))
+    else:
+        end = start2 if fn == "lost range" else end2
+        out = k4.fused_verify_hidden_plain(lm["layers"], cfg, h0, c.k, c.v, len0, start2, end,
+                                           pos, c.k_scale, c.v_scale)
+        k4.write_rows(c.k, c.v, c.k_scale, c.v_scale, out[1], out[2], wpos0)
+    return out, c
+
+
+def _verify_inputs(cuda, b, t, s, int8):
+    """K4's test inputs with T fed tokens a sample at positions len0 + 7 + j,
+    written from the decoded span's end, and short prompts (1-4 rows): the
+    fed tokens then hold a large share of each query's attention, so the
+    plain version with each fed token alone reads far off."""
+    cfg, lm, cache, (_, _, start2, end2, wpos, _) = _k4_inputs(cuda, b, s, int8)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    len0 = torch.randint(1, 5, (b,), generator=g, device=cuda).int()
+    h0 = (torch.randn((b, t, cfg.hidden_size), generator=g, device=cuda) * 0.05).bfloat16()
+    positions = (len0[:, None] + 7 + torch.arange(t, device=cuda)).int()
+    return cfg, lm, cache, (h0, len0, start2, end2, wpos, positions)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,s,int8", [(4, 5, 544, True), (4, 5, 544, False), (1, 9, 96, True),
+                                        (3, 2, 160, False)])
+def test_fused_verify_kernel_matches_plain(cuda, b, t, s, int8):
+    """The hidden state per (sample, token, 128-wide slice) and the new rows
+    per (layer, sample, token, head) within BLOCK_REL_RMS, the hidden
+    state failing the plain version without the decoded span and with each
+    fed token alone; the cache equal to the plain version's outside the
+    written rows, and the written int8 rows and scales equal to
+    `quantize_kv` of the rows the kernel returns."""
+    cfg, lm, cache, args = _verify_inputs(cuda, b, t, s, int8)
+    (h, kn, vn), c = _verify_run(cfg, lm, cache, args, "kernel")
+    (hp, knp, vnp), cp = _verify_run(cfg, lm, cache, args, "plain")
+    (hl, knl, vnl), _ = _verify_run(cfg, lm, cache, args, "lost range")
+    (hf, _, _), _ = _verify_run(cfg, lm, cache, args, "lost fed")
+    torch.cuda.synchronize()
+
+    def slices(x):
+        return x.view(b, t, -1, 128)
+
+    _rows_close(slices(h), slices(hp), slices(hl))
+    if t > 1:
+        _rows_close(slices(h), slices(hp), slices(hf))
+    _rows_close(torch.stack((kn, vn)), torch.stack((knp, vnp)), torch.stack((knl, vnl)))
+    cols = args[4].long()[:, None] + torch.arange(t, device=cuda)
+    rows = torch.arange(b, device=cuda)[:, None].expand(b, t)
+    for a, w in ((c.k, cp.k), (c.v, cp.v)) + (((c.k_scale, cp.k_scale),) if int8 else ()):
+        a, w = a.clone(), w.clone()
+        a[:, rows, cols] = 0
+        w[:, rows, cols] = 0
+        assert torch.equal(a, w)
+    if int8:
+        for cache_rows, scales, new in ((c.k, c.k_scale, kn), (c.v, c.v_scale, vn)):
+            q, sc = quantize_kv(new)
+            assert torch.equal(cache_rows[:, rows, cols], q)
+            assert torch.equal(scales[:, rows, cols], sc)
+
+
+@pytest.mark.cuda
+def test_fused_verify_at_one_token_is_the_decode_step(cuda):
+    """T = 1 through the verify entry gives the decode step's bits."""
+    cfg, lm, cache, args = _k4_inputs(cuda, 3, 160, True)
+    h0, len0, start2, end2, wpos, pos = args
+    (h, kn, _), _ = _k4_run(cfg, lm, cache, args, k4.fused_decode_hidden)
+    (hv, knv, _), _ = _verify_run(cfg, lm, cache, (h0[:, None], len0, start2, end2, wpos,
+                                                   pos[:, None]), "kernel")
+    torch.cuda.synchronize()
+    assert torch.equal(h, hv[:, 0]) and torch.equal(kn, knv[:, :, 0])
+
+
+# ---- item: int8 rows bit for bit -------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_quantize_kv_on_the_card_equals_the_cpu(cuda):
+    """200,000 random rows of 128 (bf16 rows at three magnitudes, an
+    all-zero row): the int8 values and scales from the card equal the
+    CPU's bit for bit."""
+    g = torch.Generator(device="cpu").manual_seed(0)
+    x = torch.randn((200_000, 128), generator=g)
+    x *= torch.logspace(-3, 2, 200_000)[:, None]
+    x[0] = 0
+    x = x.bfloat16()
+    (qc, sc), (qg, sg) = quantize_kv(x), quantize_kv(x.to(cuda))
+    assert torch.equal(qg.cpu(), qc) and torch.equal(sg.cpu(), sc)
+
+
+@pytest.mark.cuda
+def test_int4_codes_on_the_card_equal_the_cpu_and_k6(cuda):
+    """dequantize_4bit of an int4 leaf on the card equals the CPU's bit for
+    bit, and K6 with one-hot rows reads the same weights (its code table
+    (i - 8) / 7 times the block's absmax, rounded to bf16)."""
+    w = _bf16((256, 128), 3, "cpu").float()
+    leaf = quantize_4bit(w, 64, "int4")
+    gleaf = {k: v.to(cuda) for k, v in leaf.items()}
+    want = dequantize_4bit(leaf, torch.float32)
+    assert torch.equal(dequantize_4bit(gleaf, torch.float32).cpu(), want)
+    eye = torch.eye(256, dtype=torch.bfloat16, device=cuda)
+    got = torch.cat([q4_matmul(eye[i:i + 32], gleaf) for i in range(0, 256, 32)])
+    assert torch.equal(got.cpu(), want.bfloat16())

@@ -182,9 +182,18 @@ def test_unported_forms_raise(trees):
     with pytest.raises(NotImplementedError, match="LoRA"):
         fused_decode.fused_decode_hidden(port, cfg, torch.zeros(B, cfg.hidden_size), cache.k,
                                          cache.v, z, z, z, z, z, slot_lora={})
-    with pytest.raises(NotImplementedError, match="verify"):
+    # the T = k+1 verify form is ported: it is fused_verify_hidden's, and
+    # fused_decode_hidden points there
+    with pytest.raises(ValueError, match="fused_verify_hidden"):
         fused_decode.fused_decode_hidden(port, cfg, torch.zeros(B, 3, cfg.hidden_size), cache.k,
                                          cache.v, z, z, z, z, z)
+    hidden, k_new, _ = fused_decode.fused_verify_hidden(
+        port, cfg, torch.zeros(B, 3, cfg.hidden_size, dtype=torch.bfloat16), cache.k, cache.v,
+        z, z, z, z, torch.zeros(B, 3, dtype=torch.int32))
+    assert hidden.shape == (B, 3, cfg.hidden_size) and k_new.shape[1:3] == (B, 3)
+    with pytest.raises(NotImplementedError, match="LoRA"):
+        fused_decode.fused_verify_hidden(port, cfg, torch.zeros(B, 3, cfg.hidden_size), cache.k,
+                                         cache.v, z, z, z, z, z, slot_lora={})
     qp = {**port, "layers": [{**layer, "attn": {**layer["attn"], "qkv": {"kernel": {
         "qp": torch.zeros(1, dtype=torch.uint16), "scale": torch.zeros(1)}}}}
         for layer in port["layers"]]}

@@ -1,9 +1,10 @@
 // K4: one int8 weight-only LLaMA decode step over every layer, from one
 // host call.
 //
-// Replaces tokenpacker_tpu/ops/fused_decode.py:fused_decode_hidden (T = 1,
-// no slot LoRA; the Pallas `_kernel` behind `_fused_call`). Per layer, for
-// B samples and one token each:
+// Replaces tokenpacker_tpu/ops/fused_decode.py:fused_decode_hidden (T = 1)
+// and fused_verify_hidden (T = k+1 fed tokens a sample, speculative
+// verify), no slot LoRA; the Pallas `_kernel` behind `_fused_call`. Per
+// layer, for B samples and T tokens each (B * T rows, sample-major):
 //   RMSNorm(h) * ln1 -> qkv GEMV (int8 weights, f32 sums, f32 per-column
 //   scales) -> RoPE on q, k -> with an int8 cache, quantize-dequantize of
 //   the new k, v per (row, head) -> attention over the cache ranges
@@ -37,6 +38,15 @@
 // One host call per step keeps the property the TPU design was after (no
 // per-layer Python work) and can be captured in a CUDA graph later.
 //
+// The verify form (T > 1) is the same call over B * T rows: fed token t of
+// a sample ropes at its own position, writes its row at write_pos + t, and
+// attends the sample's cache ranges plus fed tokens 0..t (causal among the
+// fed tokens, as the TPU kernel's in-chunk mask). Its GEMVs take B * T > 8
+// rows on the tensor cores (gemv_mma_kernel), 32 rows a pass, so a verify
+// round of 4 slots x 5 tokens streams the 6.48 GB once, as a plain step
+// does; the CUDA-core GEMV, at up to 8 rows a launch, would stream them 3
+// times (on an H100: 21.4 ms a round against a 5.9 ms step, PERF.md).
+//
 // Numerics follow the TPU kernel: x and the weights are exact in f32, so
 // the GEMVs differ from it only in the order of the sums; RoPE in f32 then
 // bf16; the current token's k/v quantize-dequantized with
@@ -46,10 +56,13 @@
 // The cache row is written as kv_quant.quantize_kv of the bf16
 // quantize-dequantized row, so it equals what the plain version writes.
 // The TPU kernel also rounds each k*q product to bf16 before the head sum;
-// this kernel does not.
+// this kernel does not. At T > 1 the fed tokens' probabilities are rounded
+// to bf16 for the value product like the cache's (the TPU kernel's T > 1
+// form); at T = 1 the current token's is not.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <mma.h>
 #include <stdint.h>
 
 #include <algorithm>
@@ -64,7 +77,9 @@ constexpr int GEMV_WARPS = 8;         // warps per GEMV block, splitting its row
 constexpr int GEMV_UNROLL = 4;        // rows in flight per thread
 constexpr int TARGET_BLOCKS = 264;    // 2 per SM on 132 SMs
 constexpr int MAX_SPLIT_ROWS = 1024;  // bounds the staged x slice in shared memory
-constexpr int MAX_GROUP = 8;          // rows per GEMV launch (B > 8 runs in groups)
+constexpr int MAX_GROUP = 8;          // rows per CUDA-core GEMV launch
+constexpr int MMA_ROWS = 32;          // rows per tensor-core GEMV launch (B x T > 8)
+constexpr int MMA_COLS = 128, MMA_KS = 64;  // its block's columns and K step
 constexpr int EPI_THREADS = 256;
 constexpr int ATT_WARPS = 16;
 constexpr int ATT_UNROLL = 4;         // key steps in flight per warp
@@ -268,30 +283,182 @@ int launch_gemv(const bf16* x, const bf16* ln, float eps, const int8_t* w, int k
   return (int)cudaGetLastError();
 }
 
-// rows [0, b) of x [b, k] times w [k, n] -> partials [b][splits][n], in
-// launches of at most MAX_GROUP rows (16 columns a thread up to 4 rows, 8
-// above, to bound the accumulator registers)
-int gemv(const bf16* x, const bf16* ln, float eps, const int8_t* w, int b, int k, int n,
-         float* partials, cudaStream_t st) {
-  const int splits = plan_for(k, n).splits;
-  for (int r0 = 0; r0 < b; r0 += MAX_GROUP) {
-    const int g = std::min(MAX_GROUP, b - r0);
-    const bf16* xg = x + (long)r0 * k;
-    float* pg = partials + (long)r0 * splits * n;
-    int rc;
-    switch (g) {
-      case 1: rc = launch_gemv<1, 16>(xg, ln, eps, w, k, n, pg, st); break;
-      case 2: rc = launch_gemv<2, 16>(xg, ln, eps, w, k, n, pg, st); break;
-      case 3: rc = launch_gemv<3, 16>(xg, ln, eps, w, k, n, pg, st); break;
-      case 4: rc = launch_gemv<4, 16>(xg, ln, eps, w, k, n, pg, st); break;
-      case 5: rc = launch_gemv<5, 8>(xg, ln, eps, w, k, n, pg, st); break;
-      case 6: rc = launch_gemv<6, 8>(xg, ln, eps, w, k, n, pg, st); break;
-      case 7: rc = launch_gemv<7, 8>(xg, ln, eps, w, k, n, pg, st); break;
-      default: rc = launch_gemv<8, 8>(xg, ln, eps, w, k, n, pg, st); break;
-    }
-    if (rc != 0) return rc;
+// inv_rms[b] = 1 / sqrt(mean(x[b]^2) + eps) for one row per block, 256
+// threads, summed in gemv_partial_kernel's order (a thread's stride of 512,
+// the warp's butterfly, the warps in order), so both GEMVs normalize a row
+// to the same bits.
+__global__ void __launch_bounds__(GEMV_WARPS * 32)
+    row_rms_kernel(const bf16* __restrict__ x, int k, float eps, float* __restrict__ inv_rms) {
+  __shared__ float sums[GEMV_WARPS];
+  const int tid = threadIdx.x, b = blockIdx.x;
+  float ss = 0.f;
+  for (int i = tid * 2; i < k; i += GEMV_WARPS * 64) {
+    const float2 v =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + (long)b * k + i));
+    ss += v.x * v.x + v.y * v.y;
   }
-  return 0;
+  ss = warp_sum(ss);
+  if (tid % 32 == 0) sums[tid / 32] = ss;
+  __syncthreads();
+  if (tid == 0) {
+    float t = 0.f;
+    for (int i = 0; i < GEMV_WARPS; ++i) t += sums[i];
+    inv_rms[b] = 1.0f / sqrtf(t / (float)k + eps);
+  }
+}
+
+// The same partial sums for rows b < m <= MMA_ROWS on the tensor cores (a
+// verify step's B x T rows). The block stages its split of the rows of x
+// once, as the CUDA-core kernel does (bf16 values; with ln, the RMSNorm of
+// inv_rms from row_rms_kernel), then each K step widens a 64 x 128 int8
+// weight chunk to bf16 in shared memory (exact) and adds the bf16 WMMA
+// product in fp32, the next chunk's weights loaded into registers
+// meanwhile. One pass over the weights takes all 32 rows; the fp32 sums
+// come in the tensor cores' order, so the rows' bits differ from the CUDA-
+// core kernel's in the last places. 8 warps, one 16-column slice each
+// over both 16-row halves. grid (ceil(n / 128), splits), dynamic shared
+// memory mma_smem_bytes(split_rows); rows past the split's end read as 0.
+// x's staged columns: the split's rows rounded up to whole K steps (the
+// columns past the split read as 0), plus a pad against bank conflicts
+__host__ __device__ constexpr int mma_xs_cols(int split_rows) {
+  return (split_rows + MMA_KS - 1) / MMA_KS * MMA_KS;
+}
+__host__ __device__ constexpr int mma_xs_ld(int split_rows) { return mma_xs_cols(split_rows) + 8; }
+constexpr int MMA_WS_LD = MMA_COLS + 8, MMA_CS_LD = MMA_COLS + 4;
+
+size_t mma_smem_bytes(int split_rows) {
+  const size_t ws = (size_t)MMA_KS * MMA_WS_LD * sizeof(bf16);
+  const size_t cs = (size_t)MMA_ROWS * MMA_CS_LD * sizeof(float);
+  return (size_t)MMA_ROWS * mma_xs_ld(split_rows) * sizeof(bf16) + std::max(ws, cs);
+}
+
+__global__ void __launch_bounds__(GEMV_WARPS * 32)
+    gemv_mma_kernel(const bf16* __restrict__ x, int m, const bf16* __restrict__ ln,
+                    const float* __restrict__ inv_rms, const int8_t* __restrict__ w, int k, int n,
+                    int split_rows, float* __restrict__ partials) {
+  namespace wmma = nvcuda::wmma;
+  constexpr int CHUNKS = MMA_KS * MMA_COLS / 16 / (GEMV_WARPS * 32);  // 16-byte loads a thread
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int xs_ld = mma_xs_ld(split_rows);
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);                     // [MMA_ROWS][xs_ld]
+  bf16* ws = xs + MMA_ROWS * xs_ld;                                   // [MMA_KS][MMA_WS_LD]
+  float* cs = reinterpret_cast<float*>(ws);                           // after the loop
+
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int split = blockIdx.y, k0 = split * split_rows;
+  const int rows = min(k, k0 + split_rows) - k0;
+  const int col0 = blockIdx.x * MMA_COLS;
+
+  WeightVec<16> next[CHUNKS];
+  auto load = [&](int r0) {
+#pragma unroll
+    for (int j = 0; j < CHUNKS; ++j) {
+      const int i = tid + j * GEMV_WARPS * 32;
+      const int r = i / (MMA_COLS / 16), c = (i % (MMA_COLS / 16)) * 16;
+      if (col0 + c < n && r0 + r < rows) next[j].load(w + (long)(k0 + r0 + r) * n + col0 + c);
+      else next[j].zero();
+    }
+  };
+  load(0);
+
+  // the split's rows of x, 8 at a time (k is a multiple of 16)
+  const int xs_chunks = mma_xs_cols(split_rows) / 8;
+  for (int i = tid; i < MMA_ROWS * xs_chunks; i += GEMV_WARPS * 32) {
+    const int b = i / xs_chunks, r = (i % xs_chunks) * 8;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (b < m && r < rows) {
+      raw = *reinterpret_cast<const uint4*>(x + (long)b * k + k0 + r);
+      if (ln != nullptr) {
+        bf16* e = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          e[q] = __float2bfloat16(round_bf(to_f(e[q]) * inv_rms[b]) * to_f(ln[k0 + r + q]));
+      }
+    }
+    *reinterpret_cast<uint4*>(xs + b * xs_ld + r) = raw;
+  }
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
+  wmma::fill_fragment(acc[0], 0.f);
+  wmma::fill_fragment(acc[1], 0.f);
+  for (int r0 = 0; r0 < rows; r0 += MMA_KS) {
+#pragma unroll
+    for (int j = 0; j < CHUNKS; ++j) {  // the loaded chunk, widened into shared memory
+      const int i = tid + j * GEMV_WARPS * 32;
+      const int r = i / (MMA_COLS / 16), c = (i % (MMA_COLS / 16)) * 16;
+      float f[16];
+      next[j].to_float(f);
+      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(ws + r * MMA_WS_LD + c);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) dst[q] = __floats2bfloat162_rn(f[2 * q], f[2 * q + 1]);
+    }
+    __syncthreads();
+    if (r0 + MMA_KS < rows) load(r0 + MMA_KS);
+#pragma unroll
+    for (int kq = 0; kq < MMA_KS; kq += 16) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+      wmma::load_matrix_sync(fb, ws + kq * MMA_WS_LD + warp * 16, MMA_WS_LD);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+        wmma::load_matrix_sync(fa, xs + h * 16 * xs_ld + r0 + kq, xs_ld);
+        wmma::mma_sync(acc[h], fa, fb, acc[h]);
+      }
+    }
+    __syncthreads();
+  }
+  wmma::store_matrix_sync(cs + warp * 16, acc[0], MMA_CS_LD, wmma::mem_row_major);
+  wmma::store_matrix_sync(cs + 16 * MMA_CS_LD + warp * 16, acc[1], MMA_CS_LD,
+                          wmma::mem_row_major);
+  __syncthreads();
+  const int splits = gridDim.y;
+  for (int i = tid; i < m * MMA_COLS; i += GEMV_WARPS * 32) {
+    const int b = i / MMA_COLS, c = i % MMA_COLS, col = col0 + c;
+    if (col < n) partials[((long)b * splits + split) * n + col] = cs[b * MMA_CS_LD + c];
+  }
+}
+
+// rows [0, b) of x [b, k] times w [k, n] -> partials [b][splits][n]. Up to
+// MAX_GROUP rows (plain decode steps) on the CUDA cores (16 columns a thread
+// up to 4 rows, 8 above, to bound the accumulator registers); more (verify
+// steps' B x T rows) on the tensor cores, MMA_ROWS a launch, so that a
+// verify step streams the weights once as a plain step does.
+int gemv(const bf16* x, const bf16* ln, float eps, const int8_t* w, int b, int k, int n,
+         float* partials, float* inv_rms, cudaStream_t st) {
+  const SplitPlan p = plan_for(k, n);
+  if (b > MAX_GROUP) {
+    if (ln != nullptr) {
+      row_rms_kernel<<<b, GEMV_WARPS * 32, 0, st>>>(x, k, eps, inv_rms);
+      const int rc = (int)cudaGetLastError();
+      if (rc != 0) return rc;
+    }
+    const size_t smem = mma_smem_bytes(p.split_rows);
+    const cudaError_t e = cudaFuncSetAttribute(
+        gemv_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    for (int r0 = 0; r0 < b; r0 += MMA_ROWS) {
+      const int g = std::min(MMA_ROWS, b - r0);
+      dim3 grid((n + MMA_COLS - 1) / MMA_COLS, p.splits);
+      gemv_mma_kernel<<<grid, GEMV_WARPS * 32, smem, st>>>(
+          x + (long)r0 * k, g, ln, inv_rms + r0, w, k, n, p.split_rows,
+          partials + (long)r0 * p.splits * n);
+      const int rc = (int)cudaGetLastError();
+      if (rc != 0) return rc;
+    }
+    return 0;
+  }
+  int rc;
+  switch (b) {
+    case 1: rc = launch_gemv<1, 16>(x, ln, eps, w, k, n, partials, st); break;
+    case 2: rc = launch_gemv<2, 16>(x, ln, eps, w, k, n, partials, st); break;
+    case 3: rc = launch_gemv<3, 16>(x, ln, eps, w, k, n, partials, st); break;
+    case 4: rc = launch_gemv<4, 16>(x, ln, eps, w, k, n, partials, st); break;
+    case 5: rc = launch_gemv<5, 8>(x, ln, eps, w, k, n, partials, st); break;
+    case 6: rc = launch_gemv<6, 8>(x, ln, eps, w, k, n, partials, st); break;
+    case 7: rc = launch_gemv<7, 8>(x, ln, eps, w, k, n, partials, st); break;
+    default: rc = launch_gemv<8, 8>(x, ln, eps, w, k, n, partials, st); break;
+  }
+  return rc;
 }
 
 // Sum of the splits of partials [b][splits][n] at (row, col), in split order
@@ -313,15 +480,17 @@ __device__ __forceinline__ float block_max_128(float v, float* red4) {
 }
 
 // One (part, head) of one row of the qkv product: part 0 = q, 1 = k,
-// 2 = v. grid (3 * heads, b), HD threads. q and k get RoPE (f32), all
-// three are rounded to bf16; with an int8 cache k and v are
-// quantize-dequantized. The new k/v rows go to k_new / v_new [b, heads * HD]
-// and into this layer's cache at write_pos (in place).
+// 2 = v. grid (3 * heads, b * t_tok), HD threads. q and k get RoPE (f32),
+// all three are rounded to bf16; with an int8 cache k and v are
+// quantize-dequantized. The new k/v rows go to k_new / v_new [rows, heads *
+// HD] and into this layer's cache (in place) at write_pos[sample] + t for
+// row sample * t_tok + t; a slot at or past s_len is not written.
 template <bool INT8>
 __global__ void __launch_bounds__(HD)
     qkv_epilogue_kernel(const float* __restrict__ partials, int splits,
                         const float* __restrict__ scale, const int* __restrict__ positions,
-                        const int* __restrict__ write_pos, float theta, int heads, int s_len,
+                        const int* __restrict__ write_pos, int t_tok, float theta, int heads,
+                        int s_len,
                         bf16* __restrict__ q_out, bf16* __restrict__ k_new,
                         bf16* __restrict__ v_new, void* cache_k, void* cache_v,
                         float* __restrict__ k_scale, float* __restrict__ v_scale) {
@@ -346,15 +515,19 @@ __global__ void __launch_bounds__(HD)
     q_out[out] = __float2bfloat16(x);
     return;
   }
-  const long slot = ((long)row * s_len + write_pos[row]) * heads + head;
+  const int sample = row / t_tok, pos = write_pos[sample] + row % t_tok;
+  const bool store = pos >= 0 && pos < s_len;
+  const long slot = ((long)sample * s_len + pos) * heads + head;
   if (INT8) {
     const float s1 = fmaxf(block_max_128(fabsf(x), red4), 1e-8f) / 127.0f;
     x = round_bf(rintf(x / s1) * s1);
     const float s2 = fmaxf(block_max_128(fabsf(x), red4), 1e-8f) / 127.0f;
     int8_t* cache = static_cast<int8_t*>(part == 1 ? cache_k : cache_v);
-    cache[slot * HD + t] = (int8_t)rintf(x / s2);
-    if (t == 0) (part == 1 ? k_scale : v_scale)[slot] = s2;
-  } else {
+    if (store) {
+      cache[slot * HD + t] = (int8_t)rintf(x / s2);
+      if (t == 0) (part == 1 ? k_scale : v_scale)[slot] = s2;
+    }
+  } else if (store) {
     static_cast<bf16*>(part == 1 ? cache_k : cache_v)[slot * HD + t] = __float2bfloat16(x);
   }
   (part == 1 ? k_new : v_new)[out] = __float2bfloat16(x);
@@ -492,10 +665,12 @@ __device__ __forceinline__ void merge_state(float& m1, float& l1, float* acc1, f
   m1 = m;
 }
 
-// One (head, row) of the decode attention: grid (heads, b), ATT_WARPS warps.
-// The cache of this layer is [b, s_len, heads, HD] (T), scales [b, s_len,
-// heads] (int8 only). q, k_cur, v_cur: [b, heads * HD] bf16, the current
-// token; out: [b, heads * HD] bf16.
+// One (head, row) of the attention: grid (heads, b * t_tok), ATT_WARPS
+// warps; row = sample * t_tok + t. The cache of this layer is [b, s_len,
+// heads, HD] (T), scales [b, s_len, heads] (int8 only), read over the
+// sample's ranges. q, k_cur, v_cur: [b * t_tok, heads * HD] bf16, the fed
+// tokens; row attends fed tokens 0..t of its sample. out: [b * t_tok,
+// heads * HD] bf16. t_tok <= ATT_WARPS (warp j scores fed token j).
 template <typename T>
 __global__ void __launch_bounds__(ATT_WARPS * 32)
     attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_cur,
@@ -503,13 +678,14 @@ __global__ void __launch_bounds__(ATT_WARPS * 32)
                      const T* __restrict__ cache_v, const float* __restrict__ k_scale,
                      const float* __restrict__ v_scale, const int* __restrict__ len0,
                      const int* __restrict__ start2, const int* __restrict__ end2,
-                     bf16* __restrict__ out, int s_len, int heads) {
+                     bf16* __restrict__ out, int s_len, int heads, int t_tok) {
   using R = CacheRow<T>;
   constexpr int EPL = R::EPL, LPR = R::LPR;
   __shared__ float red_m[ATT_WARPS], red_l[ATT_WARPS], red_acc[ATT_WARPS][HD];
-  __shared__ float cur_logit;
+  __shared__ float fed_logit[ATT_WARPS];
 
   const int head = blockIdx.x, row = blockIdx.y;
+  const int sample = row / t_tok, tt = row % t_tok, fed0 = sample * t_tok;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, sub = lane % LPR;
   const float sm_scale = rsqrtf((float)HD);
   const long vec = ((long)row * heads + head) * HD;
@@ -523,23 +699,24 @@ __global__ void __launch_bounds__(ATT_WARPS * 32)
   st.m = -INFINITY;
   st.l = 0.f;
 
-  if (warp == 0) {  // the current token's logit
+  if (warp <= tt) {  // fed token `warp`'s logit (the current token's at T = 1)
+    const long kvec = ((long)(fed0 + warp) * heads + head) * HD;
     float dot = 0.f;
-    for (int i = lane; i < HD; i += 32) dot += to_f(q[vec + i]) * to_f(k_cur[vec + i]);
+    for (int i = lane; i < HD; i += 32) dot += to_f(q[vec + i]) * to_f(k_cur[kvec + i]);
     dot = warp_sum(dot);
-    if (lane == 0) cur_logit = dot * sm_scale;
+    if (lane == 0) fed_logit[warp] = dot * sm_scale;
   }
 
-  const int len = min(len0[row], s_len);
-  const int e2 = min(end2[row], s_len);
+  const int len = min(len0[sample], s_len);
+  const int e2 = min(end2[sample], s_len);
   const long row_stride = (long)heads * HD;
-  const long base = (long)row * s_len * row_stride + (long)head * HD;
+  const long base = (long)sample * s_len * row_stride + (long)head * HD;
   const T* kc = cache_k + base;
   const T* vc = cache_v + base;
-  const float* ks = k_scale ? k_scale + (long)row * s_len * heads + head : nullptr;
-  const float* vs = v_scale ? v_scale + (long)row * s_len * heads + head : nullptr;
+  const float* ks = k_scale ? k_scale + (long)sample * s_len * heads + head : nullptr;
+  const float* vs = v_scale ? v_scale + (long)sample * s_len * heads + head : nullptr;
   fold_range<T>(st, kc, vc, ks, vs, row_stride, heads, 0, len, sm_scale);
-  fold_range<T>(st, kc, vc, ks, vs, row_stride, heads, max(start2[row], len), e2, sm_scale);
+  fold_range<T>(st, kc, vc, ks, vs, row_stride, heads, max(start2[sample], len), e2, sm_scale);
 
   // merge the lane groups of the warp, then the warps through shared memory
 #pragma unroll
@@ -562,10 +739,16 @@ __global__ void __launch_bounds__(ATT_WARPS * 32)
   __syncthreads();
   if (threadIdx.x < HD) {
     const int t = threadIdx.x;
-    float mx = cur_logit;
+    float mx = fed_logit[0];
+    for (int j = 1; j <= tt; ++j) mx = fmaxf(mx, fed_logit[j]);
     for (int w = 0; w < ATT_WARPS; ++w) mx = fmaxf(mx, red_m[w]);
-    const float pc = expf(cur_logit - mx);
-    float l = pc, o = pc * to_f(v_cur[vec + t]);
+    float l = 0.f, o = 0.f;
+    for (int j = 0; j <= tt; ++j) {
+      const float pc = expf(fed_logit[j] - mx);
+      const float vj = to_f(v_cur[((long)(fed0 + j) * heads + head) * HD + t]);
+      l += pc;
+      o += (t_tok > 1 ? round_bf(pc) : pc) * vj;
+    }
     for (int w = 0; w < ATT_WARPS; ++w) {
       if (red_m[w] == -INFINITY) continue;  // a warp that saw no key
       const float f = expf(red_m[w] - mx);
@@ -579,9 +762,10 @@ __global__ void __launch_bounds__(ATT_WARPS * 32)
 size_t align256(size_t x) { return (x + 255) / 256 * 256; }
 
 // The workspace of one step: the GEMVs' partial sums, then q, the
-// attention output (both [b, d] bf16) and the MLP activation [b, f] bf16.
+// attention output (both [b, d] bf16), the MLP activation [b, f] bf16 and
+// the rows' inverse RMS [b] f32 (the tensor-core GEMV's).
 struct Workspace {
-  size_t q, attn, xm, bytes;
+  size_t q, attn, xm, rms, bytes;
   Workspace(int b, int d, int f) {
     size_t floats = 0;
     const int shapes[4][2] = {{d, 3 * d}, {d, d}, {d, 2 * f}, {f, d}};
@@ -590,7 +774,8 @@ struct Workspace {
     q = align256(floats * sizeof(float));
     attn = q + align256((size_t)b * d * sizeof(bf16));
     xm = attn + align256((size_t)b * d * sizeof(bf16));
-    bytes = xm + align256((size_t)b * f * sizeof(bf16));
+    rms = xm + align256((size_t)b * f * sizeof(bf16));
+    bytes = rms + align256((size_t)b * sizeof(float));
   }
 };
 
@@ -601,35 +786,42 @@ extern "C" long long tp_fused_decode_workspace(int b, int d, int f) {
   return (long long)Workspace(b, d, f).bytes;
 }
 
-// One decode step of the whole decoder stack.
+// One decode step of the whole decoder stack, for b samples and t_tok fed
+// tokens each (t_tok = 1: a plain step; t_tok > 1: a verify step).
 //   weights: host array of PTRS_PER_LAYER device pointers per layer: ln1
 //     [d] bf16, qkv int8 [d, 3d], qkv scale [3d] f32, o int8 [d, d], o scale,
 //     ln2 [d] bf16, gateup int8 [d, 2f], gateup scale, down int8 [f, d],
 //     down scale.
-//   h: [b, d] bf16, the embedded tokens in, the pre-final-norm hidden out.
-//   len0, start2, end2, write_pos, positions: [b] int32 on the device.
+//   h: [b * t_tok, d] bf16 (sample-major), the embedded tokens in, the
+//     pre-final-norm hidden out.
+//   len0, start2, end2, write_pos: [b] int32 on the device; positions:
+//     [b * t_tok] int32.
 //   cache_k/v: [layers, b, s_len, heads, 128] int8 (kv_int8) or bf16,
 //     k_scale/v_scale [layers, b, s_len, heads] f32 (int8 only); the new
-//     rows are written at write_pos in place.
-//   k_new/v_new: [layers, b, heads * 128] bf16, the new rows as attended.
-// MHA, head_dim 128, d = heads * 128, d and f multiples of 16. Returns 0,
-// a cudaError_t code, or -1 for a shape it does not take.
-extern "C" int tp_fused_decode(const void* const* weights, int layers, int b, int d, int f,
-                               int heads, int head_dim, int s_len, float eps, float theta,
+//     rows are written at write_pos + t in place (not past s_len).
+//   k_new/v_new: [layers, b * t_tok, heads * 128] bf16, the new rows as
+//     attended.
+// MHA, head_dim 128, d = heads * 128, d and f multiples of 16, 1 <= t_tok
+// <= 16. Returns 0, a cudaError_t code, or -1 for a shape it does not take.
+extern "C" int tp_fused_decode(const void* const* weights, int layers, int b, int t_tok, int d,
+                               int f, int heads, int head_dim, int s_len, float eps, float theta,
                                void* h, const void* len0, const void* start2, const void* end2,
                                const void* write_pos, const void* positions, void* cache_k,
                                void* cache_v, void* k_scale, void* v_scale, int kv_int8,
                                void* k_new, void* v_new, void* work, void* stream) {
   if (head_dim != HD || heads < 1 || d != heads * HD || d % 16 || f % 16 || f < 32 || b < 1 ||
-      s_len < 1 || layers < 1 || (kv_int8 && (k_scale == nullptr || v_scale == nullptr)))
+      t_tok < 1 || t_tok > ATT_WARPS || s_len < 1 || layers < 1 ||
+      (kv_int8 && (k_scale == nullptr || v_scale == nullptr)))
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   char* wk = static_cast<char*>(work);
-  const Workspace ws(b, d, f);
+  const int rows = b * t_tok;
+  const Workspace ws(rows, d, f);
   float* partials = reinterpret_cast<float*>(wk);
   bf16* qbuf = reinterpret_cast<bf16*>(wk + ws.q);
   bf16* attn = reinterpret_cast<bf16*>(wk + ws.attn);
   bf16* xm = reinterpret_cast<bf16*>(wk + ws.xm);
+  float* rms = reinterpret_cast<float*>(wk + ws.rms);
 
   bf16* hb = static_cast<bf16*>(h);
   const int* p_len0 = static_cast<const int*>(len0);
@@ -641,8 +833,8 @@ extern "C" int tp_fused_decode(const void* const* weights, int layers, int b, in
   const size_t layer_rows = (size_t)b * s_len * heads;
   const int sp_qkv = plan_for(d, 3 * d).splits, sp_o = plan_for(d, d).splits;
   const int sp_gu = plan_for(d, 2 * f).splits, sp_down = plan_for(f, d).splits;
-  const dim3 epi_d((d + EPI_THREADS - 1) / EPI_THREADS, b);
-  const dim3 epi_f((f + EPI_THREADS - 1) / EPI_THREADS, b);
+  const dim3 epi_d((d + EPI_THREADS - 1) / EPI_THREADS, rows);
+  const dim3 epi_f((f + EPI_THREADS - 1) / EPI_THREADS, rows);
   int rc;
 
   for (int l = 0; l < layers; ++l) {
@@ -661,35 +853,35 @@ extern "C" int tp_fused_decode(const void* const* weights, int layers, int b, in
     char* cv = static_cast<char*>(cache_v) + l * layer_rows * HD * elem;
     float* ks = kv_int8 ? static_cast<float*>(k_scale) + l * layer_rows : nullptr;
     float* vs = kv_int8 ? static_cast<float*>(v_scale) + l * layer_rows : nullptr;
-    bf16* kn = static_cast<bf16*>(k_new) + (size_t)l * b * d;
-    bf16* vn = static_cast<bf16*>(v_new) + (size_t)l * b * d;
+    bf16* kn = static_cast<bf16*>(k_new) + (size_t)l * rows * d;
+    bf16* vn = static_cast<bf16*>(v_new) + (size_t)l * rows * d;
 
-    if ((rc = gemv(hb, ln1, eps, qkv, b, d, 3 * d, partials, st))) return rc;
+    if ((rc = gemv(hb, ln1, eps, qkv, rows, d, 3 * d, partials, rms, st))) return rc;
     if (kv_int8)
-      qkv_epilogue_kernel<true><<<dim3(3 * heads, b), HD, 0, st>>>(
-          partials, sp_qkv, qkv_s, p_pos, p_wpos, theta, heads, s_len, qbuf, kn, vn, ck, cv, ks,
-          vs);
+      qkv_epilogue_kernel<true><<<dim3(3 * heads, rows), HD, 0, st>>>(
+          partials, sp_qkv, qkv_s, p_pos, p_wpos, t_tok, theta, heads, s_len, qbuf, kn, vn, ck,
+          cv, ks, vs);
     else
-      qkv_epilogue_kernel<false><<<dim3(3 * heads, b), HD, 0, st>>>(
-          partials, sp_qkv, qkv_s, p_pos, p_wpos, theta, heads, s_len, qbuf, kn, vn, ck, cv,
-          nullptr, nullptr);
+      qkv_epilogue_kernel<false><<<dim3(3 * heads, rows), HD, 0, st>>>(
+          partials, sp_qkv, qkv_s, p_pos, p_wpos, t_tok, theta, heads, s_len, qbuf, kn, vn, ck,
+          cv, nullptr, nullptr);
     if ((rc = (int)cudaGetLastError())) return rc;
     if (kv_int8)
-      attention_kernel<int8_t><<<dim3(heads, b), ATT_WARPS * 32, 0, st>>>(
+      attention_kernel<int8_t><<<dim3(heads, rows), ATT_WARPS * 32, 0, st>>>(
           qbuf, kn, vn, reinterpret_cast<const int8_t*>(ck), reinterpret_cast<const int8_t*>(cv),
-          ks, vs, p_len0, p_start2, p_end2, attn, s_len, heads);
+          ks, vs, p_len0, p_start2, p_end2, attn, s_len, heads, t_tok);
     else
-      attention_kernel<bf16><<<dim3(heads, b), ATT_WARPS * 32, 0, st>>>(
+      attention_kernel<bf16><<<dim3(heads, rows), ATT_WARPS * 32, 0, st>>>(
           qbuf, kn, vn, reinterpret_cast<const bf16*>(ck), reinterpret_cast<const bf16*>(cv),
-          nullptr, nullptr, p_len0, p_start2, p_end2, attn, s_len, heads);
+          nullptr, nullptr, p_len0, p_start2, p_end2, attn, s_len, heads, t_tok);
     if ((rc = (int)cudaGetLastError())) return rc;
-    if ((rc = gemv(attn, nullptr, eps, wo, b, d, d, partials, st))) return rc;
+    if ((rc = gemv(attn, nullptr, eps, wo, rows, d, d, partials, rms, st))) return rc;
     residual_epilogue_kernel<<<epi_d, EPI_THREADS, 0, st>>>(partials, sp_o, d, wo_s, hb);
     if ((rc = (int)cudaGetLastError())) return rc;
-    if ((rc = gemv(hb, ln2, eps, gu, b, d, 2 * f, partials, st))) return rc;
+    if ((rc = gemv(hb, ln2, eps, gu, rows, d, 2 * f, partials, rms, st))) return rc;
     gateup_epilogue_kernel<<<epi_f, EPI_THREADS, 0, st>>>(partials, sp_gu, f, gu_s, xm);
     if ((rc = (int)cudaGetLastError())) return rc;
-    if ((rc = gemv(xm, nullptr, eps, down, b, f, d, partials, st))) return rc;
+    if ((rc = gemv(xm, nullptr, eps, down, rows, f, d, partials, rms, st))) return rc;
     residual_epilogue_kernel<<<epi_d, EPI_THREADS, 0, st>>>(partials, sp_down, d, down_s, hb);
     if ((rc = (int)cudaGetLastError())) return rc;
   }

@@ -19,10 +19,17 @@ package also reads TOKENPACKER_FUSED_DECODE and the TPU's cache gates.
 A 4-bit tree (`io/weights.quantize_lm_4bit`) decodes per layer, each
 product through K6. The w8a8 mode of the int8 products is the explicit
 `w8a8` (the JAX package reads TOKENPACKER_W8A8): prefill's products take
-K8, the LM head of a step K7; K4's step is unchanged by it.
+K8, the LM head of a step K7; K4's step is unchanged by it. The fused
+tower block is the explicit `vit_block` (TOKENPACKER_VIT_BLOCK): each
+tower block one K9 call.
 
-This slice is greedy only: sampling, penalties, beams and speculation
-raise NotImplementedError.
+`decode_step_cb` and `insert_into_cache` are the continuous batcher's
+steps over slot-contiguous caches (`serve/scheduler.ContinuousBatcher`).
+`Generator.generate(speculative=k)` decodes batch 1 by prompt-lookup
+speculation (`speculative.py`, K4's verify form on an int8 tree).
+
+This port is greedy only: sampling, penalties and beams raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -75,11 +82,12 @@ def device_batch(batch: dict, dtype: torch.dtype, device: torch.device | str) ->
 
 
 def prefill(params, cfg: TokenPackerVLMConfig, batch: dict, s_max: int,
-            kv_cache_dtype: torch.dtype | None = None, w8a8: bool = False):
+            kv_cache_dtype: torch.dtype | None = None, w8a8: bool = False,
+            vit_block: bool = False):
     """batch: device tensors from `device_batch`. kv_cache_dtype: the cache
     storage, cfg.dtype by default or torch.int8; w8a8: `ops/layers.linear`'s
-    w8a8 mode. Returns (next-token logits [N, V], cache) with the prompt's
-    keys in cache slots [0, L)."""
+    w8a8 mode; vit_block: the tower's blocks through K9. Returns (next-token
+    logits [N, V], cache) with the prompt's keys in cache slots [0, L)."""
     dtype = kv_cache_dtype or cfg.dtype
     tile = cache_len_tile(dtype)
     s_max = -(-s_max // tile) * tile
@@ -87,7 +95,8 @@ def prefill(params, cfg: TokenPackerVLMConfig, batch: dict, s_max: int,
     device = batch["token_ids"].device
     cache = KVCache.create(cfg.lm, n, s_max, dtype=dtype, device=device)
     positions = torch.arange(l, device=device).expand(n, l)
-    hidden = vlm_hidden(params, cfg, {**batch, "positions": positions}, cache, w8a8=w8a8)
+    hidden = vlm_hidden(params, cfg, {**batch, "positions": positions}, cache, w8a8=w8a8,
+                        vit_block=vit_block)
     idx = (batch["lengths"].long() - 1).clamp(min=0)
     last = hidden[torch.arange(n, device=device), idx]
     return lm_logits(params["lm"], cfg.lm, last, w8a8), cache
@@ -180,28 +189,85 @@ def decode_step(params, cfg: TokenPackerVLMConfig, cache: KVCache, tokens: torch
     return lm_logits(params["lm"], cfg.lm, hidden[:, 0], w8a8), cache
 
 
+def decode_step_cb(params, cfg: TokenPackerVLMConfig, cache: KVCache, tokens: torch.Tensor,
+                   cur_lens: torch.Tensor, active: torch.Tensor, fused=None,
+                   w8a8: bool = False):
+    """A continuous-batching step over slot-contiguous caches: slot i's
+    sequence fills positions [0, cur_lens[i]); its token is written at
+    cur_lens[i] and attends [0, cur_lens[i]]. tokens, cur_lens (int32),
+    active: [N]. An eligible tree takes one K4 call (ranges [0, cur_lens)
+    plus the current token), the others the per-layer path (K3). Writes the
+    cache in place; returns (logits [N, V], cache) with cache.length =
+    cur_lens + active. Inactive slots write at their cur_lens too, rows
+    that an admission overwrites."""
+    if fused is None:
+        fused = fused_weights(params, cfg)
+    lm = params["lm"]
+    if fused:
+        emb = lm_embed(lm, cfg.lm, tokens[:, None])[:, 0]
+        zeros = torch.zeros_like(cur_lens)
+        hidden, _, _ = fused_decode_hidden(
+            lm, cfg.lm, emb, cache.k, cache.v, cur_lens, zeros, zeros, cur_lens, cur_lens,
+            k_scale=cache.k_scale, v_scale=cache.v_scale,
+            weights=fused if isinstance(fused, FusedWeights) else None,
+        )
+        logits = lm_logits(lm, cfg.lm, rms_norm(lm["norm"], hidden, cfg.lm.rms_norm_eps), w8a8)
+    else:
+        needed = cur_lens + 1
+        cache.length = cur_lens
+        hidden = lm_apply(lm, cfg.lm, lm_embed(lm, cfg.lm, tokens[:, None]),
+                          cur_lens.long()[:, None], cache, decode_info=(needed, needed, 0),
+                          w8a8=w8a8)
+        logits = lm_logits(lm, cfg.lm, hidden[:, 0], w8a8)
+    cache.length = cur_lens + active.to(cur_lens.dtype)
+    return logits, cache
+
+
+def insert_into_cache(big: KVCache, small: KVCache, slot: int) -> KVCache:
+    """Copy a prefilled batch-1 cache into slot `slot` of the shared one, in
+    place. The storage must match (an int8 cache's rows copied raw into a
+    float cache would be read as values). The small cache may be wider than
+    the shared one when prefill's length alignment passes max_seq_len: the
+    copy stops at the shared cache's end (those rows are padding)."""
+    if big.k.dtype != small.k.dtype or (big.k_scale is None) != (small.k_scale is None):
+        raise ValueError(f"KV cache dtype mismatch: shared {big.k.dtype} (quantized="
+                         f"{big.k_scale is not None}) vs prefill {small.k.dtype} (quantized="
+                         f"{small.k_scale is not None})")
+    l_pad = min(small.k.shape[2], big.k.shape[2])
+    pairs = [(big.k, small.k), (big.v, small.v)]
+    if big.k_scale is not None:
+        pairs += [(big.k_scale, small.k_scale), (big.v_scale, small.v_scale)]
+    for dst, src in pairs:
+        dst[:, slot, :l_pad] = src[:, 0, :l_pad]
+    return big
+
+
 @dataclass
 class GenerationResult:
     sequences: list[list[int]]  # generated ids per sample (prompt excluded)
     texts: list[str] | None = None
     last_logits: torch.Tensor | None = None  # [N, V] of the last step run
     # host-clock seconds: "prefill_s" (vision + prefill + first token on the
-    # host), "decode_s" (the decode loop); "decode_steps" run
+    # host), "decode_s" (the decode loop); "decode_steps" and (speculation)
+    # "verify_rounds" run
     stats: dict = field(default_factory=dict)
 
 
 class Generator:
     """Greedy generation over the port's parameters (on one device).
     kv_cache_dtype: the cache storage, cfg.dtype by default or torch.int8;
-    w8a8: `ops/layers.linear`'s w8a8 mode for the int8 products."""
+    w8a8: `ops/layers.linear`'s w8a8 mode for the int8 products; vit_block:
+    the tower's blocks through K9."""
 
     def __init__(self, params, cfg: TokenPackerVLMConfig, tokenizer=None,
-                 kv_cache_dtype: torch.dtype | None = None, w8a8: bool = False):
+                 kv_cache_dtype: torch.dtype | None = None, w8a8: bool = False,
+                 vit_block: bool = False):
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.kv_cache_dtype = kv_cache_dtype
         self.w8a8 = w8a8
+        self.vit_block = vit_block
         self.device = params["lm"]["embed"].device
         self.fused = fused_weights(params, cfg)
 
@@ -226,13 +292,17 @@ class Generator:
         image_slot / lengths) + optional images [views, H, W, 3].
 
         Greedy: the host syncs once every `check_every` tokens to test EOS
-        and the stop strings (which need a tokenizer)."""
+        and the stop strings (which need a tokenizer). speculative: the
+        draft length k of prompt-lookup speculation (`speculative.py`),
+        batch 1 only; the tokens are plain greedy decoding's."""
+        n, l = batch["token_ids"].shape
         unported = {
             "temperature > 0": temperature > 0.0,
             "top_p": top_p is not None,
             "top_k": top_k is not None,
             "min_p": min_p is not None,
-            "speculative > 0": speculative > 0,
+            # the JAX engine decodes a batch plainly and ignores the option
+            "speculative > 0 with a batch of more than 1": speculative > 0 and n > 1,
             "num_beams > 1": num_beams > 1,
             "repetition/presence/frequency penalties": (
                 repetition_penalty != 1.0 or presence_penalty != 0.0 or frequency_penalty != 0.0
@@ -243,11 +313,14 @@ class Generator:
             raise NotImplementedError(f"not ported yet (greedy only): {', '.join(asked)}")
 
         cfg = self.cfg
-        n, l = batch["token_ids"].shape
+        # speculation runs whole chunks of rounds and truncates on the host,
+        # so the cache has room for a chunk and a round past the end
+        spec_chunk = max(check_every, 2 * speculative)
+        s_max = l + max_new_tokens + (spec_chunk + speculative if speculative > 0 else 0)
         t0 = time.perf_counter()
         dev = device_batch(batch, cfg.dtype, self.device)
-        logits, cache = prefill(self.params, cfg, dev, l + max_new_tokens, self.kv_cache_dtype,
-                                self.w8a8)
+        logits, cache = prefill(self.params, cfg, dev, s_max, self.kv_cache_dtype, self.w8a8,
+                                self.vit_block)
         lengths = dev["lengths"]
         eos = cfg.lm.eos_token_id
         done = np.zeros(n, dtype=bool)
@@ -274,7 +347,27 @@ class Generator:
         tok = logits.argmax(dim=-1)
         all_done = absorb(tok.cpu().numpy()[:, None])
         t1 = time.perf_counter()
-        produced, steps = 1, 0
+        produced, steps, rounds = 1, 0, 0
+        if speculative > 0:
+            # imported here: speculative.py builds on this module
+            from tokenpacker_tpu_torch.speculative import make_ctx, speculative_chunk
+
+            k = speculative
+            cap = l + max_new_tokens + spec_chunk + 2 * k + 8
+            ctx = torch.as_tensor(make_ctx(batch["token_ids"][0], batch["is_image"][0],
+                                           int(batch["lengths"][0]), cap), device=self.device)
+            ctx_len = int(batch["lengths"][0])
+            ctx[ctx_len] = tok[0]
+            ctx_len += 1
+            last = tok[0]
+            while not all_done and produced < max_new_tokens:
+                toks, cache, ctx, ctx_len, last, n_rounds, logits = speculative_chunk(
+                    self.params, cfg, cache, ctx, ctx_len, lengths, last, produced - 1, l,
+                    spec_chunk, k, fused=self.fused, w8a8=self.w8a8)
+                toks = toks[: max_new_tokens - produced]
+                rounds += n_rounds
+                all_done = absorb(np.asarray(toks)[None])
+                produced += len(toks)
         while not all_done and produced < max_new_tokens:
             chunk = min(check_every, max_new_tokens - produced)
             toks = []
@@ -300,5 +393,6 @@ class Generator:
                     if s and text.endswith(s):
                         text = text[: -len(s)]
                 texts.append(text.strip())
-        stats = {"prefill_s": t1 - t0, "decode_s": t2 - t1, "decode_steps": steps}
+        stats = {"prefill_s": t1 - t0, "decode_s": t2 - t1, "decode_steps": steps,
+                 "verify_rounds": rounds}
         return GenerationResult(out_tokens, texts, logits, stats)

@@ -2,12 +2,16 @@
 
 HF `CLIPVisionModel` semantics: patch embed as a matmul over HF's conv
 flatten order (no bias), CLS + learned positions, pre-LayerNorm, pre-LN
-blocks with quick-GELU MLPs. Attention runs on K1 (`ops/vit_attention`).
-The tower is frozen, so this is inference only.
+blocks with quick-GELU MLPs. Attention runs on K1 (`ops/vit_attention`);
+with `vit_block` each whole block is one K9 call (`ops/vit_block`), where
+the JAX package reads TOKENPACKER_VIT_BLOCK. The tower is frozen, so this
+is inference only.
 
 `quantize_tower_int8` makes the blocks' products int8 {q, scale} leaves;
 with `w8a8` their batched products (M = views x 577 rows) then route to
 K8 (`ops/layers.linear`), where the JAX package reads TOKENPACKER_W8A8.
+K9 reads dense weights only: `vit_block` with an int8 tower raises, and
+with a dense tower K9 ignores `w8a8`, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from tokenpacker_tpu_torch.config import VisionConfig
 from tokenpacker_tpu_torch.ops.layers import layer_norm, linear, quick_gelu
 from tokenpacker_tpu_torch.ops.quantize import quantize_int8
 from tokenpacker_tpu_torch.ops.vit_attention import vit_attention
+from tokenpacker_tpu_torch.ops.vit_block import vit_block as fused_block
 
 
 def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
@@ -53,7 +58,10 @@ def _attn(p, x: torch.Tensor, num_heads: int, w8a8: bool = False) -> torch.Tenso
     return linear(p["o"], vit_attention(q, k, v, num_heads), w8a8)
 
 
-def _block(p, x: torch.Tensor, cfg: VisionConfig, w8a8: bool = False) -> torch.Tensor:
+def _block(p, x: torch.Tensor, cfg: VisionConfig, w8a8: bool = False,
+           vit_block: bool = False) -> torch.Tensor:
+    if vit_block:
+        return fused_block(x, p, cfg.num_attention_heads, cfg.layer_norm_eps)
     x = x + _attn(p["attn"], layer_norm(p["ln1"], x, cfg.layer_norm_eps), cfg.num_attention_heads,
                   w8a8)
     h = layer_norm(p["ln2"], x, cfg.layer_norm_eps)
@@ -69,9 +77,11 @@ def _embed(params, cfg: VisionConfig, images: torch.Tensor) -> torch.Tensor:
     return layer_norm(params["pre_ln"], x, cfg.layer_norm_eps)
 
 
-def clip_tower_features(params, cfg: VisionConfig, images: torch.Tensor, w8a8: bool = False):
+def clip_tower_features(params, cfg: VisionConfig, images: torch.Tensor, w8a8: bool = False,
+                        vit_block: bool = False):
     """(features [N, P, W] at select_layer, multi-level concat [N, P, 4W]),
-    P = patches (CLS dropped when select_feature == "patch").
+    P = patches (CLS dropped when select_feature == "patch"). `vit_block`:
+    each block through K9.
 
     Only the consumed hidden states are kept, and blocks past the deepest
     consumed layer are not run (block 24 when select_layer = -2)."""
@@ -82,7 +92,7 @@ def clip_tower_features(params, cfg: VisionConfig, images: torch.Tensor, w8a8: b
     x = _embed(params, cfg, images)
     outputs = {0: x} if 0 in needed else {}
     for i in range(max(needed)):
-        x = _block(params["layers"][i], x, cfg, w8a8)
+        x = _block(params["layers"][i], x, cfg, w8a8, vit_block)
         if i + 1 in needed:
             outputs[i + 1] = x
 

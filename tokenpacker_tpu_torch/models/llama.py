@@ -56,7 +56,9 @@ from tokenpacker_tpu_torch.ops.layers import linear, rms_norm, silu
 class KVCache:
     k: torch.Tensor  # [L, N, S_max, kv_heads, head_dim], the model dtype or int8
     v: torch.Tensor
-    length: int  # positions [0, length) hold keys
+    # positions [0, length) hold keys; an [N] int tensor of per-sample
+    # lengths for the continuous batchers' slot caches
+    length: int | torch.Tensor
     # per-(position, kv head) scales of an int8 cache: [L, N, S_max,
     # kv_heads] f32; None for a float cache
     k_scale: torch.Tensor | None = None
@@ -151,13 +153,17 @@ def _layer(p, cfg: LMConfig, x, cos, sin, cache: KVCache | None, layer: int,
     k = apply_rope(k, cos, sin)
     if cache is not None:
         start = cache.length
+        if isinstance(start, torch.Tensor):  # sample i writes at start[i] + [0, t)
+            at = (torch.arange(n, device=h.device)[:, None],
+                  start.long()[:, None] + torch.arange(t, device=h.device))
+        else:
+            at = (slice(None), slice(start, start + t))
         if cache.k_scale is not None:
             for rows, scales, new in ((cache.k, cache.k_scale, k), (cache.v, cache.v_scale, v)):
-                rows[layer, :, start : start + t], scales[layer, :, start : start + t] = (
-                    quantize_kv(new))
+                rows[layer][at], scales[layer][at] = quantize_kv(new)
         else:
-            cache.k[layer, :, start : start + t] = k
-            cache.v[layer, :, start : start + t] = v
+            cache.k[layer][at] = k
+            cache.v[layer][at] = v
     if t > 1 and attn_bias is not None:
         if cache is None:
             raise ValueError("attn_bias is for a chunk over a cache")
@@ -210,8 +216,8 @@ def llama_apply(params, cfg: LMConfig, inputs_embeds: torch.Tensor,
                 w8a8: bool = False):
     """Run the decoder stack over [N, T, D] embeddings at `positions`.
 
-    With a cache, the new k/v rows are written at `cache.length` and the
-    length advances by T. decode_info = (lengths [N] int32, needed [N]
+    With a cache, the new k/v rows are written at `cache.length` (per
+    sample for a tensor of lengths) and the length advances by T. decode_info = (lengths [N] int32, needed [N]
     int32, span_start) is required for T == 1. attn_bias [N, 1, T, S]
     (`make_attention_bias`) sends T > 1 through `sdpa` over the whole
     cache instead of K2 over the current tokens. `remat` applies to the
@@ -230,7 +236,8 @@ def llama_apply(params, cfg: LMConfig, inputs_embeds: torch.Tensor,
         else:
             x = _layer(p, cfg, x, cos, sin, cache, i, decode_info, attn_bias, w8a8)
     if cache is not None:
-        cache.length += inputs_embeds.shape[1]
+        # not in place: a tensor of lengths may be the caller's
+        cache.length = cache.length + inputs_embeds.shape[1]
     return rms_norm(params["norm"], x, cfg.rms_norm_eps)
 
 

@@ -18,18 +18,21 @@ from tokenpacker_tpu_torch.models.tokenpacker import tokenpacker_forward
 
 
 def encode_images(params, cfg: TokenPackerVLMConfig, images: torch.Tensor,
-                  w8a8: bool = False) -> torch.Tensor:
+                  w8a8: bool = False, vit_block: bool = False) -> torch.Tensor:
     """images [views, H, W, 3] normalized -> [views, tokens_per_view, lm_hidden].
     The tower is frozen in every recipe, so it runs without autograd (the
     JAX package's stop_gradient). `w8a8`: the tower's int8 products (after
-    `clip_vit.quantize_tower_int8`) in the w8a8 mode."""
+    `clip_vit.quantize_tower_int8`) in the w8a8 mode; `vit_block`: each
+    tower block through K9 (a dense tower only)."""
     with torch.no_grad():
-        feats, multi = clip_tower_features(params["vision"], cfg.vision, images, w8a8)
+        feats, multi = clip_tower_features(params["vision"], cfg.vision, images, w8a8,
+                                           vit_block)
     return tokenpacker_forward(params["projector"], cfg.projector, feats, multi)
 
 
 def vlm_hidden(params, cfg: TokenPackerVLMConfig, batch: dict,
-               cache: KVCache | None = None, remat: str = "", w8a8: bool = False) -> torch.Tensor:
+               cache: KVCache | None = None, remat: str = "", w8a8: bool = False,
+               vit_block: bool = False) -> torch.Tensor:
     """Splice + decoder over a batch of device tensors: images [views, H, W,
     3] or None, token_ids / is_image / image_slot / positions [N, L].
 
@@ -37,10 +40,11 @@ def vlm_hidden(params, cfg: TokenPackerVLMConfig, batch: dict,
     prefill attention is causal over the current tokens, so pad keys are
     never seen by a valid query. `remat`: `llama_apply`'s per-layer
     rematerialization of the cache-less path; `w8a8`: `ops/layers.linear`'s
-    w8a8 mode for the int8 products. Returns the final-norm hidden [N, L, D]."""
+    w8a8 mode for the int8 products; `vit_block`: the tower's blocks through
+    K9. Returns the final-norm hidden [N, L, D]."""
     lm = params["lm"]
     if batch.get("images") is not None:
-        visual = encode_images(params, cfg, batch["images"], w8a8)
+        visual = encode_images(params, cfg, batch["images"], w8a8, vit_block)
     else:
         visual = torch.zeros(
             (1, cfg.tokens_per_view, cfg.lm.hidden_size), dtype=lm["embed"].dtype,

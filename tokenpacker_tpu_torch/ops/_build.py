@@ -50,11 +50,13 @@ SIGNATURES = {
     # q, k_pages, v_pages, k_scales, v_scales, page_table, lengths, o, n, h,
     # hkv, d, ps, mp, kv_int8, stream
     "tp_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # weight table, layers, b, d, f, heads, head_dim, s, eps, theta, h,
-    # len0, start2, end2, write_pos, positions, cache_k, cache_v, k_scale,
+    # weight table, layers, b, t_tok, d, f, heads, head_dim, s, eps, theta,
+    # h, len0, start2, end2, write_pos, positions, cache_k, cache_v, k_scale,
     # v_scale, kv_int8, k_new, v_new, work, stream
-    "tp_fused_decode": (ctypes.POINTER(_P), _I, _I, _I, _I, _I, _I, _I, _F, _F, _P,
+    "tp_fused_decode": (ctypes.POINTER(_P), _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P,
                         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P),
+    # params table, buffers table, n, t, w, f, heads, eps, stream
+    "tp_vit_block": (ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _I, _I, _I, _I, _F, _P),
     # x, packed, absmax, out, work, m, k, n, nf4, stream
     "tp_q4_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # xq, wq, out, m, k, n, stream

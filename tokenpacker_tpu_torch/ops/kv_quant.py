@@ -14,7 +14,9 @@ import torch
 def quantize_kv(x: torch.Tensor):
     """x: [..., d] float -> (int8 [..., d], f32 scale [...])."""
     x32 = x.float()
-    scale = x32.abs().amax(dim=-1).clamp(min=1e-8) / 127.0
+    # a divisor on x's device: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which is not amax / 127 in every bit
+    scale = x32.abs().amax(dim=-1).clamp(min=1e-8) / x32.new_full((), 127.0)
     q = torch.round(x32 / scale[..., None]).to(torch.int8)
     return q, scale
 

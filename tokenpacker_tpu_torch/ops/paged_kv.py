@@ -19,7 +19,9 @@ the pages through the table; on CPU tensors its plain version gathers
 them. The pool's storage dtype is an explicit argument of
 `PagedKV.create`, where the JAX package reads TOKENPACKER_KV_CACHE, and
 the w8a8 mode of the int8 products the explicit `w8a8` (TOKENPACKER_W8A8).
-Speculation's `paged_verify_step` is not ported yet.
+Speculation's `paged_verify_step` scores T fed tokens a sequence through
+the page-gather path (`sdpa` over the gathered pages), as in the JAX
+package: K5 takes one query a sequence.
 """
 
 from __future__ import annotations
@@ -30,9 +32,16 @@ import torch
 
 from tokenpacker_tpu_torch.config import LMConfig
 from tokenpacker_tpu_torch.generate import prefill_chunk
-from tokenpacker_tpu_torch.models.llama import KVCache, apply_rope, mlp_block, qkv_proj, rope_cos_sin
+from tokenpacker_tpu_torch.models.llama import (
+    KVCache,
+    apply_rope,
+    mlp_block,
+    qkv_proj,
+    rope_cos_sin,
+    sdpa,
+)
 from tokenpacker_tpu_torch.models.lm_api import lm_embed, lm_logits
-from tokenpacker_tpu_torch.ops.kv_quant import quantize_kv
+from tokenpacker_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
 from tokenpacker_tpu_torch.ops.layers import linear, rms_norm
 from tokenpacker_tpu_torch.ops.paged_attention import paged_attention
 
@@ -164,6 +173,75 @@ def paged_decode_step(params, cfg, paged: PagedKV, tokens: torch.Tensor, active:
     logits = lm_logits(lm, lm_cfg, x[:, 0], w8a8)
     paged.lengths += active.to(paged.lengths.dtype)
     return logits, paged
+
+
+def _paged_verify_layer(p, cfg: LMConfig, x, cos, sin, paged: PagedKV, layer: int, write_page,
+                        write_off, bias, w8a8: bool = False):
+    """One verify layer over the pool: x [N, T, D]; the T new K/V rows of
+    sequence n go to (write_page[n, t], write_off[n, t]) first, then
+    attention over every page of the sequence's table (gathered,
+    dequantized for an int8 pool) under `bias` [N, 1, T, S]."""
+    n, t, _ = x.shape
+    kp, vp = paged.k_pages[layer], paged.v_pages[layer]
+    h = rms_norm(p["input_ln"], x, cfg.rms_norm_eps)
+    q, k, v = qkv_proj(p["attn"], cfg, h, w8a8)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    table = paged.page_table.long()
+
+    def gathered(pages, scales=None):
+        rows = pages[table].reshape(n, -1, cfg.kv_heads, cfg.head_dim)
+        if scales is None:
+            return rows.to(q.dtype)
+        return dequantize_kv(rows, scales[table].reshape(n, -1, cfg.kv_heads), q.dtype)
+
+    if paged.k_scales is not None:
+        ks, vs = paged.k_scales[layer], paged.v_scales[layer]
+        kp[write_page, write_off], ks[write_page, write_off] = quantize_kv(k)
+        vp[write_page, write_off], vs[write_page, write_off] = quantize_kv(v)
+        kg, vg = gathered(kp, ks), gathered(vp, vs)
+    else:
+        kp[write_page, write_off] = k.to(kp.dtype)
+        vp[write_page, write_off] = v.to(vp.dtype)
+        kg, vg = gathered(kp), gathered(vp)
+    attn = sdpa(q, kg, vg, bias)
+    x = x + linear(p["attn"]["o"], attn.reshape(n, t, -1), w8a8)
+    h2 = rms_norm(p["post_ln"], x, cfg.rms_norm_eps)
+    return x + mlp_block(p["mlp"], cfg, h2, w8a8)
+
+
+def paged_verify_step(params, cfg, paged: PagedKV, tokens: torch.Tensor, active: torch.Tensor,
+                      w8a8: bool = False):
+    """Speculative verify over the pool (the paged sibling of
+    `speculative.verify_step_cb`): tokens [N, T], each sequence's last
+    accepted token and its drafts (-1 padding). Token j is written at
+    position lengths + j through the page table (the caller has mapped
+    pages up to lengths + T - 1) and attends [0, lengths + j]. Inactive
+    slots, and positions past the table, write into the null page 0.
+    Returns (logits [N, T, V], paged) with the lengths unchanged: the
+    caller advances each sequence by its own acceptance. cfg:
+    TokenPackerVLMConfig; w8a8: `ops/layers.linear`'s w8a8 mode."""
+    lm_cfg = cfg.lm
+    lm = params["lm"]
+    n, t = tokens.shape
+    mp, ps = paged.page_table.shape[1], paged.page_size
+    positions = paged.lengths.long()[:, None] + torch.arange(t, device=tokens.device)
+    key = torch.arange(mp * ps, device=tokens.device)[None, None, :]
+    bias = torch.where((key <= positions[:, :, None])[:, None], 0.0,
+                       torch.finfo(torch.float32).min)
+    rows = torch.arange(n, device=tokens.device)[:, None]
+    blocks = positions // ps
+    keep = active[:, None] & (blocks < mp)
+    write_page = torch.where(keep, paged.page_table[rows, blocks.clamp(max=mp - 1)], 0).long()
+    write_off = positions % ps
+    x = lm_embed(lm, lm_cfg, tokens)
+    cos, sin = (c.to(x.dtype) for c in
+                rope_cos_sin(positions, lm_cfg.head_dim, lm_cfg.rope_theta))
+    for i, layer in enumerate(lm["layers"]):
+        x = _paged_verify_layer(layer, lm_cfg, x, cos, sin, paged, i, write_page, write_off, bias,
+                                w8a8)
+    x = rms_norm(lm["norm"], x, lm_cfg.rms_norm_eps)
+    return lm_logits(lm, lm_cfg, x, w8a8), paged
 
 
 def _page_rows(rows: torch.Tensor, start: int, n_pages: int, ps: int) -> torch.Tensor:

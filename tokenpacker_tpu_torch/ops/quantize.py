@@ -111,7 +111,8 @@ def dequantize_4bit(q: dict, dtype=torch.bfloat16) -> torch.Tensor:
     if quant_type == "nf4":
         norm = torch.tensor(NF4_VALUES, dtype=torch.float32, device=packed.device)[idx]
     else:
-        norm = (idx.float() - 8.0) / 7.0
+        # a device-tensor divisor, as in kv_quant.quantize_kv
+        norm = (idx.float() - 8.0) / packed.new_full((), 7.0, dtype=torch.float32)
     w = norm.reshape(*lead, k // block, block, n) * q["absmax"][..., :, None, :]
     return w.reshape(*lead, k, n).to(dtype)
 

@@ -1,17 +1,24 @@
-"""Continuous batching over a paged KV pool (counterpart of
-`PagedContinuousBatcher` in `tokenpacker_tpu/serve/scheduler.py`).
+"""Continuous batching (counterpart of `tokenpacker_tpu/serve/scheduler.py`):
+`ContinuousBatcher` over slot-contiguous dense caches and
+`PagedContinuousBatcher` over a paged KV pool.
 
-Up to `num_slots` requests decode together, one batched step per token
-(`ops/paged_kv.paged_decode_step`, K5 once per layer), and new requests
-are admitted into free slots between steps. KV pages are allocated as
-sequences grow and freed when they finish, so the pool holds the sum of
-the live lengths instead of slots x maximum length. Full prompt pages are
-shared through the prefix cache (`serve/prefix_cache`): a repeated prefix
-skips its share of the prefill, and the vision encode when every image
-token lies in the cached part. With `prefill_chunk_size` an admission's
-prompt is prefilled one chunk per loop iteration between decode steps.
+Up to `num_slots` requests decode together, one batched step per token,
+and new requests are admitted into free slots between steps. The dense
+batcher gives each slot a row of one [L, slots, max_seq_len] cache: an
+admission prefills the request alone (batch 1) and copies its rows into
+the slot (`generate.insert_into_cache`), and a step is
+`generate.decode_step_cb` (one K4 call on an int8 fused tree, else the
+per-layer path with K3). The paged batcher allocates KV pages as
+sequences grow and frees them when they finish, so the pool holds the sum
+of the live lengths instead of slots x maximum length; its steps are
+`ops/paged_kv.paged_decode_step` (K5 once per layer), and full prompt
+pages are shared through the prefix cache (`serve/prefix_cache`): a
+repeated prefix skips its share of the prefill, and the vision encode
+when every image token lies in the cached part. With `prefill_chunk_size`
+an admission's prompt is prefilled one chunk per loop iteration between
+decode steps.
 
-    batcher = PagedContinuousBatcher(params, cfg, kv_cache_dtype=torch.int8)
+    batcher = ContinuousBatcher(params, cfg, kv_cache_dtype=torch.int8)
     batcher.start()
     fut = batcher.submit(splice_batch, max_new_tokens=64)
     tokens = fut.result()          # list[int]
@@ -22,16 +29,27 @@ image_slot [1, L], lengths [1], images [views, H, W, 3] or None).
 Streaming: `on_token=callable(token_id)`; `cancel(fut)` stops a request
 before the next step.
 
-The pool dtype is the explicit `kv_cache_dtype` (JAX reads
+With `speculative_k` = k > 0 every step becomes a verify round: each slot
+feeds its last token and up to k prompt-lookup drafts
+(`speculative.propose_ngram_host`) and advances by its own acceptance
+(`speculative.accept_greedy`); the dense batcher verifies with
+`speculative.verify_step_cb` (K4's verify form on an int8 fused tree),
+the paged one with `ops/paged_kv.paged_verify_step` (the page-gather
+path, as in the JAX package). When fewer than SPEC_EMA_THRESHOLD drafts a
+slot are accepted on average (an EMA over rounds), the batcher decodes
+plainly for SPEC_BACKOFF_ROUNDS steps (doubling on each repeat) before it
+tries again.
+
+The cache dtype is the explicit `kv_cache_dtype` (JAX reads
 TOKENPACKER_KV_CACHE), the w8a8 mode of the int8 products the explicit
 `w8a8` (JAX reads TOKENPACKER_W8A8: K8 for the tower and admission chunks
-of 256 rows and more, K7 for decode steps and the first-token logits), and
-the device the explicit `device` (the params
-must be there; "cpu" runs every kernel's plain version). This port is
-greedy: sampling, penalties, logprobs, LoRA adapters and speculation
-raise NotImplementedError when the batcher is made or the request is
-submitted, never inside the loop. The host keeps a copy of the lengths
-beside the pool's device tensor, so the loop syncs once per step (the
+of 256 rows and more, K7 for decode steps and the first-token logits),
+the fused tower block the explicit `vit_block` (TOKENPACKER_VIT_BLOCK),
+and the device the explicit `device` (the params must be there; "cpu"
+runs every kernel's plain version). This port is greedy: sampling,
+penalties, logprobs and LoRA adapters raise NotImplementedError when the
+batcher is made or the request is submitted, never inside the loop. The
+host keeps the slots' lengths, so the loop syncs once per step (the
 argmax), not once per slot.
 """
 
@@ -50,7 +68,10 @@ import torch
 from tokenpacker_tpu_torch.config import TokenPackerVLMConfig
 from tokenpacker_tpu_torch.generate import (
     cache_len_tile,
+    decode_step_cb,
     device_batch,
+    fused_weights,
+    insert_into_cache,
     pick_bucket,
     prefill,
     prefill_chunk,
@@ -66,9 +87,18 @@ from tokenpacker_tpu_torch.ops.paged_kv import (
     map_blocks,
     map_page,
     paged_decode_step,
+    paged_verify_step,
     prefix_admit,
 )
 from tokenpacker_tpu_torch.serve.prefix_cache import PrefixCache, block_hashes, image_digest
+from tokenpacker_tpu_torch.speculative import accept_greedy, propose_ngram_host, verify_step_cb
+
+# speculative backoff: below SPEC_EMA_THRESHOLD accepted drafts a slot a
+# round (an EMA over rounds), decode plainly for SPEC_BACKOFF_ROUNDS steps
+# (doubled on each repeat, at most 512) before trying again
+SPEC_EMA_THRESHOLD = 0.15
+SPEC_BACKOFF_ROUNDS = 32
+_LATER = "sampling is ROADMAP queue 1 item 4, LoRA adapters item 1"
 
 
 @dataclass
@@ -79,34 +109,25 @@ class _Request:
     on_token: object = None
     cancelled: bool = False  # set from any thread; honoured before the next step
     tokens: list = field(default_factory=list)
+    ctx: list = field(default_factory=list)  # prompt-lookup context (speculation)
 
 
-class PagedContinuousBatcher:
-    """Continuous batching over a paged KV pool (module docstring)."""
+class _SlotBatcher:
+    """What both batchers share: submission and cancellation, the loop
+    thread and its crash nets, the admission schedule, greedy emission and
+    speculative rounds. A subclass owns the cache: admission (`_admit`,
+    `_start_pending`, `_step_pending`), `_decode_step`, `_verify`, slot
+    release and its room rule."""
 
-    def __init__(
-        self,
-        params,
-        cfg: TokenPackerVLMConfig,
-        tokenizer=None,
-        num_slots: int = 8,
-        num_pages: int = 256,
-        page_size: int = 64,
-        max_pages_per_seq: int = 16,
-        temperature: float = 0.0,
-        speculative_k: int = 0,
-        prefix_cache: bool = True,
-        prefill_chunk_size: int | None = None,
-        adapters: dict | None = None,
-        kv_cache_dtype: torch.dtype | None = None,
-        w8a8: bool = False,
-        device: torch.device | str = "cuda",
-    ):
-        unported = {"temperature > 0": temperature > 0.0, "speculative_k > 0": speculative_k > 0,
-                    "LoRA adapters": bool(adapters)}
+    def __init__(self, params, cfg: TokenPackerVLMConfig, tokenizer, num_slots: int,
+                 temperature: float, speculative_k: int, prefill_chunk_size: int | None,
+                 adapters: dict | None, kv_cache_dtype: torch.dtype | None, w8a8: bool,
+                 vit_block: bool, device: torch.device | str):
+        unported = {"temperature > 0": temperature > 0.0, "LoRA adapters": bool(adapters)}
         asked = [name for name, on in unported.items() if on]
         if asked:
-            raise NotImplementedError(f"not ported yet (greedy only): {', '.join(asked)}")
+            raise NotImplementedError(f"not ported yet (greedy only): {', '.join(asked)}; "
+                                      f"{_LATER}")
         self.device = torch.device(device)
         have = params["lm"]["embed"].device
         if have.type != self.device.type or (self.device.index is not None
@@ -116,31 +137,28 @@ class PagedContinuousBatcher:
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.num_slots = num_slots
-        self.num_pages = num_pages
-        self.page_size = page_size
-        self.max_pages_per_seq = max_pages_per_seq
+        self.speculative_k = speculative_k
         self.kv_cache_dtype = kv_cache_dtype or cfg.dtype
         self.w8a8 = w8a8
+        self.vit_block = vit_block
         self.prefill_chunk_size = prefill_chunk_size
         self.queue: queue.Queue[_Request] = queue.Queue()
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         self.dead: Exception | None = None
-        self.paged = PagedKV.create(cfg.lm, num_pages, page_size, num_slots, max_pages_per_seq,
-                                    self.kv_cache_dtype, self.device)
-        self.allocator = PageAllocator(num_pages)
-        self.slot_pages: list[list[int]] = [[] for _ in range(num_slots)]
         self.slots: list[_Request | None] = [None] * num_slots
         self.next_tokens = np.zeros((num_slots,), np.int64)
-        self.lengths = np.zeros((num_slots,), np.int64)  # host copy of paged.lengths
+        self.lengths = np.zeros((num_slots,), np.int64)  # the slots' sequence lengths
         self._pending = None  # the chunked admission in progress
-        self.prefix: PrefixCache | None = PrefixCache(page_size) if prefix_cache else None
-        # host-clock decode time (ended by the argmax's copy to the host):
-        # every step, and the steps of loop iterations that ran no
-        # admission work ("alone"), whose time no prefill shares; the most
-        # pages ever held (slots and prefix cache together)
+        self._spec_accept_ema = 1.0
+        self._spec_backoff = 0
+        self._spec_fail_streak = 0  # doubles the backoff on each repeat
+        # host-clock step time (ended by the argmax's copy to the host):
+        # every plain step, and the steps of loop iterations that ran no
+        # admission work ("alone"), whose time no prefill shares; verify
+        # rounds and the tokens they emitted
         self.stats = {"decode_steps": 0, "decode_s": 0.0, "alone_steps": 0, "alone_s": 0.0,
-                      "pages_peak": 0}
+                      "verify_rounds": 0, "verify_s": 0.0, "verify_tokens": 0}
 
     # -- public api --------------------------------------------------------
 
@@ -162,12 +180,9 @@ class PagedContinuousBatcher:
         }
         asked = [name for name, on in unported.items() if on]
         if asked:
-            raise NotImplementedError(f"not ported yet (greedy only): {', '.join(asked)}")
-        pages = self._pad(batch["token_ids"].shape[1]) // self.page_size
-        if pages > self.max_pages_per_seq:
-            # refused here: inside the loop it would fail every request
-            raise ValueError(f"a prompt of {batch['token_ids'].shape[1]} positions needs {pages} "
-                             f"pages, max_pages_per_seq is {self.max_pages_per_seq}")
+            raise NotImplementedError(f"not ported yet (greedy only): {', '.join(asked)}; "
+                                      f"{_LATER}")
+        self._check_prompt(batch)  # refused here: inside the loop it would fail every request
         fut: Future = Future()
         if self.dead is not None:
             fut.set_exception(RuntimeError(f"batcher loop died: {self.dead!r}"))
@@ -244,6 +259,344 @@ class PagedContinuousBatcher:
                 p["req"].future.set_exception(RuntimeError(f"batcher loop died: {e!r}"))
             raise
 
+    # -- admission and emission ----------------------------------------------
+
+    def _skip_cancelled(self, req: _Request) -> bool:
+        """An admission of a request cancelled while queued resolves it with
+        no tokens instead."""
+        if req.cancelled and not req.future.done():
+            req.future.set_result([])
+        return req.cancelled
+
+    def _seat(self, slot: int, req: _Request, logits: torch.Tensor, true_len: int):
+        """An admission's host tail: the slot takes the request at its true
+        length, with its first (greedy) token."""
+        tok = int(logits[0].argmax())
+        self.slots[slot] = req
+        self.lengths[slot] = true_len
+        if self.speculative_k > 0:
+            b = req.batch
+            ids = np.asarray(b["token_ids"])[0, :true_len]
+            im = np.asarray(b["is_image"])[0, :true_len]
+            req.ctx = [-1 if m else int(t) for t, m in zip(ids, im)]
+        self.next_tokens[slot] = tok
+        self._emit(slot, tok)
+
+    def _emit(self, slot: int, tok: int):
+        req = self.slots[slot]
+        req.tokens.append(tok)
+        if self.speculative_k > 0:
+            req.ctx.append(tok)
+        if req.on_token is not None:
+            req.on_token(tok)
+        if (tok == self.cfg.lm.eos_token_id or len(req.tokens) >= req.max_new_tokens
+                or self._out_of_room(slot)):
+            req.future.set_result(req.tokens)
+            self._release_slot(slot)
+
+    def _reap_cancelled(self):
+        """Free every cancelled request before the next step: its future
+        resolves with the tokens so far and its slot is released."""
+        for slot, req in enumerate(self.slots):
+            if req is not None and req.cancelled:
+                if not req.future.done():
+                    req.future.set_result(req.tokens)
+                self._release_slot(slot)
+        p = self._pending
+        if p is not None and p["req"].cancelled:
+            self._pending = None
+            if not p["req"].future.done():
+                p["req"].future.set_result([])
+            self._drop_pending(p)
+
+    def _drop_pending(self, p: dict):
+        """Release what a cancelled chunked admission holds."""
+
+    # -- decoding ----------------------------------------------------------
+
+    def _decode(self, active: np.ndarray, alone: bool):
+        t0 = time.perf_counter()
+        logits = self._decode_step(torch.as_tensor(self.next_tokens, device=self.device),
+                                   torch.as_tensor(active, device=self.device))
+        toks = logits.argmax(dim=-1).cpu().numpy()
+        seconds = time.perf_counter() - t0
+        self.stats["decode_s"] += seconds
+        self.stats["decode_steps"] += 1
+        if alone:
+            self.stats["alone_s"] += seconds
+            self.stats["alone_steps"] += 1
+        self.lengths += active
+        for slot in range(self.num_slots):
+            if self.slots[slot] is not None:
+                self.next_tokens[slot] = int(toks[slot])
+                self._emit(slot, int(toks[slot]))
+
+    def _propose_fed(self):
+        """Per-slot verify inputs [slots, k + 1]: the last token, the drafts,
+        -1 padding; and the draft counts."""
+        k = self.speculative_k
+        fed = np.full((self.num_slots, k + 1), -1, np.int64)
+        dks = np.zeros(self.num_slots, np.int64)
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            fed[slot, 0] = self.next_tokens[slot]
+            d = propose_ngram_host(req.ctx, k)
+            fed[slot, 1:1 + len(d)] = d
+            dks[slot] = len(d)
+        return fed, dks
+
+    def _verify_round(self, active: np.ndarray):
+        """One speculative step for every active slot: each feeds its drafts
+        and advances by its own acceptance; the EMA of accepted drafts a
+        slot decides the backoff."""
+        t0 = time.perf_counter()
+        fed, dks = self._propose_fed()
+        logits = self._verify(torch.as_tensor(fed, device=self.device),
+                              torch.as_tensor(active, device=self.device))
+        preds = logits.argmax(dim=-1).cpu().numpy()  # [slots, k + 1]
+        self.stats["verify_s"] += time.perf_counter() - t0
+        self.stats["verify_rounds"] += 1
+        eos = self.cfg.lm.eos_token_id
+        bursts = {slot: accept_greedy(preds[slot], fed[slot, 1:], int(dks[slot]), eos)
+                  for slot, req in enumerate(self.slots) if req is not None}
+        accepted = sum(len(b) - 1 for b in bursts.values())
+        ratio = accepted / len(bursts)
+        self._spec_accept_ema = 0.9 * self._spec_accept_ema + 0.1 * ratio
+        if ratio > 0.5:
+            self._spec_fail_streak = 0  # drafts are landing again
+        if self._spec_accept_ema < SPEC_EMA_THRESHOLD:
+            self._spec_backoff = min(SPEC_BACKOFF_ROUNDS * 2**self._spec_fail_streak, 512)
+            self._spec_fail_streak += 1
+        # lengths advance before the emission, so that the room rule sees
+        # the state after the round
+        for slot, burst in bursts.items():
+            self.lengths[slot] += len(burst)
+        self._lengths_changed()
+        for slot, burst in bursts.items():
+            for tok in burst:
+                if self.slots[slot] is None:
+                    break
+                self.stats["verify_tokens"] += 1
+                self._emit(slot, tok)
+            if self.slots[slot] is not None:
+                self.next_tokens[slot] = burst[-1]
+
+    def _lengths_changed(self):
+        """Hook: the host lengths moved other than by a decode step."""
+
+    def _before_step(self):
+        """Hook: runs before every step with at least one active slot."""
+
+    def _loop(self):
+        chunked = self.prefill_chunk_size is not None
+        while not self._stop.is_set():
+            self._reap_cancelled()
+            admitting = False  # admission work ran in this iteration
+            if chunked:
+                if self._pending is None:
+                    for slot in range(self.num_slots):
+                        if self.slots[slot] is None:
+                            try:
+                                req = self.queue.get_nowait()
+                            except queue.Empty:
+                                break
+                            self._start_pending_safe(slot, req)
+                            admitting = True
+                            break
+                if self._pending is not None:
+                    self._step_pending_safe()
+                    admitting = True
+            else:
+                for slot in range(self.num_slots):
+                    if self.slots[slot] is None:
+                        try:
+                            req = self.queue.get_nowait()
+                        except queue.Empty:
+                            break
+                        self._admit_safe(slot, req)
+                        admitting = True
+            active = np.array([r is not None for r in self.slots])
+            if not active.any():
+                if chunked and self._pending is not None:
+                    continue  # keep chunking the admission
+                try:
+                    req = self.queue.get(timeout=0.05)
+                except queue.Empty:
+                    continue
+                if chunked:
+                    self._start_pending_safe(0, req)
+                    continue
+                self._admit_safe(0, req)
+                admitting = True
+                active = np.array([r is not None for r in self.slots])
+            if not active.any():
+                continue
+            self._before_step()
+            if self.speculative_k > 0:
+                if self._spec_backoff > 0:
+                    self._spec_backoff -= 1
+                    if self._spec_backoff == 0:
+                        self._spec_accept_ema = 1.0  # an optimistic retry
+                else:
+                    self._verify_round(active)
+                    continue
+            self._decode(active, alone=not admitting)
+
+
+class ContinuousBatcher(_SlotBatcher):
+    """Continuous batching over slot-contiguous dense caches (module
+    docstring): slot i's sequence fills positions [0, lengths[i]) of row i
+    of one [L, num_slots, max_seq_len] cache. A request stops when its next
+    round could pass max_seq_len (length + 1 + k >= max_seq_len)."""
+
+    def __init__(
+        self,
+        params,
+        cfg: TokenPackerVLMConfig,
+        tokenizer=None,
+        num_slots: int = 8,
+        max_seq_len: int = 1024,
+        temperature: float = 0.0,
+        prefill_chunk_size: int | None = None,
+        speculative_k: int = 0,
+        adapters: dict | None = None,
+        kv_cache_dtype: torch.dtype | None = None,
+        w8a8: bool = False,
+        vit_block: bool = False,
+        device: torch.device | str = "cuda",
+    ):
+        super().__init__(params, cfg, tokenizer, num_slots, temperature, speculative_k,
+                         prefill_chunk_size, adapters, kv_cache_dtype, w8a8, vit_block, device)
+        self.max_seq_len = max_seq_len
+        self.cache = KVCache.create(cfg.lm, num_slots, max_seq_len, self.kv_cache_dtype,
+                                    self.device)
+        self.fused = fused_weights(params, cfg)
+
+    def _check_prompt(self, batch: dict):
+        l = batch["token_ids"].shape[1]
+        if l > self.max_seq_len:
+            raise ValueError(f"a prompt of {l} positions exceeds max_seq_len {self.max_seq_len}")
+
+    def _out_of_room(self, slot: int) -> bool:
+        return int(self.lengths[slot]) + 1 + self.speculative_k >= self.max_seq_len
+
+    def _release_slot(self, slot: int):
+        # a free slot's steps write at its length: 0 keeps them in its rows
+        self.slots[slot] = None
+        self.lengths[slot] = 0
+
+    def _visual(self, b) -> torch.Tensor:
+        if b.get("images") is None:
+            return torch.zeros((1, self.cfg.tokens_per_view, self.cfg.lm.hidden_size),
+                               dtype=self.params["lm"]["embed"].dtype, device=self.device)
+        images = torch.as_tensor(b["images"]).to(device=self.device, dtype=self.cfg.dtype)
+        return encode_images(self.params, self.cfg, images, self.w8a8, self.vit_block)
+
+    def _admit(self, slot: int, req: _Request):
+        """Prefill the request alone and copy its rows into the slot."""
+        if self._skip_cancelled(req):
+            return
+        b = req.batch
+        dev = device_batch(b, self.cfg.dtype, self.device)
+        logits, small = prefill(self.params, self.cfg, dev, b["token_ids"].shape[1],
+                                self.kv_cache_dtype, self.w8a8, self.vit_block)
+        insert_into_cache(self.cache, small, slot)
+        self._seat(slot, req, logits, int(np.asarray(b["lengths"])[0]))
+
+    def _start_pending(self, slot: int, req: _Request):
+        """Begin a chunked admission: the vision encode now, the prompt
+        chunks one per loop iteration (_step_pending)."""
+        if self._skip_cancelled(req):
+            return
+        b = req.batch
+        dev = device_batch({**b, "images": None}, self.cfg.dtype, self.device)
+        small = KVCache.create(self.cfg.lm, 1, b["token_ids"].shape[1], self.kv_cache_dtype,
+                               self.device)
+        self._pending = {"req": req, "slot": slot, "cache": small, "visual": self._visual(b),
+                         "offset": 0, "true_len": int(np.asarray(b["lengths"])[0]), "dev": dev}
+
+    def _step_pending(self):
+        p = self._pending
+        dev = p["dev"]
+        l = dev["token_ids"].shape[1]
+        # a fixed chunk length, the last window clamped to the prompt's end
+        # (the overlap recomputes the same rows)
+        cs = min(self.prefill_chunk_size, l)
+        start = max(0, min(p["offset"], l - cs))
+        window = slice(start, start + cs)
+        hidden, p["cache"] = prefill_chunk(
+            self.params, self.cfg, p["cache"], p["visual"], dev["token_ids"][:, window],
+            dev["is_image"][:, window], dev["image_slot"][:, window], start, cs,
+            self.kv_cache_dtype, self.w8a8,
+        )
+        p["offset"] = start + cs
+        if p["offset"] >= p["true_len"]:
+            logits = lm_logits(self.params["lm"], self.cfg.lm, hidden[:, p["true_len"] - 1 - start],
+                               self.w8a8)
+            self._pending = None
+            insert_into_cache(self.cache, p["cache"], p["slot"])
+            self._seat(p["slot"], p["req"], logits, p["true_len"])
+
+    def _decode_step(self, tokens: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+        cur = torch.as_tensor(self.lengths, dtype=torch.int32, device=self.device)
+        logits, _ = decode_step_cb(self.params, self.cfg, self.cache, tokens, cur, active,
+                                   self.fused, self.w8a8)
+        return logits
+
+    def _verify(self, fed: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+        cur = torch.as_tensor(self.lengths, dtype=torch.int32, device=self.device)
+        logits, _ = verify_step_cb(self.params, self.cfg, self.cache, fed, cur, self.fused,
+                                   self.w8a8)
+        return logits
+
+
+class PagedContinuousBatcher(_SlotBatcher):
+    """Continuous batching over a paged KV pool (module docstring). A
+    request stops when its next round could pass its page budget."""
+
+    def __init__(
+        self,
+        params,
+        cfg: TokenPackerVLMConfig,
+        tokenizer=None,
+        num_slots: int = 8,
+        num_pages: int = 256,
+        page_size: int = 64,
+        max_pages_per_seq: int = 16,
+        temperature: float = 0.0,
+        speculative_k: int = 0,
+        prefix_cache: bool = True,
+        prefill_chunk_size: int | None = None,
+        adapters: dict | None = None,
+        kv_cache_dtype: torch.dtype | None = None,
+        w8a8: bool = False,
+        vit_block: bool = False,
+        device: torch.device | str = "cuda",
+    ):
+        super().__init__(params, cfg, tokenizer, num_slots, temperature, speculative_k,
+                         prefill_chunk_size, adapters, kv_cache_dtype, w8a8, vit_block, device)
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self.max_pages_per_seq = max_pages_per_seq
+        self.paged = PagedKV.create(cfg.lm, num_pages, page_size, num_slots, max_pages_per_seq,
+                                    self.kv_cache_dtype, self.device)
+        self.allocator = PageAllocator(num_pages)
+        self.slot_pages: list[list[int]] = [[] for _ in range(num_slots)]
+        self.prefix: PrefixCache | None = PrefixCache(page_size) if prefix_cache else None
+        self.stats["pages_peak"] = 0  # the most pages ever held (slots and prefix cache)
+
+    def _check_prompt(self, batch: dict):
+        pages = self._pad(batch["token_ids"].shape[1]) // self.page_size
+        if pages > self.max_pages_per_seq:
+            raise ValueError(f"a prompt of {batch['token_ids'].shape[1]} positions needs {pages} "
+                             f"pages, max_pages_per_seq is {self.max_pages_per_seq}")
+
+    def _out_of_room(self, slot: int) -> bool:
+        # a round writes up to k + 1 positions past the length
+        return ((int(self.lengths[slot]) + 1 + self.speculative_k) // self.page_size
+                >= self.max_pages_per_seq)
+
     # -- admission ---------------------------------------------------------
 
     def _alloc(self, n: int) -> list[int]:
@@ -306,7 +659,7 @@ class PagedContinuousBatcher:
         are cached: the tower and projector are skipped when no image
         token falls in [start, true_len)."""
         if dev["images"] is not None and bool(np.any(np.asarray(b["is_image"])[0, start:true_len])):
-            return encode_images(self.params, self.cfg, dev["images"], self.w8a8)
+            return encode_images(self.params, self.cfg, dev["images"], self.w8a8, self.vit_block)
         if self.prefix is not None and dev["images"] is not None:
             self.prefix.vision_skipped += 1
         lm_embed = self.params["lm"]["embed"]
@@ -315,17 +668,13 @@ class PagedContinuousBatcher:
 
     def _finish_bookkeeping(self, slot: int, req: _Request, logits: torch.Tensor, true_len: int,
                             all_pages: list[int], m: int, hashes: list[bytes]):
-        """Host-side admission tail: the first (greedy) token, the slot's
-        pages, the full prompt blocks registered with the prefix cache."""
-        tok = int(logits[0].argmax())
+        """Host-side admission tail: the slot's pages, the full prompt
+        blocks registered with the prefix cache, then `_seat`."""
         self.slot_pages[slot] = all_pages
         if self.prefix is not None:
             self.prefix.register(hashes, all_pages[: len(hashes)], self.allocator)
             self.prefix.tokens_reused += m * self.page_size
-        self.slots[slot] = req
-        self.lengths[slot] = true_len
-        self.next_tokens[slot] = tok
-        self._emit(slot, tok)
+        self._seat(slot, req, logits, true_len)
 
     def _finish_admission(self, slot: int, req: _Request, small_cache: KVCache, logits,
                           l_pad: int, true_len: int, m: int, shared: list[int],
@@ -338,9 +687,7 @@ class PagedContinuousBatcher:
         self._finish_bookkeeping(slot, req, logits, true_len, list(shared) + fresh, m, hashes)
 
     def _admit(self, slot: int, req: _Request):
-        if req.cancelled:
-            if not req.future.done():
-                req.future.set_result([])
+        if self._skip_cancelled(req):
             return
         b = req.batch
         l_pad, true_len, m, shared, hashes = self._plan_admission(b)
@@ -349,7 +696,7 @@ class PagedContinuousBatcher:
             return
         dev = self._padded_plan(b, l_pad)
         logits, small_cache = prefill(self.params, self.cfg, dev, l_pad, self.kv_cache_dtype,
-                                      self.w8a8)
+                                      self.w8a8, self.vit_block)
         self._finish_admission(slot, req, small_cache, logits, l_pad, true_len, 0, [], hashes)
 
     def _admit_with_prefix(self, slot: int, req: _Request, l_pad: int, true_len: int, m: int,
@@ -377,9 +724,7 @@ class PagedContinuousBatcher:
         """Begin a chunked admission: plan, prefix match, vision encode and
         prefix gather now; the prompt chunks run one per loop iteration
         (_step_pending) so the active slots keep decoding."""
-        if req.cancelled:
-            if not req.future.done():
-                req.future.set_result([])
+        if self._skip_cancelled(req):
             return
         b = req.batch
         l_pad, true_len, m, shared, hashes = self._plan_admission(b)
@@ -420,17 +765,11 @@ class PagedContinuousBatcher:
             self._finish_admission(p["slot"], p["req"], p["cache"], logits, l_pad,
                                    p["true_len"], p["m"], p["shared"], p["hashes"])
 
-    # -- decoding ----------------------------------------------------------
+    def _drop_pending(self, p: dict):
+        if p["shared"]:  # the admission's claims on prefix pages
+            self.allocator.release(list(p["shared"]))
 
-    def _emit(self, slot: int, tok: int):
-        req = self.slots[slot]
-        req.tokens.append(tok)
-        if req.on_token is not None:
-            req.on_token(tok)
-        out_of_room = (int(self.lengths[slot]) + 1) // self.page_size >= self.max_pages_per_seq
-        if tok == self.cfg.lm.eos_token_id or len(req.tokens) >= req.max_new_tokens or out_of_room:
-            req.future.set_result(req.tokens)
-            self._release_slot(slot)
+    # -- decoding ----------------------------------------------------------
 
     def _release_slot(self, slot: int):
         self.slots[slot] = None
@@ -441,96 +780,28 @@ class PagedContinuousBatcher:
         self.allocator.release(self.slot_pages[slot])
         self.slot_pages[slot] = []
 
-    def _reap_cancelled(self):
-        """Free every cancelled request before the next step: its future
-        resolves with the tokens so far and its pages return to the pool."""
-        for slot, req in enumerate(self.slots):
-            if req is not None and req.cancelled:
-                if not req.future.done():
-                    req.future.set_result(req.tokens)
-                self._release_slot(slot)
-        p = self._pending
-        if p is not None and p["req"].cancelled:
-            self._pending = None
-            if not p["req"].future.done():
-                p["req"].future.set_result([])
-            if p["shared"]:  # the admission's claims on prefix pages
-                self.allocator.release(list(p["shared"]))
-
-    def _grow_pages(self):
-        """Map a fresh page for every slot whose next write crosses into an
-        unmapped block."""
+    def _before_step(self):
+        """Map a fresh page for every slot whose next writes cross into an
+        unmapped block: with speculation a round writes positions
+        [length, length + k], so growth looks k positions ahead."""
         for slot in range(self.num_slots):
             if self.slots[slot] is None:
                 continue
-            target = min(int(self.lengths[slot]) // self.page_size, self.max_pages_per_seq - 1)
+            target = min((int(self.lengths[slot]) + self.speculative_k) // self.page_size,
+                         self.max_pages_per_seq - 1)
             while len(self.slot_pages[slot]) <= target:
                 (pid,) = self._alloc(1)
                 map_page(self.paged, slot, len(self.slot_pages[slot]), pid)
                 self.slot_pages[slot].append(pid)
 
-    def _decode(self, active: np.ndarray, alone: bool):
-        t0 = time.perf_counter()
-        logits, _ = paged_decode_step(
-            self.params, self.cfg, self.paged,
-            torch.as_tensor(self.next_tokens, device=self.device),
-            torch.as_tensor(active, device=self.device), self.w8a8)
-        toks = logits.argmax(dim=-1).cpu().numpy()
-        seconds = time.perf_counter() - t0
-        self.stats["decode_s"] += seconds
-        self.stats["decode_steps"] += 1
-        if alone:
-            self.stats["alone_s"] += seconds
-            self.stats["alone_steps"] += 1
-        self.lengths += active
-        for slot in range(self.num_slots):
-            if self.slots[slot] is not None:
-                self.next_tokens[slot] = int(toks[slot])
-                self._emit(slot, int(toks[slot]))
+    def _decode_step(self, tokens: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+        logits, _ = paged_decode_step(self.params, self.cfg, self.paged, tokens, active,
+                                      self.w8a8)
+        return logits
 
-    def _loop(self):
-        chunked = self.prefill_chunk_size is not None
-        while not self._stop.is_set():
-            self._reap_cancelled()
-            admitting = False  # admission work ran in this iteration
-            if chunked:
-                if self._pending is None:
-                    for slot in range(self.num_slots):
-                        if self.slots[slot] is None:
-                            try:
-                                req = self.queue.get_nowait()
-                            except queue.Empty:
-                                break
-                            self._start_pending_safe(slot, req)
-                            admitting = True
-                            break
-                if self._pending is not None:
-                    self._step_pending_safe()
-                    admitting = True
-            else:
-                for slot in range(self.num_slots):
-                    if self.slots[slot] is None:
-                        try:
-                            req = self.queue.get_nowait()
-                        except queue.Empty:
-                            break
-                        self._admit_safe(slot, req)
-                        admitting = True
-            active = np.array([r is not None for r in self.slots])
-            if not active.any():
-                if chunked and self._pending is not None:
-                    continue  # keep chunking the admission
-                try:
-                    req = self.queue.get(timeout=0.05)
-                except queue.Empty:
-                    continue
-                if chunked:
-                    self._start_pending_safe(0, req)
-                    continue
-                self._admit_safe(0, req)
-                admitting = True
-                active = np.array([r is not None for r in self.slots])
-            if not active.any():
-                continue
-            self._grow_pages()
-            self._decode(active, alone=not admitting)
+    def _verify(self, fed: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+        logits, _ = paged_verify_step(self.params, self.cfg, self.paged, fed, active, self.w8a8)
+        return logits
+
+    def _lengths_changed(self):
+        self.paged.lengths.copy_(torch.as_tensor(self.lengths, dtype=torch.int32))
