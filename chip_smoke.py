@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py              # the smoke run, phases 1-17
+    python3 chip_smoke.py              # the smoke run, phases 1-19
     python3 chip_smoke.py --profile    # phases 1-2, then the profile below
     python3 chip_smoke.py --profile-train  # phases 1-2, then a traced training step
     python3 chip_smoke.py --profile-paged  # phases 1-2, then traced paged decode steps
@@ -8,6 +8,7 @@
     python3 chip_smoke.py --kernels        # phases 1-3 only
     python3 chip_smoke.py --quantized      # phases 1-2, K6-K8 of phase 3, phases 12-15
     python3 chip_smoke.py --speculative    # phases 1-2, K9 and K4-verify of phase 3, 16-17
+    python3 chip_smoke.py --lora           # phases 1-2, K4-LoRA of phase 3, phases 18-19
 
 Phases, one result line each or more (every failure raises, so any
 failure exits non-zero and prints no final line):
@@ -118,12 +119,36 @@ failure exits non-zero and prints no final line):
      update of the patch rows per view within K9_TOWER_REL_RMS (failing K9
      with its MLP's last 128 units lost), then one HD admission and 4
      verify rounds at k = 4 within LOGIT_BAND, which the verify without
-     its fed keys (each fed token alone) must fail.
+     its fed keys (each fed token alone) must fail;
+ 18. TokenPacker-HD-7b with an int8 LM and an int8 cache serving two LoRA
+     adapters of rank 16 over all seven targets (configuration H), written
+     as PEFT directories and read by `load_adapter`, one with a projector:
+     `ContinuousBatcher(num_slots=4, max_seq_len=2080, prefill_chunk_size=
+     256, speculative_k=4, adapters=...)`, phase 6's 4 HD requests under
+     ad0, ad1, none and ad0, the 3x3 one again under ad1 and one cancelled
+     after its 4th token. Checks: K4-LoRA once per plain step and its
+     verify form once per round, K4 without the term never; ad1's
+     projector in its admissions only; tokens equal a recorded per-layer
+     run (the `linear` term) of each request wherever its margin is
+     decisive. Printed: admission latency, ms a step and a round, tok/s,
+     peak memory. Then phase 10's paged batcher with the adapters: the
+     3x3 request under ad0, ad1 and ad0 maps cached pages for the repeat
+     under ad0 only, K5 32 times a step;
+ 19. full widths at 2 LM layers, int8 weights and cache, with adapters,
+     card bf16 (K4-LoRA) vs CPU fp32: one HD admission under ad1, 4 decode
+     steps and one verify round within LOGIT_BAND, which the card's run
+     with the slot's adapter term dropped must fail by several bands.
 Phase 3 also holds K9 at [8, 577, 1024] and [26, 577, 1024] by its
 block's update out - x per (image, 64 rows, 128-wide slice), failing the
 plain block that lost its last 64 keys or its MLP's last 128 units, with
 the per-op block (cuBLAS products, SDPA, F.layer_norm: several calls) as
 its library column, and times the 23-block tower fused against per op;
+K4-LoRA at T = 1 and 5 (B = 4, S = 2080, slots on two adapters, none
+and the first again) by the adapters' update per (sample, token, 128-wide
+slice) at 2 layers, failing three lossy plain versions (a slot's
+selection zeroed, a slot on the other adapter, the down term dropped),
+its written int8 rows bit-equal to `quantize_kv`'s, timed at 32 layers
+beside K4 and K4-verify without the term;
 K4's verify form (B = 4, T = 5, S = 2080, int8 and bf16 caches) per
 (sample, token, 128-wide slice) and per (sample, token, head) row,
 failing the plain version without the last range or (at 1-4 row prompts)
@@ -143,9 +168,10 @@ K5's phase-3 lengths); `--profile-quantized` traces 8 decode steps of
 phase 12's nf4 model (as `--profile`) and 8 paged steps in phase 14's
 w8a8 mode (as `--profile-paged`); `--kernels` stops after phase 3; `--quantized`
 runs only the quantized slice's checks (K6-K8 in phase 3, phases 12-15)
-and `--speculative` only the speculative slice's (the int8 rows' bit
-check, K9 and K4-verify in phase 3, phases 16-17), each printing their
-kernel rows. None prints the final "ok" line.
+`--speculative` only the speculative slice's (the int8 rows' bit
+check, K9 and K4-verify in phase 3, phases 16-17) and `--lora` only the
+multi-LoRA slice's (K4-LoRA in phase 3, phases 18-19), each printing
+their kernel rows. None prints the final "ok" line.
 """
 
 from __future__ import annotations
@@ -252,19 +278,41 @@ def sh(cmd: list[str]) -> str:
         return f"{cmd[0]}: not found"
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call, CUDA events around each call."""
+def time_ms(fn, iters: int = 20, warmup: int = 3, graph: bool = False) -> float:
+    """Device time of one call: the median over 3 runs of back-to-back calls
+    (iters / 3 a run, at least 1) between one pair of CUDA events, each run
+    divided by its count. With `graph` the iters calls are captured once
+    into a CUDA graph whose replay is timed (3 replays, each divided by
+    iters): a kernel of a few microseconds is then timed without the
+    host's launch cost (the wrapper's checks, ctypes), which one event
+    pair around one call would measure instead."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    per = iters if graph else max(1, round(iters / 3))
+    if graph:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(per):
+                fn()
+        run = g.replay
+    else:
+        def run():
+            for _ in range(per):
+                fn()
     times = []
-    for _ in range(iters):
+    for _ in range(3):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        run()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / per)
     return statistics.median(times)
 
 
@@ -497,17 +545,18 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
                   only: str = "") -> dict:
     """Phase 3: every kernel vs its plain version at the paths' shapes
     (`only` "quantized": K6-K8 alone; "speculative": the int8 rows' bit
-    check, K9 and K4's verify form alone)."""
+    check, K9 and K4's verify form alone; "lora": K4-LoRA alone)."""
     from tokenpacker_tpu_torch.config import preset_config
     from tokenpacker_tpu_torch.io.weights import init_lm_on_device, quantize_lm_int8
 
     rows = {}
 
     def case(name, kernel, plain, args, library=None, work=None, check=None,
-             rate=BF16_FLOP_PER_S):
+             rate=BF16_FLOP_PER_S, graph=False):
         out, want = kernel(*args), plain(*args)
         err = check(name, out, want)
-        ms, plain_ms = time_ms(lambda: kernel(*args)), time_ms(lambda: plain(*args))
+        ms = time_ms(lambda: kernel(*args), graph=graph)
+        plain_ms = time_ms(lambda: plain(*args))
         lib_ms = time_ms(library) if library else None
         b_ms, b_by = bound(*work, rate)
         print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
@@ -520,21 +569,26 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
         row["max_abs_err"] = max(c["max_abs_err"] for c in cases)
         return row
 
-    print("phase 3: kernels vs plain versions (bf16, median of 20 CUDA-event-timed calls)")
+    print("phase 3: kernels vs plain versions (bf16; times: the median of 3 runs of back-to-back "
+          "calls between one CUDA event pair, K6 and K7 a CUDA graph of 20 launches)")
     if only == "quantized":
         return {name: first_and_worst(cases)
                 for name, cases in quantized_kernel_cases(device, case).items()}
-    if only != "speculative":
+    if only == "":
         rows.update(earlier_kernel_rows(device, case, first_and_worst))
-    check_int8_rows(device)
-    rows["vit_block"] = first_and_worst(k9_cases(device, case))
-    # K4 and its verify form at phase 6's last decode step: random
+    if only in ("", "speculative"):
+        check_int8_rows(device)
+        rows["vit_block"] = first_and_worst(k9_cases(device, case))
+    # K4, its verify form and K4-LoRA at phase 6's last decode step: random
     # Vicuna-7B layers quantized to int8, the HD requests' ranges
     lc = preset_config(HD_PRESET).lm
     layers = quantize_lm_int8({"lm": init_lm_on_device(lc, SEED + 5, device)})["lm"]["layers"]
-    if only != "speculative":
+    if only == "":
         rows["fused_decode"] = first_and_worst(k4_cases(device, lc, layers, hd_lengths, s_hd, span))
-    rows["fused_verify"] = verify_kernel_cases(device, lc, layers, hd_lengths, s_hd, span)
+    if only in ("", "speculative"):
+        rows["fused_verify"] = verify_kernel_cases(device, lc, layers, hd_lengths, s_hd, span)
+    if only in ("", "lora"):
+        rows.update(lora_kernel_cases(device, lc, layers, hd_lengths, s_hd, span))
     del layers
     torch.cuda.empty_cache()
     return rows
@@ -815,6 +869,7 @@ def quantized_kernel_cases(device, case) -> dict:
                 out["q4_matmul"].append(case(
                     f"K6 q4_matmul {qt} {name} x[{m},{k}] W[{k},{n}]", k6.q4_matmul,
                     k6.q4_matmul_plain, (x, leaf), library=lambda x=x, dense=dense: x @ dense,
+                    graph=True,
                     work=(m * k * 2 + k * n // 2 + k // 64 * n * 4 + m * n * 2, 2 * m * k * n),
                     check=lambda nm, got, want, lost=lost, leaf=leaf: compare_rows(
                         nm + " per (row, 128-wide slice)", slices(got), slices(want),
@@ -826,7 +881,7 @@ def quantized_kernel_cases(device, case) -> dict:
             xq, _ = k7.quantize_activations(acts(m, k))
             out["s8_matmul"].append(case(
                 f"K7 s8_matmul {name} xq[{m},{k}] wq[{k},{n}]", k7.s8_matmul, k7.s8_matmul_plain,
-                (xq, wq), library=int_mm_call(xq, wq), rate=INT8_OPS_PER_S,
+                (xq, wq), library=int_mm_call(xq, wq), rate=INT8_OPS_PER_S, graph=True,
                 work=(m * k + k * n + m * n * 4, 2 * m * k * n),
                 check=lambda nm, got, want, xq=xq, wq=wq: compare_exact(
                     nm, got, want, k7.s8_matmul_plain(xq[:, :-128], wq[:-128]))))
@@ -2637,6 +2692,581 @@ def phase_spec_parity(device, seed: int) -> None:
     torch.cuda.empty_cache()
 
 
+# ---- K4-LoRA and multi-LoRA serving (phases 3, 18, 19) ------------------------
+
+# the adapters of phases 3, 18 and 19: two of rank 16 over all seven targets,
+# alpha 32 (alpha / r = 2, folded into B exactly). Phase 3's hold their
+# entries at LORA_SCALE; at that size the adapters move each layer's
+# products by ~1/3 of the base's (u ~ 64 x 0.03 per column at d = 4096, the
+# term ~ 2 x sqrt(16) x 0.03 x u), so that the update that phase 3 holds
+# stands well above the bf16 roundings that the kernel and its plain
+# version take in different places.
+LORA_RANK, LORA_ALPHA, LORA_SCALE = 16, 32, 0.03
+# phase 18 serves adapters of the same rank at LORA_SERVE_SCALE, a term of
+# ~1/10 of the base products: the streams leave the base model's without
+# turning the random model's logits flat
+LORA_SERVE_SCALE = 0.015
+LORA_SLOTS = ("ad0", "ad1", None, "ad0")  # phase 3's and phase 18's 4 slots
+# phase 3 holds K4-LoRA by the adapters' update (hidden with them less
+# without), per (sample, token, 128-wide slice): a difference of two bf16
+# runs, each carrying the roundings that K4 and its plain version take in
+# different places along the base path, which do not cancel in it. On an
+# H100 80GB HBM3 (700 W) the update reads 0.0148-0.0176 at 2 layers
+# (against TILE_REL_RMS's 0.02, too close a margin to hold) and the three
+# lossy plain versions 0.40-1.82
+LORA_UPDATE_REL_RMS = 5e-2
+
+
+def random_adapters(lc, seed: int, scale: float, names=("ad0", "ad1")) -> dict:
+    """{name: serve.multi_lora.Adapter} of rank LORA_RANK over all seven
+    targets of every layer of `lc`, normal entries of size `scale` (B's
+    already times alpha / r), float32 numpy from the seed."""
+    from tokenpacker_tpu_torch.serve.multi_lora import TARGETS, Adapter, target_dims
+
+    rng = np.random.default_rng(seed)
+    dims = target_dims(lc)
+    out = {}
+    for name in names:
+        lora = {}
+        for t in TARGETS:
+            din, dout = dims[t]
+            a = rng.standard_normal((lc.num_hidden_layers, din, LORA_RANK), np.float32) * scale
+            b = rng.standard_normal((lc.num_hidden_layers, LORA_RANK, dout), np.float32) * scale
+            lora[t] = (a, b * (LORA_ALPHA / LORA_RANK))
+        out[name] = Adapter(lora, LORA_RANK)
+    return out
+
+
+def write_peft(path: Path, adapter, projector=None) -> None:
+    """An adapter as the PEFT directory that `load_adapter` reads (the
+    reference's names, torch [r, in] lora_A and [out, r] lora_B, alpha /
+    r undone on B) and, with `projector`, its non_lora_trainables.bin."""
+    from tokenpacker_tpu_torch.io.hf_import import export_tokenpacker
+    from tokenpacker_tpu_torch.serve.multi_lora import _TORCH_NAMES
+
+    names = {t: n for n, t in _TORCH_NAMES.items()}
+    sd = {}
+    for t, (a, b) in adapter.lora.items():
+        for i in range(a.shape[0]):
+            key = f"base_model.model.model.layers.{i}.{names[t]}"
+            sd[f"{key}.lora_A.weight"] = torch.from_numpy(np.ascontiguousarray(a[i].T))
+            sd[f"{key}.lora_B.weight"] = torch.from_numpy(
+                np.ascontiguousarray(b[i].T / (LORA_ALPHA / LORA_RANK)))
+    path.mkdir(parents=True)
+    torch.save(sd, path / "adapter_model.bin")
+    (path / "adapter_config.json").write_text(json.dumps(
+        {"r": LORA_RANK, "lora_alpha": LORA_ALPHA, "peft_type": "LORA"}))
+    if projector is not None:
+        torch.save({f"base_model.model.model.mm_projector.{k}": torch.from_numpy(v)
+                    for k, v in export_tokenpacker(projector).items()},
+                   path / "non_lora_trainables.bin")
+
+
+def fd_lora_bytes_flops(bundle, rows: int) -> tuple[float, float]:
+    """What K4-LoRA adds to K4's work: the adapter entries that this run's
+    bundle holds read once (bf16), the mask rows once (f32); 2 x rows
+    operations per entry. Only the non-zero entries count: the zero blocks
+    of the fused targets' block-diagonal B (and the columns that pad a
+    lower rank) hold no work, though the kernel reads them."""
+    mats = ("a_d", "a_f", "b_qkv", "b_o", "b_gu", "b_down")
+    elems = sum(int(torch.count_nonzero(bundle[m])) for m in mats)
+    return 2 * elems + 4 * rows * sum(bundle["widths"]), 2 * rows * elems
+
+
+def compare_lora_update(name: str, got, want, losts: dict) -> float:
+    """The adapters' update (hidden with them less without, [B, T, D]) held
+    per (sample, token, 128-wide slice) by `row_rel_rms` to
+    LORA_UPDATE_REL_RMS;
+    each lossy plain version's update in `losts` must fail that. Returns
+    the largest absolute error of the update."""
+    def slices(x):
+        return x.float().reshape(*x.shape[:2], -1, 128)
+
+    rel = row_rel_rms(slices(got), slices(want))
+    worst = rel.max().item()
+    reads = {k: round(row_rel_rms(slices(v), slices(want)).max().item(), 4)
+             for k, v in losts.items()}
+    size = (want.float().norm() / want.float().numel() ** 0.5).item()
+    err = (got.float() - want.float()).abs().max().item()
+    ok = worst <= LORA_UPDATE_REL_RMS and bool(torch.isfinite(got.float()).all())
+    print(f"  {name}: the adapters' update (RMS {size:.4f}) per (sample, token, 128-wide slice): "
+          f"worst relative RMS {worst:.4e}, median {rel.median().item():.4e}, limit "
+          f"{LORA_UPDATE_REL_RMS}; lossy plain versions {reads}; "
+          f"max_abs_err {err:.3e} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: K4-LoRA's update disagrees with its plain version ({worst})")
+    for k, v in reads.items():
+        if not v > LORA_UPDATE_REL_RMS:
+            raise AssertionError(f"{name}: the update measure does not see {k} ({v})")
+    return err
+
+
+def lora_kernel_cases(device, lc, layers, hd_lengths: np.ndarray, s_hd: int,
+                      span: tuple[int, int]) -> dict:
+    """Phase 3, K4-LoRA at phase 6's last decode step (B = 4, S = 2080, the
+    HD requests' ranges), T = 1 and T = SPEC_K + 1, int8 cache (and a bf16
+    one at T = 1): two random adapters of rank 16 over all seven targets
+    (`random_adapters`, LORA_SCALE), slots on ad0, ad1, none and ad0.
+    At 2 full-width layers (V scaled by K4_V_GAIN) the adapters' update
+    (`compare_lora_update`) against the plain version's, which must fail with
+    slot 0's selection zeroed, with slot 1 on the other adapter and with
+    the down target's term dropped; the int8 rows and scales written
+    bit-equal to `quantize_kv` of the returned rows; an all-zero selection
+    gives K4's bits. At 32 layers: deterministic, the hidden state within
+    K4_DEEP_REL_RMS of the plain version's, and timed beside K4 (or
+    K4-verify) without the term on the same cache in the same call; bound:
+    K4's bytes and the bundle's non-zero entries. Returns the "fused_decode_lora" (T = 1)
+    and "fused_verify_lora" (T = 5) rows, int8 cache."""
+    from tokenpacker_tpu_torch.models.llama import KVCache
+    from tokenpacker_tpu_torch.ops import fused_decode as k4
+    from tokenpacker_tpu_torch.serve.multi_lora import SlotLora
+
+    b = len(hd_lengths)
+    adapters = random_adapters(lc, SEED + 40, LORA_SCALE)
+    lc2 = dataclasses.replace(lc, num_hidden_layers=2)
+
+    def bundle_of(n_layers, slots=LORA_SLOTS[:b]):
+        sl = SlotLora({"lm": {"layers": layers[:n_layers]}}, SimpleNamespace(lm=lc), adapters, b)
+        for i, name in enumerate(slots):
+            sl.set_slot(i, name)
+        return sl._fd | {"sel": sl.sel}
+
+    bundles = {2: bundle_of(2), 32: bundle_of(32)}
+    lost = {"slot 0's selection zeroed": {**bundles[2], "sel": bundles[2]["sel"].clone()},
+            "slot 1 on the other adapter": {**bundles[2], "sel": bundles[2]["sel"].clone()},
+            "the down target's term dropped": {**bundles[2],
+                                               "b_down": torch.zeros_like(bundles[2]["b_down"])}}
+    lost["slot 0's selection zeroed"]["sel"][0] = 0
+    swapped = lost["slot 1 on the other adapter"]["sel"]
+    swapped[1] = swapped[1].flip(0)
+    empty = {**bundles[2], "sel": torch.zeros_like(bundles[2]["sel"])}
+    len0 = torch.as_tensor(hd_lengths, dtype=torch.int32, device=device)
+    start2 = torch.full_like(len0, span[0])
+    keys1 = int(np.minimum(hd_lengths, s_hd).sum()) + b * (span[1] - span[0])
+    g = torch.Generator(device=device).manual_seed(SEED + 41)
+    out = {}
+    for t, int8 in ((1, True), (SPEC_K + 1, True), (1, False)):
+        gap = span[1] - span[0] - (t - 1)  # the round's rows end where phase 6's last step writes
+        end2 = start2 + gap
+        pos = (len0 + gap)[:, None] + torch.arange(t, device=device, dtype=torch.int32)
+        h0 = (0.02 * torch.randn((b, t, lc.hidden_size), generator=g, device=device)).bfloat16()
+        keys = int(np.minimum(hd_lengths, s_hd).sum()) + b * gap
+        cache = random_cache(lc, b, s_hd, int8, SEED + 7, device)
+        form = "K4-LoRA" if t == 1 else "K4-LoRA verify"
+        tag = f"{form} B={b} T={t} S={s_hd} {'int8' if int8 else 'bf16'} cache, n=2 r={LORA_RANK}"
+
+        def copy(c, n_layers=None):
+            sl = slice(None, n_layers)
+            return KVCache(c.k[sl].clone(), c.v[sl].clone(), 0,
+                           *((c.k_scale[sl].clone(), c.v_scale[sl].clone()) if int8
+                             else (None, None)))
+
+        def run(lm_layers, lcx, c, slot_lora, kernel=True, weights=None):
+            """One call on cache c in place: (hidden [B, T, D], k_new, v_new
+            as [L, B, T, H, d])."""
+            x = h0[:, 0].contiguous() if t == 1 else h0
+            p = pos[:, 0].contiguous() if t == 1 else pos
+            if kernel:
+                fn = k4.fused_decode_hidden if t == 1 else k4.fused_verify_hidden
+                hid, kn, vn = fn({"layers": lm_layers}, lcx, x, c.k, c.v, len0, start2, end2,
+                                 end2, p, k_scale=c.k_scale, v_scale=c.v_scale,
+                                 slot_lora=slot_lora, weights=weights)
+            else:
+                fn = k4.fused_decode_hidden_plain if t == 1 else k4.fused_verify_hidden_plain
+                hid, kn, vn = fn(lm_layers, lcx, x, c.k, c.v, len0, start2, end2, p, c.k_scale,
+                                 c.v_scale, slot_lora)
+            if t == 1:
+                hid, kn, vn = hid[:, None], kn[:, :, None], vn[:, :, None]
+            return hid, kn, vn
+
+        c2 = copy(cache, 2)
+        (c2.v_scale if int8 else c2.v).mul_(K4_V_GAIN)
+        ck = copy(c2)
+        hk, kn, vn = run(layers[:2], lc2, ck, bundles[2])
+        hk0 = run(layers[:2], lc2, copy(c2), None)[0]
+        hp0 = run(layers[:2], lc2, copy(c2), None, kernel=False)[0]
+        hp = run(layers[:2], lc2, copy(c2), bundles[2], kernel=False)[0]
+        losts = {k: run(layers[:2], lc2, copy(c2), v, kernel=False)[0] - hp0.float()
+                 for k, v in lost.items()}
+        err = compare_lora_update(tag + " 2 layers", hk.float() - hk0.float(),
+                                  hp.float() - hp0.float(), losts)
+        he = run(layers[:2], lc2, copy(c2), empty)[0]
+        if not torch.equal(he, hk0):
+            raise AssertionError(f"{tag}: an all-zero selection does not give K4's bits")
+        if int8:
+            eq = written_rows_equal(ck, kn, vn, end2)
+            print(f"  {tag}: int8 rows and scales written bit-equal to quantize_kv of the returned "
+                  f"rows {eq}; all-zero selection gives K4's hidden state bit for bit True")
+            if not eq:
+                raise AssertionError(f"{tag}: written int8 rows differ from quantize_kv's")
+        del c2, ck
+
+        weights = k4.FusedWeights({"layers": layers}, lc)
+        kc, vc = cache.k.clone(), cache.v.clone()
+        pc = KVCache(kc, vc, 0, cache.k_scale, cache.v_scale)
+
+        def kernel(slot_lora=bundles[32]):
+            return run(layers, lc, cache, slot_lora, weights=weights)[0]
+
+        def plain():
+            return run(layers, lc, pc, bundles[32], kernel=False)[0]
+
+        hidden, again, p_hidden = kernel(), kernel(), plain()
+        if not torch.equal(again, hidden):
+            raise AssertionError(f"{tag}: two identical calls differ")
+        rel = ((hidden.float() - p_hidden.float()).pow(2).mean().sqrt()
+               / p_hidden.float().pow(2).mean().sqrt()).item()
+        base = kernel(None)
+        moved = ((hidden.float() - base.float()).pow(2).mean().sqrt()
+                 / base.float().pow(2).mean().sqrt()).item()
+        print(f"  {tag} {lc.num_hidden_layers} layers hidden: relative RMS difference {rel:.4f} "
+              f"(bound {K4_DEEP_REL_RMS}), the adapters move it by {moved:.4f} (relative RMS), "
+              f"two calls identical")
+        if not rel <= K4_DEEP_REL_RMS:
+            raise AssertionError(f"{tag}: 32-layer hidden differs from the plain version ({rel})")
+        ms, base_ms = time_ms(kernel), time_ms(lambda: kernel(None))
+        plain_ms = time_ms(plain, iters=3, warmup=1)
+        nbytes, flops = k4_bytes_flops(lc, b, keys, int8, t)
+        lbytes, lflops = fd_lora_bytes_flops(bundles[32], b * t)
+        b_ms, b_by = bound(nbytes + lbytes, flops + lflops)
+        k4_name = "K4" if t == 1 else "K4-verify"
+        print(f"  {tag} {lc.num_hidden_layers} layers: kernel {ms:.4f} ms ({k4_name} without the "
+              f"term on the same cache in this call {base_ms:.4f} ms, +{ms - base_ms:.4f}), plain "
+              f"{plain_ms:.4f} ms, library none, bound {b_ms:.4f} ms ({b_by}; the adapters "
+              f"{lbytes / 1e6:.1f} MB of {(nbytes + lbytes) / 1e9:.3f} GB; {keys} valid cache "
+              f"rows)")
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+               "bound_ms": b_ms, "bound_by": b_by, "base_ms": base_ms}
+        if int8:
+            out["fused_decode_lora" if t == 1 else "fused_verify_lora"] = row
+        else:
+            out["fused_decode_lora"]["max_abs_err"] = max(out["fused_decode_lora"]["max_abs_err"],
+                                                          err)
+        del cache, kc, vc, pc, weights
+    del bundles, lost, empty
+    torch.cuda.empty_cache()
+    return out
+
+
+def per_layer_reference(params, cfg, slot_lora, req: dict, adapter, device) -> tuple[list, list]:
+    """One request under one adapter on the per-layer path, recorded: its
+    whole prompt prefilled under `prefill_params` (batch 1), then NEW_TOKENS
+    - 1 per-layer decode steps (K3, `ops/layers.linear`'s slot term) on the
+    same params. Returns (tokens, top-2 margins)."""
+    from tokenpacker_tpu_torch.generate import decode_step, device_batch, prefill
+
+    pp = slot_lora.prefill_params(params, adapter)
+    dev = device_batch(req, torch.bfloat16, device)
+    l = req["token_ids"].shape[1]
+    logits, cache = prefill(pp, cfg, dev, l + NEW_TOKENS, torch.int8)
+    toks, margins = [], []
+    for step in range(NEW_TOKENS):
+        top2 = logits.float().topk(2, dim=-1).values
+        margins.append(float(top2[0, 0] - top2[0, 1]))
+        toks.append(int(logits[0].argmax()))
+        if step < NEW_TOKENS - 1:
+            logits, cache = decode_step(pp, cfg, cache, logits.argmax(-1), dev["lengths"], step, l,
+                                        fused=False)
+    del cache
+    return toks, margins
+
+
+def phase_lora_serving(device, seed: int) -> dict:
+    """Phase 18 (configuration H): TokenPacker-HD-7b with its LM from
+    `quantize_lm_int8`, an int8 cache and two adapters of rank 16 over all
+    seven targets, written as PEFT directories and read back by
+    `load_adapter` (ad1 with a projector in non_lora_trainables.bin),
+    through `ContinuousBatcher(num_slots=4, max_seq_len=2080,
+    prefill_chunk_size=256, speculative_k=4, adapters=...)`: phase 6's 4 HD
+    requests under ad0, ad1, none and ad0, the 3x3 one again under ad1 and
+    one cancelled after its 4th token, 32 greedy tokens each. K4-LoRA once
+    a plain step, its verify form once a round, K4 without the term, K3 and
+    K9 never; ad1's admissions alone run on its projector; tokens equal a
+    recorded per-layer run of each request under its adapter wherever
+    its margin is decisive. Then phase 10's paged batcher with the same
+    adapters: the 3x3 request under ad0, ad1 and ad0 again maps cached pages
+    only for the repeat under ad0; K5 32 times a step."""
+    from tokenpacker_tpu_torch.config import preset_config
+    from tokenpacker_tpu_torch.io.weights import init_vlm_on_device, params_to, quantize_lm_int8
+    from tokenpacker_tpu_torch.ops.decode_attention import decode_attention
+    from tokenpacker_tpu_torch.ops.flash_attention import flash_attention
+    from tokenpacker_tpu_torch.ops.fused_decode import fused_decode_hidden, fused_verify_hidden
+    from tokenpacker_tpu_torch.ops.paged_attention import paged_attention
+    from tokenpacker_tpu_torch.ops.vit_attention import vit_attention
+    from tokenpacker_tpu_torch.ops.vit_block import vit_block
+    from tokenpacker_tpu_torch.serve import scheduler as sched
+    from tokenpacker_tpu_torch.serve.multi_lora import load_adapter
+
+    cfg = preset_config(HD_PRESET)
+    t0 = time.perf_counter()
+    params = quantize_lm_int8(init_vlm_on_device(cfg, seed=seed, device=device,
+                                                 dtype=torch.bfloat16))
+    proj = params_to(params["projector"], "cpu", torch.float32)
+    g = torch.Generator().manual_seed(seed + 42)
+    for leaf in (proj["mlp"]["fc1"], proj["mlp"]["fc2"]):
+        leaf["kernel"] = leaf["kernel"] * (1 + 0.05 * torch.randn(leaf["kernel"].shape,
+                                                                  generator=g))
+    made = random_adapters(cfg.lm, seed + 43, LORA_SERVE_SCALE)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, ad in made.items():
+            write_peft(Path(tmp) / name, ad, proj if name == "ad1" else None)
+        t1 = time.perf_counter()
+        adapters = {name: load_adapter(str(Path(tmp) / name), cfg) for name in made}
+        load_s = time.perf_counter() - t1
+    del made, proj
+    reqs = paged_requests(cfg, seed)
+    work = list(zip(reqs[:4], LORA_SLOTS)) + [(reqs[0], "ad1"), (reqs[-1], None)]
+    print(f"phase 18 (H): {HD_PRESET} int8 LM, int8 cache, 2 adapters of rank {LORA_RANK} over "
+          f"all seven targets (entries {LORA_SERVE_SCALE}, alpha {LORA_ALPHA}; ad1 with a "
+          f"projector) written as PEFT directories and read by load_adapter in {load_s:.2f} s, "
+          f"from seed {seed} ({time.perf_counter() - t0:.2f} s to build), through "
+          f"ContinuousBatcher: {SPEC_SLOTS} slots, max_seq_len {SPEC_SEQ}, chunks of 256, "
+          f"speculative_k {SPEC_K}; {len(work)} requests, grids {[r['grid'] for r, _ in work]}, "
+          f"adapters {[a for _, a in work]}, {NEW_TOKENS} greedy tokens each, the last "
+          f"cancelled after its {CANCEL_AFTER}th")
+    counters = {"vit_attention": (vit_attention, "launches"),
+                "vit_block": (vit_block, "launches"),
+                "flash_attention": (flash_attention, "launches"),
+                "decode_attention": (decode_attention, "launches"),
+                "fused_decode": (fused_decode_hidden, "launches"),
+                "fused_verify": (fused_verify_hidden, "launches"),
+                "fused_decode_lora": (fused_decode_hidden, "lora_launches"),
+                "fused_verify_lora": (fused_verify_hidden, "lora_launches")}
+
+    def serve(spec_k: int, items: list, cancel_last: bool):
+        """One main-path run: a ContinuousBatcher with the adapters, the
+        counts set to 0 just before and read just after. Returns (tokens,
+        batcher, launches, admission latencies, wall seconds, peak bytes,
+        which admissions ran on ad1's projector)."""
+        batcher = sched.ContinuousBatcher(
+            params, cfg, num_slots=SPEC_SLOTS, max_seq_len=SPEC_SEQ, prefill_chunk_size=256,
+            speculative_k=spec_k, kv_cache_dtype=torch.int8, adapters=adapters, device=device)
+        sl = batcher.slot_lora
+        projectors, real_encode = [], sched.encode_images
+
+        def recording_encode(*args):
+            projectors.append(args[0]["projector"] is sl.projectors["ad1"])
+            return real_encode(*args)
+
+        submitted, first_at, futs = {}, {}, []
+
+        def on_token(i):
+            def hook(tok):
+                first_at.setdefault(i, time.perf_counter())
+                if (cancel_last and i == len(items) - 1
+                        and len(futs[i]._tp_request.tokens) == CANCEL_AFTER):
+                    batcher.cancel(futs[i])
+            return hook
+
+        sched.encode_images = recording_encode
+        try:
+            torch.cuda.synchronize()
+            for obj, attr in counters.values():
+                setattr(obj, attr, 0)
+            torch.cuda.reset_peak_memory_stats()
+            batcher.start()
+            t0 = time.perf_counter()
+            for i, (r, a) in enumerate(items):
+                submitted[i] = time.perf_counter()
+                futs.append(batcher.submit(r, max_new_tokens=NEW_TOKENS, on_token=on_token(i),
+                                           adapter=a))
+            tokens = [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - t0
+            batcher.stop()
+            torch.cuda.synchronize()
+        finally:
+            sched.encode_images = real_encode
+            batcher.stop()
+        launches = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+        latency = [first_at[i] - submitted[i] for i in range(len(items))]
+        return (tokens, batcher, launches, latency, wall, torch.cuda.max_memory_allocated(),
+                projectors)
+
+    tokens, batcher, launches, latency, wall, peak, projectors = serve(SPEC_K, work, True)
+    st = batcher.stats
+    rounds, n_tok = st["verify_rounds"], sum(map(len, tokens))
+    print(f"  served in {wall:.3f} s (host clock): tokens per request {[len(t) for t in tokens]}, "
+          f"{n_tok / wall:.2f} tok/s over the run; admission latency (submit -> first token, "
+          f"host clock) {[round(x * 1e3, 2) for x in latency]} ms; peak memory "
+          f"{peak / 2**30:.3f} GiB")
+    print(f"  {rounds} verify rounds emitted {st['verify_tokens']} tokens "
+          f"({st['verify_tokens'] / max(rounds, 1):.3f} a round), "
+          f"{st['verify_s'] / max(rounds, 1) * 1e3:.3f} ms a round; {st['decode_steps']} plain "
+          f"steps after a backoff; launches {launches}; admissions on ad1's projector "
+          f"{projectors}")
+    want = {"vit_attention": tower_blocks(cfg) * len(projectors), "vit_block": 0,
+            "flash_attention": 0, "decode_attention": 0, "fused_decode": 0, "fused_verify": 0,
+            "fused_decode_lora": st["decode_steps"], "fused_verify_lora": rounds}
+    if launches != want:
+        raise AssertionError(f"phase 18: launch counts {launches} != {want}")
+    if rounds == 0:
+        raise AssertionError("phase 18: no verify round ran")
+    if projectors != [a == "ad1" for _, a in work]:
+        raise AssertionError(f"phase 18: ad1's projector ran in admissions {projectors}")
+    if batcher.params["projector"] is not params["projector"]:
+        raise AssertionError("phase 18: the step params do not hold the base projector")
+    leftover = ([s for s in batcher.slots if s is not None], batcher.lengths.any(),
+                batcher._pending, batcher.queue.qsize())
+    if leftover != ([], False, None, 0):
+        raise AssertionError(f"phase 18: the batcher holds state after the run: {leftover}")
+    if not 0 < len(tokens[-1]) < NEW_TOKENS:
+        raise AssertionError(f"phase 18: the cancelled request got {len(tokens[-1])} tokens")
+    sl = batcher.slot_lora
+    del batcher
+
+    # the same batcher without speculation on the first 4 requests: its plain
+    # steps (K4-LoRA at T = 1) beside the rounds above, in this call
+    p_tokens, plain, p_launches, _, p_wall, _, _ = serve(0, work[:4], False)
+    pst = plain.stats
+    steps = pst["decode_steps"]
+    print(f"  without speculation, the first 4 requests: {steps} plain steps, "
+          f"{pst['decode_s'] / max(steps, 1) * 1e3:.3f} ms a step "
+          f"({pst['alone_s'] / max(pst['alone_steps'], 1) * 1e3:.3f} with no admission work; host "
+          f"clock, to the argmax on the host); {sum(map(len, p_tokens)) / p_wall:.2f} tok/s over "
+          f"the run; launches {p_launches}")
+    want = {**want, "vit_attention": tower_blocks(cfg) * 4, "fused_decode_lora": steps,
+            "fused_verify_lora": 0}
+    if p_launches != want or steps == 0:
+        raise AssertionError(f"phase 18: launch counts {p_launches} != {want}")
+    launches = {k: launches[k] + p_launches[k] for k in launches}
+    del plain
+
+    t0 = time.perf_counter()
+    refs = [per_layer_reference(params, cfg, sl, r, a, device) for r, a in work[:5]]
+    agree = [decisive_agree(f"phase 18 request {i} ({work[i][1]})", tokens[i], *refs[i])
+             for i in range(5)]
+    agree += [decisive_agree(f"phase 18 plain request {i}", p_tokens[i], *refs[i])
+              for i in range(4)]
+    differ = [sum(a != b for a, b in zip(refs[i][0], refs[j][0])) for i, j in ((0, 4), (0, 2))]
+    print(f"  per-layer reference runs (the `linear` term, K3) of the first 5 requests under "
+          f"their adapters ({time.perf_counter() - t0:.1f} s): tokens equal for the first "
+          f"{agree} of {NEW_TOKENS} (5 speculative, 4 plain); reference margins at the first "
+          f"difference within the band {LOGIT_BAND}; the 3x3 request's reference under ad0 "
+          f"differs from ad1's in {differ[0]} tokens, from request 2's (none) in {differ[1]}")
+
+    # D's paged batcher with the same adapters: the 3x3 request under ad0,
+    # ad1 and ad0 again
+    paged = sched.PagedContinuousBatcher(
+        params, cfg, num_slots=PAGED_SLOTS, num_pages=2 * PAGED_SLOTS * PAGES_PER_SEQ + 1,
+        page_size=PAGE_SIZE, max_pages_per_seq=PAGES_PER_SEQ, prefill_chunk_size=256,
+        prefix_cache=True, kv_cache_dtype=torch.int8, adapters=adapters, device=device)
+    paged_attention.launches = 0
+    hits, p_tokens = [], []
+    paged.start()
+    try:
+        t0 = time.perf_counter()
+        for a in ("ad0", "ad1", "ad0"):
+            p_tokens.append(paged.submit(reqs[0], max_new_tokens=NEW_TOKENS,
+                                         adapter=a).result(timeout=600))
+            hits.append(paged.prefix.stats()["prefix_cache_hits"])
+        p_wall = time.perf_counter() - t0
+    finally:
+        paged.stop()
+    pst = paged.stats
+    launches["paged_attention"] = paged_attention.launches
+    p_agree = [decisive_agree(f"phase 18 paged {a}", t, *refs[j])
+               for t, a, j in zip(p_tokens, ("ad0", "ad1", "ad0"), (0, 4, 0))]
+    print(f"  PagedContinuousBatcher (phase 10's settings) with the adapters, the 3x3 request "
+          f"under ad0, ad1, ad0: prefix-cache hits after each {hits}, {pst['decode_steps']} steps "
+          f"at {pst['decode_s'] / max(pst['decode_steps'], 1) * 1e3:.3f} ms a step (host clock), "
+          f"{sum(map(len, p_tokens)) / p_wall:.2f} tok/s; K5 {paged_attention.launches} launches; "
+          f"tokens equal to the per-layer reference for the first {p_agree}")
+    if hits != [0, 0, 1]:
+        raise AssertionError(f"phase 18: prefix-cache hits {hits}, expected [0, 0, 1]: pages must "
+                             "be shared under one adapter only")
+    if paged_attention.launches != cfg.lm.num_hidden_layers * pst["decode_steps"]:
+        raise AssertionError(f"phase 18: {paged_attention.launches} K5 launches for "
+                             f"{pst['decode_steps']} paged steps")
+    del params, paged, adapters, sl
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_lora_parity(device, seed: int) -> None:
+    """Phase 19: full widths, 2 LM layers, int8 weights and cache, phase
+    18's kind of adapters (entries LORA_SCALE): card bf16 (K4-LoRA) against
+    CPU fp32 (its plain version). One HD admission under ad1 (its
+    `prefill_params`), then 4 decode steps (`decode_step_cb` on the slot's
+    overlay) and one verify round at k = 4 (`verify_step_cb`), both sides
+    fed the same prompt ids, every logit within LOGIT_BAND; the card's same
+    run with the slot's adapter term dropped (its selection zeroed after
+    the admission) must read several bands off."""
+    from tokenpacker_tpu_torch.config import preset_config
+    from tokenpacker_tpu_torch.generate import decode_step_cb, device_batch, fused_weights, prefill
+    from tokenpacker_tpu_torch.io.weights import init_vlm_on_device, params_to, quantize_lm_int8
+    from tokenpacker_tpu_torch.ops.fused_decode import fused_decode_hidden, fused_verify_hidden
+    from tokenpacker_tpu_torch.serve.multi_lora import SlotLora
+    from tokenpacker_tpu_torch.speculative import verify_step_cb
+
+    full = preset_config(HD_PRESET)
+    cfg = dataclasses.replace(full, lm=dataclasses.replace(full.lm, num_hidden_layers=2))
+    params = quantize_lm_int8(init_vlm_on_device(cfg, seed=seed, device=device,
+                                                 dtype=torch.bfloat16))
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    cpu_params = params_to(params, "cpu", torch.float32)
+    adapters = random_adapters(cfg.lm, seed + 44, LORA_SCALE)
+    batch, blocks = make_hd_requests(cfg, seed + 1, sizes=((672, 336),), text_lens=(40,))
+    l = batch["token_ids"].shape[1]
+    t0 = time.perf_counter()
+    sides = {}
+    for k, (p, c, dt, dev) in {"gpu": (params, cfg, torch.bfloat16, device),
+                               "cpu": (cpu_params, cpu_cfg, torch.float32, "cpu")}.items():
+        sl = SlotLora(p, c, adapters, 1, dtype=dt)
+        sl.set_slot(0, "ad1")
+        sides[k] = (sl, c, device_batch(batch, dt, dev), p)
+    sides["dropped"] = sides["gpu"]
+
+    ids = torch.as_tensor(batch["token_ids"][0])
+    toks = [ids[10 + j:11 + j] for j in range(5)]  # text ids of the prompt
+
+    def run(k):
+        """Admission, 4 steps and a verify round on one side; `dropped`: the
+        card with the slot's selection zeroed after the admission. Returns
+        the logits of each."""
+        sl, c, dev, p = sides[k]
+        logits, cache = prefill(sl.prefill_params(p, "ad1"), c, dev, l + 16, torch.int8)
+        over = sl.overlay(p)
+        fused = fused_weights(over, c)
+        if k == "dropped":
+            sl.set_slot(0, None)
+        out = [logits.float().cpu()]
+        cur = dev["lengths"].clone().int()
+        active = torch.ones(1, dtype=torch.bool, device=cur.device)
+        for step in range(4):
+            tok = toks[step].to(cur.device)
+            logits, cache = decode_step_cb(over, c, cache, tok, cur, active, fused)
+            cur = cur + 1
+            out.append(logits.float().cpu())
+        fed = torch.cat([toks[4], ids[1:1 + SPEC_K]])[None]
+        logits, _ = verify_step_cb(over, c, cache, fed.to(cur.device), cur, fused)
+        out.append(logits[0].float().cpu())
+        sl.set_slot(0, "ad1")
+        return out
+
+    cpu = run("cpu")
+    for fn in (fused_decode_hidden, fused_verify_hidden):
+        fn.lora_launches = 0
+    gpu = run("gpu")
+    counts = (fused_decode_hidden.lora_launches, fused_verify_hidden.lora_launches)
+    dropped = run("dropped")
+    names = ["admission"] + [f"step {j}" for j in range(4)] + ["verify round"]
+    res = [band_check(f"phase 19 {n}", gg, cc) for n, gg, cc in zip(names, gpu, cpu)]
+    lost = [(dd - cc).abs().max().item() for dd, cc in zip(dropped[1:], cpu[1:])]
+    print(f"phase 19: full widths, 2 LM layers, int8 weights + int8 cache, 2 adapters of rank "
+          f"{LORA_RANK} (entries {LORA_SCALE}), 1 HD request (grid {blocks}) under ad1: card bf16 "
+          f"(K4-LoRA, {counts[0]} steps and {counts[1]} verify form) vs CPU fp32 (plain) "
+          f"({time.perf_counter() - t0:.1f} s): max|dlogit| {[round(r[0], 4) for r in res]} "
+          f"band={LOGIT_BAND}; top-1 agree {[r[2] for r in res]}; the card's steps and round "
+          f"with the slot's adapter term dropped (must read several bands) "
+          f"{[round(x, 4) for x in lost]}")
+    if counts != (4, 1):
+        raise AssertionError(f"phase 19: K4-LoRA launches {counts}, expected (4, 1)")
+    if not min(lost) > 3 * LOGIT_BAND:
+        raise AssertionError("phase 19: the band does not see the adapter term dropped")
+    del params, cpu_params, sides
+    torch.cuda.empty_cache()
+
+
 def device_kernels(prof):
     """(name, device ms, count) of every device-side event of a trace
     (kernels, copies); CPU ops also carry the device time they launched."""
@@ -2858,9 +3488,17 @@ def main() -> None:
     # decoded span [l, l + NEW_TOKENS - 2) besides the prompt
     quantized = "--quantized" in sys.argv[1:]
     speculative = "--speculative" in sys.argv[1:]
-    only = "quantized" if quantized else "speculative" if speculative else ""
+    lora = "--lora" in sys.argv[1:]
+    only = ("quantized" if quantized else "speculative" if speculative else "lora" if lora
+            else "")
     rows = phase_kernels(device, hd_batch["lengths"], s_hd, (l, l + NEW_TOKENS - 2), only)
     if "--kernels" in sys.argv[1:]:
+        return
+    if lora:
+        runs = [phase_lora_serving(device, SEED)]
+        phase_lora_parity(device, SEED)
+        print(json.dumps({name: {**row, "launches": sum(r.get(name, 0) for r in runs)}
+                          for name, row in rows.items()}))
         return
     if speculative:
         runs = [phase_spec_serving(device, SEED)]
@@ -2890,6 +3528,8 @@ def main() -> None:
     phase_paged_parity(device, SEED, w8a8=True)
     runs.append(phase_spec_serving(device, SEED))
     phase_spec_parity(device, SEED)
+    runs.append(phase_lora_serving(device, SEED))
+    phase_lora_parity(device, SEED)
 
     meta = {
         "vit_attention": ("tokenpacker_tpu_torch/csrc/vit_attention.cu",
@@ -2913,12 +3553,16 @@ def main() -> None:
                       "tokenpacker_tpu/ops/vit_block.py:125"),
         "fused_verify": ("tokenpacker_tpu_torch/csrc/fused_decode.cu",
                          "tokenpacker_tpu/ops/fused_decode.py:1390"),
+        "fused_decode_lora": ("tokenpacker_tpu_torch/csrc/fused_decode.cu",
+                              "tokenpacker_tpu/ops/fused_decode.py:1162"),
+        "fused_verify_lora": ("tokenpacker_tpu_torch/csrc/fused_decode.cu",
+                              "tokenpacker_tpu/ops/fused_decode.py:1390"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
-        # launches: summed over the seven main-path runs (phases 4, 6, 8,
-        # 10, 12, 14 and 16), each counted from 0 just before its run and
-        # read just after
+        # launches: summed over the eight main-path runs (phases 4, 6, 8,
+        # 10, 12, 14, 16 and 18), each counted from 0 just before its run
+        # and read just after
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(r.get(name, 0) for r in runs), **rows[name]})
     print(json.dumps({"kernels": kernels}))

@@ -179,9 +179,15 @@ def test_unported_forms_raise(trees):
     _, cfg, _, port = trees
     cache = KVCache.create(cfg, B, S, dtype=torch.bfloat16)
     z = torch.zeros(B, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        fused_decode.fused_decode_hidden(port, cfg, torch.zeros(B, cfg.hidden_size), cache.k,
-                                         cache.v, z, z, z, z, z, slot_lora={})
+    # slot LoRA is K4-LoRA's (tests/test_torch_multi_lora.py); a QLoRA
+    # `lora_a` on an int8 kernel stays refused, as JAX's fused_eligible
+    # refuses it
+    qlora = {**port, "layers": [{**layer, "mlp": {**layer["mlp"], "down": {"kernel": {
+        **layer["mlp"]["down"]["kernel"], "lora_a": torch.zeros(1)}}}}
+        for layer in port["layers"]]}
+    with pytest.raises(NotImplementedError, match="int8 fused"):
+        fused_decode.fused_decode_hidden(qlora, cfg, torch.zeros(B, cfg.hidden_size), cache.k,
+                                         cache.v, z, z, z, z, z)
     # the T = k+1 verify form is ported: it is fused_verify_hidden's, and
     # fused_decode_hidden points there
     with pytest.raises(ValueError, match="fused_verify_hidden"):
@@ -191,9 +197,9 @@ def test_unported_forms_raise(trees):
         port, cfg, torch.zeros(B, 3, cfg.hidden_size, dtype=torch.bfloat16), cache.k, cache.v,
         z, z, z, z, torch.zeros(B, 3, dtype=torch.int32))
     assert hidden.shape == (B, 3, cfg.hidden_size) and k_new.shape[1:3] == (B, 3)
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        fused_decode.fused_verify_hidden(port, cfg, torch.zeros(B, 3, cfg.hidden_size), cache.k,
-                                         cache.v, z, z, z, z, z, slot_lora={})
+    with pytest.raises(NotImplementedError, match="int8 fused"):
+        fused_decode.fused_verify_hidden(qlora, cfg, torch.zeros(B, 3, cfg.hidden_size), cache.k,
+                                         cache.v, z, z, z, z, z)
     qp = {**port, "layers": [{**layer, "attn": {**layer["attn"], "qkv": {"kernel": {
         "qp": torch.zeros(1, dtype=torch.uint16), "scale": torch.zeros(1)}}}}
         for layer in port["layers"]]}

@@ -351,7 +351,7 @@ def test_port_imports_no_jax():
         "tokenpacker_tpu_torch.serve.prefix_cache, tokenpacker_tpu_torch.serve.scheduler, "
         "tokenpacker_tpu_torch.ops.q4_matmul, tokenpacker_tpu_torch.ops.q8_matmul, "
         "tokenpacker_tpu_torch.ops.s8_gemm, tokenpacker_tpu_torch.ops.vit_block, "
-        "tokenpacker_tpu_torch.speculative; "
+        "tokenpacker_tpu_torch.speculative, tokenpacker_tpu_torch.serve.multi_lora; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'tokenpacker_tpu')]; "
         "assert not bad, bad"
     )

@@ -47,6 +47,7 @@ from tokenpacker_tpu_torch.models.vlm import encode_images
 from tokenpacker_tpu_torch.ops import paged_kv
 from tokenpacker_tpu_torch.ops.paged_attention import paged_attention, paged_attention_plain
 from tokenpacker_tpu_torch.serve import prefix_cache
+from tokenpacker_tpu_torch.serve.multi_lora import Adapter
 from tokenpacker_tpu_torch.serve import scheduler as sched
 from tokenpacker_tpu_torch.serve.scheduler import PagedContinuousBatcher
 
@@ -645,7 +646,11 @@ def test_batcher_crash_fails_every_future(model, monkeypatch, fails, chunk):
 def test_unported_submit_options_raise_at_submit(model, option):
     cfg, params = model["cfg"], model["int8"]
     batcher = PagedContinuousBatcher(params, cfg, device="cpu", **MIXED)  # never started
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # an adapter is ported (tests/test_torch_multi_lora.py): with none loaded
+    # it is refused as the JAX batcher refuses it
+    exc, match = ((KeyError, "no LoRA adapters") if "adapter" in option
+                  else (NotImplementedError, "not ported"))
+    with pytest.raises(exc, match=match):
         batcher.submit(_request(cfg, 0), 4, **option)
     assert batcher.queue.empty()
 
@@ -667,10 +672,10 @@ def test_prompt_longer_than_the_page_budget_is_refused_at_submit(model):
 
 
 @pytest.mark.parametrize("option", [dict(temperature=0.7), dict(temperature=0.7, speculative_k=2),
-                                    dict(adapters={"a": object()})])
+                                    dict(temperature=0.7, adapters={"a": Adapter({}, 2)})])
 def test_unported_batcher_options_raise_when_made(model, option):
-    # speculation is ported (tests/test_torch_speculative.py); sampling
-    # beside it is not
+    # speculation and adapters are ported (tests/test_torch_speculative.py,
+    # tests/test_torch_multi_lora.py); sampling beside them is not
     with pytest.raises(NotImplementedError, match="not ported"):
         PagedContinuousBatcher(model["int8"], model["cfg"], device="cpu", **MIXED, **option)
 

@@ -170,8 +170,12 @@ def test_linear_raises_for_lora_terms_on_quantized_bases():
     q4 = tq.quantize_4bit(w)
     with pytest.raises(NotImplementedError, match="train/lora"):
         layers.linear({"kernel": {**q4, "lora_a": w, "lora_b": w}}, torch.zeros(1, 64))
-    with pytest.raises(NotImplementedError, match="multi_lora"):
-        layers.linear({"kernel": q4, "slot_lora_a": w}, torch.zeros(1, 64))
+    # the slot term over a 4-bit base is multi-LoRA serving's
+    # (tests/test_torch_multi_lora.py); a leaf with A but no selection
+    # raises, as the JAX package's linear does
+    with pytest.raises(KeyError, match="slot_lora_sel"):
+        layers.linear({"kernel": q4, "slot_lora_a": torch.zeros((1, 64, 2)),
+                       "slot_lora_b": torch.zeros((1, 2, 128))}, torch.zeros(1, 64))
 
 
 def test_quantize_tree_4bit_matches_jax():

@@ -3,7 +3,8 @@
 //
 // Replaces tokenpacker_tpu/ops/fused_decode.py:fused_decode_hidden (T = 1)
 // and fused_verify_hidden (T = k+1 fed tokens a sample, speculative
-// verify), no slot LoRA; the Pallas `_kernel` behind `_fused_call`. Per
+// verify), with or without their slot-LoRA operand (K4-LoRA, below); the
+// Pallas `_kernel` behind `_fused_call`. Per
 // layer, for B samples and T tokens each (B * T rows, sample-major):
 //   RMSNorm(h) * ln1 -> qkv GEMV (int8 weights, f32 sums, f32 per-column
 //   scales) -> RoPE on q, k -> with an int8 cache, quantize-dequantize of
@@ -47,6 +48,31 @@
 // does; the CUDA-core GEMV, at up to 8 rows a launch, would stream them 3
 // times (on an H100: 21.4 ms a round against a 5.9 ms step, PERF.md).
 //
+// K4-LoRA (multi-LoRA serving; the TPU kernel's `lora` form, _kernel's
+// setup and per-layer terms, bundle from build_fd_lora): every slot's
+// adapter term beside each of the four products. Per target, A [in, W]
+// flattens the n adapters into columns and B [W, out] into rows (W = n *
+// rcat, any width), and selm [rows, Wq + Wo + Wg + Wd] is each row's
+// column mask (its slot's adapter). The term is
+//   u = x @ A (bf16 operands, f32 sums), um = bf16(u * mask), um @ B (f32)
+// added in f32 to the scaled base product: qkv before RoPE and the qdq
+// of the new k and v (so the cache rows carry the adapter), o and down
+// before the bf16 cast and the residual, gate and up before SiLU; x is the
+// GEMV's own input (RMSNorm(h) * ln for qkv and gate/up, the attention
+// output for o, the MLP activation for down). It adds per layer one
+// lora_u launch per target (with a row_rms before the two normed ones):
+// u's partial sums over 128-row splits of A, no atomics. The um @ B dot
+// runs in the target's epilogue, which already owns one output column a
+// thread: the block sums u's splits for its row in a fixed order (the
+// same bits in every block), masks and rounds them into shared memory
+// LORA_CHUNK columns at a time, and each thread walks B's column, reads
+// coalesced across the block. What bounds it: the adapters' bytes, ~5 MB
+// a layer at n = 2, r = 16 over all seven targets of Vicuna-7B (B's
+// block-diagonal zeros, which it also reads, are not work; ~8 MB with
+// them), against K4's 202 MB a layer; the extra launches cost more than
+// those bytes at B <= 8. An all-zero mask row gives an exact 0 term, so
+// an empty slot keeps K4's output.
+//
 // Numerics follow the TPU kernel: x and the weights are exact in f32, so
 // the GEMVs differ from it only in the order of the sums; RoPE in f32 then
 // bf16; the current token's k/v quantize-dequantized with
@@ -84,6 +110,9 @@ constexpr int EPI_THREADS = 256;
 constexpr int ATT_WARPS = 16;
 constexpr int ATT_UNROLL = 4;         // key steps in flight per warp
 constexpr int PTRS_PER_LAYER = 10;
+constexpr int LORA_ROWS = 8;      // rows of x per lora_u block
+constexpr int LORA_SPLIT = 128;   // rows of A per lora_u block
+constexpr int LORA_CHUNK = 512;   // columns of um an epilogue stages at a time
 
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float round_bf(float x) { return __bfloat162float(__float2bfloat16(x)); }
@@ -479,12 +508,112 @@ __device__ __forceinline__ float block_max_128(float v, float* red4) {
   return fmaxf(fmaxf(red4[0], red4[1]), fmaxf(red4[2], red4[3]));
 }
 
+// One target's adapter term in one layer, as an epilogue reads it: u's
+// partial sums upart [splits][rows][w] from lora_u_kernel, the rows'
+// column mask selm (this target's first column; row stride ldm) and B [w,
+// ldb]. w == 0: no term.
+struct LoraTarget {
+  const float* upart;
+  const float* selm;
+  const bf16* b;
+  int splits, rows, w, ldm, ldb;
+};
+
+// upart[split][row][c] = sum over the split's rows r of x'[row, r] * a[r,
+// c] for c < w: x' = x or, with ln, bf16(bf16(x * inv_rms[row]) * ln[r])
+// as the GEMVs normalize it (inv_rms from row_rms_kernel). a [k, lda]
+// bf16, its first w columns used. grid (ceil(k / LORA_SPLIT), ceil(rows /
+// LORA_ROWS)), GEMV_WARPS * 32 threads: warp j takes the split's rows j,
+// j + 8, ..., a lane one of 32 columns, the warps' sums added in order.
+__global__ void __launch_bounds__(GEMV_WARPS * 32)
+    lora_u_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln,
+                  const float* __restrict__ inv_rms, int rows, int k,
+                  const bf16* __restrict__ a, int lda, int w, float* __restrict__ upart) {
+  __shared__ float xs[LORA_ROWS][LORA_SPLIT];
+  __shared__ float red[GEMV_WARPS][LORA_ROWS][32];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int split = blockIdx.x, k0 = split * LORA_SPLIT, nk = min(LORA_SPLIT, k - k0);
+  const int r0 = blockIdx.y * LORA_ROWS, nr = min(LORA_ROWS, rows - r0);
+  for (int i = tid; i < LORA_ROWS * LORA_SPLIT; i += GEMV_WARPS * 32) {
+    const int b = i / LORA_SPLIT, r = i % LORA_SPLIT;
+    float v = 0.f;
+    if (b < nr && r < nk) {
+      v = to_f(x[(long)(r0 + b) * k + k0 + r]);
+      if (ln != nullptr) v = round_bf(round_bf(v * inv_rms[r0 + b]) * to_f(ln[k0 + r]));
+    }
+    xs[b][r] = v;
+  }
+  __syncthreads();
+  for (int c0 = 0; c0 < w; c0 += 32) {
+    const int c = c0 + lane;
+    float acc[LORA_ROWS];
+#pragma unroll
+    for (int b = 0; b < LORA_ROWS; ++b) acc[b] = 0.f;
+    if (c < w) {
+#pragma unroll 4
+      for (int r = warp; r < nk; r += GEMV_WARPS) {
+        const float av = to_f(a[(long)(k0 + r) * lda + c]);
+#pragma unroll
+        for (int b = 0; b < LORA_ROWS; ++b) acc[b] = fmaf(xs[b][r], av, acc[b]);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < LORA_ROWS; ++b) red[warp][b][lane] = acc[b];
+    __syncthreads();
+    for (int i = tid; i < LORA_ROWS * 32; i += GEMV_WARPS * 32) {
+      const int b = i / 32, l = i % 32;
+      if (b < nr && c0 + l < w) {
+        float t = 0.f;
+#pragma unroll
+        for (int q = 0; q < GEMV_WARPS; ++q) t += red[q][b][l];
+        upart[((long)split * rows + r0 + b) * w + c0 + l] = t;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The term at output columns col and, with two, col2 of one row: the sum
+// over j of um[j] * B[j, col] in f32, um[j] = bf16(sum of u's splits at
+// (row, j) * mask[row, j]). um is staged into shared memory (ums,
+// LORA_CHUNK floats) a chunk of columns at a time, so any width w works;
+// every block of the row sums u's splits in the same order (the loops
+// are unrolled so that several loads are in flight; the order of the sums
+// stays). All threads of the block call it; one with active false only
+// stages.
+__device__ __forceinline__ float2 lora_term(const LoraTarget& lt, int row, float* ums,
+                                            bool active, int col, bool two, int col2) {
+  float t = 0.f, t2 = 0.f;
+  for (int j0 = 0; j0 < lt.w; j0 += LORA_CHUNK) {
+    const int nj = min(LORA_CHUNK, lt.w - j0);
+    for (int j = threadIdx.x; j < nj; j += blockDim.x) {
+      float u = 0.f;
+#pragma unroll 8
+      for (int sp = 0; sp < lt.splits; ++sp)
+        u += lt.upart[((long)sp * lt.rows + row) * lt.w + j0 + j];
+      ums[j] = round_bf(u * lt.selm[(long)row * lt.ldm + j0 + j]);
+    }
+    __syncthreads();
+    if (active) {
+      const bf16* bj = lt.b + (long)j0 * lt.ldb;
+#pragma unroll 8
+      for (int j = 0; j < nj; ++j, bj += lt.ldb) {
+        t = fmaf(ums[j], to_f(bj[col]), t);
+        if (two) t2 = fmaf(ums[j], to_f(bj[col2]), t2);
+      }
+    }
+    __syncthreads();
+  }
+  return make_float2(t, t2);
+}
+
 // One (part, head) of one row of the qkv product: part 0 = q, 1 = k,
-// 2 = v. grid (3 * heads, b * t_tok), HD threads. q and k get RoPE (f32),
-// all three are rounded to bf16; with an int8 cache k and v are
-// quantize-dequantized. The new k/v rows go to k_new / v_new [rows, heads *
-// HD] and into this layer's cache (in place) at write_pos[sample] + t for
-// row sample * t_tok + t; a slot at or past s_len is not written.
+// 2 = v. grid (3 * heads, b * t_tok), HD threads. The adapter term (lt)
+// is added to the scaled sum first; q and k get RoPE (f32), all three are
+// rounded to bf16; with an int8 cache k and v are quantize-dequantized.
+// The new k/v rows go to k_new / v_new [rows, heads * HD] and into this
+// layer's cache (in place) at write_pos[sample] + t for row sample * t_tok
+// + t; a slot at or past s_len is not written.
 template <bool INT8>
 __global__ void __launch_bounds__(HD)
     qkv_epilogue_kernel(const float* __restrict__ partials, int splits,
@@ -493,14 +622,17 @@ __global__ void __launch_bounds__(HD)
                         int s_len,
                         bf16* __restrict__ q_out, bf16* __restrict__ k_new,
                         bf16* __restrict__ v_new, void* cache_k, void* cache_v,
-                        float* __restrict__ k_scale, float* __restrict__ v_scale) {
+                        float* __restrict__ k_scale, float* __restrict__ v_scale,
+                        LoraTarget lt) {
   __shared__ float vals[HD];
   __shared__ float red4[4];
+  __shared__ float ums[LORA_CHUNK];
   const int part = blockIdx.x / heads, head = blockIdx.x % heads, row = blockIdx.y;
   const int t = threadIdx.x;
   const int n = 3 * heads * HD;
   const int col = blockIdx.x * HD + t;
   float x = split_sum(partials, splits, n, row, col) * scale[col];
+  if (lt.w > 0) x += lora_term(lt, row, ums, true, col, false, 0).x;
   if (part < 2) {
     vals[t] = x;
     __syncthreads();
@@ -533,26 +665,38 @@ __global__ void __launch_bounds__(HD)
   (part == 1 ? k_new : v_new)[out] = __float2bfloat16(x);
 }
 
-// h[row, col] = bf16(h + bf16(sum * scale)); grid (ceil(n / 256), b)
+// h[row, col] = bf16(h + bf16(sum * scale + term)); grid (ceil(n / 256), b)
 __global__ void __launch_bounds__(EPI_THREADS)
     residual_epilogue_kernel(const float* __restrict__ partials, int splits, int n,
-                             const float* __restrict__ scale, bf16* __restrict__ h) {
+                             const float* __restrict__ scale, bf16* __restrict__ h,
+                             LoraTarget lt) {
+  __shared__ float ums[LORA_CHUNK];
   const int col = blockIdx.x * EPI_THREADS + threadIdx.x, row = blockIdx.y;
+  const float term = lt.w > 0 ? lora_term(lt, row, ums, col < n, col, false, 0).x : 0.f;
   if (col >= n) return;
-  const float y = round_bf(split_sum(partials, splits, n, row, col) * scale[col]);
+  float y = split_sum(partials, splits, n, row, col) * scale[col];
+  if (lt.w > 0) y += term;
   const long i = (long)row * n + col;
-  h[i] = __float2bfloat16(to_f(h[i]) + y);
+  h[i] = __float2bfloat16(to_f(h[i]) + round_bf(y));
 }
 
 // xm[row, col] = bf16(silu(gate) * up), gate = column col, up = f + col of
-// the [2f]-wide product; grid (ceil(f / 256), b)
+// the [2f]-wide product, each with its adapter term; grid (ceil(f / 256), b)
 __global__ void __launch_bounds__(EPI_THREADS)
     gateup_epilogue_kernel(const float* __restrict__ partials, int splits, int f,
-                           const float* __restrict__ scale, bf16* __restrict__ xm) {
+                           const float* __restrict__ scale, bf16* __restrict__ xm,
+                           LoraTarget lt) {
+  __shared__ float ums[LORA_CHUNK];
   const int col = blockIdx.x * EPI_THREADS + threadIdx.x, row = blockIdx.y;
+  const float2 term = lt.w > 0 ? lora_term(lt, row, ums, col < f, col, true, f + col)
+                               : make_float2(0.f, 0.f);
   if (col >= f) return;
-  const float g = split_sum(partials, splits, 2 * f, row, col) * scale[col];
-  const float u = split_sum(partials, splits, 2 * f, row, f + col) * scale[f + col];
+  float g = split_sum(partials, splits, 2 * f, row, col) * scale[col];
+  float u = split_sum(partials, splits, 2 * f, row, f + col) * scale[f + col];
+  if (lt.w > 0) {
+    g += term.x;
+    u += term.y;
+  }
   xm[(long)row * f + col] = __float2bfloat16(g / (1.0f + expf(-g)) * u);
 }
 
@@ -761,12 +905,15 @@ __global__ void __launch_bounds__(ATT_WARPS * 32)
 
 size_t align256(size_t x) { return (x + 255) / 256 * 256; }
 
+int lora_splits(int k) { return (k + LORA_SPLIT - 1) / LORA_SPLIT; }
+
 // The workspace of one step: the GEMVs' partial sums, then q, the
-// attention output (both [b, d] bf16), the MLP activation [b, f] bf16 and
-// the rows' inverse RMS [b] f32 (the tensor-core GEMV's).
+// attention output (both [b, d] bf16), the MLP activation [b, f] bf16, the
+// rows' inverse RMS [b] f32 (the tensor-core GEMV's and lora_u's) and
+// K4-LoRA's u partial sums (the widest d-input target wd, the f-input wf).
 struct Workspace {
-  size_t q, attn, xm, rms, bytes;
-  Workspace(int b, int d, int f) {
+  size_t q, attn, xm, rms, upart, bytes;
+  Workspace(int b, int d, int f, int wd, int wf) {
     size_t floats = 0;
     const int shapes[4][2] = {{d, 3 * d}, {d, d}, {d, 2 * f}, {f, d}};
     for (const auto& kn : shapes)
@@ -775,15 +922,41 @@ struct Workspace {
     attn = q + align256((size_t)b * d * sizeof(bf16));
     xm = attn + align256((size_t)b * d * sizeof(bf16));
     rms = xm + align256((size_t)b * f * sizeof(bf16));
-    bytes = rms + align256((size_t)b * sizeof(float));
+    upart = rms + align256((size_t)b * sizeof(float));
+    const size_t u = std::max((size_t)lora_splits(d) * wd, (size_t)lora_splits(f) * wf);
+    bytes = upart + align256((size_t)b * u * sizeof(float));
   }
 };
 
+// lora_u over rows [0, b) of x [b, k] for A's columns [0, w) (row stride
+// lda), normalizing x with ln first when given; the target's LoraTarget.
+int lora_u(const bf16* x, const bf16* ln, float eps, const bf16* a, int lda, int w,
+           const float* selm, int ldm, const bf16* bmat, int ldb, int b, int k, float* inv_rms,
+           float* upart, cudaStream_t st, LoraTarget* lt) {
+  if (ln != nullptr) {
+    row_rms_kernel<<<b, GEMV_WARPS * 32, 0, st>>>(x, k, eps, inv_rms);
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+  }
+  const dim3 grid(lora_splits(k), (b + LORA_ROWS - 1) / LORA_ROWS);
+  lora_u_kernel<<<grid, GEMV_WARPS * 32, 0, st>>>(x, ln, inv_rms, b, k, a, lda, w, upart);
+  lt->upart = upart;
+  lt->selm = selm;
+  lt->b = bmat;
+  lt->splits = lora_splits(k);
+  lt->rows = b;
+  lt->w = w;
+  lt->ldm = ldm;
+  lt->ldb = ldb;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Bytes of the workspace tp_fused_decode needs for this shape.
-extern "C" long long tp_fused_decode_workspace(int b, int d, int f) {
-  return (long long)Workspace(b, d, f).bytes;
+// Bytes of the workspace tp_fused_decode needs for this shape; wd, wf: the
+// widest d-input and the f-input adapter target (0 without slot LoRA).
+extern "C" long long tp_fused_decode_workspace(int b, int d, int f, int wd, int wf) {
+  return (long long)Workspace(b, d, f, wd, wf).bytes;
 }
 
 // One decode step of the whole decoder stack, for b samples and t_tok fed
@@ -801,6 +974,13 @@ extern "C" long long tp_fused_decode_workspace(int b, int d, int f) {
 //     rows are written at write_pos + t in place (not past s_len).
 //   k_new/v_new: [layers, b * t_tok, heads * 128] bf16, the new rows as
 //     attended.
+//   work: tp_fused_decode_workspace(b * t_tok, d, f, max(lwq, lwo, lwg),
+//     lwd) bytes.
+//   K4-LoRA (lora_a_d == nullptr: none): lora_a_d [layers, d, lwq + lwo +
+//     lwg] bf16 (the A's of qkv | o | gateup), lora_a_f [layers, f, lwd],
+//     lora_b_qkv [layers, lwq, 3d], lora_b_o [layers, lwo, d], lora_b_gu
+//     [layers, lwg, 2f], lora_b_down [layers, lwd, d] bf16, selm [b *
+//     t_tok, lwq + lwo + lwg + lwd] f32; each width >= 1.
 // MHA, head_dim 128, d = heads * 128, d and f multiples of 16, 1 <= t_tok
 // <= 16. Returns 0, a cudaError_t code, or -1 for a shape it does not take.
 extern "C" int tp_fused_decode(const void* const* weights, int layers, int b, int t_tok, int d,
@@ -808,20 +988,33 @@ extern "C" int tp_fused_decode(const void* const* weights, int layers, int b, in
                                void* h, const void* len0, const void* start2, const void* end2,
                                const void* write_pos, const void* positions, void* cache_k,
                                void* cache_v, void* k_scale, void* v_scale, int kv_int8,
-                               void* k_new, void* v_new, void* work, void* stream) {
+                               void* k_new, void* v_new, void* work, const void* lora_a_d,
+                               const void* lora_a_f, const void* lora_b_qkv,
+                               const void* lora_b_o, const void* lora_b_gu,
+                               const void* lora_b_down, const void* selm, int lwq, int lwo, int lwg,
+                               int lwd, void* stream) {
+  const bool lora = lora_a_d != nullptr;
   if (head_dim != HD || heads < 1 || d != heads * HD || d % 16 || f % 16 || f < 32 || b < 1 ||
       t_tok < 1 || t_tok > ATT_WARPS || s_len < 1 || layers < 1 ||
       (kv_int8 && (k_scale == nullptr || v_scale == nullptr)))
     return -1;
+  if (lora && (std::min(std::min(lwq, lwo), std::min(lwg, lwd)) < 1 ||
+               lora_a_f == nullptr || lora_b_qkv == nullptr || lora_b_o == nullptr ||
+               lora_b_gu == nullptr || lora_b_down == nullptr || selm == nullptr))
+    return -1;
+  if (!lora) lwq = lwo = lwg = lwd = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   char* wk = static_cast<char*>(work);
   const int rows = b * t_tok;
-  const Workspace ws(rows, d, f);
+  const Workspace ws(rows, d, f, std::max(std::max(lwq, lwo), lwg), lwd);
   float* partials = reinterpret_cast<float*>(wk);
   bf16* qbuf = reinterpret_cast<bf16*>(wk + ws.q);
   bf16* attn = reinterpret_cast<bf16*>(wk + ws.attn);
   bf16* xm = reinterpret_cast<bf16*>(wk + ws.xm);
   float* rms = reinterpret_cast<float*>(wk + ws.rms);
+  float* upart = reinterpret_cast<float*>(wk + ws.upart);
+  const int lwa = lwq + lwo + lwg, lwm = lwa + lwd;
+  const float* p_selm = static_cast<const float*>(selm);
 
   bf16* hb = static_cast<bf16*>(h);
   const int* p_len0 = static_cast<const int*>(len0);
@@ -855,16 +1048,30 @@ extern "C" int tp_fused_decode(const void* const* weights, int layers, int b, in
     float* vs = kv_int8 ? static_cast<float*>(v_scale) + l * layer_rows : nullptr;
     bf16* kn = static_cast<bf16*>(k_new) + (size_t)l * rows * d;
     bf16* vn = static_cast<bf16*>(v_new) + (size_t)l * rows * d;
+    // this layer's adapter matrices (K4-LoRA)
+    auto layer_of = [l](const void* p, size_t per_layer) {
+      return p ? static_cast<const bf16*>(p) + (size_t)l * per_layer : nullptr;
+    };
+    const bf16* la = layer_of(lora_a_d, (size_t)d * lwa);
+    const bf16* laf = layer_of(lora_a_f, (size_t)f * lwd);
+    const bf16* lbq = layer_of(lora_b_qkv, (size_t)lwq * 3 * d);
+    const bf16* lbo = layer_of(lora_b_o, (size_t)lwo * d);
+    const bf16* lbg = layer_of(lora_b_gu, (size_t)lwg * 2 * f);
+    const bf16* lbd = layer_of(lora_b_down, (size_t)lwd * d);
+    LoraTarget lt = {};  // w = 0: no term
 
+    if (lora && (rc = lora_u(hb, ln1, eps, la, lwa, lwq, p_selm, lwm, lbq, 3 * d, rows, d,
+                             rms, upart, st, &lt)))
+      return rc;
     if ((rc = gemv(hb, ln1, eps, qkv, rows, d, 3 * d, partials, rms, st))) return rc;
     if (kv_int8)
       qkv_epilogue_kernel<true><<<dim3(3 * heads, rows), HD, 0, st>>>(
           partials, sp_qkv, qkv_s, p_pos, p_wpos, t_tok, theta, heads, s_len, qbuf, kn, vn, ck,
-          cv, ks, vs);
+          cv, ks, vs, lt);
     else
       qkv_epilogue_kernel<false><<<dim3(3 * heads, rows), HD, 0, st>>>(
           partials, sp_qkv, qkv_s, p_pos, p_wpos, t_tok, theta, heads, s_len, qbuf, kn, vn, ck,
-          cv, nullptr, nullptr);
+          cv, nullptr, nullptr, lt);
     if ((rc = (int)cudaGetLastError())) return rc;
     if (kv_int8)
       attention_kernel<int8_t><<<dim3(heads, rows), ATT_WARPS * 32, 0, st>>>(
@@ -875,14 +1082,23 @@ extern "C" int tp_fused_decode(const void* const* weights, int layers, int b, in
           qbuf, kn, vn, reinterpret_cast<const bf16*>(ck), reinterpret_cast<const bf16*>(cv),
           nullptr, nullptr, p_len0, p_start2, p_end2, attn, s_len, heads, t_tok);
     if ((rc = (int)cudaGetLastError())) return rc;
+    if (lora && (rc = lora_u(attn, nullptr, eps, la + lwq, lwa, lwo, p_selm + lwq, lwm, lbo, d,
+                             rows, d, rms, upart, st, &lt)))
+      return rc;
     if ((rc = gemv(attn, nullptr, eps, wo, rows, d, d, partials, rms, st))) return rc;
-    residual_epilogue_kernel<<<epi_d, EPI_THREADS, 0, st>>>(partials, sp_o, d, wo_s, hb);
+    residual_epilogue_kernel<<<epi_d, EPI_THREADS, 0, st>>>(partials, sp_o, d, wo_s, hb, lt);
     if ((rc = (int)cudaGetLastError())) return rc;
+    if (lora && (rc = lora_u(hb, ln2, eps, la + lwq + lwo, lwa, lwg, p_selm + lwq + lwo, lwm,
+                             lbg, 2 * f, rows, d, rms, upart, st, &lt)))
+      return rc;
     if ((rc = gemv(hb, ln2, eps, gu, rows, d, 2 * f, partials, rms, st))) return rc;
-    gateup_epilogue_kernel<<<epi_f, EPI_THREADS, 0, st>>>(partials, sp_gu, f, gu_s, xm);
+    gateup_epilogue_kernel<<<epi_f, EPI_THREADS, 0, st>>>(partials, sp_gu, f, gu_s, xm, lt);
     if ((rc = (int)cudaGetLastError())) return rc;
+    if (lora && (rc = lora_u(xm, nullptr, eps, laf, lwd, lwd, p_selm + lwa, lwm, lbd, d, rows, f,
+                             rms, upart, st, &lt)))
+      return rc;
     if ((rc = gemv(xm, nullptr, eps, down, rows, f, d, partials, rms, st))) return rc;
-    residual_epilogue_kernel<<<epi_d, EPI_THREADS, 0, st>>>(partials, sp_down, d, down_s, hb);
+    residual_epilogue_kernel<<<epi_d, EPI_THREADS, 0, st>>>(partials, sp_down, d, down_s, hb, lt);
     if ((rc = (int)cudaGetLastError())) return rc;
   }
   return 0;

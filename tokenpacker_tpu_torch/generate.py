@@ -25,6 +25,11 @@ tower block one K9 call.
 
 `decode_step_cb` and `insert_into_cache` are the continuous batcher's
 steps over slot-contiguous caches (`serve/scheduler.ContinuousBatcher`).
+With multi-LoRA serving (`serve/multi_lora`) the tree carries slot-LoRA
+leaves, and on a K4 tree also K4's bundle (`lm["fd_slot_lora"]`): the
+fused step then runs K4-LoRA (the JAX package's default; it has no
+TOKENPACKER_FD_LORA switch here), and leaves without a bundle take the
+per-layer path, where `ops/layers.linear` adds the term.
 `Generator.generate(speculative=k)` decodes batch 1 by prompt-lookup
 speculation (`speculative.py`, K4's verify form on an int8 tree).
 
@@ -47,6 +52,7 @@ from tokenpacker_tpu_torch.models.splice import assemble_embeds
 from tokenpacker_tpu_torch.models.vlm import vlm_hidden
 from tokenpacker_tpu_torch.ops.fused_decode import FusedWeights, fused_decode_hidden, fused_eligible
 from tokenpacker_tpu_torch.ops.layers import rms_norm
+from tokenpacker_tpu_torch.serve.multi_lora import has_slot_lora
 
 DEFAULT_BUCKETS = (128, 256, 512, 1024, 1536, 2048)
 
@@ -136,9 +142,12 @@ def prefill_chunk(params, cfg: TokenPackerVLMConfig, cache: KVCache, visual: tor
 def fused_weights(params, cfg: TokenPackerVLMConfig) -> FusedWeights | bool:
     """How decode steps of these params run: K4's weight table for an
     eligible tree on the card, True for one on the CPU (its plain version
-    needs no table), False for the per-layer path."""
+    needs no table), False for the per-layer path (also for slot-LoRA
+    leaves without K4's bundle, as in the JAX package)."""
     lm = params["lm"]
     if not fused_eligible(lm, cfg.lm):
+        return False
+    if lm.get("fd_slot_lora") is None and has_slot_lora(lm):
         return False
     return True if lm["embed"].device.type == "cpu" else FusedWeights(lm, cfg.lm)
 
@@ -155,7 +164,7 @@ def _decode_step_fused(params, cfg: TokenPackerVLMConfig, cache: KVCache, tokens
     end2 = start2 + step
     hidden, _, _ = fused_decode_hidden(
         lm, cfg.lm, emb, cache.k, cache.v, lengths, start2, end2, end2, lengths + step,
-        k_scale=cache.k_scale, v_scale=cache.v_scale,
+        k_scale=cache.k_scale, v_scale=cache.v_scale, slot_lora=lm.get("fd_slot_lora"),
         weights=weights if isinstance(weights, FusedWeights) else None,
     )
     cache.length = prefill_len + step + 1
@@ -208,7 +217,7 @@ def decode_step_cb(params, cfg: TokenPackerVLMConfig, cache: KVCache, tokens: to
         zeros = torch.zeros_like(cur_lens)
         hidden, _, _ = fused_decode_hidden(
             lm, cfg.lm, emb, cache.k, cache.v, cur_lens, zeros, zeros, cur_lens, cur_lens,
-            k_scale=cache.k_scale, v_scale=cache.v_scale,
+            k_scale=cache.k_scale, v_scale=cache.v_scale, slot_lora=lm.get("fd_slot_lora"),
             weights=fused if isinstance(fused, FusedWeights) else None,
         )
         logits = lm_logits(lm, cfg.lm, rms_norm(lm["norm"], hidden, cfg.lm.rms_norm_eps), w8a8)

@@ -52,9 +52,11 @@ SIGNATURES = {
     "tp_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # weight table, layers, b, t_tok, d, f, heads, head_dim, s, eps, theta,
     # h, len0, start2, end2, write_pos, positions, cache_k, cache_v, k_scale,
-    # v_scale, kv_int8, k_new, v_new, work, stream
+    # v_scale, kv_int8, k_new, v_new, work, lora a_d, a_f, b_qkv, b_o, b_gu,
+    # b_down, selm, wq, wo, wg, wd, stream
     "tp_fused_decode": (ctypes.POINTER(_P), _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P,
-                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P),
+                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # params table, buffers table, n, t, w, f, heads, eps, stream
     "tp_vit_block": (ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _I, _I, _I, _I, _F, _P),
     # x, packed, absmax, out, work, m, k, n, nf4, stream
@@ -137,7 +139,7 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.tp_error_string.argtypes = (ctypes.c_int,)
     lib.tp_error_string.restype = ctypes.c_char_p
-    lib.tp_fused_decode_workspace.argtypes = (_I, _I, _I)
+    lib.tp_fused_decode_workspace.argtypes = (_I, _I, _I, _I, _I)
     lib.tp_fused_decode_workspace.restype = ctypes.c_longlong
     lib.tp_q4_matmul_workspace.argtypes = (_I, _I, _I)
     lib.tp_q4_matmul_workspace.restype = ctypes.c_longlong

@@ -26,9 +26,18 @@ tests share, and no stacked second copy of 6.5 GB is made.
 `fused_verify_hidden` is the T = k+1 verify form of speculation (K4-verify):
 the same call with T fed tokens a sample, causal among themselves.
 
-Not ported: slot-LoRA terms (`build_fd_lora`, with multi-LoRA) and the
-u16-row-packed `qp` storage. The TPU-only switches (FD_PACK, FD_W8A8,
-FD_DEBUG, FD_CACHE, FD_RING, FD_ATTN) have no counterpart.
+K4-LoRA (multi-LoRA serving, `serve/multi_lora`): with `slot_lora`, the
+bundle of `build_fd_lora` and its selection rows, both forms add every
+slot's adapter term beside each of the four products, as the TPU
+kernel's `lora` form does: u = x @ A (bf16 operands, f32 sums), um =
+bf16(u * mask), term = um @ B (f32 sums), added in f32 to the scaled
+base product (qkv before RoPE and the qdq of the new rows, o and down
+before the bf16 cast and the residual, gate and up before SiLU). An
+all-zero selection row adds an exact zero.
+
+Not ported: the u16-row-packed `qp` storage. The TPU-only switches
+(FD_PACK, FD_W8A8, FD_DEBUG, FD_CACHE, FD_RING, FD_ATTN, FD_LORA) have
+no counterpart: the LoRA form runs whenever a bundle is given.
 """
 
 from __future__ import annotations
@@ -102,6 +111,67 @@ class FusedWeights:
         self.table = (ctypes.c_void_p * len(self.tensors))(*(t.data_ptr() for t in self.tensors))
 
 
+def build_fd_lora(stacks, cfg: LMConfig, dtype=torch.bfloat16) -> dict:
+    """K4-LoRA's bundle from the per-layer `serve/multi_lora.SlotLora`
+    stacks of a fused-layout tree: stacks[i] = {("attn", "qkv"): (a [n,
+    d, rcat], b [n, rcat, 3d]), ("attn", "o"), ("mlp", "gateup"),
+    ("mlp", "down")}.
+
+    As in the TPU kernel's layout, each target's n adapters flatten into
+    one A [in, W] (adapter j's rcat columns at j * rcat) and one B [W,
+    out] (its rows at the same offsets), W = n * rcat; the three d-input
+    A's concatenate along columns (qkv | o | gateup) into `a_d` [L, d, Wq
+    + Wo + Wg], down's stays alone as `a_f` [L, f, Wd]; `expand` [n, Wq +
+    Wo + Wg + Wd] f32 maps a [rows, n] one-hot selection to the column
+    mask in the same order. Unlike the TPU layout nothing is padded: the
+    CUDA kernel reads A and B element by element, masked at each target's
+    W, so neither the 128-lane padding of W nor the restacking of wide B
+    blocks applies. Returns {"a_d", "a_f", "b_qkv", "b_o", "b_gu",
+    "b_down", "expand", "widths": (Wq, Wo, Wg, Wd)}; the caller adds the
+    selection rows as "sel" [B, n]."""
+    out, widths = {}, []
+    n = None
+    for key, name in ((("attn", "qkv"), "qkv"), (("attn", "o"), "o"),
+                      (("mlp", "gateup"), "gu"), (("mlp", "down"), "down")):
+        a = torch.stack([s[key][0] for s in stacks])  # [L, n, in, rcat]
+        b = torch.stack([s[key][1] for s in stacks])  # [L, n, rcat, out]
+        layers, n, din, rcat = a.shape
+        out["a_" + name] = a.permute(0, 2, 1, 3).reshape(layers, din, n * rcat).to(dtype)
+        out["b_" + name] = b.reshape(layers, n * rcat, b.shape[-1]).to(dtype).contiguous()
+        widths.append((n * rcat, rcat))
+    expand = torch.zeros((n, sum(w for w, _ in widths)), dtype=torch.float32)
+    off = 0
+    for w, rcat in widths:
+        for j in range(n):
+            expand[j, off + j * rcat:off + (j + 1) * rcat] = 1.0
+        off += w
+    return {
+        "a_d": torch.cat([out.pop("a_qkv"), out.pop("a_o"), out.pop("a_gu")], dim=2).contiguous(),
+        "a_f": out.pop("a_down").contiguous(),
+        **out,
+        "expand": expand.to(stacks[0][("attn", "qkv")][0].device),
+        "widths": tuple(w for w, _ in widths),
+    }
+
+
+def _lora_args(slot_lora, rows_rep: int) -> torch.Tensor:
+    """The column mask selm [B * rows_rep, Wm] f32 of a bundle with its
+    selection rows "sel" [B, n]: sel @ expand, each sample's row repeated
+    rows_rep times (sample-major, the verify form's row order)."""
+    selm = slot_lora["sel"].float() @ slot_lora["expand"]
+    if rows_rep > 1:
+        selm = selm.repeat_interleave(rows_rep, dim=0)
+    return selm.contiguous()
+
+
+def _lora_term(x: torch.Tensor, a: torch.Tensor, mask: torch.Tensor, b: torch.Tensor,
+               dt: torch.dtype) -> torch.Tensor:
+    """K4-LoRA's term: u = x @ a in f32, um = (u * mask) rounded to dt,
+    um @ b in f32."""
+    u = x.float() @ a.float()
+    return (u * mask).to(dt).float() @ b.float()
+
+
 def _rms(h: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     """RMSNorm as the TPU kernel computes it: f32 statistics, the normalized
     row rounded to the working dtype, then times the scale in that dtype."""
@@ -130,7 +200,7 @@ def _qdq(x: torch.Tensor) -> torch.Tensor:
 
 
 def fused_verify_hidden_plain(layers, cfg: LMConfig, h0, cache_k, cache_v, lengths0, start2,
-                              end2, positions, k_scale=None, v_scale=None):
+                              end2, positions, k_scale=None, v_scale=None, slot_lora=None):
     """K4's function for T fed tokens per sample in plain PyTorch, rounding
     to h0's dtype where the kernel rounds to bf16. layers: the tree's layer
     list; h0 [B, T, D]; cache_k/v [L, B, S, H, d] (int8 with k_scale/v_scale
@@ -139,8 +209,10 @@ def fused_verify_hidden_plain(layers, cfg: LMConfig, h0, cache_k, cache_v, lengt
     tokens 0..t. As in the TPU kernel's T > 1 form, the fed tokens'
     probabilities are rounded to h0's dtype for the value product like the
     cache's; at T = 1 the current token's is not. Reads the cache, never
-    writes it. Returns (hidden [B, T, D] before the final norm, k_new, v_new
-    [L, B, T, H, d]: the new rows as attended)."""
+    writes it. slot_lora: `build_fd_lora`'s bundle with "sel" [B, n], whose
+    terms are added as K4-LoRA adds them (module docstring). Returns
+    (hidden [B, T, D] before the final norm, k_new, v_new [L, B, T, H, d]:
+    the new rows as attended)."""
     dt = h0.dtype
     b, t, d = h0.shape
     heads, hd, f = cfg.num_attention_heads, cfg.head_dim, cfg.intermediate_size
@@ -150,11 +222,28 @@ def fused_verify_hidden_plain(layers, cfg: LMConfig, h0, cache_k, cache_v, lengt
     kpos = torch.arange(s, device=h0.device)[None, :]
     valid = (kpos < lengths0[:, None]) | ((kpos >= start2[:, None]) & (kpos < end2[:, None]))
     causal = torch.ones(t, t, dtype=torch.bool, device=h0.device).tril()
+    if slot_lora is not None:
+        widths = list(slot_lora["widths"])
+        masks = _lora_args(slot_lora, t).view(b, t, -1).split(widths, dim=-1)
+
+    def lora_at(i):
+        """Layer i's (A, B) of qkv, o, gateup and down; Nones without a
+        bundle."""
+        if slot_lora is None:
+            return [None] * 4
+        a = slot_lora["a_d"][i].split(widths[:3], dim=-1) + (slot_lora["a_f"][i],)
+        return list(zip(a, (slot_lora[n][i] for n in ("b_qkv", "b_o", "b_gu", "b_down"))))
+
+    def term(x, j, ab):
+        return 0.0 if ab is None else _lora_term(x, ab[0], masks[j], ab[1], dt)
+
     h = h0
     k_rows, v_rows = [], []
     for i, p in enumerate(layers):
+        lo = lora_at(i)
         x1 = _rms(h, p["input_ln"]["scale"], cfg.rms_norm_eps)
-        q, k, v = _gemv(x1, p["attn"]["qkv"]["kernel"]).view(b, t, 3, heads, hd).unbind(2)
+        qkv = _gemv(x1, p["attn"]["qkv"]["kernel"]) + term(x1, 0, lo[0])
+        q, k, v = qkv.view(b, t, 3, heads, hd).unbind(2)
         q, k, v = _rope(q, cos, sin).to(dt), _rope(k, cos, sin).to(dt), v.to(dt)
         ck, cv = cache_k[i], cache_v[i]
         if k_scale is not None:
@@ -172,23 +261,24 @@ def fused_verify_hidden_plain(layers, cfg: LMConfig, h0, cache_k, cache_v, lengt
         ctx = ctx + torch.einsum("bhtu,buhd->bthd", p_fed.to(dt).float() if t > 1 else p_fed,
                                  v.float())
         attn = (ctx / den.transpose(1, 2)[..., None]).to(dt).reshape(b, t, d)
-        h = h + _gemv(attn, p["attn"]["o"]["kernel"]).to(dt)
-        gate, up = _gemv(_rms(h, p["post_ln"]["scale"], cfg.rms_norm_eps),
-                     p["mlp"]["gateup"]["kernel"]).split(f, dim=-1)
-        h = h + _gemv((F.silu(gate) * up).to(dt), p["mlp"]["down"]["kernel"]).to(dt)
+        h = h + (_gemv(attn, p["attn"]["o"]["kernel"]) + term(attn, 1, lo[1])).to(dt)
+        x2 = _rms(h, p["post_ln"]["scale"], cfg.rms_norm_eps)
+        gate, up = (_gemv(x2, p["mlp"]["gateup"]["kernel"]) + term(x2, 2, lo[2])).split(f, dim=-1)
+        xm = (F.silu(gate) * up).to(dt)
+        h = h + (_gemv(xm, p["mlp"]["down"]["kernel"]) + term(xm, 3, lo[3])).to(dt)
         k_rows.append(k)
         v_rows.append(v)
     return h, torch.stack(k_rows), torch.stack(v_rows)
 
 
 def fused_decode_hidden_plain(layers, cfg: LMConfig, h0, cache_k, cache_v, lengths0, start2,
-                              end2, positions, k_scale=None, v_scale=None):
+                              end2, positions, k_scale=None, v_scale=None, slot_lora=None):
     """K4's one-token function in plain PyTorch: `fused_verify_hidden_plain`
     at T = 1. h0 [B, D]; positions [B]. Returns (hidden [B, D] before the
     final norm, k_new, v_new [L, B, H, d]: the new rows as attended)."""
     hidden, k_new, v_new = fused_verify_hidden_plain(
         layers, cfg, h0[:, None], cache_k, cache_v, lengths0, start2, end2, positions[:, None],
-        k_scale, v_scale)
+        k_scale, v_scale, slot_lora)
     return hidden[:, 0], k_new[:, :, 0], v_new[:, :, 0]
 
 
@@ -213,10 +303,10 @@ def write_rows(cache_k, cache_v, k_scale, v_scale, k_new, v_new, write_pos) -> N
 
 
 def _fused_call(lm_params, cfg: LMConfig, h0, cache_k, cache_v, lengths0, start2, end2,
-                write_pos, positions, k_scale, v_scale, weights, t_tok: int):
+                write_pos, positions, k_scale, v_scale, weights, t_tok: int, slot_lora=None):
     """One `tp_fused_decode` call over h0 [B * t_tok, D] (sample-major),
-    positions [B * t_tok]; returns (hidden, k_new, v_new [L, B * t_tok, H,
-    d])."""
+    positions [B * t_tok], with K4-LoRA's terms when a bundle is given;
+    returns (hidden, k_new, v_new [L, B * t_tok, H, d])."""
     weights = weights or FusedWeights(lm_params, cfg)
     layers, b, s, hkv, hd = cache_k.shape
     d, f, heads = cfg.hidden_size, cfg.intermediate_size, cfg.num_attention_heads
@@ -236,19 +326,39 @@ def _fused_call(lm_params, cfg: LMConfig, h0, cache_k, cache_v, lengths0, start2
         if k_scale is None or v_scale is None or k_scale.shape != cache_k.shape[:-1]:
             raise ValueError("fused_decode: an int8 cache needs k_scale/v_scale [L, B, S, H]")
         tensors.update(k_scale=(k_scale, f32), v_scale=(v_scale, f32))
+    widths = (0, 0, 0, 0)
+    lora = {}
+    if slot_lora is not None:
+        widths = tuple(slot_lora["widths"])
+        wq, wo, wg, wd = widths
+        lora = {"a_d": (layers, d, wq + wo + wg), "a_f": (layers, f, wd),
+                "b_qkv": (layers, wq, 3 * d), "b_o": (layers, wo, d),
+                "b_gu": (layers, wg, 2 * f), "b_down": (layers, wd, d)}
+        for name, shape in lora.items():
+            if tuple(slot_lora[name].shape) != shape:
+                raise ValueError(f"fused_decode: slot_lora {name} is "
+                                 f"{tuple(slot_lora[name].shape)}, expected {shape}")
+        lora = {name: slot_lora[name] for name in lora}
+        lora["selm"] = _lora_args(slot_lora, t_tok)
+        if lora["selm"].shape != (rows, sum(widths)):
+            raise ValueError(f"fused_decode: slot_lora sel gives a mask of "
+                             f"{tuple(lora['selm'].shape)}, expected ({rows}, {sum(widths)})")
+        tensors.update({"lora_" + k: (v, f32 if k == "selm" else bf) for k, v in lora.items()})
     stream = _build.cuda_args("fused_decode", **tensors)
     lib = _build.library()
     hidden = h0.clone()
     k_new = torch.empty((layers, rows, hkv, hd), dtype=bf, device=h0.device)
     v_new = torch.empty_like(k_new)
-    work = torch.empty(lib.tp_fused_decode_workspace(rows, d, f), dtype=torch.uint8,
-                       device=h0.device)
+    work = torch.empty(lib.tp_fused_decode_workspace(rows, d, f, max(widths[:3]), widths[3]),
+                       dtype=torch.uint8, device=h0.device)
+    lora_ptrs = [lora[k].data_ptr() if lora else None
+                 for k in ("a_d", "a_f", "b_qkv", "b_o", "b_gu", "b_down", "selm")]
     rc = lib.tp_fused_decode(
         weights.table, layers, b, t_tok, d, f, heads, hd, s, cfg.rms_norm_eps, cfg.rope_theta,
         hidden.data_ptr(), lengths0.data_ptr(), start2.data_ptr(), end2.data_ptr(),
         write_pos.data_ptr(), positions.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
         k_scale.data_ptr() if int8 else None, v_scale.data_ptr() if int8 else None, int(int8),
-        k_new.data_ptr(), v_new.data_ptr(), work.data_ptr(), stream,
+        k_new.data_ptr(), v_new.data_ptr(), work.data_ptr(), *lora_ptrs, *widths, stream,
     )
     _build.check(rc, "fused_decode")
     return hidden, k_new, v_new
@@ -270,11 +380,10 @@ def fused_decode_hidden(lm_params, cfg: LMConfig, h0, cache_k, cache_v, lengths0
     attendable cache ranges [0, len0) U [start2, end2) (the current token
     is always attended); write_pos the cache slot of the new row; positions
     the RoPE positions; all [B] int32. weights: `FusedWeights` of
-    `lm_params`, built here when not given. Writes the new rows into the
-    cache in place and returns (hidden [B, D] before the final norm, k_new,
-    v_new [L, B, H, 128])."""
-    if slot_lora is not None:
-        raise NotImplementedError("slot-LoRA terms in K4 come with multi-LoRA serving")
+    `lm_params`, built here when not given. slot_lora: `build_fd_lora`'s
+    bundle with the selection rows "sel" [B, n] (K4-LoRA). Writes the new
+    rows into the cache in place and returns (hidden [B, D] before the
+    final norm, k_new, v_new [L, B, H, 128])."""
     if h0.dim() != 2:
         raise ValueError(f"fused_decode_hidden: h0 is {tuple(h0.shape)}, expected [B, D]; "
                          "T fed tokens a sample go through fused_verify_hidden")
@@ -282,13 +391,16 @@ def fused_decode_hidden(lm_params, cfg: LMConfig, h0, cache_k, cache_v, lengths0
     if h0.device.type == "cpu":
         hidden, k_new, v_new = fused_decode_hidden_plain(
             lm_params["layers"], cfg, h0, cache_k, cache_v, lengths0, start2, end2, positions,
-            k_scale, v_scale,
+            k_scale, v_scale, slot_lora,
         )
         write_rows(cache_k, cache_v, k_scale, v_scale, k_new, v_new, write_pos)
         return hidden, k_new, v_new
     out = _fused_call(lm_params, cfg, h0, cache_k, cache_v, lengths0, start2, end2, write_pos,
-                      positions, k_scale, v_scale, weights, 1)
-    fused_decode_hidden.launches += 1
+                      positions, k_scale, v_scale, weights, 1, slot_lora)
+    if slot_lora is None:
+        fused_decode_hidden.launches += 1
+    else:
+        fused_decode_hidden.lora_launches += 1
     return out
 
 
@@ -304,10 +416,8 @@ def fused_verify_hidden(lm_params, cfg: LMConfig, h0, cache_k, cache_v, lengths0
     that all T queries attend; fed token t also attends fed tokens 0..t and
     writes its row at cache slot write_pos0 + t (a slot past the cache's
     end is dropped). The cache as in `fused_decode_hidden`, written in
-    place. Returns (hidden [B, T, D] before the final norm, k_new, v_new
-    [L, B, T, H, 128])."""
-    if slot_lora is not None:
-        raise NotImplementedError("slot-LoRA terms in K4 come with multi-LoRA serving")
+    place; slot_lora as there, one selection row a sample. Returns (hidden
+    [B, T, D] before the final norm, k_new, v_new [L, B, T, H, 128])."""
     if h0.dim() != 3:
         raise ValueError(f"fused_verify_hidden: h0 is {tuple(h0.shape)}, expected [B, T, D]")
     _check_tree(lm_params, cfg, weights)
@@ -315,18 +425,26 @@ def fused_verify_hidden(lm_params, cfg: LMConfig, h0, cache_k, cache_v, lengths0
     if h0.device.type == "cpu":
         hidden, k_new, v_new = fused_verify_hidden_plain(
             lm_params["layers"], cfg, h0, cache_k, cache_v, lengths0, start2, end2, positions,
-            k_scale, v_scale,
+            k_scale, v_scale, slot_lora,
         )
         write_rows(cache_k, cache_v, k_scale, v_scale, k_new, v_new, write_pos0)
         return hidden, k_new, v_new
     hidden, k_new, v_new = _fused_call(
         lm_params, cfg, h0.reshape(b * t, d), cache_k, cache_v, lengths0, start2, end2,
-        write_pos0, positions.reshape(b * t).contiguous(), k_scale, v_scale, weights, t)
-    fused_verify_hidden.launches += 1
+        write_pos0, positions.reshape(b * t).contiguous(), k_scale, v_scale, weights, t,
+        slot_lora)
+    if slot_lora is None:
+        fused_verify_hidden.launches += 1
+    else:
+        fused_verify_hidden.lora_launches += 1
     layers = k_new.shape[0]
     return (hidden.view(b, t, d), k_new.view(layers, b, t, *k_new.shape[2:]),
             v_new.view(layers, b, t, *v_new.shape[2:]))
 
 
+# launch counts: `launches` without a LoRA bundle, `lora_launches` with one
+# (K4-LoRA, T = 1 and the verify form)
 fused_verify_hidden.launches = 0
 fused_decode_hidden.launches = 0
+fused_decode_hidden.lora_launches = 0
+fused_verify_hidden.lora_launches = 0

@@ -31,10 +31,15 @@ def linear(params, x: torch.Tensor, w8a8: bool = False) -> torch.Tensor:
     - int8 with `w8a8` (the JAX package's TOKENPACKER_W8A8=1): K7
       (`w8a8_matmul`) for M <= 64, K8 (`w8a8_gemm`) for M >= 256 with
       in and out multiples of 128, else the weight-only product;
-    - int8: the weight-only product."""
+    - int8: the weight-only product.
+
+    Multi-LoRA serving (`serve/multi_lora`): with `slot_lora_a` [n, in, r],
+    `slot_lora_b` [n, r, out] and `slot_lora_sel` [N, n] (one row per
+    sample of x [N, ..., in]) the leaf adds every adapter's term, selected
+    by the sample's one-hot row, after the base product of whatever kind
+    and before the bias, in x's dtype as the JAX package computes it: an
+    all-zero row adds an exact zero."""
     k = params["kernel"]
-    if params.get("slot_lora_a") is not None:
-        raise NotImplementedError("slot-LoRA terms come with serve/multi_lora")
     if isinstance(k, dict):
         if "lora_a" in k:
             raise NotImplementedError("LoRA over a quantized base comes with train/lora")
@@ -57,6 +62,12 @@ def linear(params, x: torch.Tensor, w8a8: bool = False) -> torch.Tensor:
             y = (x @ k["q"].to(x.dtype)) * k["scale"].squeeze(-2).to(x.dtype)
     else:
         y = x @ k
+    a = params.get("slot_lora_a")
+    if a is not None:
+        sel = params["slot_lora_sel"].to(x.dtype)
+        xa = torch.einsum("b...d,ndr->b...nr", x, a.to(x.dtype))
+        ctx = torch.einsum("b...nr,nro->b...no", xa, params["slot_lora_b"].to(x.dtype))
+        y = y + torch.einsum("b...no,bn->b...o", ctx, sel)
     if params.get("bias") is not None:
         y = y + params["bias"]
     return y

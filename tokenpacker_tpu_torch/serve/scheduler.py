@@ -47,10 +47,22 @@ of 256 rows and more, K7 for decode steps and the first-token logits),
 the fused tower block the explicit `vit_block` (TOKENPACKER_VIT_BLOCK),
 and the device the explicit `device` (the params must be there; "cpu"
 runs every kernel's plain version). This port is greedy: sampling,
-penalties, logprobs and LoRA adapters raise NotImplementedError when the
-batcher is made or the request is submitted, never inside the loop. The
-host keeps the slots' lengths, so the loop syncs once per step (the
-argmax), not once per slot.
+penalties and logprobs raise NotImplementedError when the batcher is made
+or the request is submitted, never inside the loop. The host keeps the
+slots' lengths, so the loop syncs once per step (the argmax), not once
+per slot.
+
+Multi-LoRA serving: `adapters={name: serve.multi_lora.Adapter}` fixes the
+adapter set when the batcher is made, and `submit(..., adapter=name)`
+picks one per request (None: the base model; a name that is not loaded
+raises KeyError at submit). Steps and verify rounds run on the overlay
+of `SlotLora`, whose selection row of a slot is set when a request takes
+it: the dense batcher's steps and rounds through K4-LoRA on an int8
+fused tree, the paged batcher's through `ops/layers.linear`'s term. An
+admission runs on `SlotLora.prefill_params` (the request's row alone and
+its adapter's projector, whole or in chunks), and the adapter's name
+seeds the paged batcher's prefix hashes, so that equal prompts under
+different adapters never share pages.
 """
 
 from __future__ import annotations
@@ -90,6 +102,7 @@ from tokenpacker_tpu_torch.ops.paged_kv import (
     paged_verify_step,
     prefix_admit,
 )
+from tokenpacker_tpu_torch.serve.multi_lora import SlotLora
 from tokenpacker_tpu_torch.serve.prefix_cache import PrefixCache, block_hashes, image_digest
 from tokenpacker_tpu_torch.speculative import accept_greedy, propose_ngram_host, verify_step_cb
 
@@ -98,7 +111,7 @@ from tokenpacker_tpu_torch.speculative import accept_greedy, propose_ngram_host,
 # (doubled on each repeat, at most 512) before trying again
 SPEC_EMA_THRESHOLD = 0.15
 SPEC_BACKOFF_ROUNDS = 32
-_LATER = "sampling is ROADMAP queue 1 item 4, LoRA adapters item 1"
+_LATER = "sampling is ROADMAP queue 1 item 4"
 
 
 @dataclass
@@ -110,6 +123,7 @@ class _Request:
     cancelled: bool = False  # set from any thread; honoured before the next step
     tokens: list = field(default_factory=list)
     ctx: list = field(default_factory=list)  # prompt-lookup context (speculation)
+    adapter: str | None = None  # multi-LoRA serving (serve/multi_lora)
 
 
 class _SlotBatcher:
@@ -123,11 +137,8 @@ class _SlotBatcher:
                  temperature: float, speculative_k: int, prefill_chunk_size: int | None,
                  adapters: dict | None, kv_cache_dtype: torch.dtype | None, w8a8: bool,
                  vit_block: bool, device: torch.device | str):
-        unported = {"temperature > 0": temperature > 0.0, "LoRA adapters": bool(adapters)}
-        asked = [name for name, on in unported.items() if on]
-        if asked:
-            raise NotImplementedError(f"not ported yet (greedy only): {', '.join(asked)}; "
-                                      f"{_LATER}")
+        if temperature > 0.0:
+            raise NotImplementedError(f"not ported yet (greedy only): temperature > 0; {_LATER}")
         self.device = torch.device(device)
         have = params["lm"]["embed"].device
         if have.type != self.device.type or (self.device.index is not None
@@ -159,6 +170,31 @@ class _SlotBatcher:
         # rounds and the tokens they emitted
         self.stats = {"decode_steps": 0, "decode_s": 0.0, "alone_steps": 0, "alone_s": 0.0,
                       "verify_rounds": 0, "verify_s": 0.0, "verify_tokens": 0}
+        self._init_slot_lora(adapters)
+
+    # -- multi-LoRA serving (serve/multi_lora) ---------------------------------
+
+    def _init_slot_lora(self, adapters: dict | None):
+        """With adapters, every step runs on SlotLora's overlay of the base
+        params, made once (its selection tensor is updated in place)."""
+        self.base_params = self.params
+        self.slot_lora = None
+        if adapters:
+            self.slot_lora = SlotLora(self.base_params, self.cfg, adapters, self.num_slots,
+                                      dtype=self.cfg.dtype)
+            self.params = self.slot_lora.overlay(self.base_params)
+
+    def _admission_params(self, req: _Request):
+        """Prefill-time params of one request: its adapter's selection row
+        alone and its projector override (the base params without
+        adapters)."""
+        if self.slot_lora is None:
+            return self.params
+        return self.slot_lora.prefill_params(self.base_params, req.adapter)
+
+    def _bind_slot_adapter(self, slot: int, req: _Request):
+        if self.slot_lora is not None:
+            self.slot_lora.set_slot(slot, req.adapter)
 
     # -- public api --------------------------------------------------------
 
@@ -173,7 +209,6 @@ class _SlotBatcher:
             "top_k": top_k is not None,
             "min_p": min_p is not None,
             "seed": seed is not None,
-            "adapter": adapter is not None,
             "repetition/presence/frequency penalties": (
                 repetition_penalty != 1.0 or presence_penalty != 0.0 or frequency_penalty != 0.0),
             "logprobs": logprobs is not None,
@@ -182,12 +217,17 @@ class _SlotBatcher:
         if asked:
             raise NotImplementedError(f"not ported yet (greedy only): {', '.join(asked)}; "
                                       f"{_LATER}")
+        if adapter is not None:  # an unknown adapter: KeyError here, as in the JAX batchers
+            if self.slot_lora is None:
+                raise KeyError(f"no LoRA adapters loaded (requested {adapter!r})")
+            self.slot_lora.adapter_index(adapter)
         self._check_prompt(batch)  # refused here: inside the loop it would fail every request
         fut: Future = Future()
         if self.dead is not None:
             fut.set_exception(RuntimeError(f"batcher loop died: {self.dead!r}"))
             return fut
-        req = _Request(batch=batch, max_new_tokens=max_new_tokens, future=fut, on_token=on_token)
+        req = _Request(batch=batch, max_new_tokens=max_new_tokens, future=fut, on_token=on_token,
+                       adapter=adapter)
         fut._tp_request = req  # handle for cancel()
         self.queue.put(req)
         return fut
@@ -269,9 +309,10 @@ class _SlotBatcher:
         return req.cancelled
 
     def _seat(self, slot: int, req: _Request, logits: torch.Tensor, true_len: int):
-        """An admission's host tail: the slot takes the request at its true
-        length, with its first (greedy) token."""
+        """An admission's host tail: the slot takes the request (and its
+        adapter) at its true length, with its first (greedy) token."""
         tok = int(logits[0].argmax())
+        self._bind_slot_adapter(slot, req)
         self.slots[slot] = req
         self.lengths[slot] = true_len
         if self.speculative_k > 0:
@@ -471,7 +512,7 @@ class ContinuousBatcher(_SlotBatcher):
         self.max_seq_len = max_seq_len
         self.cache = KVCache.create(cfg.lm, num_slots, max_seq_len, self.kv_cache_dtype,
                                     self.device)
-        self.fused = fused_weights(params, cfg)
+        self.fused = fused_weights(self.params, cfg)
 
     def _check_prompt(self, batch: dict):
         l = batch["token_ids"].shape[1]
@@ -486,12 +527,12 @@ class ContinuousBatcher(_SlotBatcher):
         self.slots[slot] = None
         self.lengths[slot] = 0
 
-    def _visual(self, b) -> torch.Tensor:
+    def _visual(self, b, params) -> torch.Tensor:
         if b.get("images") is None:
             return torch.zeros((1, self.cfg.tokens_per_view, self.cfg.lm.hidden_size),
-                               dtype=self.params["lm"]["embed"].dtype, device=self.device)
+                               dtype=params["lm"]["embed"].dtype, device=self.device)
         images = torch.as_tensor(b["images"]).to(device=self.device, dtype=self.cfg.dtype)
-        return encode_images(self.params, self.cfg, images, self.w8a8, self.vit_block)
+        return encode_images(params, self.cfg, images, self.w8a8, self.vit_block)
 
     def _admit(self, slot: int, req: _Request):
         """Prefill the request alone and copy its rows into the slot."""
@@ -499,8 +540,9 @@ class ContinuousBatcher(_SlotBatcher):
             return
         b = req.batch
         dev = device_batch(b, self.cfg.dtype, self.device)
-        logits, small = prefill(self.params, self.cfg, dev, b["token_ids"].shape[1],
-                                self.kv_cache_dtype, self.w8a8, self.vit_block)
+        logits, small = prefill(self._admission_params(req), self.cfg, dev,
+                                b["token_ids"].shape[1], self.kv_cache_dtype, self.w8a8,
+                                self.vit_block)
         insert_into_cache(self.cache, small, slot)
         self._seat(slot, req, logits, int(np.asarray(b["lengths"])[0]))
 
@@ -513,8 +555,10 @@ class ContinuousBatcher(_SlotBatcher):
         dev = device_batch({**b, "images": None}, self.cfg.dtype, self.device)
         small = KVCache.create(self.cfg.lm, 1, b["token_ids"].shape[1], self.kv_cache_dtype,
                                self.device)
-        self._pending = {"req": req, "slot": slot, "cache": small, "visual": self._visual(b),
-                         "offset": 0, "true_len": int(np.asarray(b["lengths"])[0]), "dev": dev}
+        pp = self._admission_params(req)
+        self._pending = {"req": req, "slot": slot, "cache": small, "visual": self._visual(b, pp),
+                         "offset": 0, "true_len": int(np.asarray(b["lengths"])[0]), "dev": dev,
+                         "params": pp}
 
     def _step_pending(self):
         p = self._pending
@@ -526,14 +570,14 @@ class ContinuousBatcher(_SlotBatcher):
         start = max(0, min(p["offset"], l - cs))
         window = slice(start, start + cs)
         hidden, p["cache"] = prefill_chunk(
-            self.params, self.cfg, p["cache"], p["visual"], dev["token_ids"][:, window],
+            p["params"], self.cfg, p["cache"], p["visual"], dev["token_ids"][:, window],
             dev["is_image"][:, window], dev["image_slot"][:, window], start, cs,
             self.kv_cache_dtype, self.w8a8,
         )
         p["offset"] = start + cs
         if p["offset"] >= p["true_len"]:
-            logits = lm_logits(self.params["lm"], self.cfg.lm, hidden[:, p["true_len"] - 1 - start],
-                               self.w8a8)
+            logits = lm_logits(p["params"]["lm"], self.cfg.lm,
+                               hidden[:, p["true_len"] - 1 - start], self.w8a8)
             self._pending = None
             insert_into_cache(self.cache, p["cache"], p["slot"])
             self._seat(p["slot"], p["req"], logits, p["true_len"])
@@ -629,10 +673,12 @@ class PagedContinuousBatcher(_SlotBatcher):
         align = math.lcm(self.page_size, cache_len_tile(self.kv_cache_dtype))
         return -(-l // align) * align
 
-    def _plan_admission(self, b):
+    def _plan_admission(self, b, adapter: str | None = None):
         """Page-aligned pad and prefix-cache match. Returns (l_pad,
         true_len, m, shared, hashes): m cached blocks whose pages are
-        mapped instead of prefilled."""
+        mapped instead of prefilled. `adapter` seeds the block hashes: the
+        rows depend on the serving adapter, so equal prompts under
+        different adapters never share pages."""
         ps = self.page_size
         l_pad = self._pad(b["token_ids"].shape[1])
         # snap to the engine's buckets where that fits the page budget and
@@ -650,16 +696,18 @@ class PagedContinuousBatcher(_SlotBatcher):
             # one prompt token is always recomputed: admission needs its logits
             hashes = block_hashes(np.asarray(b["token_ids"])[0, :true_len], im_h,
                                   np.asarray(b["image_slot"])[0, :true_len], digest, ps,
-                                  limit=(true_len - 1) // ps)
+                                  limit=(true_len - 1) // ps,
+                                  seed=adapter.encode() if adapter else b"")
             m, shared = self.prefix.match(hashes)
         return l_pad, true_len, m, shared, hashes
 
-    def _suffix_visual(self, b, dev: dict, start: int, true_len: int) -> torch.Tensor:
+    def _suffix_visual(self, b, dev: dict, start: int, true_len: int, params) -> torch.Tensor:
         """Projector output for an admission whose positions before `start`
-        are cached: the tower and projector are skipped when no image
-        token falls in [start, true_len)."""
+        are cached: the tower and projector (those of `params`, the
+        admission's) are skipped when no image token falls in [start,
+        true_len)."""
         if dev["images"] is not None and bool(np.any(np.asarray(b["is_image"])[0, start:true_len])):
-            return encode_images(self.params, self.cfg, dev["images"], self.w8a8, self.vit_block)
+            return encode_images(params, self.cfg, dev["images"], self.w8a8, self.vit_block)
         if self.prefix is not None and dev["images"] is not None:
             self.prefix.vision_skipped += 1
         lm_embed = self.params["lm"]["embed"]
@@ -690,13 +738,13 @@ class PagedContinuousBatcher(_SlotBatcher):
         if self._skip_cancelled(req):
             return
         b = req.batch
-        l_pad, true_len, m, shared, hashes = self._plan_admission(b)
+        l_pad, true_len, m, shared, hashes = self._plan_admission(b, req.adapter)
         if m > 0:
             self._admit_with_prefix(slot, req, l_pad, true_len, m, shared, hashes)
             return
         dev = self._padded_plan(b, l_pad)
-        logits, small_cache = prefill(self.params, self.cfg, dev, l_pad, self.kv_cache_dtype,
-                                      self.w8a8, self.vit_block)
+        logits, small_cache = prefill(self._admission_params(req), self.cfg, dev, l_pad,
+                                      self.kv_cache_dtype, self.w8a8, self.vit_block)
         self._finish_admission(slot, req, small_cache, logits, l_pad, true_len, 0, [], hashes)
 
     def _admit_with_prefix(self, slot: int, req: _Request, l_pad: int, true_len: int, m: int,
@@ -710,9 +758,10 @@ class PagedContinuousBatcher(_SlotBatcher):
             self.allocator.incref(pid)
         fresh = self._alloc(l_pad // self.page_size - m)
         dev = self._padded_plan(b, l_pad)
-        visual = self._suffix_visual(b, dev, start, true_len)
+        pp = self._admission_params(req)
+        visual = self._suffix_visual(b, dev, start, true_len, pp)
         logits, _ = prefix_admit(
-            self.paged, self.params, self.cfg, shared, fresh, visual,
+            self.paged, pp, self.cfg, shared, fresh, visual,
             dev["token_ids"][:, start:], dev["is_image"][:, start:], dev["image_slot"][:, start:],
             slot, true_len, m, l_pad - start, self.w8a8,
         )
@@ -727,12 +776,13 @@ class PagedContinuousBatcher(_SlotBatcher):
         if self._skip_cancelled(req):
             return
         b = req.batch
-        l_pad, true_len, m, shared, hashes = self._plan_admission(b)
+        l_pad, true_len, m, shared, hashes = self._plan_admission(b, req.adapter)
         for pid in shared:  # claimed before any alloc, as in _admit_with_prefix
             self.allocator.incref(pid)
         start0 = m * self.page_size
         dev = self._padded_plan(b, l_pad)
-        visual = self._suffix_visual(b, dev, start0, true_len)
+        pp = self._admission_params(req)
+        visual = self._suffix_visual(b, dev, start0, true_len, pp)
         if m > 0:
             small = gather_prefix(self.paged, shared, l_pad)
         else:
@@ -740,7 +790,7 @@ class PagedContinuousBatcher(_SlotBatcher):
         self._pending = {
             "req": req, "slot": slot, "cache": small, "visual": visual, "offset": start0,
             "start0": start0, "true_len": true_len, "l_pad": l_pad, "m": m, "shared": shared,
-            "hashes": hashes, "dev": dev,
+            "hashes": hashes, "dev": dev, "params": pp,
         }
 
     def _step_pending(self):
@@ -753,14 +803,14 @@ class PagedContinuousBatcher(_SlotBatcher):
         start = max(start0, min(p["offset"], l_pad - cs))
         window = slice(start, start + cs)
         hidden, p["cache"] = prefill_chunk(
-            self.params, self.cfg, p["cache"], p["visual"], dev["token_ids"][:, window],
+            p["params"], self.cfg, p["cache"], p["visual"], dev["token_ids"][:, window],
             dev["is_image"][:, window], dev["image_slot"][:, window], start, cs,
             self.kv_cache_dtype, self.w8a8,
         )
         p["offset"] = start + cs
         if p["offset"] >= p["true_len"]:
-            logits = lm_logits(self.params["lm"], self.cfg.lm, hidden[:, p["true_len"] - 1 - start],
-                               self.w8a8)
+            logits = lm_logits(p["params"]["lm"], self.cfg.lm,
+                               hidden[:, p["true_len"] - 1 - start], self.w8a8)
             self._pending = None
             self._finish_admission(p["slot"], p["req"], p["cache"], logits, l_pad,
                                    p["true_len"], p["m"], p["shared"], p["hashes"])

@@ -42,11 +42,13 @@ NEG_INF = torch.finfo(torch.float32).min
 
 def _fused_logits(params, cfg: TokenPackerVLMConfig, cache: KVCache, tokens, len0, start2, end2,
                   write_pos0, positions, fused, w8a8: bool):
-    """K4-verify over the T fed tokens, then the final norm and the head."""
+    """K4-verify over the T fed tokens (K4-LoRA's verify form when the tree
+    carries a multi-LoRA bundle), then the final norm and the head."""
     lm = params["lm"]
     hidden, _, _ = fused_verify_hidden(
         lm, cfg.lm, lm_embed(lm, cfg.lm, tokens), cache.k, cache.v, len0, start2, end2,
         write_pos0, positions.int(), k_scale=cache.k_scale, v_scale=cache.v_scale,
+        slot_lora=lm.get("fd_slot_lora"),
         weights=fused if isinstance(fused, FusedWeights) else None,
     )
     return lm_logits(lm, cfg.lm, rms_norm(lm["norm"], hidden, cfg.lm.rms_norm_eps), w8a8)
