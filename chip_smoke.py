@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py              # the smoke run, phases 1-19
+    python3 chip_smoke.py              # the smoke run, phases 1-23
     python3 chip_smoke.py --profile    # phases 1-2, then the profile below
     python3 chip_smoke.py --profile-train  # phases 1-2, then a traced training step
     python3 chip_smoke.py --profile-paged  # phases 1-2, then traced paged decode steps
@@ -9,6 +9,7 @@
     python3 chip_smoke.py --quantized      # phases 1-2, K6-K8 of phase 3, phases 12-15
     python3 chip_smoke.py --speculative    # phases 1-2, K9 and K4-verify of phase 3, 16-17
     python3 chip_smoke.py --lora           # phases 1-2, K4-LoRA of phase 3, phases 18-19
+    python3 chip_smoke.py --mpt            # phases 1-2, K2-bias and K3-ALiBi of phase 3, 20-23
 
 Phases, one result line each or more (every failure raises, so any
 failure exits non-zero and prints no final line):
@@ -137,7 +138,29 @@ failure exits non-zero and prints no final line):
  19. full widths at 2 LM layers, int8 weights and cache, with adapters,
      card bf16 (K4-LoRA) vs CPU fp32: one HD admission under ad1, 4 decode
      steps and one verify round within LOGIT_BAND, which the card's run
-     with the slot's adapter term dropped must fail by several bands.
+     with the slot's adapter term dropped must fail by several bands;
+ 20. configuration I: MPT-7B (`models/mpt.mpt_config`: d 4096, 32 heads of
+     128, 32 layers, vocab 50432, ALiBi, tied embeddings) behind the
+     HD-7b tower and projector, bf16 weights and cache: `Generator` answers
+     phase 6's 4 HD requests with 32 greedy tokens (K2-bias 32 a prefill,
+     K3-ALiBi 32 a decode step, K1 23 a tower pass, no other attention
+     kernel; checks as in 4), then `ContinuousBatcher` in G's settings
+     (4 slots, S = 2080, chunks of 256, speculative_k 4) serves 6 requests
+     (the 4, a repeat of the 3x3, one cancelled after its 4th token):
+     chunks and verify rounds through `sdpa` with ALiBi, K3-ALiBi 32 a
+     plain step, tokens equal to the batched run's up to the first
+     near-tie; TTFT, ms a step and a round, tok/s, admission latency,
+     peak memory;
+ 21. full widths at 2 MPT layers: prefill and 4 decode steps card bf16
+     (K2-bias, K3-ALiBi) vs CPU fp32 within LOGIT_BAND;
+ 22. configuration J: stage 1 of MPT-7B behind TokenPacker-7b's tower and
+     projector through `Trainer.train()`, C's synthetic dataset, batch 4
+     padded to 2048, no remat, 3 steps: per step K2-bias forward and
+     backward 32 each, K1 23; finite losses, tower and LM bitwise frozen,
+     the projector changed; loss, s and tok/s a step, peak memory;
+ 23. full widths at 2 MPT layers: one stage-2 step card vs CPU in phase
+     9's bands, which the same step with K2-bias's backward dropping the
+     bias must fail.
 Phase 3 also holds K9 at [8, 577, 1024] and [26, 577, 1024] by its
 block's update out - x per (image, 64 rows, 128-wide slice), failing the
 plain block that lost its last 64 keys or its MLP's last 128 units, with
@@ -170,14 +193,18 @@ w8a8 mode (as `--profile-paged`); `--kernels` stops after phase 3; `--quantized`
 runs only the quantized slice's checks (K6-K8 in phase 3, phases 12-15)
 `--speculative` only the speculative slice's (the int8 rows' bit
 check, K9 and K4-verify in phase 3, phases 16-17) and `--lora` only the
-multi-LoRA slice's (K4-LoRA in phase 3, phases 18-19), each printing
-their kernel rows. None prints the final "ok" line.
+multi-LoRA slice's (K4-LoRA in phase 3, phases 18-19) and `--mpt` only
+the MPT slice's (K2-bias forward at [1|4, 2048, 32, 128] and backward at
+[4, 2048, 32, 128], K3-ALiBi at [4, 32, 128], S = 2080, in phase 3, each
+failing two lossy outputs; phases 20-23), each printing their kernel
+rows. None prints the final "ok" line.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import re
 import statistics
@@ -412,35 +439,44 @@ def tile_rel_rms(got: torch.Tensor, want: torch.Tensor, tile: int = 64) -> torch
                        torch.where(num > 0, torch.inf, 0.0))
 
 
-def compare_tiles(name: str, got: torch.Tensor, want: torch.Tensor, tile: int = 64) -> float:
+def compare_tiles(name: str, got: torch.Tensor, want: torch.Tensor, tile: int = 64,
+                  losts: dict | None = None) -> float:
     """Hold [N, T, H, d] kernel outputs to TILE_REL_RMS block by block
     (`tile_rel_rms`), and show the measure's power: the same output with
     its last tile zeroed, as a kernel that loses that tile would give it,
-    must fail. Returns the largest absolute error."""
+    must fail, and so must every output of `losts` ({what it lost: a lossy
+    output}; a non-finite reading fails). Returns the largest absolute
+    error."""
     rel = tile_rel_rms(got, want, tile)
     worst = rel.max().item()
     where = np.unravel_index(int(rel.argmax()), tuple(rel.shape))
     lost = got.clone()
     lost[:, -tile:] = 0
     lost_reads = tile_rel_rms(lost, want, tile).max().item()
+    lossy = {what: tile_rel_rms(out, want, tile).max().item() for what, out in (losts or {}).items()}
     err = (got.float() - want.float()).abs().max().item()
     ok = worst <= TILE_REL_RMS and bool(torch.isfinite(got.float()).all())
     print(f"  {name}: worst {tile}-position block relative RMS {worst:.4e} (sample {where[0]}, "
           f"positions from {where[1] * tile}, head {where[2]}), median {rel.median().item():.4e}, "
           f"limit {TILE_REL_RMS}; with the last {tile} positions zeroed {lost_reads:.4f} (their "
-          f"largest plain value {want[:, -tile:].abs().max().item():.3e}); "
-          f"max_abs_err {err:.3e} {'OK' if ok else 'FAIL'}")
+          f"largest plain value {want[:, -tile:].abs().max().item():.3e})"
+          + "".join(f"; {what} {r:.4f}" for what, r in lossy.items())
+          + f"; max_abs_err {err:.3e} {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version ({worst})")
-    if not lost_reads > TILE_REL_RMS:
+    if lost_reads <= TILE_REL_RMS:
         raise AssertionError(f"{name}: the block measure does not see a lost tile")
+    for what, r in lossy.items():
+        if r <= TILE_REL_RMS:
+            raise AssertionError(f"{name}: the block measure does not see {what} ({r})")
     return err
 
 
-def compare_flash_fwd(name: str, out, want) -> float:
-    """K2's forward (o, lse) against its plain version: o block by block,
-    lse absolutely. Returns the largest absolute error."""
-    err = compare_tiles(name + " o", out[0], want[0])
+def compare_flash_fwd(name: str, out, want, losts: dict | None = None) -> float:
+    """K2's forward (o, lse) against its plain version: o block by block
+    (`losts`: lossy o's that must fail it), lse absolutely. Returns the
+    largest absolute error."""
+    err = compare_tiles(name + " o", out[0], want[0], losts=losts)
     lse_err = (out[1] - want[1]).abs().max().item()
     print(f"  {name} lse: max_abs_err={lse_err:.3e} limit {LSE_ATOL} "
           f"{'OK' if lse_err <= LSE_ATOL else 'FAIL'}")
@@ -545,7 +581,8 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
                   only: str = "") -> dict:
     """Phase 3: every kernel vs its plain version at the paths' shapes
     (`only` "quantized": K6-K8 alone; "speculative": the int8 rows' bit
-    check, K9 and K4's verify form alone; "lora": K4-LoRA alone)."""
+    check, K9 and K4's verify form alone; "lora": K4-LoRA alone; "mpt":
+    K2-bias and K3-ALiBi alone)."""
     from tokenpacker_tpu_torch.config import preset_config
     from tokenpacker_tpu_torch.io.weights import init_lm_on_device, quantize_lm_int8
 
@@ -571,6 +608,10 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
 
     print("phase 3: kernels vs plain versions (bf16; times: the median of 3 runs of back-to-back "
           "calls between one CUDA event pair, K6 and K7 a CUDA graph of 20 launches)")
+    if only in ("", "mpt"):
+        rows.update(mpt_kernel_cases(device, case, hd_lengths, span))
+    if only == "mpt":
+        return rows
     if only == "quantized":
         return {name: first_and_worst(cases)
                 for name, cases in quantized_kernel_cases(device, case).items()}
@@ -962,17 +1003,33 @@ def tower_blocks(cfg) -> int:
     return max(vc.num_hidden_layers + 1 + vc.select_layer, *vc.multi_layers)
 
 
+def counter(c) -> tuple:
+    """(wrapper, attribute) of a launch counter: a kernel wrapper counts on
+    `launches`, and a kernel form of its own on another attribute
+    (`flash_attention.bias_launches`, ...)."""
+    return c if isinstance(c, tuple) else (c, "launches")
+
+
+def reset_counts(counters: dict) -> None:
+    for c in counters.values():
+        setattr(*counter(c), 0)
+
+
+def read_counts(counters: dict) -> dict:
+    return {k: getattr(*counter(c)) for k, c in counters.items()}
+
+
 def check_generation(name, gen, batch, cfg, want: dict, counters: dict) -> dict:
     """Two identical greedy calls: launch counts of the first against
-    `want`, tokens in the vocabulary, finite logits, identical tokens.
-    Prints TTFT, decode rate and peak memory of the second."""
+    `want` (`counters`: {name: wrapper or (wrapper, attribute)}), tokens in
+    the vocabulary, finite logits, identical tokens. Prints TTFT, decode
+    rate and peak memory of the second."""
     n, l = batch["token_ids"].shape
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts(counters)
     torch.cuda.reset_peak_memory_stats()
     first = gen.generate(batch, max_new_tokens=NEW_TOKENS, temperature=0.0)
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = read_counts(counters)
     peak = torch.cuda.max_memory_allocated()
     print(f"  launches {launches}, expected {want} (1 tower pass, 1 prefill, "
           f"{first.stats['decode_steps']} decode steps)")
@@ -1405,15 +1462,30 @@ def phase_train_parity(device, seed: int) -> None:
     weights and batch; then the card's step with K2's backward losing dq,
     or dk and dv, which the bands must fail."""
     from tokenpacker_tpu_torch.config import TokenPackerVLMConfig
-    from tokenpacker_tpu_torch.data.dataset import SupervisedDataset, collate
-    from tokenpacker_tpu_torch.io.weights import init_vlm_on_device, params_to
-    from tokenpacker_tpu_torch.models.vlm import vlm_loss
     from tokenpacker_tpu_torch.ops.flash_attention import flash_attention_bwd
-    from tokenpacker_tpu_torch.train.step import TrainConfig, leaves_with_paths, make_optimizer
-    from tokenpacker_tpu_torch.train.trainer import device_train_batch
 
     full = TokenPackerVLMConfig()
     cfg = dataclasses.replace(full, lm=dataclasses.replace(full.lm, num_hidden_layers=2))
+    stage2_parity("phase 9", cfg, device, seed, ("dq", "dk, dv"),
+                  (flash_attention_bwd, "launches"), r"lm\.layers\.\d+\.attn\.[qkvo]\.kernel", 8)
+
+
+def stage2_parity(tag: str, cfg, device, seed: int, lossy: tuple, bwd_counter: tuple,
+                  attn_pattern: str, n_attn: int) -> None:
+    """One stage-2 step of `cfg` (2 LM layers) on the card and on the CPU
+    from the same weights and batch: the loss within LOSS_BAND and every
+    trained leaf's gradient within its group's band; the card's step with
+    K2's backward made lossy in each way of `lossy` (`lossy_flash_bwd`)
+    must fail the bands. `bwd_counter`: the (wrapper, attribute) that
+    counts the card step's K2 backward launches, one a layer;
+    `attn_pattern`: the attention projections' leaf names (n_attn of
+    them), printed one by one."""
+    from tokenpacker_tpu_torch.data.dataset import SupervisedDataset, collate
+    from tokenpacker_tpu_torch.io.weights import init_vlm_on_device, params_to
+    from tokenpacker_tpu_torch.models.vlm import vlm_loss
+    from tokenpacker_tpu_torch.train.step import TrainConfig, leaves_with_paths, make_optimizer
+    from tokenpacker_tpu_torch.train.trainer import device_train_batch
+
     params = init_vlm_on_device(cfg, seed=seed + 2, device=device, dtype=torch.bfloat16)
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     cpu_params = params_to(params, "cpu", torch.float32)
@@ -1449,31 +1521,30 @@ def phase_train_parity(device, seed: int) -> None:
         return kinds
 
     def beyond(rel):
-        """The leaves outside their group's band."""
+        """The leaves outside their group's band (a non-finite reading is)."""
         return [k for k, r in rel.items() if not r <= GRAD_REL_RMS_BANDS[k.split(".")[0]]]
 
     t0 = time.perf_counter()
     cl, cpu_grads = step(cpu_params, cpu_cfg, "cpu")
-    # the band's power: the card's step with K2's backward losing dq, or
-    # dk and dv, must fail it
+    # the band's power: the card's step with a lossy K2 backward must fail it
     lost = {}
-    for which in ("dq", "dk, dv"):
+    for which in lossy:
         with lossy_flash_bwd(which):
             lost[which] = leaf_rel_rms(step(params, cfg, device, update=False)[1], cpu_grads)
-    flash_attention_bwd.launches = 0
+    setattr(*bwd_counter, 0)
     gl, gpu_grads = step(params, cfg, device)
     torch.cuda.synchronize()
-    if flash_attention_bwd.launches != 2:
-        raise AssertionError(f"phase 9: {flash_attention_bwd.launches} K2-bwd launches on "
-                             "the card, expected 2")
+    if getattr(*bwd_counter) != 2:
+        raise AssertionError(f"{tag}: {getattr(*bwd_counter)} K2-bwd launches on the card, "
+                             "expected 2")
     rel = leaf_rel_rms(gpu_grads, cpu_grads)
     worst = {g: max((k for k in rel if k.startswith(g + ".")), key=rel.get)
              for g in GRAD_REL_RMS_BANDS}
     loss_rel = abs(gl - cl) / abs(cl)
-    attn = [k for k in rel if re.fullmatch(r"lm\.layers\.\d+\.attn\.[qkvo]\.kernel", k)]
-    if len(attn) != 8:
-        raise AssertionError(f"phase 9: attention projection leaves {attn}, expected 2 x q/k/v/o")
-    print(f"phase 9: full widths, 2 LM layers, 2 records padded to 256, one stage-2 step: card bf16 "
+    attn = [k for k in rel if re.fullmatch(attn_pattern, k)]
+    if len(attn) != n_attn:
+        raise AssertionError(f"{tag}: attention projection leaves {attn}, expected {n_attn}")
+    print(f"{tag}: full widths, 2 LM layers, 2 records padded to 256, one stage-2 step: card bf16 "
           f"vs CPU fp32 ({time.perf_counter() - t0:.1f} s): loss {gl:.5f} vs {cl:.5f} (relative "
           f"{loss_rel:.2e}, band {LOSS_BAND}); gradient relative RMS difference of {len(rel)} "
           f"leaves, worst " + ", ".join(f"{k} {rel[k]:.4f} (band {GRAD_REL_RMS_BANDS[g]})"
@@ -1481,20 +1552,29 @@ def phase_train_parity(device, seed: int) -> None:
     print("  worst 12 leaf kinds: " + ", ".join(
         f"{k} {r:.4f}" for k, r in sorted(by_kind(rel).items(), key=lambda x: -x[1])[:12]))
     print("  attention projections: " + ", ".join(f"{k} {rel[k]:.4f}" for k in attn))
+    # the worst-conditioned leaf held against its own size: the smallest
+    # gradient of the projector's, whose rounding noise its reading amplifies
+    proj_norm = sum(w.square().sum() for k, w in cpu_grads.items()
+                    if k.startswith("projector.")) ** 0.5
+    small = min((k for k in cpu_grads if k.startswith("projector.") and k not in ZERO_GRAD_LEAVES),
+                key=lambda k: cpu_grads[k].norm())
+    print(f"  smallest projector gradient held against its own size: {small}, "
+          f"{float(cpu_grads[small].norm() / proj_norm):.2e} of the projector's, reads "
+          f"{rel[small]:.4f}")
     for which, r in lost.items():
-        w = max(r, key=r.get)
+        w = max(r, key=lambda k: r[k] if r[k] == r[k] else np.inf)
         print(f"  K2-bwd losing {which}: {len(beyond(r))} leaves outside their band, worst {w} "
               f"{r[w]:.4f}; attention projections "
               + ", ".join(f"{k} {r[k]:.4f}" for k in attn)
               + f"; projector worst {max(v for k, v in r.items() if k.startswith('projector')):.4f}")
     if not loss_rel <= LOSS_BAND:
-        raise AssertionError(f"phase 9: card vs CPU loss differ by {loss_rel} > {LOSS_BAND}")
+        raise AssertionError(f"{tag}: card vs CPU loss differ by {loss_rel} > {LOSS_BAND}")
     if beyond(rel):
-        raise AssertionError(f"phase 9: gradients outside their band: "
+        raise AssertionError(f"{tag}: gradients outside their band: "
                              + ", ".join(f"{k} {rel[k]}" for k in beyond(rel)))
     for which, r in lost.items():
         if not beyond(r):
-            raise AssertionError(f"phase 9: the bands do not see K2-bwd losing {which}")
+            raise AssertionError(f"{tag}: the bands do not see K2-bwd losing {which}")
     del params, cpu_params, cpu_grads, gpu_grads
     torch.cuda.empty_cache()
 
@@ -1569,19 +1649,23 @@ def lossy_w8a8_products():
 @contextlib.contextmanager
 def lossy_flash_bwd(which: str):
     """Within the block, K2's backward returns zeros for dq ("dq") or for
-    dk and dv ("dk, dv"), as a kernel that loses those outputs would:
-    phase 9 shows that its band fails such a kernel."""
+    dk and dv ("dk, dv"), as a kernel that loses those outputs would, or
+    ("the bias") recomputes P without the key-only bias: phases 9 and 23
+    show that their bands fail such a kernel."""
     from tokenpacker_tpu_torch.ops import flash_attention as k2
 
     kernel = k2.flash_attention_bwd
 
     def lossy(*args):
+        if which == "the bias":
+            return kernel(*args[:7])  # q, k, v, o, lse, do, causal
         dq, dk, dv = kernel(*args)
         if which == "dq":
             return torch.zeros_like(dq), dk, dv
         return dq, torch.zeros_like(dk), torch.zeros_like(dv)
 
-    lossy.launches = 0  # the kernel counts its launches on the name it is bound to
+    # the kernel counts its launches on the name it is bound to
+    lossy.launches = lossy.bias_launches = 0
     k2.flash_attention_bwd = lossy
     try:
         yield
@@ -2336,15 +2420,16 @@ def verify_kernel_cases(device, lc, layers, hd_lengths: np.ndarray, s_hd: int,
     return out[True]
 
 
-def plain_reference(params, cfg, batch, device) -> tuple[list, list]:
+def plain_reference(params, cfg, batch, device, kv_cache_dtype=torch.int8) -> tuple[list, list]:
     """Phase 6's plain run of the HD requests, recorded: a batched prefill
-    (the per-op tower) and K4 decode steps, NEW_TOKENS greedy tokens. Per
-    request its tokens and the top-2 margin of the logits behind each."""
+    (the per-op tower) and decode steps (K4 on an int8 tree, else per
+    layer), NEW_TOKENS greedy tokens. Per request its tokens and the top-2
+    margin of the logits behind each."""
     from tokenpacker_tpu_torch.generate import decode_step, device_batch, fused_weights, prefill
 
     n, l = batch["token_ids"].shape
     dev = device_batch(batch, torch.bfloat16, device)
-    logits, cache = prefill(params, cfg, dev, l + NEW_TOKENS, torch.int8)
+    logits, cache = prefill(params, cfg, dev, l + NEW_TOKENS, kv_cache_dtype)
     fused = fused_weights(params, cfg)
     toks, margins = [], []
     for step in range(NEW_TOKENS):
@@ -3267,6 +3352,450 @@ def phase_lora_parity(device, seed: int) -> None:
     torch.cuda.empty_cache()
 
 
+# ---- MPT: K2's key-only bias, K3's slopes, cells I and J ---------------------------
+
+MPT_TRAIN_BATCH, MPT_TRAIN_STEPS = 4, 3  # phase 22: batch 4 padded to TRAIN_SEQ, no remat
+
+
+def release_earlier_phases() -> None:
+    """Free what earlier phases left in reference cycles (a batcher and the
+    futures whose token callbacks hold it), so that a phase's peak memory
+    is its own."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mpt_vlm_config(n_layers: int | None = None, hd: bool = True):
+    """MPT-7B (`models/mpt.mpt_config`) behind the CLIP tower and the
+    projector (s=2): in the HD-7b geometry (patch_num 9, slice mode) for
+    serving, in TokenPacker-7b's (pad mode) for training; `n_layers` cuts
+    the depth."""
+    from tokenpacker_tpu_torch.config import TokenPackerVLMConfig, preset_config
+    from tokenpacker_tpu_torch.models.mpt import mpt_config
+
+    lm = mpt_config() if n_layers is None else mpt_config(n_layers=n_layers)
+    base = preset_config(HD_PRESET) if hd else TokenPackerVLMConfig()
+    return dataclasses.replace(base, lm=lm)
+
+
+def mpt_counters() -> dict:
+    """Phases 20-23's launch counters: MPT's kernel forms, and the forms it
+    must not launch."""
+    from tokenpacker_tpu_torch.ops.decode_attention import decode_attention
+    from tokenpacker_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from tokenpacker_tpu_torch.ops.fused_decode import fused_decode_hidden
+    from tokenpacker_tpu_torch.ops.paged_attention import paged_attention
+    from tokenpacker_tpu_torch.ops.vit_attention import vit_attention
+
+    return {"vit_attention": vit_attention,
+            "flash_attention_bias": (flash_attention, "bias_launches"),
+            "flash_attention_bias_bwd": (flash_attention_bwd, "bias_launches"),
+            "decode_attention_alibi": (decode_attention, "alibi_launches"),
+            "flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
+            "decode_attention": decode_attention, "fused_decode": fused_decode_hidden,
+            "paged_attention": paged_attention}
+
+
+def bwd_bias_by_query(q, k, v, o, lse, do, bias):
+    """A lossy K2-bias backward (fp32, MHA, Tq == Tk, causal, one sample at a
+    time): dq as it should be, dk and dv from P rebuilt with the bias indexed
+    by the query instead of the key, as a dk/dv kernel that reads the wrong
+    axis would give them."""
+    from tokenpacker_tpu_torch.ops.flash_attention import flash_attention_bwd_plain, key_bias_rows
+
+    n, t, h, d = q.shape
+    rows = key_bias_rows(bias, h, t)
+    above = torch.ones(t, t, dtype=torch.bool, device=q.device).triu(1)
+    out = []
+    for i in range(n):
+        sl = slice(i, i + 1)
+        dq = flash_attention_bwd_plain(q[sl], k[sl], v[sl], o[sl], lse[i * h:(i + 1) * h], do[sl],
+                                       True, bias)[0]
+        qf, kf, vf, dof = (x[i].float() for x in (q, k, v, do))
+        s = torch.einsum("qhd,khd->hqk", qf, kf) * d**-0.5 + rows[:, :, None]
+        p = torch.exp(s - lse[i * h:(i + 1) * h, :, None]).masked_fill(above, 0.0)
+        del s
+        ds = p * (torch.einsum("qhd,khd->hqk", dof, vf)
+                  - (dof * o[i].float()).sum(-1).T[:, :, None])
+        dk = torch.einsum("hqk,qhd->khd", ds, qf) * d**-0.5
+        dv = torch.einsum("hqk,qhd->khd", p, dof)
+        del p, ds
+        out.append((dq[0], dk.to(k.dtype), dv.to(v.dtype)))
+    return tuple(torch.stack(x) for x in zip(*out))
+
+
+def decode_alibi_slots(q, ck, cv, lengths, needed, span_start, slopes):
+    """A lossy K3-ALiBi (fp32): the slopes times the keys' cache slot
+    indices, where the decoded span's keys sit at compacted token
+    positions."""
+    n, h, d = q.shape
+    s = ck.shape[1]
+    logits = torch.einsum("nhd,nshd->nhs", q.float(), ck.float()) * d**-0.5
+    kpos = torch.arange(s, device=q.device)[None, :]
+    valid = (kpos < needed[:, None]) & ((kpos < lengths[:, None]) | (kpos >= span_start))
+    logits = logits + slopes[None, :, None] * kpos[:, None, :].float()
+    probs = torch.softmax(logits.masked_fill(~valid[:, None], float("-inf")), -1).to(q.dtype)
+    return torch.einsum("nhs,nshd->nhd", probs, cv)
+
+
+def mpt_kernel_cases(device, case, hd_lengths: np.ndarray, span: tuple[int, int]) -> dict:
+    """Phase 3's MPT rows. K2-bias forward at the serving shape [1, 2048,
+    32, 128] and the training shape [4, 2048, 32, 128], causal, MPT-7B's
+    ALiBi: o per (sample, 64 positions, head) block, failing the kernel run
+    without the bias and the plain version with the last head's slopes
+    zeroed. K2-bias backward at the training shape: dq, dk, dv per block,
+    two calls bit-equal, failing the kernel without the bias in its
+    recompute and dk/dv with the bias indexed by query. K3-ALiBi at [4, 32,
+    128], the HD requests' lengths, S = 2080 and phase 20's last decode step
+    (the decoded span after the bucket): per (sample, head) row, failing the
+    plain version with the keys at their slot indices and the one without
+    slopes. The library column: one scaled_dot_product_attention call with
+    the causal + ALiBi mask materialised as a bf16 `attn_mask` outside the
+    timed region (K2-bias backward: that call's backward alone)."""
+    from tokenpacker_tpu_torch.models.mpt import alibi_bias, alibi_slopes
+    from tokenpacker_tpu_torch.ops import decode_attention as k3
+    from tokenpacker_tpu_torch.ops import flash_attention as k2
+
+    h, d, t = 32, 128, TRAIN_SEQ
+    bias = alibi_bias(h, t, device)
+    # SDPA's float mask, [1, H, T, T]: ALiBi where a key is visible, -inf above
+    above = torch.ones(t, t, dtype=torch.bool, device=device).triu(1)
+    mask = bias.expand(1, h, t, t).masked_fill(above, float("-inf")).to(torch.bfloat16)
+    zeroed = bias.clone()
+    zeroed[:, -1] = 0
+    rows = {}
+    for n in (1, MPT_TRAIN_BATCH):
+        q, k, v = (bf16((n, t, h, d), 60 + i, device) for i in range(3))
+        pairs = n * h * t * (t + 1) / 2
+        elems = n * t * h * d
+
+        def check(name, out, want, q=q, k=k, v=v):
+            return compare_flash_fwd(name, out, want, losts={
+                "without the bias": k2.flash_attention(q, k, v, True)[0],
+                "the plain version with the last head's slopes zeroed":
+                    k2.flash_attention_plain(q, k, v, True, zeroed)[0]})
+
+        rows[n] = case(
+            f"K2-bias flash causal q[{n},{t},{h},{d}], MPT-7B ALiBi",
+            lambda *a: k2.flash_attention(*a, True, bias),
+            lambda *a: k2.flash_attention_plain(*a, True, bias), (q, k, v), check=check,
+            library=lambda q=q, k=k, v=v: sdpa(q, k, v, attn_mask=mask),
+            work=(4 * elems * 2 + n * h * t * 4 + h * t * 4, 4 * d * pairs))
+        del q, k, v
+        torch.cuda.empty_cache()
+    out = {"flash_attention_bias": rows[1], "flash_attention_bias_train": rows[MPT_TRAIN_BATCH]}
+    out["flash_attention_bias"]["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
+
+    # the backward at the training shape
+    n = MPT_TRAIN_BATCH
+    q, k, v, do = (bf16((n, t, h, d), 70 + i, device) for i in range(4))
+    pairs, elems = n * h * t * (t + 1) / 2, n * t * h * d
+    o, lse = k2.flash_attention(q, k, v, True, bias)
+
+    def kernel():
+        return k2.flash_attention_bwd(q, k, v, o, lse, do, True, bias)
+
+    def plain():
+        parts = [k2.flash_attention_bwd_plain(q[i:i + 1], k[i:i + 1], v[i:i + 1], o[i:i + 1],
+                                              lse[i * h:(i + 1) * h], do[i:i + 1], True, bias)
+                 for i in range(n)]
+        return tuple(torch.cat(x) for x in zip(*parts))
+
+    tag = f"K2-bias-bwd flash causal q[{n},{t},{h},{d}], MPT-7B ALiBi"
+    got, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{tag}: two identical calls differ")
+    want = plain()
+    err = max(compare_tiles(f"{tag} {name}", g, w)
+              for g, w, name in zip(got, want, ("dq", "dk", "dv")))
+    lossy = {"without the bias in the recompute": k2.flash_attention_bwd(q, k, v, o, lse, do, True),
+             "with dk/dv reading the bias by query": bwd_bias_by_query(q, k, v, o, lse, do, bias)}
+    for what, outs in lossy.items():
+        reads = [tile_rel_rms(g, w).max().item() for g, w in zip(outs, want)]
+        print(f"  {tag} {what}: dq, dk, dv read {[round(r, 4) for r in reads]}")
+        if all(r <= TILE_REL_RMS for r in reads):
+            raise AssertionError(f"{tag}: the block measure does not see a backward {what}")
+    del got, again, want, lossy
+    print(f"  {tag}: two calls identical")
+    ql, kl, vl = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    sd_out = torch.nn.functional.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+    dol = do.transpose(1, 2)
+    ms, plain_ms = time_ms(kernel), time_ms(plain, iters=3, warmup=1)
+    lib_ms = time_ms(lambda: torch.autograd.grad(sd_out, (ql, kl, vl), dol, retain_graph=True))
+    b_ms, b_by = bound(8 * elems * 2 + n * h * t * 4 + h * t * 4, 5 * 2 * d * pairs)
+    print(f"  {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({n} samples one by one), library "
+          f"{lib_ms:.4f} ms (SDPA backward alone, float mask), bound {b_ms:.4f} ms ({b_by})")
+    out["flash_attention_bias_bwd"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                       "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+    del q, k, v, do, o, lse, ql, kl, vl, sd_out, mask
+    torch.cuda.empty_cache()
+
+    # K3-ALiBi at phase 20's last decode step
+    n, l = len(hd_lengths), span[0]
+    s = -(-(l + NEW_TOKENS) // 8) * 8  # generate.prefill's bf16 cache length
+    lengths = torch.as_tensor(hd_lengths, dtype=torch.int32, device=device)
+    needed = torch.full((n,), span[1] + 1, dtype=torch.int32, device=device)
+    q = bf16((n, h, d), 80, device)
+    ck, cv = bf16((n, s, h, d), 81, device), bf16((n, s, h, d), 82, device)
+    slopes = alibi_slopes(h, device=device)
+    kpos = torch.arange(s, device=device)[None, :]
+    valid = (kpos < needed[:, None]) & ((kpos < lengths[:, None]) | (kpos >= l))
+    keys = int(valid.sum())
+    tok_pos = torch.where(kpos >= l, kpos - l + lengths[:, None], kpos).float()
+    dmask = (slopes[None, :, None] * tok_pos[:, None, :]).masked_fill(
+        ~valid[:, None, :], float("-inf"))[:, :, None, :].to(torch.bfloat16)  # [N, H, 1, S]
+    args = (q, ck, cv, lengths, needed, l, slopes)
+
+    def check_rows(name, got, want):
+        err = compare_rows(name, got, want, decode_alibi_slots(*args),
+                           "compacted token positions (keys at their slot indices)")
+        without = row_rel_rms(k3.decode_attention_plain(*args[:6]), want).max().item()
+        print(f"  {name}: the plain version without slopes reads {without:.4f}")
+        if without <= TILE_REL_RMS:
+            raise AssertionError(f"{name}: the row measure does not see the slopes lost")
+        return err
+
+    out["decode_attention_alibi"] = case(
+        f"K3-ALiBi decode q[{n},{h},{d}] cache S={s} span_start={l}, HD lengths "
+        f"{hd_lengths.tolist()}", k3.decode_attention, k3.decode_attention_plain, args,
+        library=lambda: sdpa(q[:, None], ck, cv, attn_mask=dmask),
+        work=(2 * keys * h * d * 2 + 2 * n * h * d * 2 + 2 * n * 4 + h * 4, 4 * keys * h * d),
+        check=check_rows)
+    del q, ck, cv, dmask
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mpt_serving(device, seed: int) -> dict:
+    """Phase 20 (cell I): MPT-7B in the HD-7b geometry (`mpt_vlm_config`),
+    bf16 weights and cache, random weights from the seed. `Generator`
+    answers phase 6's 4 HD requests (`make_hd_requests`) with 32 greedy
+    tokens: K2-bias 32 times a prefill, K3-ALiBi 32 times a decode step, K1
+    23 times a tower pass, no other attention kernel. Then the dense
+    `ContinuousBatcher` in G's settings (4 slots, S = 2080, chunks of 256,
+    speculative_k = 4) serves 6 requests (the 4, a repeat of the 3x3, one
+    cancelled after its 4th token): chunks and verify rounds through
+    `sdpa` with ALiBi, K3-ALiBi 32 times a plain step; its greedy tokens
+    equal the batched run's up to the first near-tie."""
+    from tokenpacker_tpu_torch.generate import Generator
+    from tokenpacker_tpu_torch.io.weights import init_vlm_on_device
+    from tokenpacker_tpu_torch.serve import scheduler as sched
+
+    release_earlier_phases()
+    cfg = mpt_vlm_config()
+    t0 = time.perf_counter()
+    params = init_vlm_on_device(cfg, seed=seed, device=device, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    batch, blocks = make_hd_requests(cfg, seed)
+    n, l = batch["token_ids"].shape
+    longest = int(batch["lengths"].max())
+    print(f"phase 20 (I): MPT-7B (d 4096, 32 heads of 128, 32 layers, vocab 50432, ALiBi) behind "
+          f"{HD_PRESET}'s tower and projector, bf16 weights and cache, random weights from seed "
+          f"{seed} in {time.perf_counter() - t0:.2f} s")
+    print(f"  requests: {n}, grids {blocks}, crops {batch['images'].shape[0]}, spliced lengths "
+          f"{batch['lengths'].tolist()}, bucket {l}")
+    if longest + NEW_TOKENS > cfg.lm.max_position_embeddings:
+        raise AssertionError(f"phase 20: {longest} + {NEW_TOKENS} positions exceed MPT-7B's "
+                             f"max_seq_len {cfg.lm.max_position_embeddings}")
+    depth = cfg.lm.num_hidden_layers
+    counters = mpt_counters()
+    want = {name: 0 for name in counters}
+    want.update(vit_attention=tower_blocks(cfg), flash_attention_bias=depth,
+                decode_attention_alibi=depth * (NEW_TOKENS - 1))
+    launches = check_generation("phase 20", Generator(params, cfg), batch, cfg, want, counters)
+    ref_tokens, ref_margins = plain_reference(params, cfg, batch, device, torch.bfloat16)
+
+    reqs = paged_requests(cfg, seed)
+    reqs = reqs[:4] + [reqs[0], reqs[-1]]
+    batcher = sched.ContinuousBatcher(
+        params, cfg, num_slots=SPEC_SLOTS, max_seq_len=SPEC_SEQ, prefill_chunk_size=256,
+        speculative_k=SPEC_K, device=device)
+    submitted, first_at, futs = {}, {}, []
+
+    def on_token(i):
+        def hook(tok):
+            first_at.setdefault(i, time.perf_counter())
+            if i == len(reqs) - 1 and len(futs[i]._tp_request.tokens) == CANCEL_AFTER:
+                batcher.cancel(futs[i])
+        return hook
+
+    reset_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    batcher.start()
+    try:
+        t0 = time.perf_counter()
+        for i, r in enumerate(reqs):
+            submitted[i] = time.perf_counter()
+            futs.append(batcher.submit(r, max_new_tokens=NEW_TOKENS, on_token=on_token(i)))
+        tokens = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    finally:
+        batcher.stop()
+    served = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    st = batcher.stats
+    steps, rounds = st["decode_steps"], st["verify_rounds"]
+    latency = [first_at[i] - submitted[i] for i in range(len(reqs))]
+    n_tok = sum(map(len, tokens))
+    print(f"  ContinuousBatcher: {SPEC_SLOTS} slots, max_seq_len {SPEC_SEQ}, chunks of 256, "
+          f"speculative_k {SPEC_K}; {len(reqs)} requests, lengths "
+          f"{[int(r['lengths'][0]) for r in reqs]}, the last cancelled after its {CANCEL_AFTER}th "
+          f"token: served in {wall:.3f} s (host clock), tokens per request "
+          f"{[len(t) for t in tokens]}, {n_tok / wall:.2f} tok/s over the run; admission latency "
+          f"(submit -> first token) {[round(x * 1e3, 2) for x in latency]} ms; peak memory "
+          f"{peak / 2**30:.3f} GiB")
+    print(f"  {rounds} verify rounds emitted {st['verify_tokens']} tokens "
+          f"({st['verify_tokens'] / max(rounds, 1):.3f} a round), "
+          f"{st['verify_s'] / max(rounds, 1) * 1e3:.3f} ms a round; {steps} plain steps, "
+          f"{st['decode_s'] / max(steps, 1) * 1e3:.3f} ms a step; launches {served}")
+    want = {name: 0 for name in counters}
+    # chunked admissions (sdpa) with one tower pass each; verify rounds (sdpa)
+    want.update(decode_attention_alibi=depth * steps, vit_attention=tower_blocks(cfg) * len(reqs))
+    if served != want:
+        raise AssertionError(f"phase 20: batcher launch counts {served} != {want}")
+    leftover = ([s for s in batcher.slots if s is not None], batcher.lengths.any(),
+                batcher._pending, batcher.queue.qsize())
+    if leftover != ([], False, None, 0):
+        raise AssertionError(f"phase 20: the batcher holds state after the run: {leftover}")
+    if not 0 < len(tokens[-1]) < NEW_TOKENS:
+        raise AssertionError(f"phase 20: the cancelled request got {len(tokens[-1])} tokens")
+    agree = [decisive_agree(f"phase 20 request {i}", tokens[i], ref_tokens[j], ref_margins[j])
+             for i, j in ((0, 0), (1, 1), (2, 2), (3, 3), (4, 0))]
+    print(f"  batcher tokens equal to the Generator's batched run for the first {agree} of "
+          f"{NEW_TOKENS} (per request; the 5th is the repeat); reference margins at the first "
+          f"difference within the band {LOGIT_BAND}")
+    del params, batcher
+    torch.cuda.empty_cache()
+    return {k: launches.get(k, 0) + served.get(k, 0) for k in counters}
+
+
+def phase_mpt_parity(device, seed: int) -> None:
+    """Phase 21: full widths at 2 MPT layers, phase 20's geometry: prefill
+    and 4 decode steps on the card (bf16, K2-bias and K3-ALiBi) against the
+    CPU (fp32, plain versions) from the same weights, both fed the CPU's
+    greedy tokens, every step within LOGIT_BAND."""
+    from tokenpacker_tpu_torch.generate import decode_step, device_batch, prefill
+    from tokenpacker_tpu_torch.io.weights import init_vlm_on_device, params_to
+
+    cfg = mpt_vlm_config(n_layers=2)
+    params = init_vlm_on_device(cfg, seed=seed, device=device, dtype=torch.bfloat16)
+    batch, blocks = make_hd_requests(cfg, seed + 1, sizes=((672, 336), (336, 336)),
+                                     text_lens=(40, 70))
+    l = batch["token_ids"].shape[1]
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    sides = {"gpu": (params, cfg, device_batch(batch, torch.bfloat16, device)),
+             "cpu": (params_to(params, "cpu", torch.float32), cpu_cfg,
+                     device_batch(batch, torch.float32, "cpu"))}
+    counters = mpt_counters()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    state = {k: prefill(p, c, b, l + 8) for k, (p, c, b) in sides.items()}
+    results = []
+    for step in range(5):
+        gpu_logits, cpu_logits = state["gpu"][0].float().cpu(), state["cpu"][0].float()
+        results.append(band_check(f"phase 21 step {step}", gpu_logits, cpu_logits))
+        if step == 4:
+            break
+        tok = cpu_logits.argmax(-1)
+        for k, (p, c, b) in sides.items():
+            state[k] = decode_step(p, c, state[k][1], tok.to(b["lengths"].device), b["lengths"],
+                                   step, l)
+    launches = read_counts(counters)
+    if (launches["flash_attention_bias"], launches["decode_attention_alibi"]) != (2, 8):
+        raise AssertionError(f"phase 21: launches on the card {launches}, expected 2 K2-bias and "
+                             "8 K3-ALiBi")
+    print(f"phase 21: full widths, 2 MPT layers, bf16 cache, 2 HD requests (grids {blocks}): card "
+          f"bf16 (K2-bias, K3-ALiBi) vs CPU fp32 (plain versions), prefill + 4 decode steps "
+          f"({time.perf_counter() - t0:.1f} s) max|dlogit| per step "
+          f"{[round(r[0], 4) for r in results]} band={LOGIT_BAND}; top-1 margins "
+          f"{[[round(m, 4) for m in r[1]] for r in results]}, top-1 agree "
+          f"{[r[2] for r in results]}")
+    del params, state, sides
+    torch.cuda.empty_cache()
+
+
+def phase_mpt_train(device, seed: int) -> dict:
+    """Phase 22 (cell J): stage 1 of the MPT model (`mpt_vlm_config(hd=
+    False)`: C's tower and projector, MPT-7B) through `Trainer.train()`,
+    C's synthetic dataset, batch 4 padded to 2048, no remat (MPT has
+    none), 3 steps. Checks: finite losses; tower and LM bitwise frozen;
+    the projector changed after step 3; per step K1 23, K2-bias forward 32
+    and K2-bias backward 32, no other attention kernel."""
+    from tokenpacker_tpu_torch.data.dataset import SupervisedDataset
+    from tokenpacker_tpu_torch.io.weights import init_vlm_on_device
+    from tokenpacker_tpu_torch.train.step import TrainConfig
+    from tokenpacker_tpu_torch.train.trainer import RunConfig, Trainer
+
+    release_earlier_phases()
+    cfg = mpt_vlm_config(hd=False)
+    t0 = time.perf_counter()
+    params = init_vlm_on_device(cfg, seed=seed, device=device, dtype=torch.bfloat16)
+    frozen = {part: fingerprints(params[part]) for part in ("vision", "lm")}
+    projector0 = fingerprints(params["projector"])
+    torch.cuda.synchronize()
+    print(f"phase 22 (J): stage 1 of MPT-7B behind TokenPacker-7b's tower and projector through "
+          f"Trainer.train(), random bf16 weights from seed {seed} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    counters = mpt_counters()
+    depth = cfg.lm.num_hidden_layers
+    per_step = {name: 0 for name in counters}
+    per_step.update(vit_attention=tower_blocks(cfg), flash_attention_bias=depth,
+                    flash_attention_bias_bwd=depth)
+    records = MPT_TRAIN_BATCH * MPT_TRAIN_STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        tok = WordTokenizer()
+        ds = SupervisedDataset(str(write_caption_dataset(root, records, seed)), tok,
+                               image_folder=str(root), version="plain",
+                               image_size=cfg.vision.image_size)
+        rcfg = RunConfig(output_dir=str(root / "out"), per_device_batch_size=MPT_TRAIN_BATCH,
+                         seq_pad_to=TRAIN_SEQ, save_steps=100, seed=seed)
+        trainer = Trainer(cfg, TrainConfig(stage="pretrain", learning_rate=1e-3), rcfg, params,
+                          ds, tok)
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    want = {k: MPT_TRAIN_STEPS * v for k, v in per_step.items()}
+    print(f"  {records} records, batch {MPT_TRAIN_BATCH} padded to {TRAIN_SEQ}, no remat, "
+          f"{MPT_TRAIN_STEPS} steps in {wall:.2f} s (checkpoint write included); launches "
+          f"{launches}")
+    if launches != want:
+        raise AssertionError(f"phase 22: kernel launch counts {launches} != {want}")
+    for r in trainer.history:
+        print(f"  step {r['step']}: loss {r['loss']:.4f}, {r['seconds'] * 1e3:.1f} ms, "
+              f"{r['valid_tokens']} valid / {r['padded_tokens']} padded tokens = "
+              f"{r['valid_tokens'] / r['seconds']:.1f} / {r['padded_tokens'] / r['seconds']:.1f} "
+              f"tok/s, grad_norm {r['grad_norm']:.4f}, peak {r['peak_bytes'] / 2**30:.3f} GiB")
+    if not all(np.isfinite(r["loss"]) for r in trainer.history):
+        raise AssertionError("phase 22: a non-finite loss")
+    for part, before in frozen.items():
+        if fingerprints(params[part]) != before:
+            raise AssertionError(f"phase 22: the frozen {part} tensors changed")
+    if fingerprints(params["projector"]) == projector0:
+        raise AssertionError(f"phase 22: the projector did not change in {MPT_TRAIN_STEPS} steps")
+    print(f"  frozen tower and LM bitwise unchanged; projector changed after step "
+          f"{MPT_TRAIN_STEPS}")
+    del params, trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_mpt_train_parity(device, seed: int) -> None:
+    """Phase 23: full widths at 2 MPT layers (phase 22's geometry), one
+    stage-2 step on the card against the CPU within phase 9's bands; the
+    same step with K2-bias's backward dropping the bias must fail them."""
+    from tokenpacker_tpu_torch.ops.flash_attention import flash_attention_bwd
+
+    stage2_parity("phase 23", mpt_vlm_config(n_layers=2, hd=False), device, seed, ("the bias",),
+                  (flash_attention_bwd, "bias_launches"),
+                  r"lm\.layers\.\d+\.attn\.(wqkv|out)\.kernel", 4)
+
+
 def device_kernels(prof):
     """(name, device ms, count) of every device-side event of a trace
     (kernels, copies); CPU ops also carry the device time they launched."""
@@ -3489,10 +4018,19 @@ def main() -> None:
     quantized = "--quantized" in sys.argv[1:]
     speculative = "--speculative" in sys.argv[1:]
     lora = "--lora" in sys.argv[1:]
+    mpt = "--mpt" in sys.argv[1:]
     only = ("quantized" if quantized else "speculative" if speculative else "lora" if lora
-            else "")
+            else "mpt" if mpt else "")
     rows = phase_kernels(device, hd_batch["lengths"], s_hd, (l, l + NEW_TOKENS - 2), only)
     if "--kernels" in sys.argv[1:]:
+        return
+    if mpt:
+        runs = [phase_mpt_serving(device, SEED)]
+        phase_mpt_parity(device, SEED)
+        runs.append(phase_mpt_train(device, SEED))
+        phase_mpt_train_parity(device, SEED)
+        print(json.dumps({name: {**row, "launches": sum(r.get(name, 0) for r in runs)}
+                          for name, row in rows.items()}))
         return
     if lora:
         runs = [phase_lora_serving(device, SEED)]
@@ -3530,6 +4068,10 @@ def main() -> None:
     phase_spec_parity(device, SEED)
     runs.append(phase_lora_serving(device, SEED))
     phase_lora_parity(device, SEED)
+    runs.append(phase_mpt_serving(device, SEED))
+    phase_mpt_parity(device, SEED)
+    runs.append(phase_mpt_train(device, SEED))
+    phase_mpt_train_parity(device, SEED)
 
     meta = {
         "vit_attention": ("tokenpacker_tpu_torch/csrc/vit_attention.cu",
@@ -3557,12 +4099,18 @@ def main() -> None:
                               "tokenpacker_tpu/ops/fused_decode.py:1162"),
         "fused_verify_lora": ("tokenpacker_tpu_torch/csrc/fused_decode.cu",
                               "tokenpacker_tpu/ops/fused_decode.py:1390"),
+        "flash_attention_bias": ("tokenpacker_tpu_torch/csrc/flash_fwd.cu",
+                                 "tokenpacker_tpu/ops/flash_attention.py:183"),
+        "flash_attention_bias_bwd": ("tokenpacker_tpu_torch/csrc/flash_bwd.cu",
+                                     "tokenpacker_tpu/ops/flash_attention.py:356"),
+        "decode_attention_alibi": ("tokenpacker_tpu_torch/csrc/decode_attention.cu",
+                                   "tokenpacker_tpu/ops/decode_attention.py:120"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
-        # launches: summed over the eight main-path runs (phases 4, 6, 8,
-        # 10, 12, 14, 16 and 18), each counted from 0 just before its run
-        # and read just after
+        # launches: summed over the ten main-path runs (phases 4, 6, 8,
+        # 10, 12, 14, 16, 18, 20 and 22), each counted from 0 just before
+        # its run and read just after
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(r.get(name, 0) for r in runs), **rows[name]})
     print(json.dumps({"kernels": kernels}))

@@ -35,6 +35,15 @@ version without the last valid range or without the fed tokens before
 each token. The int8 cache rows and scales that `quantize_kv` gives on
 the card, and that K4 writes at T = 1 and T = k+1, are held bit for bit
 against the CPU's and `quantize_kv`'s, as is the int4 code table.
+
+MPT's forms (K2 with the key-only ALiBi bias in both directions, K3 with
+the slopes) run at MPT-7B's 32 heads of 128 and at ragged lengths. Each
+also fails a lossy output: K2's forward run without the bias and its
+plain version with the last head's slopes zeroed; its backward without
+the bias in the recompute and with dk/dv reading the bias by query; K3's
+plain version with the keys at their slot indices instead of the
+compacted token positions, and without slopes. The no-bias cases above
+run unchanged: they hold the tile header's no-bias instantiation.
 """
 
 import pytest
@@ -934,3 +943,179 @@ def test_int4_codes_on_the_card_equal_the_cpu_and_k6(cuda):
     eye = torch.eye(256, dtype=torch.bfloat16, device=cuda)
     got = torch.cat([q4_matmul(eye[i:i + 32], gleaf) for i in range(0, 256, 32)])
     assert torch.equal(got.cpu(), want.bfloat16())
+
+
+# ---- MPT: K2's key-only bias (both directions) and K3's slopes -------------------
+
+
+def _alibi_rows(h, t, device, noise_seed=None):
+    """MPT's ALiBi as the key-only bias [1, H, 1, T] fp32 (MPT-7B's slopes at
+    32 heads); with `noise_seed` plus N(0, 0.3^2), so that a bias read at
+    the wrong key or head shows."""
+    from tokenpacker_tpu_torch.models.mpt import alibi_bias
+
+    bias = alibi_bias(h, t, device)
+    if noise_seed is not None:
+        g = torch.Generator(device="cpu").manual_seed(noise_seed)
+        bias = bias + 0.3 * torch.randn(bias.shape, generator=g).to(device)
+    return bias
+
+
+def _bwd_bias_by_query(q, k, v, o, lse, do, bias):
+    """A lossy backward (fp32, MHA, Tq == Tk, causal): dq as it should be,
+    dk and dv from P rebuilt with the bias indexed by the query instead of
+    the key, as a dk/dv kernel that reads the wrong axis would give them."""
+    n, t, h, d = q.shape
+    dq = flash_attention_bwd_plain(q, k, v, o, lse, do, True, bias)[0]
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    rows = bias.float().reshape(-1, t).expand(h, t)
+    s = torch.einsum("nqhd,nkhd->nhqk", qf, kf) * d**-0.5 + rows[None, :, :, None]
+    p = torch.exp(s - lse.view(n, h, t, 1))
+    p = p.masked_fill(torch.ones(t, t, dtype=torch.bool, device=q.device).triu(1), 0.0)
+    dp = torch.einsum("nqhd,nkhd->nhqk", dof, vf)
+    delta = (dof * o.float()).sum(-1).permute(0, 2, 1)[..., None]
+    ds = p * (dp - delta)
+    dk = torch.einsum("nhqk,nqhd->nkhd", ds, qf) * d**-0.5
+    dv = torch.einsum("nhqk,nqhd->nkhd", p, dof)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,tq,tk,h,noise", [
+    (1, 2048, 2048, 32, False),  # MPT-7B's prefill at the longest bucket
+    (2, 700, 700, 32, True),
+    (2, 64, 300, 8, True),  # queries aligned to the end of the keys
+    (1, 100, 40, 4, True),  # first 60 rows see no key
+    (3, 17, 17, 4, True),
+])
+def test_flash_bias_kernel_matches_plain(cuda, n, tq, tk, h, noise):
+    """K2's key-only bias form against its plain version: o per (sample, 64
+    rows, head) block and lse, as the no-bias form; the kernel run without
+    the bias, and the plain version with the last head's slopes zeroed,
+    must fail the block hold."""
+    q = _bf16((n, tq, h, 128), 0, cuda)
+    k, v = _bf16((n, tk, h, 128), 1, cuda), _bf16((n, tk, h, 128), 2, cuda)
+    bias = _alibi_rows(h, tk, cuda, 5 if noise else None)
+    before = (flash_attention.launches, flash_attention.bias_launches)
+    o, lse = flash_attention(q, k, v, True, bias)
+    assert (flash_attention.launches, flash_attention.bias_launches) == (before[0], before[1] + 1)
+    want_o, want_lse = flash_attention_plain(q, k, v, True, bias)
+    _close(o, want_o)
+    _close(lse, want_lse)
+    _blocks_close(o, want_o)
+    unbiased, _ = flash_attention(q, k, v, True)
+    zeroed = bias.clone()
+    zeroed[:, -1] = 0
+    last_head_lost, _ = flash_attention_plain(q, k, v, True, zeroed)
+    for lossy in (unbiased, last_head_lost):
+        assert _blocks_rel(lossy, want_o).max().item() > BLOCK_REL_RMS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,h", [(1, 2048, 32), (2, 333, 8), (1, 70, 4)])
+def test_flash_bias_bwd_kernel_matches_plain(cuda, n, t, h):
+    """K2's backward with the key-only bias against its plain version, dq,
+    dk and dv per block; two calls give the same bits. A backward whose
+    recompute drops the bias, and one whose dk/dv reads the bias by query,
+    must fail the hold."""
+    q = _bf16((n, t, h, 128), 0, cuda)
+    k, v = _bf16((n, t, h, 128), 1, cuda), _bf16((n, t, h, 128), 2, cuda)
+    do = _bf16((n, t, h, 128), 3, cuda)
+    bias = _alibi_rows(h, t, cuda, 6)
+    o, lse = flash_attention(q, k, v, True, bias)
+    before = flash_attention_bwd.bias_launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, True, bias)
+    again = flash_attention_bwd(q, k, v, o, lse, do, True, bias)
+    assert flash_attention_bwd.bias_launches == before + 2
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, True, bias)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        _close(g, w)
+        _blocks_close(g, w)
+    # without the bias the saved lse no longer matches the logits: far keys'
+    # P overflows to inf (NaN gradients), which must read as a failure too
+    dropped = flash_attention_bwd(q, k, v, o, lse, do, True)
+    by_query = _bwd_bias_by_query(q, k, v, o, lse, do, bias)
+    for lossy in (dropped, by_query):
+        readings = [_blocks_rel(g, w).max().item() for g, w in zip(lossy, want)]
+        assert any(not r <= BLOCK_REL_RMS for r in readings), readings
+    assert _blocks_rel(by_query[0], want[0]).max().item() <= BLOCK_REL_RMS  # only dk/dv lost
+
+
+@pytest.mark.cuda
+def test_flash_bias_autograd_launches_both_bias_kernels(cuda):
+    q = _bf16((1, 256, 8, 128), 0, cuda).requires_grad_()
+    k = _bf16((1, 256, 8, 128), 1, cuda).requires_grad_()
+    v = _bf16((1, 256, 8, 128), 2, cuda).requires_grad_()
+    do = _bf16((1, 256, 8, 128), 3, cuda)
+    bias = _alibi_rows(8, 256, cuda)
+    counts = (flash_attention.launches, flash_attention.bias_launches,
+              flash_attention_bwd.launches, flash_attention_bwd.bias_launches)
+    o = FlashAttention.apply(q, k, v, True, bias)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    now = (flash_attention.launches, flash_attention.bias_launches,
+           flash_attention_bwd.launches, flash_attention_bwd.bias_launches)
+    assert tuple(b - a for a, b in zip(counts, now)) == (0, 1, 0, 1)
+    o2, lse = flash_attention_plain(q.detach(), k.detach(), v.detach(), True, bias)
+    for g, w in zip(grads, flash_attention_bwd_plain(q, k, v, o2, lse, do, True, bias)):
+        _close(g, w)
+
+
+def _decode_alibi_slots(q, ck, cv, lengths, needed, span_start, slopes):
+    """A lossy K3-ALiBi (fp32): the slopes times the keys' cache slot
+    indices, where the decoded span's keys sit at compacted positions."""
+    n, h, d = q.shape
+    s = ck.shape[1]
+    logits = torch.einsum("nhd,nshd->nhs", q.float(), ck.float()) * d**-0.5
+    kpos = torch.arange(s, device=q.device)[None, :]
+    valid = (kpos < needed[:, None]) & ((kpos < lengths[:, None]) | (kpos >= span_start))
+    logits = logits + slopes[None, :, None] * kpos[:, None, :].float()
+    probs = torch.softmax(logits.masked_fill(~valid[:, None], float("-inf")), -1).to(q.dtype)
+    return torch.einsum("nhs,nshd->nhd", probs, cv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,span_start", [(2080, 2048), (1040, 1000), (1040, 0)])
+def test_decode_alibi_kernel_matches_plain(cuda, s, span_start):
+    """K3's slopes form (MPT-7B's 32 slopes) against its plain version, per
+    (sample, head) row, at the bucketed layout of the HD requests' lengths
+    (span_start = the bucket) and the contiguous one. The plain version
+    with the keys at their slot indices instead of the compacted token
+    positions (span_start > 0), and the plain version without slopes, must
+    fail the hold."""
+    from tokenpacker_tpu_torch.models.mpt import alibi_slopes
+
+    n, h = 4, 32
+    q = _bf16((n, h, 128), 0, cuda)
+    ck, cv = _bf16((n, s, h, 128), 1, cuda), _bf16((n, s, h, 128), 2, cuda)
+    slopes = alibi_slopes(h, device=cuda)
+    if span_start:
+        lengths = torch.tensor([1751, 1379, 701, 939], dtype=torch.int32, device=cuda)
+        lengths = lengths.clamp(max=span_start)
+        needed = torch.full((n,), span_start + 31, dtype=torch.int32, device=cuda)
+    else:
+        lengths = torch.tensor([1, 333, 650, 1040], dtype=torch.int32, device=cuda)
+        needed = lengths
+    before = (decode_attention.launches, decode_attention.alibi_launches)
+    got = decode_attention(q, ck, cv, lengths, needed, span_start, slopes)
+    assert (decode_attention.launches, decode_attention.alibi_launches) == (before[0],
+                                                                            before[1] + 1)
+    want = decode_attention_plain(q, ck, cv, lengths, needed, span_start, slopes)
+    no_slopes = decode_attention_plain(q, ck, cv, lengths, needed, span_start)
+    _rows_close(got, want, no_slopes)
+    if span_start:
+        slots = _decode_alibi_slots(q, ck, cv, lengths, needed, span_start, slopes)
+        assert _rows_rel(slots, want).max().item() > BLOCK_REL_RMS
+
+
+@pytest.mark.cuda
+def test_bias_and_slopes_forms_reject_what_they_do_not_take(cuda):
+    q = _bf16((1, 64, 4, 128), 0, cuda)
+    with pytest.raises(ValueError, match="key-only"):
+        flash_attention(q, q, q, True, torch.zeros((1, 4, 64, 64), device=cuda))
+    qd = _bf16((2, 8, 128), 1, cuda)
+    ck = _bf16((2, 16, 2, 128), 2, cuda)  # GQA: slopes are MHA-only
+    ones = torch.full((2,), 4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="slopes"):
+        decode_attention(qd, ck, ck, ones, ones, 0, torch.ones(8, device=cuda))

@@ -200,12 +200,11 @@ def test_llama_apply_without_cache_matches_jax(vlm):
 
 
 def test_unported_lm_options_raise():
-    import dataclasses
+    from tokenpacker_tpu_torch.io.weights import quantize_lm_int8
 
-    cfg = tiny_vlm_config()
-    mpt = dataclasses.replace(cfg.lm, model_family="mpt")
+    # MPT runs (tests/test_torch_mpt.py); its int8 and 4-bit forms are not ported
     with pytest.raises(NotImplementedError, match="MPT"):
-        lm_apply({}, mpt, torch.zeros(1, 1, 64), torch.zeros(1, 1))
+        quantize_lm_int8({"lm": {"wte": torch.zeros(8, 64), "layers": []}})
     lora = {"layers": [], "lm_head": {"kernel": {"q": torch.zeros((64, 8), dtype=torch.int8),
                                                  "scale": torch.ones((1, 8)),
                                                  "lora_a": torch.zeros((64, 2)),

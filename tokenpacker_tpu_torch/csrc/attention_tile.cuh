@@ -15,6 +15,12 @@
 // be a multiple of the tile. Causal masking is aligned bottom-right
 // (query i sees keys <= i + tk - tq) and tiles wholly above the diagonal
 // are never loaded.
+//
+// With BIAS (K2's key-only additive bias, MPT's ALiBi) the logits are
+// S*scale + bias[key] before the softmax: each lane reads its two keys'
+// fp32 bias once per key tile (never past tk) and the tile works on
+// (S*scale + bias)*log2e, so lse stays the natural-log log-sum-exp of the
+// biased logits. BIAS = false compiles to the code without the argument.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -83,13 +89,15 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long strid
 // q/k/v/o point at element 0 of the head in row 0 of the sequence; rows
 // are `*_stride` elements apart. lse (nullable) gets the natural-log
 // log-sum-exp of each query row, +inf for a row with no visible key.
-template <int D>
+// bias (BIAS only): the head's [tk] fp32 key bias.
+template <int D, bool BIAS = false>
 __device__ void attention_tile(const bf16* __restrict__ q, long q_stride,
                                const bf16* __restrict__ k, long k_stride,
                                const bf16* __restrict__ v, long v_stride,
                                bf16* __restrict__ o, long o_stride,
                                float* __restrict__ lse, int tq, int tk, int q0,
-                               bool causal, float scale, unsigned char* smem) {
+                               bool causal, float scale, unsigned char* smem,
+                               const float* __restrict__ bias = nullptr) {
   constexpr int LD = QKV_LD<D>, OL = O_LD<D>;
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + BQ * LD;
@@ -141,6 +149,16 @@ __device__ void attention_tile(const bf16* __restrict__ q, long q_stride,
     }
     __syncwarp();
 
+    // the bias of this lane's two keys (0 past tk, where it is never read)
+    float kb[2] = {0.f, 0.f};
+    if constexpr (BIAS) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int kj = k0 + lane + 32 * j;
+        if (kj < tk) kb[j] = bias[kj];
+      }
+    }
+
     // online softmax; lane holds keys lane and lane + 32 of each row
     for (int r = r0; r < r0 + 16; ++r) {
       const int qi = q0 + r;
@@ -150,7 +168,13 @@ __device__ void attention_tile(const bf16* __restrict__ q, long q_stride,
       for (int j = 0; j < 2; ++j) {
         const int kj = k0 + lane + 32 * j;
         const bool ok = kj < tk && (!causal || kj <= qi + shift);
-        s[j] = ok ? S[r * S_LD + lane + 32 * j] * sl2 : -INFINITY;
+        float x;
+        if constexpr (BIAS) {
+          x = (S[r * S_LD + lane + 32 * j] * scale + kb[j]) * LOG2E;
+        } else {
+          x = S[r * S_LD + lane + 32 * j] * sl2;
+        }
+        s[j] = ok ? x : -INFINITY;
         mx = fmaxf(mx, s[j]);
       }
       mx = warp_max(mx);

@@ -24,6 +24,14 @@
 // sum adds them in fp32, as the TPU kernel does. S need not be a multiple
 // of anything. Split-K across blocks (flash-decoding), for batches too
 // small to fill 132 SMs, is later work.
+//
+// The ALiBi form (decode_attention with `slopes`, decode_attention.py:84-85
+// and :142-146; MPT) adds slope[head] * tok_pos to each fp32 logit, where
+// tok_pos is the key's true token position: the slot index in the prompt
+// range, kpos - span_start + len in the decoded span (the gap between them
+// compacted away). fold_range takes each range's position offset. The
+// logits reach ~1.7e3 at 2k positions; they stay in fp32 and the online
+// max keeps exp in range. MPT is MHA, so only G = 1 takes slopes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,14 +65,15 @@ __device__ __forceinline__ void load_vec(const bf16* p, float* out) {
 template <int D, int G>
 struct WarpState {
   static constexpr int EPL = D / 32;
-  float q[G][EPL], acc[G][EPL], m[G], l[G];
+  float q[G][EPL], acc[G][EPL], m[G], l[G], slope[G];
 };
 
-// Folds keys [k0, k1) owned by this warp (k0 + warp + NW*i) into st.
-template <int D, int G>
+// Folds keys [k0, k1) owned by this warp (k0 + warp + NW*i) into st; with
+// ALIBI key kj sits at token position kj + pos_off.
+template <int D, int G, bool ALIBI>
 __device__ __forceinline__ void fold_range(WarpState<D, G>& st, const bf16* kb,
                                            const bf16* vb, long row, int k0, int k1,
-                                           int warp, int lane) {
+                                           int pos_off, int warp, int lane) {
   constexpr int EPL = D / 32;
   for (int base = k0 + warp; base < k1; base += NW * U) {
     float kf[U][EPL], vf[U][EPL];
@@ -85,6 +94,7 @@ __device__ __forceinline__ void fold_range(WarpState<D, G>& st, const bf16* kb,
 #pragma unroll
         for (int e = 0; e < EPL; ++e) dot += st.q[g][e] * kf[u][e];
         dot = warp_sum(dot);
+        if constexpr (ALIBI) dot += st.slope[g] * (float)(base + u * NW + pos_off);
         const float m_new = fmaxf(st.m[g], dot);
         const float alpha = expf(st.m[g] - m_new);  // 0 for the first key
         const float p = expf(dot - m_new);
@@ -98,12 +108,13 @@ __device__ __forceinline__ void fold_range(WarpState<D, G>& st, const bf16* kb,
   }
 }
 
-template <int D, int G>
+template <int D, int G, bool ALIBI>
 __global__ void __launch_bounds__(NW * 32)
     decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, const int* __restrict__ lengths,
-                            const int* __restrict__ needed, bf16* __restrict__ o, int s,
-                            int h, int hkv, int span_start, float scale) {
+                            const int* __restrict__ needed, const float* __restrict__ slopes,
+                            bf16* __restrict__ o, int s, int h, int hkv, int span_start,
+                            float scale) {
   constexpr int EPL = D / 32;
   __shared__ float red_m[NW], red_l[NW];
   __shared__ float red_acc[NW][D];
@@ -128,14 +139,16 @@ __global__ void __launch_bounds__(NW * 32)
     }
     st.m[g] = -INFINITY;
     st.l[g] = 0.f;
+    st.slope[g] = ALIBI ? slopes[kvh * G + g] : 0.f;
   }
 
   if (span_start > 0) {
     const int a_end = min(len, need);
-    fold_range<D, G>(st, kb, vb, row, 0, a_end, warp, lane);
-    fold_range<D, G>(st, kb, vb, row, max(span_start, a_end), need, warp, lane);
+    fold_range<D, G, ALIBI>(st, kb, vb, row, 0, a_end, 0, warp, lane);
+    fold_range<D, G, ALIBI>(st, kb, vb, row, max(span_start, a_end), need, len - span_start,
+                            warp, lane);
   } else {
-    fold_range<D, G>(st, kb, vb, row, 0, need, warp, lane);
+    fold_range<D, G, ALIBI>(st, kb, vb, row, 0, need, 0, warp, lane);
   }
 
   // merge the warps' partial softmax states, one head at a time
@@ -165,15 +178,16 @@ __global__ void __launch_bounds__(NW * 32)
   }
 }
 
-template <int D, int G>
+template <int D, int G, bool ALIBI = false>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            const void* needed, void* o, int n, int s, int h, int hkv, int span_start,
-           cudaStream_t stream) {
+           cudaStream_t stream, const void* slopes = nullptr) {
   dim3 grid(hkv, n);
-  decode_attention_kernel<D, G><<<grid, NW * 32, 0, stream>>>(
+  decode_attention_kernel<D, G, ALIBI><<<grid, NW * 32, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int*>(lengths), static_cast<const int*>(needed),
-      static_cast<bf16*>(o), s, h, hkv, span_start, 1.0f / sqrtf((float)D));
+      static_cast<const float*>(slopes), static_cast<bf16*>(o), s, h, hkv, span_start,
+      1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
@@ -193,14 +207,20 @@ int launch_groups(int groups, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, o: [n, h, d] bf16; k, v: [n, s, hkv, d] bf16; lengths, needed: [n]
-// int32 on the device; all contiguous; d = 128 only (Vicuna-7B); h / hkv
-// in {1, 2, 4, 8}. Returns 0, a cudaError_t code, or -1 for an unsupported
+// int32 on the device; slopes: null, or [h] f32 ALiBi slopes (h == hkv
+// only); all contiguous; d = 128 only (Vicuna-7B, MPT-7B); h / hkv in {1,
+// 2, 4, 8}. Returns 0, a cudaError_t code, or -1 for an unsupported
 // head_dim or group count.
 extern "C" int tp_decode_attention(const void* q, const void* k, const void* v,
-                                   const void* lengths, const void* needed, void* o, int n,
-                                   int s, int h, int hkv, int d, int span_start,
+                                   const void* lengths, const void* needed, const void* slopes,
+                                   void* o, int n, int s, int h, int hkv, int d, int span_start,
                                    void* stream) {
   if (d != 128 || hkv <= 0 || h % hkv != 0) return -1;
-  return launch_groups<128>(h / hkv, q, k, v, lengths, needed, o, n, s, h, hkv, span_start,
-                            static_cast<cudaStream_t>(stream));
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (slopes != nullptr) {
+    if (h != hkv) return -1;
+    return launch<128, 1, true>(q, k, v, lengths, needed, o, n, s, h, hkv, span_start, st,
+                                slopes);
+  }
+  return launch_groups<128>(h / hkv, q, k, v, lengths, needed, o, n, s, h, hkv, span_start, st);
 }

@@ -34,6 +34,13 @@
 // j <= i + Tk - Tq) and rows with lse = +inf (no visible key, P = 0) are
 // masked in the kernels.
 //
+// The key-only bias form (_flash_bwd_pallas with `bias`, asserted key-only
+// at flash_attention.py:382; MPT's ALiBi) takes the forward's [h, tk] fp32
+// bias and adds it at the two recomputes of P, P = exp(S*scale + bias[key]
+// - lse): in the dq kernel a lane's key is k0 + c, in the dk/dv kernel
+// (S^T) the row's key is k0 + r, whose bias lane r - r0 holds and shares.
+// The bias is a constant: it has no gradient.
+//
 // A correct, simple first version: one or two blocks per SM, no software
 // pipelining of the tile loads, no wgmma or TMA. Its time against its
 // bound is in PERF.md.
@@ -156,12 +163,13 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int D>
+template <int D, bool BIAS>
 __global__ void __launch_bounds__(THREADS)
     flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
-                        bf16* __restrict__ dq, int tq, int tk, int h, int hkv, int causal) {
+                        const float* __restrict__ bias, bf16* __restrict__ dq, int tq, int tk,
+                        int h, int hkv, int causal) {
   constexpr int LD = tp::QKV_LD<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
@@ -213,6 +221,14 @@ __global__ void __launch_bounds__(THREADS)
     rows_times_rows_t<D>(dOs + r0 * LD, LD, Vs, LD, dP + r0 * SF_LD);  // dP = dO V^T
     __syncwarp();
 
+    // the bias of this lane's two keys (never read past tk)
+    float kb[2] = {0.f, 0.f};
+    if constexpr (BIAS) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        if (k0 + lane + 32 * j < tk) kb[j] = bias[(long)head * tk + k0 + lane + 32 * j];
+    }
+
     // dS = P (dP - delta); lane holds keys lane and lane + 32 of each row
     for (int r = r0; r < r0 + 16; ++r) {
       const int qi = q0 + r;
@@ -221,7 +237,9 @@ __global__ void __launch_bounds__(THREADS)
       for (int j = 0; j < 2; ++j) {
         const int c = lane + 32 * j, kj = k0 + c;
         const bool ok = kj < tk && (!causal || kj <= qi + shift);
-        const float p = ok ? expf(S[r * SF_LD + c] * scale - l) : 0.f;
+        float x = S[r * SF_LD + c] * scale;
+        if constexpr (BIAS) x += kb[j];
+        const float p = ok ? expf(x - l) : 0.f;
         dS[r * PB_LD + c] = __float2bfloat16(p * (dP[r * SF_LD + c] - dl));
       }
     }
@@ -234,13 +252,13 @@ __global__ void __launch_bounds__(THREADS)
                 q0 + r0, tq, scale);
 }
 
-template <int D>
+template <int D, bool BIAS>
 __global__ void __launch_bounds__(THREADS)
     flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv, int tq, int tk, int h,
-                         int hkv, int causal) {
+                         const float* __restrict__ bias, bf16* __restrict__ dk,
+                         bf16* __restrict__ dv, int tq, int tk, int h, int hkv, int causal) {
   constexpr int LD = tp::QKV_LD<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
@@ -280,6 +298,12 @@ __global__ void __launch_bounds__(THREADS)
   for (int g = 0; g < group; ++g) {
     const int head = kv_head * group + g;
     const long bh = (long)b * h + head;
+    // lane l < 16 holds the bias of this warp's key row r0 + l (0 past tk)
+    float row_bias = 0.f;
+    if constexpr (BIAS) {
+      const int kj = k0 + r0 + lane;
+      if (lane < 16 && kj < tk) row_bias = bias[(long)head * tk + kj];
+    }
     const bf16* qp = q + (long)b * tq * q_stride + (long)head * D;
     const bf16* dop = dout + (long)b * tq * q_stride + (long)head * D;
     for (int qt = qt0; qt < num_qt; ++qt) {
@@ -301,11 +325,15 @@ __global__ void __launch_bounds__(THREADS)
       // P^T and dS^T; lane holds queries lane and lane + 32 of each key row
       for (int r = r0; r < r0 + 16; ++r) {
         const int kj = k0 + r;
+        float kb = 0.f;  // the bias of key kj, the same for the whole row
+        if constexpr (BIAS) kb = __shfl_sync(0xffffffffu, row_bias, r - r0);
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const int c = lane + 32 * j, qi = q0 + c;
           const bool ok = kj < tk && qi < tq && (!causal || kj <= qi + shift);
-          const float p = ok ? expf(St[r * SF_LD + c] * scale - row_lse[c]) : 0.f;
+          float x = St[r * SF_LD + c] * scale;
+          if constexpr (BIAS) x += kb;
+          const float p = ok ? expf(x - row_lse[c]) : 0.f;
           Pt[r * PB_LD + c] = __float2bfloat16(p);
           dSt[r * PB_LD + c] = __float2bfloat16(p * (dPt[r * SF_LD + c] - row_delta[c]));
         }
@@ -320,10 +348,11 @@ __global__ void __launch_bounds__(THREADS)
   store_rows<D>(dv_acc, St + r0 * SF_LD, dv + kv_off, kv_stride, k0 + r0, tk, 1.f);
 }
 
-template <int D>
+template <int D, bool BIAS>
 int launch(const void* q, const void* k, const void* v, const void* o, const void* lse,
-           const void* dout, void* dq, void* dk, void* dv, void* delta, int n, int tq, int tk,
-           int h, int hkv, int causal, cudaStream_t stream) {
+           const void* dout, const void* bias, void* dq, void* dk, void* dv, void* delta, int n,
+           int tq, int tk, int h, int hkv, int causal, cudaStream_t stream) {
+  const auto* biasf = static_cast<const float*>(bias);
   const auto* qb = static_cast<const bf16*>(q);
   const auto* kb = static_cast<const bf16*>(k);
   const auto* vb = static_cast<const bf16*>(v);
@@ -339,24 +368,24 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
     if (e != cudaSuccess) return (int)e;
 
     const size_t smem = dq_smem_bytes<D>();
-    e = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+    e = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, BIAS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     dim3 grid((tq + BQ - 1) / BQ, n * h);
-    flash_bwd_dq_kernel<D><<<grid, THREADS, smem, stream>>>(
-        qb, kb, vb, dob, lsef, deltaf, static_cast<bf16*>(dq), tq, tk, h, hkv, causal);
+    flash_bwd_dq_kernel<D, BIAS><<<grid, THREADS, smem, stream>>>(
+        qb, kb, vb, dob, lsef, deltaf, biasf, static_cast<bf16*>(dq), tq, tk, h, hkv, causal);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   if ((long)n * tk * hkv > 0) {
     const size_t smem = dkv_smem_bytes<D>();
     cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        flash_bwd_dkv_kernel<D, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     dim3 grid((tk + BK - 1) / BK, n * hkv);
-    flash_bwd_dkv_kernel<D><<<grid, THREADS, smem, stream>>>(
-        qb, kb, vb, dob, lsef, deltaf, static_cast<bf16*>(dk), static_cast<bf16*>(dv), tq, tk, h,
-        hkv, causal);
+    flash_bwd_dkv_kernel<D, BIAS><<<grid, THREADS, smem, stream>>>(
+        qb, kb, vb, dob, lsef, deltaf, biasf, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+        tq, tk, h, hkv, causal);
     return (int)cudaGetLastError();
   }
   return 0;
@@ -365,14 +394,19 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
 }  // namespace
 
 // q, o, dout, dq: [n, tq, h, d] bf16; k, v, dk, dv: [n, tk, hkv, d] bf16;
-// lse and the delta workspace: [n*h, tq] f32; all contiguous, h % hkv ==
-// 0, d = 128 only (Vicuna-7B). Returns 0, a cudaError_t code, or -1 for an
+// lse and the delta workspace: [n*h, tq] f32; bias: null, or the forward's
+// key-only bias as [h, tk] f32; all contiguous, h % hkv == 0, d = 128 only
+// (Vicuna-7B, MPT-7B). Returns 0, a cudaError_t code, or -1 for an
 // unsupported head_dim.
 extern "C" int tp_flash_bwd(const void* q, const void* k, const void* v, const void* o,
-                            const void* lse, const void* dout, void* dq, void* dk, void* dv,
-                            void* delta, int n, int tq, int tk, int h, int hkv, int d, int causal,
-                            void* stream) {
+                            const void* lse, const void* dout, const void* bias, void* dq,
+                            void* dk, void* dv, void* delta, int n, int tq, int tk, int h,
+                            int hkv, int d, int causal, void* stream) {
   if (d != 128) return -1;
-  return launch<128>(q, k, v, o, lse, dout, dq, dk, dv, delta, n, tq, tk, h, hkv, causal,
-                     static_cast<cudaStream_t>(stream));
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (bias != nullptr)
+    return launch<128, true>(q, k, v, o, lse, dout, bias, dq, dk, dv, delta, n, tq, tk, h, hkv,
+                             causal, st);
+  return launch<128, false>(q, k, v, o, lse, dout, bias, dq, dk, dv, delta, n, tq, tk, h, hkv,
+                            causal, st);
 }

@@ -18,16 +18,24 @@
 //
 // Returns o and the log-sum-exp per (batch*head, query), +inf for a row
 // with no visible key, as the TPU kernel does; the backward needs it.
+//
+// The key-only bias form (_flash_fwd with a [1, H|1, 1, Tk] bias, the
+// branch at flash_attention.py:194-229; MPT's ALiBi) takes the bias as
+// one [h, tk] fp32 row per head: the BIAS instantiation of the tile adds
+// each key's value to its logits, so [Tq, Tk] is never built. It adds
+// h*tk*4 bytes to the call (256 KB at 32 heads x 2048 keys), nothing to
+// the products.
 
 #include "attention_tile.cuh"
 
 namespace {
 
-template <int D>
+template <int D, bool BIAS>
 __global__ void __launch_bounds__(tp::THREADS)
     flash_fwd_kernel(const tp::bf16* __restrict__ q, const tp::bf16* __restrict__ k,
                      const tp::bf16* __restrict__ v, tp::bf16* __restrict__ o,
-                     float* __restrict__ lse, int tq, int tk, int h, int hkv, int causal) {
+                     float* __restrict__ lse, const float* __restrict__ bias, int tq, int tk,
+                     int h, int hkv, int causal) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int q0 = (gridDim.x - 1 - blockIdx.x) * tp::BQ;  // heaviest tiles first
   const int bh = blockIdx.y;
@@ -35,35 +43,39 @@ __global__ void __launch_bounds__(tp::THREADS)
   const int kv_head = head / (h / hkv);
   const long q_base = (long)b * tq * h * D + (long)head * D;
   const long kv_base = (long)b * tk * hkv * D + (long)kv_head * D;
-  tp::attention_tile<D>(q + q_base, (long)h * D, k + kv_base, (long)hkv * D, v + kv_base,
-                        (long)hkv * D, o + q_base, (long)h * D, lse + (long)bh * tq, tq,
-                        tk, q0, causal != 0, rsqrtf((float)D), smem);
+  tp::attention_tile<D, BIAS>(q + q_base, (long)h * D, k + kv_base, (long)hkv * D,
+                              v + kv_base, (long)hkv * D, o + q_base, (long)h * D,
+                              lse + (long)bh * tq, tq, tk, q0, causal != 0, rsqrtf((float)D),
+                              smem, BIAS ? bias + (long)head * tk : nullptr);
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse, int n, int tq,
-           int tk, int h, int hkv, int causal, cudaStream_t stream) {
+template <int D, bool BIAS>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, const void* bias,
+           int n, int tq, int tk, int h, int hkv, int causal, cudaStream_t stream) {
   const size_t smem = tp::tile_smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<D, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((tq + tp::BQ - 1) / tp::BQ, n * h);
-  flash_fwd_kernel<D><<<grid, tp::THREADS, smem, stream>>>(
+  flash_fwd_kernel<D, BIAS><<<grid, tp::THREADS, smem, stream>>>(
       static_cast<const tp::bf16*>(q), static_cast<const tp::bf16*>(k),
       static_cast<const tp::bf16*>(v), static_cast<tp::bf16*>(o), static_cast<float*>(lse),
-      tq, tk, h, hkv, causal);
+      static_cast<const float*>(bias), tq, tk, h, hkv, causal);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q, o: [n, tq, h, d] bf16; k, v: [n, tk, hkv, d] bf16; lse: [n*h, tq] f32;
-// all contiguous, h % hkv == 0, d = 128 only (Vicuna-7B). Returns 0, a
-// cudaError_t code, or -1 for an unsupported head_dim.
+// bias: null, or the key-only bias as [h, tk] f32; all contiguous, h % hkv
+// == 0, d = 128 only (Vicuna-7B, MPT-7B). Returns 0, a cudaError_t code, or
+// -1 for an unsupported head_dim.
 extern "C" int tp_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                            int n, int tq, int tk, int h, int hkv, int d, int causal,
-                            void* stream) {
+                            const void* bias, int n, int tq, int tk, int h, int hkv, int d,
+                            int causal, void* stream) {
   if (d != 128) return -1;
-  return launch<128>(q, k, v, o, lse, n, tq, tk, h, hkv, causal,
-                     static_cast<cudaStream_t>(stream));
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (bias != nullptr)
+    return launch<128, true>(q, k, v, o, lse, bias, n, tq, tk, h, hkv, causal, st);
+  return launch<128, false>(q, k, v, o, lse, bias, n, tq, tk, h, hkv, causal, st);
 }

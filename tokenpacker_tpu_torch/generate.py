@@ -33,6 +33,13 @@ per-layer path, where `ops/layers.linear` adds the term.
 `Generator.generate(speculative=k)` decodes batch 1 by prompt-lookup
 speculation (`speculative.py`, K4's verify form on an int8 tree).
 
+Both LM families run here. MPT (`models/mpt.py`) prefills through K2's
+key-only ALiBi bias, decodes per layer through K3's slopes (the kernel
+compacts the bucketed key positions), takes `prefill_chunk`'s chunks and
+the speculative verify through `sdpa` with ALiBi over true key positions,
+and keeps a cache in the model dtype (`kv_cache_dtype=torch.int8`
+raises, where the JAX package ignores TOKENPACKER_KV_CACHE for it).
+
 This port is greedy only: sampling, penalties and beams raise
 NotImplementedError.
 """
@@ -47,7 +54,7 @@ import torch
 
 from tokenpacker_tpu_torch.config import TokenPackerVLMConfig
 from tokenpacker_tpu_torch.models.llama import KVCache, make_attention_bias
-from tokenpacker_tpu_torch.models.lm_api import lm_apply, lm_embed, lm_logits
+from tokenpacker_tpu_torch.models.lm_api import embedding_table, lm_apply, lm_embed, lm_logits
 from tokenpacker_tpu_torch.models.splice import assemble_embeds
 from tokenpacker_tpu_torch.models.vlm import vlm_hidden
 from tokenpacker_tpu_torch.ops.fused_decode import FusedWeights, fused_decode_hidden, fused_eligible
@@ -149,7 +156,7 @@ def fused_weights(params, cfg: TokenPackerVLMConfig) -> FusedWeights | bool:
         return False
     if lm.get("fd_slot_lora") is None and has_slot_lora(lm):
         return False
-    return True if lm["embed"].device.type == "cpu" else FusedWeights(lm, cfg.lm)
+    return True if embedding_table(lm).device.type == "cpu" else FusedWeights(lm, cfg.lm)
 
 
 def _decode_step_fused(params, cfg: TokenPackerVLMConfig, cache: KVCache, tokens, lengths,
@@ -277,7 +284,7 @@ class Generator:
         self.kv_cache_dtype = kv_cache_dtype
         self.w8a8 = w8a8
         self.vit_block = vit_block
-        self.device = params["lm"]["embed"].device
+        self.device = embedding_table(params["lm"]).device
         self.fused = fused_weights(params, cfg)
 
     @torch.no_grad()

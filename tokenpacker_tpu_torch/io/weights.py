@@ -1,7 +1,9 @@
 """The port's parameters: the bridge from the JAX package's pytree, and
 random weights made on the device.
 
-Parameters are nested dicts of tensors with the JAX package's key names.
+Parameters are nested dicts of tensors with the JAX package's key names,
+for both LM families (llama; MPT: `wte`, `layers[*].{norm_1, attn.{wqkv,
+out}, norm_2, ffn.{up, down}}`, `norm_f`).
 Linear kernels keep JAX's **[in, out]** layout (y = x @ W): nothing is
 transposed. The JAX package stacks each tower's and the LM's layers on a
 leading axis; here `"layers"` is a list with one dict per layer.
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from tokenpacker_tpu_torch.config import TokenPackerVLMConfig
+from tokenpacker_tpu_torch.models.mpt import init_mpt
 from tokenpacker_tpu_torch.ops.quantize import (
     fuse_llama_layers,
     is_q4leaf,
@@ -51,8 +54,7 @@ def params_from_jax(tree, cfg: TokenPackerVLMConfig):
     """The JAX `init_vlm`-shaped pytree (leaves as numpy arrays; any of its
     "vision" / "projector" / "lm" parts) -> the port's parameters as CPU
     tensors of the same dtypes; `params_to` moves and casts them."""
-    if cfg.lm.model_family != "llama":
-        raise NotImplementedError("only the llama family is ported")
+    first_norm = {"vision": "ln1", "lm": "norm_1" if cfg.lm.model_family == "mpt" else "input_ln"}
     depth = {"vision": cfg.vision.num_hidden_layers, "lm": cfg.lm.num_hidden_layers}
     out = {}
     for part in ("vision", "projector", "lm"):
@@ -61,7 +63,7 @@ def params_from_jax(tree, cfg: TokenPackerVLMConfig):
         node = dict(tree[part])
         if part in depth:
             stacked = node["layers"]
-            n_layers = len(np.asarray(stacked["ln1" if part == "vision" else "input_ln"]["scale"]))
+            n_layers = len(np.asarray(stacked[first_norm[part]]["scale"]))
             if n_layers != depth[part]:
                 raise ValueError(f"{part}: {n_layers} stacked layers, config says {depth[part]}")
             node["layers"] = [_layer_slice(stacked, i) for i in range(n_layers)]
@@ -126,8 +128,12 @@ def _quantize_lm(params, quantize, min_size: int):
     place, layer by layer (the layer threshold is min_size over the layer
     count, as the JAX package counts its stacked leaves), so on the card
     the bf16 and the quantized LM never coexist whole (once the caller
-    holds no other reference to the bf16 layers). Returns `params`."""
+    holds no other reference to the bf16 layers). Returns `params`. An MPT
+    LM raises: its int8 and 4-bit forms are ROADMAP queue 1 work."""
     lm = params["lm"]
+    if "wte" in lm:
+        raise NotImplementedError("the int8 and 4-bit MPT forms (the JAX api.py:139-166) are "
+                                  "not ported yet")
     layers = lm["layers"]
     per_layer = -(-min_size // len(layers))
     for i, layer in enumerate(layers):
@@ -152,9 +158,14 @@ def quantize_lm_4bit(params, quant_type: str = "nf4", min_size: int = 1 << 16):
                                                                       min_size=size), min_size)
 
 
-def _normal_fn(seed: int, device, dtype):
+def _generator(seed: int, device) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    return gen
+
+
+def _normal_fn(gen: torch.Generator, dtype):
+    device = gen.device
 
     def normal(*shape, std=0.02, mean=0.0):
         x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
@@ -163,9 +174,16 @@ def _normal_fn(seed: int, device, dtype):
     return normal
 
 
-def _init_lm(lc, normal):
+def _init_lm(lc, normal, gen, dtype):
     def scale(n):
         return normal(n, std=0.1, mean=1.0)
+
+    if lc.model_family == "mpt":
+        lm = init_mpt(lc, gen, dtype)
+        for norm in [layer[k] for layer in lm["layers"] for k in ("norm_1", "norm_2")] + [
+                lm["norm_f"]]:
+            norm.update(scale=scale(lc.hidden_size), bias=normal(lc.hidden_size))
+        return lm
 
     def lin(i, o):
         return {"kernel": normal(i, o)}
@@ -190,9 +208,8 @@ def _init_lm(lc, normal):
 def init_lm_on_device(lm_cfg, seed: int = 0, device: torch.device | str = "cuda",
                       dtype: torch.dtype = torch.bfloat16):
     """The LM part of `init_vlm_on_device` alone, from its own seed."""
-    if lm_cfg.model_family != "llama":
-        raise NotImplementedError("only the llama family is ported")
-    return _init_lm(lm_cfg, _normal_fn(seed, device, dtype))
+    gen = _generator(seed, device)
+    return _init_lm(lm_cfg, _normal_fn(gen, dtype), gen, dtype)
 
 
 def init_vlm_on_device(cfg: TokenPackerVLMConfig, seed: int = 0,
@@ -203,10 +220,11 @@ def init_vlm_on_device(cfg: TokenPackerVLMConfig, seed: int = 0,
     the model is built). Linear kernels, embeddings and biases are
     N(0, 0.02^2); norm scales are 1 + N(0, 0.1^2). Unlike the JAX init
     (biases 0, scales 1), every bias and scale differs, so a parity check
-    on these weights also sees a norm or bias that is dropped or swapped."""
-    if cfg.lm.model_family != "llama":
-        raise NotImplementedError("only the llama family is ported")
-    normal = _normal_fn(seed, device, dtype)
+    on these weights also sees a norm or bias that is dropped or swapped.
+    An MPT LM is `models/mpt.init_mpt`'s (no biases) with its norms drawn
+    as above."""
+    gen = _generator(seed, device)
+    normal = _normal_fn(gen, dtype)
 
     def scale(n):
         return normal(n, std=0.1, mean=1.0)
@@ -249,4 +267,4 @@ def init_vlm_on_device(cfg: TokenPackerVLMConfig, seed: int = 0,
         "attn": {name: lin(e, e) for name in ("q", "k", "v", "o")},
         "mlp": {"fc1": lin(e, pc.hidden_size), "fc2": lin(pc.hidden_size, pc.hidden_size)},
     }
-    return {"vision": vision, "projector": projector, "lm": _init_lm(cfg.lm, normal)}
+    return {"vision": vision, "projector": projector, "lm": _init_lm(cfg.lm, normal, gen, dtype)}

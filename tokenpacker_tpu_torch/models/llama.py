@@ -24,6 +24,9 @@ Attention runs on the port's kernels:
   package dequantizes before its attention. (Eligible int8 trees decode
   through K4 instead, `generate._decode_step_fused`.)
 
+The other family, MPT (ALiBi through K2's key-only bias and K3's
+slopes), is `models/mpt.py`; `models/lm_api` dispatches between them.
+
 Per-layer rematerialization of the cache-less (training) path is the
 explicit `remat` argument of `llama_apply` (the JAX package reads
 TOKENPACKER_REMAT): "" off; "full" checkpoints every layer
@@ -67,6 +70,11 @@ class KVCache:
     @classmethod
     def create(cls, cfg: LMConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device: torch.device | str = "cpu") -> "KVCache":
+        """A zeroed cache; int8 storage is llama's only (an MPT cache keeps
+        the model dtype, as in the JAX package, and int8 raises)."""
+        if dtype == torch.int8 and cfg.model_family == "mpt":
+            raise ValueError("an MPT KV cache keeps the model dtype: kv_cache_dtype=torch.int8 "
+                             "is llama-only")
         shape = (cfg.num_hidden_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
         scales = (None, None)
         if dtype == torch.int8:
@@ -78,6 +86,16 @@ class KVCache:
             0,
             *scales,
         )
+
+    def write_index(self, n: int, t: int):
+        """Where a layer's [N, T] new rows go in its [N, S_max] cache rows:
+        [length, length + T) for every sample, or [length[i], length[i] +
+        T) for sample i when the length is a tensor."""
+        start = self.length
+        if isinstance(start, torch.Tensor):
+            cols = start.long()[:, None] + torch.arange(t, device=start.device)
+            return torch.arange(n, device=start.device)[:, None], cols
+        return slice(None), slice(start, start + t)
 
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
@@ -152,12 +170,7 @@ def _layer(p, cfg: LMConfig, x, cos, sin, cache: KVCache | None, layer: int,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if cache is not None:
-        start = cache.length
-        if isinstance(start, torch.Tensor):  # sample i writes at start[i] + [0, t)
-            at = (torch.arange(n, device=h.device)[:, None],
-                  start.long()[:, None] + torch.arange(t, device=h.device))
-        else:
-            at = (slice(None), slice(start, start + t))
+        at = cache.write_index(n, t)
         if cache.k_scale is not None:
             for rows, scales, new in ((cache.k, cache.k_scale, k), (cache.v, cache.v_scale, v)):
                 rows[layer][at], scales[layer][at] = quantize_kv(new)

@@ -1,35 +1,42 @@
 """Decoder API by model family (counterpart of
-`tokenpacker_tpu/models/lm_api.py`). Only the llama family is ported;
-MPT (ALiBi through K2's key-only bias and K3's slopes) is ROADMAP queue 1,
-"Eval, tools and MPT".
+`tokenpacker_tpu/models/lm_api.py`): `cfg.model_family` ("llama" |
+"mpt") picks `models/llama.py` or `models/mpt.py`. The meta-arch
+(`models/vlm.py`), the engine and the batchers call these functions.
 """
 
 from __future__ import annotations
 
 from tokenpacker_tpu_torch.config import LMConfig
 from tokenpacker_tpu_torch.models import llama as _llama
+from tokenpacker_tpu_torch.models import mpt as _mpt
 
 
-def _require_llama(cfg: LMConfig) -> None:
-    if cfg.model_family != "llama":
-        raise NotImplementedError(
-            f"model_family={cfg.model_family!r}: only llama is ported; MPT waits for "
-            "ROADMAP queue 1 'Eval, tools and MPT'"
-        )
+def embedding_table(lm_params):
+    """The LM's [V, D] token embedding (`embed`, MPT's tied `wte`): its dtype
+    and device are the LM's."""
+    return lm_params["wte"] if "wte" in lm_params else lm_params["embed"]
 
 
 def lm_embed(params, cfg: LMConfig, input_ids):
-    _require_llama(cfg)
+    if cfg.model_family == "mpt":
+        return _mpt.mpt_embed(params, input_ids)
     return _llama.embed_tokens(params, input_ids)
 
 
 def lm_apply(params, cfg: LMConfig, inputs_embeds, positions, cache=None, decode_info=None,
-             remat: str = "", attn_bias=None, w8a8: bool = False):
-    _require_llama(cfg)
+             remat: str = "", attn_bias=None, w8a8: bool = False, key_positions=None):
+    """positions [N, T] drive RoPE (llama); MPT's ALiBi reads key_positions,
+    the optional [N, S] true token position of each cache slot on the
+    `attn_bias` route (the slot indices by default; K3 compacts the
+    bucketed decode layout itself). `w8a8` and `remat` are llama's."""
+    if cfg.model_family == "mpt":
+        return _mpt.mpt_apply(params, cfg, inputs_embeds, cache, decode_info, remat, attn_bias,
+                              key_positions)
     return _llama.llama_apply(params, cfg, inputs_embeds, positions, cache, decode_info, remat,
                               attn_bias, w8a8)
 
 
 def lm_logits(params, cfg: LMConfig, hidden, w8a8: bool = False):
-    _require_llama(cfg)
+    if cfg.model_family == "mpt":
+        return _mpt.mpt_logits(params, hidden)
     return _llama.llama_logits(params, hidden, w8a8)

@@ -23,6 +23,7 @@ import torch
 
 from tokenpacker_tpu_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 from tokenpacker_tpu_torch.models.llama import embed_tokens
+from tokenpacker_tpu_torch.models.mpt import mpt_embed
 
 
 @dataclass
@@ -143,10 +144,12 @@ def build_splice_plan(
 
 def assemble_embeds(lm_params, visual_tokens: torch.Tensor, token_ids: torch.Tensor,
                     is_image: torch.Tensor, image_slot: torch.Tensor, lm_cfg=None) -> torch.Tensor:
-    """visual_tokens [views, tokens_per_view, D] -> input embeddings [N, L, D]."""
-    if lm_cfg is not None and lm_cfg.model_family != "llama":
-        raise NotImplementedError(f"model_family={lm_cfg.model_family!r}: only llama is ported")
+    """visual_tokens [views, tokens_per_view, D] -> input embeddings [N, L, D];
+    the text embedding by the LM's family (`lm_cfg`, llama when None)."""
     flat = visual_tokens.reshape(-1, visual_tokens.shape[-1])
-    text = embed_tokens(lm_params, token_ids)
+    if lm_cfg is not None and lm_cfg.model_family == "mpt":
+        text = mpt_embed(lm_params, token_ids)
+    else:
+        text = embed_tokens(lm_params, token_ids)
     vis = flat[image_slot.clamp(0, flat.shape[0] - 1)]
     return torch.where(is_image[..., None], vis.to(text.dtype), text)

@@ -12,7 +12,7 @@ from tokenpacker_tpu_torch.config import TokenPackerVLMConfig
 from tokenpacker_tpu_torch.constants import IGNORE_INDEX
 from tokenpacker_tpu_torch.models.clip_vit import clip_tower_features
 from tokenpacker_tpu_torch.models.llama import KVCache
-from tokenpacker_tpu_torch.models.lm_api import lm_apply, lm_logits
+from tokenpacker_tpu_torch.models.lm_api import embedding_table, lm_apply, lm_logits
 from tokenpacker_tpu_torch.models.splice import assemble_embeds
 from tokenpacker_tpu_torch.models.tokenpacker import tokenpacker_forward
 
@@ -38,17 +38,19 @@ def vlm_hidden(params, cfg: TokenPackerVLMConfig, batch: dict,
 
     Batches must be right-padded (as build_splice_plan makes them): the
     prefill attention is causal over the current tokens, so pad keys are
-    never seen by a valid query. `remat`: `llama_apply`'s per-layer
-    rematerialization of the cache-less path; `w8a8`: `ops/layers.linear`'s
-    w8a8 mode for the int8 products; `vit_block`: the tower's blocks through
-    K9. Returns the final-norm hidden [N, L, D]."""
+    never seen by a valid query. Either LM family (`cfg.lm.model_family`).
+    `remat`: `llama_apply`'s per-layer rematerialization of the cache-less
+    path (llama only); `w8a8`: `ops/layers.linear`'s w8a8 mode for the int8
+    products; `vit_block`: the tower's blocks through K9. Returns the
+    final-norm hidden [N, L, D]."""
     lm = params["lm"]
+    table = embedding_table(lm)
     if batch.get("images") is not None:
         visual = encode_images(params, cfg, batch["images"], w8a8, vit_block)
     else:
         visual = torch.zeros(
-            (1, cfg.tokens_per_view, cfg.lm.hidden_size), dtype=lm["embed"].dtype,
-            device=lm["embed"].device,
+            (1, cfg.tokens_per_view, cfg.lm.hidden_size), dtype=table.dtype,
+            device=table.device,
         )
     embeds = assemble_embeds(
         lm, visual, batch["token_ids"], batch["is_image"], batch["image_slot"], cfg.lm

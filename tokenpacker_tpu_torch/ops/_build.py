@@ -41,12 +41,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # q, k, v, o, n, t, w, heads, stream
     "tp_vit_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # q, k, v, o, lse, n, tq, tk, h, hkv, d, causal, stream
-    "tp_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # q, k, v, o, lse, dout, dq, dk, dv, delta, n, tq, tk, h, hkv, d, causal, stream
-    "tp_flash_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # q, k, v, lengths, needed, o, n, s, h, hkv, d, span_start, stream
-    "tp_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # q, k, v, o, lse, bias, n, tq, tk, h, hkv, d, causal, stream
+    "tp_flash_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # q, k, v, o, lse, dout, bias, dq, dk, dv, delta, n, tq, tk, h, hkv, d, causal, stream
+    "tp_flash_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # q, k, v, lengths, needed, slopes, o, n, s, h, hkv, d, span_start, stream
+    "tp_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # q, k_pages, v_pages, k_scales, v_scales, page_table, lengths, o, n, h,
     # hkv, d, ps, mp, kv_int8, stream
     "tp_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),

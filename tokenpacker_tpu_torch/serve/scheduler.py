@@ -52,6 +52,12 @@ or the request is submitted, never inside the loop. The host keeps the
 slots' lengths, so the loop syncs once per step (the argmax), not once
 per slot.
 
+Both LM families serve through `ContinuousBatcher` (MPT: K2's ALiBi form
+in whole-prompt admissions, `sdpa` with ALiBi for chunks and verify
+rounds, K3's slopes form a step). `PagedContinuousBatcher` and `adapters=`
+are llama-only, as in the JAX package, and raise NotImplementedError for
+MPT.
+
 Multi-LoRA serving: `adapters={name: serve.multi_lora.Adapter}` fixes the
 adapter set when the batcher is made, and `submit(..., adapter=name)`
 picks one per request (None: the base model; a name that is not loaded
@@ -89,7 +95,7 @@ from tokenpacker_tpu_torch.generate import (
     prefill_chunk,
 )
 from tokenpacker_tpu_torch.models.llama import KVCache
-from tokenpacker_tpu_torch.models.lm_api import lm_logits
+from tokenpacker_tpu_torch.models.lm_api import embedding_table, lm_logits
 from tokenpacker_tpu_torch.models.vlm import encode_images
 from tokenpacker_tpu_torch.ops.paged_kv import (
     PageAllocator,
@@ -139,8 +145,11 @@ class _SlotBatcher:
                  vit_block: bool, device: torch.device | str):
         if temperature > 0.0:
             raise NotImplementedError(f"not ported yet (greedy only): temperature > 0; {_LATER}")
+        if adapters and cfg.lm.model_family != "llama":
+            raise NotImplementedError("multi-LoRA serving (adapters=) is llama-only, as the JAX "
+                                      "package's serve/multi_lora is")
         self.device = torch.device(device)
-        have = params["lm"]["embed"].device
+        have = embedding_table(params["lm"]).device
         if have.type != self.device.type or (self.device.index is not None
                                               and have.index != self.device.index):
             raise ValueError(f"the params are on {have}, the batcher runs on {self.device}")
@@ -530,7 +539,7 @@ class ContinuousBatcher(_SlotBatcher):
     def _visual(self, b, params) -> torch.Tensor:
         if b.get("images") is None:
             return torch.zeros((1, self.cfg.tokens_per_view, self.cfg.lm.hidden_size),
-                               dtype=params["lm"]["embed"].dtype, device=self.device)
+                               dtype=embedding_table(params["lm"]).dtype, device=self.device)
         images = torch.as_tensor(b["images"]).to(device=self.device, dtype=self.cfg.dtype)
         return encode_images(params, self.cfg, images, self.w8a8, self.vit_block)
 
@@ -618,6 +627,10 @@ class PagedContinuousBatcher(_SlotBatcher):
         vit_block: bool = False,
         device: torch.device | str = "cuda",
     ):
+        if cfg.lm.model_family != "llama":
+            raise NotImplementedError("the paged pool is llama-only (RoPE layers), as the JAX "
+                                      "package's ops/paged_kv is; MPT serves through "
+                                      "ContinuousBatcher")
         super().__init__(params, cfg, tokenizer, num_slots, temperature, speculative_k,
                          prefill_chunk_size, adapters, kv_cache_dtype, w8a8, vit_block, device)
         self.num_pages = num_pages
@@ -710,9 +723,8 @@ class PagedContinuousBatcher(_SlotBatcher):
             return encode_images(params, self.cfg, dev["images"], self.w8a8, self.vit_block)
         if self.prefix is not None and dev["images"] is not None:
             self.prefix.vision_skipped += 1
-        lm_embed = self.params["lm"]["embed"]
         return torch.zeros((1, self.cfg.tokens_per_view, self.cfg.lm.hidden_size),
-                           dtype=lm_embed.dtype, device=self.device)
+                           dtype=embedding_table(self.params["lm"]).dtype, device=self.device)
 
     def _finish_bookkeeping(self, slot: int, req: _Request, logits: torch.Tensor, true_len: int,
                             all_pages: list[int], m: int, hashes: list[bytes]):

@@ -13,8 +13,9 @@ On an int8 fused-layout tree (`ops/fused_decode.fused_eligible`) every
 verify step is one call of K4's verify form (`fused_verify_hidden`), as
 the JAX package's `_verify_fused` and `verify_step_cb` dispatch there;
 other trees take the per-layer path with an explicit causal bias over the
-cache (the JAX package's XLA path). TOKENPACKER_FD_VERIFY has no
-counterpart.
+cache (the JAX package's XLA path); for MPT it carries ALiBi over the
+keys' true token positions (`speculative.py:124-129` of the JAX package).
+TOKENPACKER_FD_VERIFY has no counterpart.
 
 `speculative_chunk` is a host loop of draft -> verify -> accept rounds
 (the JAX package's on-device `while_loop`): eager PyTorch syncs once a
@@ -55,13 +56,14 @@ def _fused_logits(params, cfg: TokenPackerVLMConfig, cache: KVCache, tokens, len
 
 
 def _layers_logits(params, cfg: TokenPackerVLMConfig, cache: KVCache, tokens, positions, ok,
-                   w8a8: bool):
+                   w8a8: bool, key_positions=None):
     """The per-layer path over the T fed tokens with the key mask ok
-    [N, T, S], written from cache.length."""
+    [N, T, S], written from cache.length; key_positions [N, S]: the keys'
+    token positions for MPT's ALiBi (the slot indices when None)."""
     lm = params["lm"]
     bias = torch.where(ok[:, None], 0.0, NEG_INF)
     hidden = lm_apply(lm, cfg.lm, lm_embed(lm, cfg.lm, tokens), positions, cache, attn_bias=bias,
-                      w8a8=w8a8)
+                      w8a8=w8a8, key_positions=key_positions)
     return lm_logits(lm, cfg.lm, hidden, w8a8)
 
 
@@ -90,8 +92,11 @@ def verify_step(params, cfg: TokenPackerVLMConfig, cache: KVCache, tokens: torch
         key = torch.arange(cache.k.shape[2], device=tokens.device)[None, None, :]
         ok = (key < lengths[:, None, None]) | (
             (key >= prefill_len) & (key <= prefill_len + step + offs[None, :, None]))
+        # the decoded span's keys sit at token positions lengths + j
+        slot = key[:, 0]
+        key_pos = torch.where(slot >= prefill_len, slot - prefill_len + lengths.long()[:, None], slot)
         cache.length = prefill_len + step
-        logits = _layers_logits(params, cfg, cache, tokens, positions, ok, w8a8)
+        logits = _layers_logits(params, cfg, cache, tokens, positions, ok, w8a8, key_pos)
     cache.length = prefill_len + step + t
     return logits, cache
 

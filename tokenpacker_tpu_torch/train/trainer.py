@@ -14,6 +14,11 @@ The checkpoint write runs on a writer thread from a host copy taken
 before `save_checkpoint` returns, one write in flight at a time
 (`async_save`), as the JAX package's orbax AsyncCheckpointer does.
 
+Both LM families train (MPT through K2's key-only ALiBi form in both
+directions; its tied `wte` takes the embedding's and the head's
+gradients in stage 2). `remat` is llama's: MPT has none, as in the JAX
+package, and a non-empty one raises.
+
 `Trainer.train()` runs on the device the parameters live on, CUDA unless
 the caller asks for the CPU (`device="cpu"`); a parameter on another
 device raises. Tensor parallelism (`tp > 1`) and LoRA / QLoRA
@@ -119,6 +124,9 @@ class Trainer:
         if rcfg.lora is not None or rcfg.bits != 16:
             raise NotImplementedError("LoRA / QLoRA training is not ported yet "
                                       "(ROADMAP queue 1, with K6 and train/lora)")
+        if rcfg.remat and cfg.lm.model_family == "mpt":
+            raise ValueError(f"remat={rcfg.remat!r}: MPT has no rematerialization (nor has the "
+                             "JAX package's mpt_apply)")
         self.cfg = cfg
         self.tcfg = tcfg
         self.rcfg = rcfg
