@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py              # the smoke run, phases 1-23
+    python3 chip_smoke.py              # the smoke run, phases 1-24
     python3 chip_smoke.py --profile    # phases 1-2, then the profile below
     python3 chip_smoke.py --profile-train  # phases 1-2, then a traced training step
     python3 chip_smoke.py --profile-paged  # phases 1-2, then traced paged decode steps
@@ -10,6 +10,7 @@
     python3 chip_smoke.py --speculative    # phases 1-2, K9 and K4-verify of phase 3, 16-17
     python3 chip_smoke.py --lora           # phases 1-2, K4-LoRA of phase 3, phases 18-19
     python3 chip_smoke.py --mpt            # phases 1-2, K2-bias and K3-ALiBi of phase 3, 20-23
+    python3 chip_smoke.py --probes         # phases 1-2, K2 full-bias of phase 3, phase 24
 
 Phases, one result line each or more (every failure raises, so any
 failure exits non-zero and prints no final line):
@@ -160,7 +161,24 @@ failure exits non-zero and prints no final line):
      the projector changed; loss, s and tok/s a step, peak memory;
  23. full widths at 2 MPT layers: one stage-2 step card vs CPU in phase
      9's bands, which the same step with K2-bias's backward dropping the
-     bias must fail.
+     bias must fail;
+ 24. the card probes P1-P4 (`tokenpacker_tpu_torch/probes`) at their
+     scripts' geometry, every input byte read once a call: P1 over copies
+     of at least 4x the L2 (and one copy, L2-resident, labelled), P2 int8
+     and int4 at B = 1, P3a's packing, P3b int8 and packed at B = 8, P4
+     in five element types at their own load width and as 16-byte vectors;
+     checksums and packed rows bit-equal to the plain versions, the GEMV
+     chains' values within GEMV_REL, each check failing a lossy output
+     (a chunk, layer or byte order lost); GB/s and the share of 3.35 TB/s,
+     the decision ratios of P2 (int4/int8) and P3b (packed/int8).
+Phase 3 also holds K2's full-bias form (no serving or training path
+reaches it) at MPT-7B's prefix-LM attention, [4, 2048, 32, 128], not
+causal: the prefix-LM mask with B's prompt lengths plus ALiBi as a [4, 32,
+2048, 2048] fp32 bias, the mask alone as [4, 1, 2048, 2048], and that one
+with rows below -1e30 (o = 0, lse = +inf), each failing the plain version
+with the bias's last key tile dropped; SDPA with the bias as a bf16 mask is
+its library column. The six kernels no path reaches (K2 full-bias and the
+probes' five) are counted over phases 4-23: 0.
 Phase 3 also holds K9 at [8, 577, 1024] and [26, 577, 1024] by its
 block's update out - x per (image, 64 rows, 128-wide slice), failing the
 plain block that lost its last 64 keys or its MLP's last 128 units, with
@@ -196,8 +214,9 @@ check, K9 and K4-verify in phase 3, phases 16-17) and `--lora` only the
 multi-LoRA slice's (K4-LoRA in phase 3, phases 18-19) and `--mpt` only
 the MPT slice's (K2-bias forward at [1|4, 2048, 32, 128] and backward at
 [4, 2048, 32, 128], K3-ALiBi at [4, 32, 128], S = 2080, in phase 3, each
-failing two lossy outputs; phases 20-23), each printing their kernel
-rows. None prints the final "ok" line.
+failing two lossy outputs; phases 20-23) and `--probes` only K2's
+full-bias rows of phase 3 and phase 24, each printing their kernel rows.
+None prints the final "ok" line.
 """
 
 from __future__ import annotations
@@ -217,6 +236,13 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+
+from tokenpacker_tpu_torch.timing import (
+    BF16_FLOP_PER_S,
+    HBM_BYTES_PER_S,
+    INT8_OPS_PER_S,
+    time_ms,
+)
 
 # K4 over 32 layers of random weights against its plain version: the
 # differences grow with depth (relative RMS ~0.006 after one layer,
@@ -293,9 +319,6 @@ HD_PRESET = "tokenpacker-hd-7b-9patch-144token"
 # the slice-mode row separator and row end; no tokenizer is loaded
 SEP_ID, NEWLINE_ID = 29892, 13
 NEW_TOKENS = 32
-# NVIDIA's H100 SXM datasheet: HBM3 rate and
-# the dense bf16 and int8 tensor-core rates, at a 700 W power limit
-HBM_BYTES_PER_S, BF16_FLOP_PER_S, INT8_OPS_PER_S = 3.35e12, 989e12, 1979e12
 
 
 def sh(cmd: list[str]) -> str:
@@ -303,44 +326,6 @@ def sh(cmd: list[str]) -> str:
         return subprocess.run(cmd, capture_output=True, text=True, timeout=60).stdout.strip()
     except FileNotFoundError:
         return f"{cmd[0]}: not found"
-
-
-def time_ms(fn, iters: int = 20, warmup: int = 3, graph: bool = False) -> float:
-    """Device time of one call: the median over 3 runs of back-to-back calls
-    (iters / 3 a run, at least 1) between one pair of CUDA events, each run
-    divided by its count. With `graph` the iters calls are captured once
-    into a CUDA graph whose replay is timed (3 replays, each divided by
-    iters): a kernel of a few microseconds is then timed without the
-    host's launch cost (the wrapper's checks, ctypes), which one event
-    pair around one call would measure instead."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    per = iters if graph else max(1, round(iters / 3))
-    if graph:
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn()
-        torch.cuda.current_stream().wait_stream(side)
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(per):
-                fn()
-        run = g.replay
-    else:
-        def run():
-            for _ in range(per):
-                fn()
-    times = []
-    for _ in range(3):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        run()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / per)
-    return statistics.median(times)
 
 
 def bound(nbytes: float, flops: float, rate: float = BF16_FLOP_PER_S) -> tuple[float, str]:
@@ -474,14 +459,19 @@ def compare_tiles(name: str, got: torch.Tensor, want: torch.Tensor, tile: int = 
 
 def compare_flash_fwd(name: str, out, want, losts: dict | None = None) -> float:
     """K2's forward (o, lse) against its plain version: o block by block
-    (`losts`: lossy o's that must fail it), lse absolutely. Returns the
-    largest absolute error."""
+    (`losts`: lossy o's that must fail it), lse absolutely; an infinite lse
+    (a row that sees no key, or whose biased logits all lie below -1e30)
+    must be the same infinity in both. Returns the largest absolute error."""
     err = compare_tiles(name + " o", out[0], want[0], losts=losts)
-    lse_err = (out[1] - want[1]).abs().max().item()
-    print(f"  {name} lse: max_abs_err={lse_err:.3e} limit {LSE_ATOL} "
-          f"{'OK' if lse_err <= LSE_ATOL else 'FAIL'}")
-    if not lse_err <= LSE_ATOL:
-        raise AssertionError(f"{name}: lse differs from the plain version's by {lse_err}")
+    inf = torch.isinf(want[1])
+    same_inf = torch.equal(torch.isinf(out[1]), inf) and torch.equal(out[1][inf], want[1][inf])
+    lse_err = (out[1][~inf] - want[1][~inf]).abs().max().item()
+    ok = same_inf and lse_err <= LSE_ATOL
+    print(f"  {name} lse: max_abs_err={lse_err:.3e} limit {LSE_ATOL}, {int(inf.sum())} infinite "
+          f"entries {'the same' if same_inf else 'DIFFERENT'} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: lse differs from the plain version's by {lse_err} "
+                             f"(infinities the same: {same_inf})")
     return max(err, lse_err)
 
 
@@ -608,6 +598,11 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
 
     print("phase 3: kernels vs plain versions (bf16; times: the median of 3 runs of back-to-back "
           "calls between one CUDA event pair, K6 and K7 a CUDA graph of 20 launches)")
+    if only in ("", "probes"):
+        rows["flash_attention_full_bias"] = first_and_worst(
+            full_bias_kernel_cases(device, case, hd_lengths))
+    if only == "probes":
+        return rows
     if only in ("", "mpt"):
         rows.update(mpt_kernel_cases(device, case, hd_lengths, span))
     if only == "mpt":
@@ -3567,6 +3562,73 @@ def mpt_kernel_cases(device, case, hd_lengths: np.ndarray, span: tuple[int, int]
     return out
 
 
+def full_bias_kernel_cases(device, case, hd_lengths: np.ndarray) -> list[dict]:
+    """Phase 3's K2 full-bias rows, at MPT-7B's prefix-LM attention: q/k/v
+    [4, 2048, 32, 128] bf16, not causal, the bias `make_prefix_lm_bias`
+    with B's prompt lengths as the bidirectional prefixes (causal after
+    them) plus MPT-7B's ALiBi as [4, 32, 2048, 2048] fp32 (2 GiB); the
+    same mask alone as a head-broadcast [4, 1, 2048, 2048] bias; and that
+    one with whole rows below -1e30 (the fp32 minimum, -1e38, -2e30), which
+    must give o = 0 and lse = +inf in kernel and plain version alike. Each
+    held by `compare_flash_fwd`, which the plain version with the bias's
+    last key tile dropped must fail. Work: the products of the unmasked
+    (query, key) pairs, the bias read once. Library: one
+    scaled_dot_product_attention with the bias as a bf16 `attn_mask`
+    (built outside the timed region; its fully masked rows give NaN there,
+    timed only)."""
+    from tokenpacker_tpu_torch.models.mpt import alibi_bias, make_prefix_lm_bias
+    from tokenpacker_tpu_torch.ops import flash_attention as k2
+
+    n, t, h, d = len(hd_lengths), TRAIN_SEQ, 32, 128
+    prefixes = torch.as_tensor(hd_lengths, device=device)
+    positions = torch.arange(t, device=device).expand(n, t)
+    prefix_lm = make_prefix_lm_bias(positions, torch.ones((n, t), dtype=torch.bool, device=device),
+                                    prefixes, t)  # [4, 1, T, T]
+    masked = prefix_lm.clone()
+    dead_rows = ((0, t // 20, torch.finfo(torch.float32).min), (1, t // 4, -1e38),
+                 (2, t // 2, -2e30), (3, t - 1, torch.finfo(torch.float32).min))
+    for i, r, value in dead_rows:
+        masked[i, 0, r] = value
+    q, k, v = (bf16((n, t, h, d), 90 + i, device) for i in range(3))
+    cases = []
+    for what, bias in ((f"prefix-LM + ALiBi bias [{n},{h},{t},{t}]",
+                        prefix_lm + alibi_bias(h, t, device)),
+                       (f"prefix-LM bias [{n},1,{t},{t}] (head-broadcast)", prefix_lm),
+                       (f"prefix-LM bias [{n},1,{t},{t}] with rows below -1e30", masked)):
+        dropped = bias.clone()
+        dropped[..., -64:] = 0
+        mask = bias.to(torch.bfloat16)
+        # (sample, head, query, key) products that this bias leaves to compute
+        allowed = int((bias >= -1e30).sum()) * (h // bias.shape[1])
+
+        def check(name, out, want, dropped=dropped, bias=bias):
+            err = compare_flash_fwd(name, out, want, losts={
+                "the plain version with the bias's last key tile dropped":
+                    k2.flash_attention_plain(q, k, v, False, dropped)[0]})
+            if bias is masked:
+                lse = (out[1].view(n, h, t), want[1].view(n, h, t))
+                dead = all(not o[i, r].any() and bool((l[i, :, r] == torch.inf).all())
+                           for o, l in zip((out[0], want[0]), lse) for i, r, _ in dead_rows)
+                print(f"  {name}: rows below -1e30 (fp32 minimum, -1e38, -2e30) give o = 0 and "
+                      f"lse = +inf in kernel and plain version: {dead}")
+                if not dead:
+                    raise AssertionError(f"{name}: a row below -1e30 is not o = 0, lse = +inf")
+            return err
+
+        cases.append(case(
+            f"K2 full-bias flash q[{n},{t},{h},{d}], {what}",
+            lambda q, k, v, bias=bias: k2.flash_attention(q, k, v, False, bias),
+            lambda q, k, v, bias=bias: k2.flash_attention_plain(q, k, v, False, bias),
+            (q, k, v), check=check,
+            library=lambda mask=mask: sdpa(q, k, v, attn_mask=mask),
+            work=(4 * n * t * h * d * 2 + n * h * t * 4 + bias.numel() * 4, 4 * d * allowed)))
+        del bias, dropped, mask
+        torch.cuda.empty_cache()
+    del q, k, v
+    torch.cuda.empty_cache()
+    return cases
+
+
 def phase_mpt_serving(device, seed: int) -> dict:
     """Phase 20 (cell I): MPT-7B in the HD-7b geometry (`mpt_vlm_config`),
     bf16 weights and cache, random weights from the seed. `Generator`
@@ -3796,6 +3858,233 @@ def phase_mpt_train_parity(device, seed: int) -> None:
                   r"lm\.layers\.\d+\.attn\.(wqkv|out)\.kernel", 4)
 
 
+GEMV_REL = 1e-4  # P2 and P3b: a chain's value within this of its largest |value|
+
+
+def probe_gemv_check(name: str, got, want, lost) -> float:
+    """A GEMV chain's value [B, 1] against its plain version's (float64):
+    within GEMV_REL of the largest |value| (fp32 sums of 512 products a
+    column, then a block's columns; ~1e-6 expected), which the plain
+    version without its last 512-row chunk must fail. Returns the largest
+    absolute error."""
+    scale = want.double().abs().max().item()
+    err = (got.double() - want.double()).abs().max().item()
+    lost_err = (lost.double() - want.double()).abs().max().item()
+    ok = bool(torch.isfinite(got).all()) and err <= GEMV_REL * scale
+    print(f"  {name}: value within {err / scale:.2e} of its largest |value| (limit {GEMV_REL}); "
+          f"without the last 512-row chunk {lost_err / scale:.3f} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: the chain's value differs from the plain version's")
+    if not lost_err > GEMV_REL * scale:
+        raise AssertionError(f"{name}: the check does not see a lost chunk")
+    return err
+
+
+def probe_equal(name: str, got, want, lost, what: str) -> None:
+    """Checksums (or packed rows) bit-equal to the plain version's, and the
+    plain version's `lost` (`what`) must differ."""
+    ok, lost_equal = torch.equal(got, want), torch.equal(lost, want)
+    print(f"  {name}: bit-equal to the plain version {ok}; {what} bit-equal {lost_equal} "
+          f"{'OK' if ok and not lost_equal else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: differs from the plain version")
+    if lost_equal:
+        raise AssertionError(f"{name}: the check does not see {what}")
+
+
+def phase_probes(device) -> dict:
+    """Phase 24: the card probes P1-P4 (`tokenpacker_tpu_torch/probes`) at
+    their scripts' geometry, each stream reading every input byte once a
+    call (P1: 8 chunks of each of the copies that make 4x the L2, then as
+    many chunks cycled over one copy, L2-resident, labelled; P2-P4: the 8
+    layers once).
+    Checksums and packed rows held bit for bit against the plain versions,
+    the GEMV chains' values within GEMV_REL, each check failing a lossy
+    output. Per probe: kernel, plain and library ms (`torch.sum` over the
+    same view for P1 and P4, the bf16 product with the unpacked weight for
+    P2 and P3b, a transpose of row pairs read as int16 for P3a), the bound (bytes), and the rate over the
+    streamed bytes with its share of 3.35 TB/s."""
+    from tokenpacker_tpu_torch.probes import (bitcast_pack, dma_stride, int4_ring, l2_copies,
+                                              stream_dtype)
+
+    print("phase 24: the card probes P1-P4 vs their plain versions (rates over the bytes streamed, "
+          "share of 3.35 TB/s)")
+    g = torch.Generator(device=device).manual_seed(SEED + 24)
+    rows = {}
+
+    def probe(name, kernel, plain, library, nbytes, flops=0.0, check=None):
+        """Time kernel, plain and library; print the rate over nbytes."""
+        out, want = kernel(), plain()
+        err = check(name, out, want) if check else 0.0
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain, iters=6, warmup=1)
+        lib_ms = time_ms(library) if library else None
+        b_ms, b_by = bound(nbytes, flops)
+        print(f"  {name}: kernel {ms:.4f} ms -> {nbytes / ms / 1e6:.1f} GB/s "
+              f"({nbytes / (ms / 1e3) / HBM_BYTES_PER_S:.1%} of 3.35 TB/s), plain {plain_ms:.4f} "
+              f"ms, library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+              f"{b_ms:.4f} ms ({b_by})")
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": b_ms, "bound_by": b_by}
+
+    # P1: contiguous against column slices, over >= 4x the L2
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    nrows, ncols, ck = dma_stride.NROWS, dma_stride.NCOLS, dma_stride.CK
+    copies = l2_copies(nrows * ncols, l2)
+    narrow = torch.randint(-127, 127, (copies, nrows, ncols), dtype=torch.int8, device=device,
+                           generator=g)
+    wide = torch.randint(-127, 127, (copies, nrows, 2 * ncols), dtype=torch.int8, device=device,
+                         generator=g)
+    print(f"  P1 working set: {copies} copies x [{nrows}, {ncols}] = "
+          f"{copies * nrows * ncols / 1e6:.1f} MB, L2 {l2 / 1e6:.1f} MB")
+    cases = []
+    for what, src, off in (("contiguous [4096,11008]", narrow, 0),
+                           ("column slice [*,0:11008] of [4096,22016]", wide, 0),
+                           ("column slice [*,11008:] of [4096,22016]", wide, ncols)):
+        # the one-copy case streams as many chunks from 45 MB, which the L2 holds
+        for label, s_, reps in ((f"{copies} copies", src, (nrows // ck) * copies),
+                                ("one copy, L2-resident", src[:1], (nrows // ck) * copies)):
+            view = s_[:, :, off:off + ncols].view(torch.int32)
+            row = probe(
+                f"P1 dma_stride {what}, {label}, {reps} chunks",
+                lambda s_=s_, off=off, reps=reps: dma_stride.stream(s_, off, reps),
+                lambda s_=s_, off=off, reps=reps: dma_stride.stream_plain(s_, off, reps),
+                lambda view=view: view.sum(), dma_stride.bytes_per_call(reps),
+                check=lambda name, out, want, s_=s_, off=off, reps=reps: probe_equal(
+                    name, out, want, dma_stride.stream_plain(s_, off, reps - 1),
+                    "the sum without the last chunk") or 0.0)
+            if label != "one copy, L2-resident":
+                cases.append(row)
+    rows["dma_stride"] = dict(cases[0], max_abs_err=0.0)
+    del narrow, wide, view
+    torch.cuda.empty_cache()
+
+    # P2: int4 nibbles with their unpack against int8, B rows, the 8 layers once
+    L, K, N, b = int4_ring.L, int4_ring.K, int4_ring.N, int4_ring.B
+    x = (torch.randn((b, K), generator=g, device=device) * 0.1).to(torch.bfloat16)
+    ms_by_mode = {}
+    for mode in ("int8", "int4"):
+        w = torch.randint(-127, 127, (L, int4_ring.source_rows(K, mode), N), dtype=torch.int8,
+                          device=device, generator=g)
+        dense = (int4_ring.unpack_planes(w) if mode == "int4" else w).to(torch.bfloat16)
+        row = probe(
+            f"P2 int4_ring {mode}: x[{b},{K}] @ {L} x [{K},{N}] from a {mode} source",
+            lambda w=w, mode=mode: int4_ring.chain(x, w, L, mode),
+            lambda w=w, mode=mode: int4_ring.chain_plain(x, w, L, mode),
+            lambda dense=dense: torch.matmul(x, dense), w.numel() + x.numel() * 2 + b * 4,
+            2.0 * b * K * N * L,
+            check=lambda name, out, want, w=w, mode=mode: probe_gemv_check(
+                name, out, want, int4_ring.chain_plain(
+                    x[:, :-512], w[:, :w.shape[1] - int4_ring.source_rows(512, mode)], L, mode)))
+        ms_by_mode[mode] = row["ms"]
+        if mode == "int4":
+            rows["int4_ring"] = row
+        del w, dense
+        torch.cuda.empty_cache()
+    print(f"  P2 int4/int8 wall ratio: {ms_by_mode['int4'] / ms_by_mode['int8']:.3f} (0.5 = "
+          f"perfect; >0.9 = not worth building)")
+
+    # P3a: the row-pair packing; P3b: the chain over the packed source
+    L, K, N, b = bitcast_pack.L, bitcast_pack.K, bitcast_pack.N, bitcast_pack.B
+    w8 = torch.randint(-127, 127, (L, K, N), dtype=torch.int8, device=device, generator=g)
+    def check_pack(name, out, want):
+        swapped = w8.view(L, K // 2, 2, N).flip(2).reshape(L, K, N)
+        probe_equal(name, out, want, bitcast_pack.pack_rows_plain(swapped),
+                    "the packing with each pair's bytes swapped")
+        probe_equal(name + " unpack_rows", bitcast_pack.unpack_rows(out), w8,
+                    bitcast_pack.unpack_rows_plain(out.roll(1, dims=-2)),
+                    "the unpacking of rows shifted by one")
+        return 0.0
+
+    # the library's packing: each pair of rows transposed into the last axis
+    # and read as one little-endian 16-bit word (row 2r the low byte)
+    def pack_library():
+        pairs = w8.view(L, K // 2, 2, N).transpose(-1, -2).contiguous()
+        return pairs.view(torch.int16).view(L, K // 2, N)
+
+    probe_equal("P3a library packing", pack_library(), bitcast_pack.pack_rows_plain(w8),
+                pack_library().roll(1, dims=-2), "its rows shifted by one")
+    rows["bitcast_pack"] = probe(
+        f"P3a bitcast_pack pack_rows int8 [{L},{K},{N}] -> u16 [{L},{K // 2},{N}]",
+        lambda: bitcast_pack.pack_rows(w8), lambda: bitcast_pack.pack_rows_plain(w8),
+        pack_library, 2 * w8.numel(), check=check_pack)
+    wp = bitcast_pack.pack_rows(w8)
+    x = (torch.randn((b, K), generator=g, device=device) * 0.1).to(torch.bfloat16)
+    dense = w8[:, :, :bitcast_pack.GEMV_COLS].to(torch.bfloat16)
+    outs, ms_by_mode = [], {}
+    for mode, w, packed in (("int8", w8, False), ("packed", wp, True)):
+        def check(name, out, want, w=w, packed=packed):
+            lost = bitcast_pack.stream_plain(x[:, :-512], w[:, :w.shape[1] - 512 // (1 + packed)],
+                                             L, packed)
+            probe_equal(name + " checksum", out[1], want[1], lost[1],
+                        "the checksum without the last chunk")
+            return probe_gemv_check(name, out[0], want[0], lost[0])
+
+        row = probe(
+            f"P3b bitcast_stream {mode}: x[{b},{K}] @ {L} x [{K},{N}][:, :4096], all {N} "
+            f"columns read", lambda w=w, packed=packed: bitcast_pack.stream(x, w, L, packed),
+            lambda w=w, packed=packed: bitcast_pack.stream_plain(x, w, L, packed),
+            lambda: torch.matmul(x, dense), w.numel() * w.element_size() + x.numel() * 2 + b * 4,
+            2.0 * b * K * bitcast_pack.GEMV_COLS * L, check=check)
+        outs.append(bitcast_pack.stream(x, w, L, packed))
+        ms_by_mode[mode] = row["ms"]
+        if packed:
+            rows["bitcast_stream"] = row
+    same_sum = torch.equal(outs[0][1], outs[1][1])
+    value_rel = ((outs[0][0].double() - outs[1][0].double()).abs().max()
+                 / outs[0][0].double().abs().max()).item()
+    print(f"  P3b the two modes: checksums equal {same_sum}, values bit-equal "
+          f"{torch.equal(outs[0][0], outs[1][0])} (relative {value_rel:.1e}, limit {GEMV_REL}); "
+          f"packed/int8 wall ratio {ms_by_mode['packed'] / ms_by_mode['int8']:.3f} (< 1: the "
+          f"packed stream is faster, worth building)")
+    if not same_sum or not value_rel <= GEMV_REL:
+        raise AssertionError("P3b: the int8 and packed modes disagree")
+    del w8, wp, dense, outs
+    torch.cuda.empty_cache()
+
+    # P4: element types and load widths, the 8 layers once
+    cases = []
+    for name in stream_dtype.CASES:
+        x, w = stream_dtype.make_case(name, device, g)
+        L = w.shape[0]
+        whole = w.view(torch.int16) if w.dtype == torch.uint16 else w
+        for vector in (False, True):
+            def check(label, out, want, x=x, w=w):
+                probe_equal(label + " checksum", out[1], want[1],
+                            stream_dtype.stream_plain(x, w, L - 1)[1],
+                            "the checksum without the last layer")
+                rel = ((out[0].double() - want[0].double()).abs()
+                       / want[0].double().abs()).max().item()
+                print(f"  {label}: value reps * N * sum(x) within {rel:.1e} (limit 1e-6)")
+                if not rel <= 1e-6:
+                    raise AssertionError(f"{label}: the value differs from the plain version's")
+                return (out[0] - want[0]).abs().max().item()
+
+            width = "16-byte vectors" if vector else f"{w.element_size()}-byte loads"
+            cases.append(probe(
+                f"P4 stream_dtype {name} [{L},{w.shape[1]},{w.shape[2]}], {width}",
+                lambda x=x, w=w, vector=vector: stream_dtype.stream(x, w, L, vector),
+                lambda x=x, w=w: stream_dtype.stream_plain(x, w, L), lambda whole=whole:
+                whole.sum(), w.numel() * w.element_size() + x.numel() * x.element_size(),
+                check=check))
+        del x, w, whole
+        torch.cuda.empty_cache()
+    rows["stream_dtype"] = dict(cases[0], max_abs_err=max(c["max_abs_err"] for c in cases))
+    return rows
+
+
+def probe_counters() -> dict:
+    """The counters of the kernels no serving or training path reaches: K2's
+    full-bias form and the probes."""
+    from tokenpacker_tpu_torch.ops.flash_attention import flash_attention
+    from tokenpacker_tpu_torch.probes import bitcast_pack, dma_stride, int4_ring, stream_dtype
+
+    return {"flash_attention_full_bias": (flash_attention, "full_bias_launches"),
+            "dma_stride": dma_stride.stream, "int4_ring": int4_ring.chain,
+            "bitcast_pack": bitcast_pack.pack_rows, "bitcast_unpack": bitcast_pack.unpack_rows,
+            "bitcast_stream": bitcast_pack.stream, "stream_dtype": stream_dtype.stream}
+
+
 def device_kernels(prof):
     """(name, device ms, count) of every device-side event of a trace
     (kernels, copies); CPU ops also carry the device time they launched."""
@@ -4019,10 +4308,16 @@ def main() -> None:
     speculative = "--speculative" in sys.argv[1:]
     lora = "--lora" in sys.argv[1:]
     mpt = "--mpt" in sys.argv[1:]
+    probes = "--probes" in sys.argv[1:]
     only = ("quantized" if quantized else "speculative" if speculative else "lora" if lora
-            else "mpt" if mpt else "")
+            else "mpt" if mpt else "probes" if probes else "")
     rows = phase_kernels(device, hd_batch["lengths"], s_hd, (l, l + NEW_TOKENS - 2), only)
     if "--kernels" in sys.argv[1:]:
+        return
+    if probes:
+        rows.update(phase_probes(device))
+        # no main path runs in this mode, so no launch count is read
+        print(json.dumps(rows))
         return
     if mpt:
         runs = [phase_mpt_serving(device, SEED)]
@@ -4052,6 +4347,10 @@ def main() -> None:
         print(json.dumps({name: {**row, "launches": sum(r.get(name, 0) for r in runs)}
                           for name, row in rows.items()}))
         return
+    # K2's full-bias form and the probes: no serving or training path
+    # reaches them; counted over all of the main-path phases 4-23
+    unreached = probe_counters()
+    reset_counts(unreached)
     runs = [phase_end_to_end(device, SEED)]
     phase_parity(device, SEED)
     runs.append(phase_hd_int8(device, SEED, hd_batch, hd_blocks))
@@ -4072,6 +4371,11 @@ def main() -> None:
     phase_mpt_parity(device, SEED)
     runs.append(phase_mpt_train(device, SEED))
     phase_mpt_train_parity(device, SEED)
+    counts = read_counts(unreached)
+    counts["bitcast_pack"] += counts.pop("bitcast_unpack")
+    runs.append(counts)
+    release_earlier_phases()
+    rows.update(phase_probes(device))
 
     meta = {
         "vit_attention": ("tokenpacker_tpu_torch/csrc/vit_attention.cu",
@@ -4105,12 +4409,25 @@ def main() -> None:
                                      "tokenpacker_tpu/ops/flash_attention.py:356"),
         "decode_attention_alibi": ("tokenpacker_tpu_torch/csrc/decode_attention.cu",
                                    "tokenpacker_tpu/ops/decode_attention.py:120"),
+        "flash_attention_full_bias": ("tokenpacker_tpu_torch/csrc/flash_fwd.cu",
+                                      "tokenpacker_tpu/ops/flash_attention.py:183"),
+        "dma_stride": ("tokenpacker_tpu_torch/csrc/stream_probes.cu",
+                       "scripts/probe_dma_stride.py:74"),
+        "int4_ring": ("tokenpacker_tpu_torch/csrc/stream_probes.cu",
+                      "scripts/probe_int4_ring.py:76"),
+        "bitcast_pack": ("tokenpacker_tpu_torch/csrc/stream_probes.cu",
+                         "scripts/probe_bitcast_pack.py:34"),
+        "bitcast_stream": ("tokenpacker_tpu_torch/csrc/stream_probes.cu",
+                           "scripts/probe_bitcast_pack.py:133"),
+        "stream_dtype": ("tokenpacker_tpu_torch/csrc/stream_probes.cu",
+                         "scripts/probe_stream_dtype.py:68"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
         # launches: summed over the ten main-path runs (phases 4, 6, 8,
         # 10, 12, 14, 16, 18, 20 and 22), each counted from 0 just before
-        # its run and read just after
+        # its run and read just after; the six that no path reaches over
+        # phases 4-23 as a whole (0)
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(r.get(name, 0) for r in runs), **rows[name]})
     print(json.dumps({"kernels": kernels}))

@@ -1113,9 +1113,227 @@ def test_decode_alibi_kernel_matches_plain(cuda, s, span_start):
 def test_bias_and_slopes_forms_reject_what_they_do_not_take(cuda):
     q = _bf16((1, 64, 4, 128), 0, cuda)
     with pytest.raises(ValueError, match="key-only"):
-        flash_attention(q, q, q, True, torch.zeros((1, 4, 64, 64), device=cuda))
+        flash_attention(q, q, q, True, torch.zeros((1, 4, 64, 63), device=cuda))
     qd = _bf16((2, 8, 128), 1, cuda)
     ck = _bf16((2, 16, 2, 128), 2, cuda)  # GQA: slopes are MHA-only
     ones = torch.full((2,), 4, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="slopes"):
         decode_attention(qd, ck, ck, ones, ones, 0, torch.ones(8, device=cuda))
+
+
+# -- K2's full-bias form ------------------------------------------------------------
+
+
+def _full_bias(kind, n, h, tq, tk, device, seed):
+    """A full bias [N|1, H|1, Tq, Tk] fp32 of N(0, 2^2) ("prefix": MPT-7B's
+    prefix-LM mask over right-padded samples plus its ALiBi, [N, H, T, T])."""
+    from tokenpacker_tpu_torch.models.mpt import alibi_bias, make_prefix_lm_bias
+
+    if kind == "prefix":
+        lengths = torch.tensor([tk, tk * 3 // 4, tk // 2, tk // 3][:n], device=device)
+        positions = torch.arange(tq, device=device).expand(n, tq)
+        key_valid = torch.arange(tk, device=device)[None, :] < lengths[:, None]
+        return make_prefix_lm_bias(positions, key_valid, lengths // 2, tk) + alibi_bias(h, tk,
+                                                                                       device)
+    shape = (n if "n" in kind else 1, h if "h" in kind else 1, tq, tk)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return (2.0 * torch.randn(shape, generator=g)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,tq,tk,h,hkv,causal,kind", [
+    (1, 2048, 2048, 32, 32, False, "prefix"),  # MPT-7B's prefix-LM + ALiBi, one sample
+    (4, 300, 300, 32, 32, False, "prefix"),
+    (2, 700, 700, 32, 8, True, "nh"),
+    (2, 64, 300, 8, 2, True, "1h"),  # queries aligned to the end of the keys
+    (1, 333, 333, 4, 4, False, "n1"),
+    (3, 17, 17, 4, 4, False, "11"),
+    (1, 100, 40, 4, 4, True, "11"),  # first 60 rows see no key
+])
+def test_flash_full_bias_kernel_matches_plain(cuda, n, tq, tk, h, hkv, causal, kind):
+    """K2's full-bias form against its plain version: o per (sample, 64
+    rows, head) block and lse; the kernel without the bias, and the plain
+    version with the bias's last key tile dropped, must fail the hold."""
+    q = _bf16((n, tq, h, 128), 0, cuda)
+    k, v = _bf16((n, tk, hkv, 128), 1, cuda), _bf16((n, tk, hkv, 128), 2, cuda)
+    bias = _full_bias(kind, n, h, tq, tk, cuda, 7)
+    before = (flash_attention.launches, flash_attention.bias_launches,
+              flash_attention.full_bias_launches)
+    o, lse = flash_attention(q, k, v, causal, bias)
+    assert (flash_attention.launches, flash_attention.bias_launches,
+            flash_attention.full_bias_launches) == (before[0], before[1], before[2] + 1)
+    want_o, want_lse = flash_attention_plain(q, k, v, causal, bias)
+    _close(o, want_o)
+    _close(lse, want_lse)
+    _blocks_close(o, want_o)
+    dropped = bias.clone()
+    dropped[..., -64:] = 0
+    for lossy in (flash_attention(q, k, v, causal)[0],
+                  flash_attention_plain(q, k, v, causal, dropped)[0]):
+        assert _blocks_rel(lossy, want_o).max().item() > BLOCK_REL_RMS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [float(torch.finfo(torch.float32).min), -1e38, -2e30])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_full_bias_masked_rows(cuda, masked, causal):
+    """Rows whose bias lies below -1e30 on every key: o = 0 and lse = +inf
+    in the kernel and its plain version alike (the TPU kernel's rule: its
+    online max starts at -1e30); the other rows held as usual."""
+    n, t, h = 2, 256, 4
+    q = _bf16((n, t, h, 128), 0, cuda)
+    k, v = _bf16((n, t, h, 128), 1, cuda), _bf16((n, t, h, 128), 2, cuda)
+    bias = _full_bias("n1", n, h, t, t, cuda, 8)
+    rows = [(0, 5), (0, 200), (1, 0), (1, 255)]
+    for i, r in rows:
+        bias[i, 0, r] = masked
+    o, lse = flash_attention(q, k, v, causal, bias)
+    want_o, want_lse = flash_attention_plain(q, k, v, causal, bias)
+    lse = lse.view(n, h, t)
+    for i, r in rows:
+        assert not o[i, r].any() and torch.isinf(lse[i, :, r]).all() and (lse[i, :, r] > 0).all()
+    _close(o, want_o)
+    _close(lse.view(n * h, t), want_lse)
+    _blocks_close(o, want_o)
+
+
+@pytest.mark.cuda
+def test_flash_full_bias_autograd_runs_the_reference_backward(cuda):
+    """`FlashAttention.apply` with a full bias launches the full-bias form
+    forward and no backward kernel (its backward is the plain
+    `flash_attention_bwd_reference` on the card); every gradient, the
+    bias's included, equals that function's on the kernel's own o and lse."""
+    from tokenpacker_tpu_torch.ops.flash_attention import flash_attention_bwd_reference
+
+    n, t, h = 2, 256, 8
+    q, k, v = (_bf16((n, t, h, 128), i, cuda).requires_grad_() for i in range(3))
+    do = _bf16((n, t, h, 128), 3, cuda)
+    bias = _full_bias("1h", n, h, t, t, cuda, 9).requires_grad_()
+    counts = (flash_attention.full_bias_launches, flash_attention_bwd.launches,
+              flash_attention_bwd.bias_launches)
+    o = FlashAttention.apply(q, k, v, True, bias)
+    grads = torch.autograd.grad(o, (q, k, v, bias), do)
+    now = (flash_attention.full_bias_launches, flash_attention_bwd.launches,
+           flash_attention_bwd.bias_launches)
+    assert tuple(b - a for a, b in zip(counts, now)) == (1, 0, 0)
+    o2, lse = flash_attention(q.detach(), k.detach(), v.detach(), True, bias.detach())
+    want = flash_attention_bwd_reference(q.detach(), k.detach(), v.detach(), o2, lse, do, True,
+                                         bias.detach())
+    assert grads[3].shape == bias.shape
+    for g, w in zip(grads, want):
+        assert torch.isfinite(g.float()).all()
+        _close(g, w)
+
+
+# -- the card probes P1-P4 -------------------------------------------------------------
+
+
+def _int8(shape, seed, device):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randint(-128, 128, shape, generator=g, dtype=torch.int8).to(device)
+
+
+def _value_close(got, want, limit=1e-4):
+    """A GEMV chain's value [B, 1] within `limit` of the largest |value|:
+    fp32 sums of 512 products a column, then a block's columns, against the
+    plain version's float64 (~1e-6 expected); a lost chunk reads ~0.1-1."""
+    err = (got.double() - want.double()).abs().max().item()
+    assert torch.isfinite(got).all() and err <= limit * want.double().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("copies,col_off,width", [(1, 0, 11008), (2, 0, 22016),
+                                                  (2, 11008, 22016)])
+def test_dma_stride_kernel_matches_plain(cuda, copies, col_off, width):
+    from tokenpacker_tpu_torch.probes import dma_stride
+
+    src = _int8((copies, 4096, width), 10, cuda)
+    before = dma_stride.stream.launches
+    for reps in (21, 64):
+        got = dma_stride.stream(src, col_off, reps)
+        assert torch.equal(got, dma_stride.stream_plain(src, col_off, reps))
+    assert dma_stride.stream.launches == before + 2
+    other = dma_stride.stream(src, col_off, 20)  # one chunk fewer: another sum
+    assert not torch.equal(other, dma_stride.stream_plain(src, col_off, 21))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2, 8])
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_int4_ring_kernel_matches_plain(cuda, b, mode):
+    from tokenpacker_tpu_torch.probes import int4_ring
+
+    k, n = 1024, 4096
+    w = _int8((2, k if mode == "int8" else k // 2, n), 11, cuda)
+    x = _bf16((b, k), 12, cuda) * 0.1
+    got = int4_ring.chain(x, w, 3, mode)
+    want = int4_ring.chain_plain(x, w, 3, mode)
+    _value_close(got, want)
+    again = int4_ring.chain(x, w, 3, mode)
+    assert torch.equal(got, again)
+    lossy = int4_ring.chain_plain(x[:, :512], w[:, :w.shape[1] // 2], 3, mode)
+    err = (lossy.double() - want.double()).abs().max().item()
+    assert err > 1e-4 * want.double().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_bitcast_pack_kernels_match_plain(cuda):
+    from tokenpacker_tpu_torch.probes import bitcast_pack
+
+    w8 = _int8((2, 1024, 4352), 13, cuda)
+    packed = bitcast_pack.pack_rows(w8)
+    assert torch.equal(packed, bitcast_pack.pack_rows_plain(w8))
+    assert torch.equal(bitcast_pack.unpack_rows(packed), w8)
+    labels = torch.arange(64, dtype=torch.int8, device=cuda)[:, None].expand(64, 256).contiguous()
+    lab = bitcast_pack.pack_rows(labels)[:, 0].to(torch.int32) & 0xFFFF
+    assert [(int(v) & 0xFF, int(v) >> 8) for v in lab] == [(2 * r, 2 * r + 1) for r in range(32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [2, 8])
+def test_bitcast_stream_kernel_matches_plain(cuda, b):
+    from tokenpacker_tpu_torch.probes import bitcast_pack
+
+    w8 = _int8((2, 1024, 12288), 14, cuda)
+    wp = bitcast_pack.pack_rows(w8)
+    x = _bf16((b, 1024), 15, cuda) * 0.1
+    outs = []
+    for w, packed in ((w8, False), (wp, True)):
+        value, checksum = bitcast_pack.stream(x, w, 3, packed)
+        want_value, want_checksum = bitcast_pack.stream_plain(x, w, 3, packed)
+        _value_close(value, want_value)
+        assert torch.equal(checksum, want_checksum)
+        outs.append((value, checksum))
+    assert torch.equal(outs[0][1], outs[1][1])
+    _value_close(outs[1][0], outs[0][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["int8", "int16", "uint16", "int32", "bf16"])
+@pytest.mark.parametrize("vector", [False, True])
+def test_stream_dtype_kernel_matches_plain(cuda, name, vector):
+    from tokenpacker_tpu_torch.probes import stream_dtype
+
+    g = torch.Generator(device=cuda).manual_seed(16)
+    x, w = stream_dtype.make_case(name, cuda, g)
+    w = w[:2, :, :1024].contiguous()
+    value, checksum = stream_dtype.stream(x, w, 3, vector)
+    want_value, want_checksum = stream_dtype.stream_plain(x, w, 3)
+    assert torch.equal(checksum, want_checksum)
+    torch.testing.assert_close(value, want_value, rtol=1e-6, atol=0)
+    fewer = stream_dtype.stream(x, w, 2, vector)[1]
+    assert not torch.equal(fewer, want_checksum)
+
+
+@pytest.mark.cuda
+def test_probe_kernels_reject_what_they_do_not_take(cuda):
+    from tokenpacker_tpu_torch.probes import bitcast_pack, dma_stride, int4_ring
+
+    with pytest.raises(ValueError):
+        dma_stride.stream(_int8((4096, 11008), 0, cuda), 8, 4)  # offset not 16-byte aligned
+    with pytest.raises(ValueError):
+        int4_ring.chain(_bf16((1, 1024), 0, cuda), _int8((2, 1024, 4096), 0, cuda), 3, "int4")
+    with pytest.raises(ValueError, match="rows are not taken"):
+        int4_ring.chain(_bf16((3, 1024), 0, cuda), _int8((2, 1024, 4096), 0, cuda), 3, "int8")
+    with pytest.raises(ValueError):
+        bitcast_pack.stream(_bf16((2, 1024), 0, cuda), _int8((2, 1024, 4096), 0, cuda), 3, True)

@@ -336,7 +336,8 @@ def test_params_from_jax_checks_depth(vlm):
 
 
 def test_port_imports_no_jax():
-    """Neither JAX nor any module of the JAX package is imported."""
+    """Neither JAX nor any module of the JAX package (nor its probe
+    scripts) is imported."""
     code = (
         "import sys, tokenpacker_tpu_torch.generate, tokenpacker_tpu_torch.io.weights, "
         "tokenpacker_tpu_torch.image.processing, tokenpacker_tpu_torch.image.hd_tiler, "
@@ -350,8 +351,11 @@ def test_port_imports_no_jax():
         "tokenpacker_tpu_torch.serve.prefix_cache, tokenpacker_tpu_torch.serve.scheduler, "
         "tokenpacker_tpu_torch.ops.q4_matmul, tokenpacker_tpu_torch.ops.q8_matmul, "
         "tokenpacker_tpu_torch.ops.s8_gemm, tokenpacker_tpu_torch.ops.vit_block, "
-        "tokenpacker_tpu_torch.speculative, tokenpacker_tpu_torch.serve.multi_lora; "
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'tokenpacker_tpu')]; "
+        "tokenpacker_tpu_torch.speculative, tokenpacker_tpu_torch.serve.multi_lora, "
+        "tokenpacker_tpu_torch.probes.dma_stride, tokenpacker_tpu_torch.probes.int4_ring, "
+        "tokenpacker_tpu_torch.probes.bitcast_pack, tokenpacker_tpu_torch.probes.stream_dtype; "
+        "bad = [m for m in sys.modules "
+        "if m.split('.')[0] in ('jax', 'tokenpacker_tpu', 'scripts')]; "
         "assert not bad, bad"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

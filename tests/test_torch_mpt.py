@@ -246,9 +246,13 @@ def test_flash_bias_autograd_matches_jax_grad(tq, tk):
 
 
 def test_flash_bias_shape_is_checked():
+    """A bias that is neither key-only [1, H|1, 1, Tk] nor full [N|1, H|1,
+    Tq, Tk] raises (the full form is `tests/test_torch_flash_full_bias.py`'s)."""
     q = torch.zeros(1, 8, 2, 16)
     with pytest.raises(ValueError, match="key-only"):
-        flash_attention(q, q, q, True, torch.zeros(1, 2, 8, 8))
+        flash_attention(q, q, q, True, torch.zeros(1, 2, 8, 7))
+    with pytest.raises(ValueError, match="key-only"):
+        flash_attention(q, q, q, True, torch.zeros(1, 3, 1, 8))
 
 
 # -- K3's slopes --------------------------------------------------------------------

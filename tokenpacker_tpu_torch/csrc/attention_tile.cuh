@@ -16,11 +16,24 @@
 // (query i sees keys <= i + tk - tq) and tiles wholly above the diagonal
 // are never loaded.
 //
-// With BIAS (K2's key-only additive bias, MPT's ALiBi) the logits are
+// With KEY_BIAS (K2's key-only additive bias, MPT's ALiBi) the logits are
 // S*scale + bias[key] before the softmax: each lane reads its two keys'
 // fp32 bias once per key tile (never past tk) and the tile works on
 // (S*scale + bias)*log2e, so lse stays the natural-log log-sum-exp of the
-// biased logits. BIAS = false compiles to the code without the argument.
+// biased logits.
+//
+// With FULL_BIAS (K2's full additive bias [N|1, H|1, Tq, Tk], the branch
+// that no model of the repo reaches) `bias` points at the (sample, head)
+// [tq, tk] fp32 matrix; before the softmax each lane folds the scale and
+// its two keys' bias of each of its warp's 16 rows into S (one coalesced
+// 128-byte read per row and half-tile, never past tq or tk, and not for
+// keys above the causal diagonal). The running max starts at -1e30 (in
+// log2 units), the TPU kernel's NEG_INF, not at -inf: a row whose biased
+// logits all lie below it (a prefix-LM row of the fp32 minimum) keeps
+// l = 0 and gets o = 0 and lse = +inf, as the TPU kernel gives it. Such a
+// bias overflows to -inf in log2 units (finfo.min * log2e), which the
+// softmax already reads as a masked key. NO_BIAS compiles to the code
+// without the argument.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -41,6 +54,10 @@ constexpr int WARPS = 4;          // each warp owns 16 query rows
 constexpr int THREADS = WARPS * 32;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+
+enum BiasForm { NO_BIAS, KEY_BIAS, FULL_BIAS };
+// FULL_BIAS's first running max: the TPU kernel's NEG_INF in log2 units
+constexpr float FULL_BIAS_M0 = -1e30f * LOG2E;
 
 // Row strides of the shared-memory tiles, padded past a multiple of 128
 // bytes so that the 8 rows of an ldmatrix land in different banks; every
@@ -89,8 +106,9 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long strid
 // q/k/v/o point at element 0 of the head in row 0 of the sequence; rows
 // are `*_stride` elements apart. lse (nullable) gets the natural-log
 // log-sum-exp of each query row, +inf for a row with no visible key.
-// bias (BIAS only): the head's [tk] fp32 key bias.
-template <int D, bool BIAS = false>
+// bias: KEY_BIAS the head's [tk] fp32 key bias; FULL_BIAS the (sample,
+// head) [tq, tk] fp32 bias, rows tk apart.
+template <int D, BiasForm BIAS = NO_BIAS>
 __device__ void attention_tile(const bf16* __restrict__ q, long q_stride,
                                const bf16* __restrict__ k, long k_stride,
                                const bf16* __restrict__ v, long v_stride,
@@ -117,7 +135,7 @@ __device__ void attention_tile(const bf16* __restrict__ q, long q_stride,
   load_rows<D>(Qs, q, q_stride, q0, tq, BQ);
   for (int i = threadIdx.x; i < BQ * OL; i += THREADS) O[i] = 0.f;
   if (threadIdx.x < BQ) {
-    row_m[threadIdx.x] = -INFINITY;
+    row_m[threadIdx.x] = BIAS == FULL_BIAS ? FULL_BIAS_M0 : -INFINITY;
     row_l[threadIdx.x] = 0.f;
   }
   // keys any row of this tile can see: the causal bound of its last row
@@ -151,11 +169,27 @@ __device__ void attention_tile(const bf16* __restrict__ q, long q_stride,
 
     // the bias of this lane's two keys (0 past tk, where it is never read)
     float kb[2] = {0.f, 0.f};
-    if constexpr (BIAS) {
+    if constexpr (BIAS == KEY_BIAS) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int kj = k0 + lane + 32 * j;
         if (kj < tk) kb[j] = bias[kj];
+      }
+    }
+
+    // S*scale + the full bias, for this warp's rows and this lane's keys;
+    // the loads of all 16 rows are independent, so they are in flight together
+    if constexpr (BIAS == FULL_BIAS) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int qi = q0 + r0 + i;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int kj = k0 + lane + 32 * j;
+          const bool ok = qi < tq && kj < tk && (!causal || kj <= qi + shift);
+          float& sv = S[(r0 + i) * S_LD + lane + 32 * j];
+          sv = sv * scale + (ok ? bias[(long)qi * tk + kj] : 0.f);
+        }
       }
     }
 
@@ -169,8 +203,10 @@ __device__ void attention_tile(const bf16* __restrict__ q, long q_stride,
         const int kj = k0 + lane + 32 * j;
         const bool ok = kj < tk && (!causal || kj <= qi + shift);
         float x;
-        if constexpr (BIAS) {
+        if constexpr (BIAS == KEY_BIAS) {
           x = (S[r * S_LD + lane + 32 * j] * scale + kb[j]) * LOG2E;
+        } else if constexpr (BIAS == FULL_BIAS) {
+          x = S[r * S_LD + lane + 32 * j] * LOG2E;
         } else {
           x = S[r * S_LD + lane + 32 * j] * sl2;
         }

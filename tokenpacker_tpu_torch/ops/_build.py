@@ -38,11 +38,14 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L, _D = ctypes.c_longlong, ctypes.c_double
 SIGNATURES = {
     # q, k, v, o, n, t, w, heads, stream
     "tp_vit_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # q, k, v, o, lse, bias, n, tq, tk, h, hkv, d, causal, stream
     "tp_flash_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # q, k, v, o, lse, bias, bias_sn, bias_sh, n, tq, tk, h, hkv, d, causal, stream
+    "tp_flash_fwd_full_bias": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, o, lse, dout, bias, dq, dk, dv, delta, n, tq, tk, h, hkv, d, causal, stream
     "tp_flash_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, lengths, needed, slopes, o, n, s, h, hkv, d, span_start, stream
@@ -65,6 +68,17 @@ SIGNATURES = {
     "tp_s8_matmul": (_P, _P, _P, _I, _I, _I, _P),
     # x, wq, wscale, y, m, k, n, xq_out, ax_out, acc_out, stream
     "tp_s8_gemm": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+    # the card probes (csrc/stream_probes.cu). src, row_pitch, chunk_pitch,
+    # copy_pitch, rows_per_chunk, nchunks, ncopies, row_bytes, reps,
+    # load_bytes, elem_bytes, checksum, x, x_kind, x_count, value_scale,
+    # value, value_rows, stream
+    "tp_probe_stream_sum": (_P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _D, _P,
+                            _I, _P),
+    # x, w, partials, value, checksum, b, k, n, layers, reps, ncols_gemv, mode, stream
+    "tp_probe_gemv_chain": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # src, dst, pairs, c, stream
+    "tp_probe_pack_rows": (_P, _P, _L, _I, _P),
+    "tp_probe_unpack_rows": (_P, _P, _L, _I, _P),
 }
 
 
@@ -143,6 +157,8 @@ def library() -> ctypes.CDLL:
     lib.tp_fused_decode_workspace.restype = ctypes.c_longlong
     lib.tp_q4_matmul_workspace.argtypes = (_I, _I, _I)
     lib.tp_q4_matmul_workspace.restype = ctypes.c_longlong
+    lib.tp_probe_gemv_chain_partials.argtypes = (_I, _I, _I, _I, _I)
+    lib.tp_probe_gemv_chain_partials.restype = ctypes.c_longlong
     return lib
 
 
