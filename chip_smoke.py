@@ -11,6 +11,7 @@
     python3 chip_smoke.py --lora           # phases 1-2, K4-LoRA of phase 3, phases 18-19
     python3 chip_smoke.py --mpt            # phases 1-2, K2-bias and K3-ALiBi of phase 3, 20-23
     python3 chip_smoke.py --probes         # phases 1-2, K2 full-bias of phase 3, phase 24
+    python3 chip_smoke.py --flash          # phases 1-2, every K2 row of phase 3, 8-9, 22-23
 
 Phases, one result line each or more (every failure raises, so any
 failure exits non-zero and prints no final line):
@@ -215,8 +216,12 @@ multi-LoRA slice's (K4-LoRA in phase 3, phases 18-19) and `--mpt` only
 the MPT slice's (K2-bias forward at [1|4, 2048, 32, 128] and backward at
 [4, 2048, 32, 128], K3-ALiBi at [4, 32, 128], S = 2080, in phase 3, each
 failing two lossy outputs; phases 20-23) and `--probes` only K2's
-full-bias rows of phase 3 and phase 24, each printing their kernel rows.
-None prints the final "ok" line.
+full-bias rows of phase 3 and phase 24, and `--flash` every K2 row of
+phase 3 (serving, training, key-only bias forward and backward, full-bias;
+with K3-ALiBi, which shares their function) and phases 8-9 and 22-23,
+each printing their kernel rows. None prints the final "ok" line. Every
+K2 row of phase 3 also prints its achieved TFLOP/s: the operations its
+bound counts over the kernel's time.
 """
 
 from __future__ import annotations
@@ -334,6 +339,11 @@ def bound(nbytes: float, flops: float, rate: float = BF16_FLOP_PER_S) -> tuple[f
     and K8), whichever is larger, and which."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def achieved_tflops(flops: float, ms: float) -> str:
+    """The operations a row's bound counts over the kernel's time."""
+    return f"achieved {flops / ms / 1e9:.1f} TFLOP/s"
 
 
 def row_rel_rms(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
@@ -572,14 +582,14 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
     """Phase 3: every kernel vs its plain version at the paths' shapes
     (`only` "quantized": K6-K8 alone; "speculative": the int8 rows' bit
     check, K9 and K4's verify form alone; "lora": K4-LoRA alone; "mpt":
-    K2-bias and K3-ALiBi alone)."""
+    K2-bias and K3-ALiBi alone; "flash": every K2 row, and K3-ALiBi)."""
     from tokenpacker_tpu_torch.config import preset_config
     from tokenpacker_tpu_torch.io.weights import init_lm_on_device, quantize_lm_int8
 
     rows = {}
 
     def case(name, kernel, plain, args, library=None, work=None, check=None,
-             rate=BF16_FLOP_PER_S, graph=False):
+             rate=BF16_FLOP_PER_S, graph=False, tflops=False):
         out, want = kernel(*args), plain(*args)
         err = check(name, out, want)
         ms = time_ms(lambda: kernel(*args), graph=graph)
@@ -587,7 +597,8 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
         lib_ms = time_ms(library) if library else None
         b_ms, b_by = bound(*work, rate)
         print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {b_ms:.4f} ms ({b_by})")
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {b_ms:.4f} ms ({b_by})"
+              + (f", {achieved_tflops(work[1], ms)}" if tflops else ""))
         return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                 "bound_ms": b_ms, "bound_by": b_by}
 
@@ -598,14 +609,17 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
 
     print("phase 3: kernels vs plain versions (bf16; times: the median of 3 runs of back-to-back "
           "calls between one CUDA event pair, K6 and K7 a CUDA graph of 20 launches)")
-    if only in ("", "probes"):
+    if only in ("", "probes", "flash"):
         rows["flash_attention_full_bias"] = first_and_worst(
             full_bias_kernel_cases(device, case, hd_lengths))
     if only == "probes":
         return rows
-    if only in ("", "mpt"):
+    if only in ("", "mpt", "flash"):
         rows.update(mpt_kernel_cases(device, case, hd_lengths, span))
     if only == "mpt":
+        return rows
+    if only == "flash":
+        rows.update(k2_kernel_rows(device, case, first_and_worst))
         return rows
     if only == "quantized":
         return {name: first_and_worst(cases)
@@ -633,7 +647,6 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
 def earlier_kernel_rows(device, case, first_and_worst) -> dict:
     """Phase 3's rows of K1, K2 (both directions), K3, K5 and K6-K8."""
     from tokenpacker_tpu_torch.ops import decode_attention as k3
-    from tokenpacker_tpu_torch.ops import flash_attention as k2
     from tokenpacker_tpu_torch.ops import vit_attention as k1
 
     rows = {}
@@ -646,20 +659,7 @@ def earlier_kernel_rows(device, case, first_and_worst) -> dict:
         work=(4 * n * t * w * 2, 4 * n * heads * t * t * (w // heads)),
         check=lambda name, out, want: compare_tiles(name, out.view(n, t, heads, -1),
                                                     want.view(n, t, heads, -1)))])
-
-    cases = []
-    for t, hkv in ((512, 32), (700, 32), (700, 8)):
-        q = bf16((2, t, 32, 128), 10, device)
-        kk, vv = bf16((2, t, hkv, 128), 11, device), bf16((2, t, hkv, 128), 12, device)
-        nbytes = 2 * (2 * t * 32 * 128) * 2 + 2 * (2 * t * hkv * 128) * 2 + 2 * 32 * t * 4
-        cases.append(case(
-            f"K2 flash causal q[2,{t},32,128] kv heads {hkv}", k2.flash_attention,
-            k2.flash_attention_plain, (q, kk, vv, True), check=compare_flash_fwd,
-            library=lambda q=q, kk=kk, vv=vv: sdpa(q, kk, vv, is_causal=True,
-                                                   enable_gqa=hkv != 32),
-            work=(nbytes, 4 * 2 * 32 * 128 * t * (t + 1) / 2)))
-    rows["flash_attention"] = first_and_worst(cases)
-    rows.update(phase_kernels_training_shape(device, case))
+    rows.update(k2_kernel_rows(device, case, first_and_worst))
 
     cases = []
     n, s = 4, 1040
@@ -940,6 +940,28 @@ def quantized_kernel_cases(device, case) -> dict:
     return out
 
 
+def k2_kernel_rows(device, case, first_and_worst) -> dict:
+    """Phase 3's rows of K2 without a bias: the forward at the serving
+    shapes (A's bucket of 512, and 700 with 32 and 8 kv heads), then both
+    directions at the training shape (`phase_kernels_training_shape`)."""
+    from tokenpacker_tpu_torch.ops import flash_attention as k2
+
+    cases = []
+    for t, hkv in ((512, 32), (700, 32), (700, 8)):
+        q = bf16((2, t, 32, 128), 10, device)
+        kk, vv = bf16((2, t, hkv, 128), 11, device), bf16((2, t, hkv, 128), 12, device)
+        nbytes = 2 * (2 * t * 32 * 128) * 2 + 2 * (2 * t * hkv * 128) * 2 + 2 * 32 * t * 4
+        cases.append(case(
+            f"K2 flash causal q[2,{t},32,128] kv heads {hkv}", k2.flash_attention,
+            k2.flash_attention_plain, (q, kk, vv, True), check=compare_flash_fwd,
+            library=lambda q=q, kk=kk, vv=vv: sdpa(q, kk, vv, is_causal=True,
+                                                   enable_gqa=hkv != 32),
+            work=(nbytes, 4 * 2 * 32 * 128 * t * (t + 1) / 2), tflops=True))
+    rows = {"flash_attention": first_and_worst(cases)}
+    rows.update(phase_kernels_training_shape(device, case))
+    return rows
+
+
 def phase_kernels_training_shape(device, case) -> dict:
     """Phase 3, K2 at phase 8's training shape: the forward checked and
     timed against its plain version; the backward checked (dq, dk, dv
@@ -955,7 +977,7 @@ def phase_kernels_training_shape(device, case) -> dict:
     fwd = case(f"K2 flash causal q[{n},{t},{h},{d}] (training shape)", k2.flash_attention,
                k2.flash_attention_plain, (q, k, v, True), check=compare_flash_fwd,
                library=lambda: sdpa(q, k, v, is_causal=True),
-               work=(4 * elems * 2 + n * h * t * 4, 4 * d * pairs))
+               work=(4 * elems * 2 + n * h * t * 4, 4 * d * pairs), tflops=True)
     torch.cuda.empty_cache()
     o, lse = k2.flash_attention(q, k, v, True)
 
@@ -985,7 +1007,9 @@ def phase_kernels_training_shape(device, case) -> dict:
     lib_ms = time_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), dol, retain_graph=True))
     b_ms, b_by = bound(8 * elems * 2 + n * h * t * 4, 5 * 2 * d * pairs)
     print(f"  {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (8 samples one by one), library "
-          f"{lib_ms:.4f} ms (SDPA backward alone), bound {b_ms:.4f} ms ({b_by})")
+          f"{lib_ms:.4f} ms (SDPA backward alone), bound {b_ms:.4f} ms ({b_by}), "
+          f"{achieved_tflops(5 * 2 * d * pairs, ms)} (the bound's five products; the kernels "
+          f"run seven)")
     del q, k, v, do, o, lse, ql, kl, vl, out
     torch.cuda.empty_cache()
     return {"flash_attention_train": fwd,
@@ -1439,9 +1463,11 @@ def phase_train_stage1(device, seed: int, rows: dict) -> dict:
               f"changed after step {steps}; mm_projector.bin ({len(saved[1])} reference keys) "
               f"loads back bit for bit")
     step_s = statistics.median(r["seconds"] for r in trainer.history[1:])
-    parts = {"K1": rows["vit_attention"]["ms"] * per_step["vit_attention"],
-             "K2-fwd": rows["flash_attention_train"]["ms"] * per_step["flash_attention"],
-             "K2-bwd": rows["flash_attention_bwd"]["ms"] * per_step["flash_attention_bwd"]}
+    parts = {label: rows[name]["ms"] * per_step[kernel]
+             for label, name, kernel in (("K1", "vit_attention", "vit_attention"),
+                                         ("K2-fwd", "flash_attention_train", "flash_attention"),
+                                         ("K2-bwd", "flash_attention_bwd", "flash_attention_bwd"))
+             if name in rows}  # `--flash` times no K1
     print(f"  step time (median of steps 2-{steps}) {step_s * 1e3:.1f} ms; kernel time x launches "
           f"from phase 3: " + ", ".join(f"{k} {v:.1f} ms" for k, v in parts.items())
           + f" = {sum(parts.values()) / (step_s * 1e3):.3f} of the step")
@@ -3475,7 +3501,7 @@ def mpt_kernel_cases(device, case, hd_lengths: np.ndarray, span: tuple[int, int]
             lambda *a: k2.flash_attention(*a, True, bias),
             lambda *a: k2.flash_attention_plain(*a, True, bias), (q, k, v), check=check,
             library=lambda q=q, k=k, v=v: sdpa(q, k, v, attn_mask=mask),
-            work=(4 * elems * 2 + n * h * t * 4 + h * t * 4, 4 * d * pairs))
+            work=(4 * elems * 2 + n * h * t * 4 + h * t * 4, 4 * d * pairs), tflops=True)
         del q, k, v
         torch.cuda.empty_cache()
     out = {"flash_attention_bias": rows[1], "flash_attention_bias_train": rows[MPT_TRAIN_BATCH]}
@@ -3520,7 +3546,8 @@ def mpt_kernel_cases(device, case, hd_lengths: np.ndarray, span: tuple[int, int]
     lib_ms = time_ms(lambda: torch.autograd.grad(sd_out, (ql, kl, vl), dol, retain_graph=True))
     b_ms, b_by = bound(8 * elems * 2 + n * h * t * 4 + h * t * 4, 5 * 2 * d * pairs)
     print(f"  {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({n} samples one by one), library "
-          f"{lib_ms:.4f} ms (SDPA backward alone, float mask), bound {b_ms:.4f} ms ({b_by})")
+          f"{lib_ms:.4f} ms (SDPA backward alone, float mask), bound {b_ms:.4f} ms ({b_by}), "
+          f"{achieved_tflops(5 * 2 * d * pairs, ms)} (the bound's five products)")
     out["flash_attention_bias_bwd"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                        "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
     del q, k, v, do, o, lse, ql, kl, vl, sd_out, mask
@@ -3621,7 +3648,8 @@ def full_bias_kernel_cases(device, case, hd_lengths: np.ndarray) -> list[dict]:
             lambda q, k, v, bias=bias: k2.flash_attention_plain(q, k, v, False, bias),
             (q, k, v), check=check,
             library=lambda mask=mask: sdpa(q, k, v, attn_mask=mask),
-            work=(4 * n * t * h * d * 2 + n * h * t * 4 + bias.numel() * 4, 4 * d * allowed)))
+            work=(4 * n * t * h * d * 2 + n * h * t * 4 + bias.numel() * 4, 4 * d * allowed),
+            tflops=True))
         del bias, dropped, mask
         torch.cuda.empty_cache()
     del q, k, v
@@ -4309,8 +4337,9 @@ def main() -> None:
     lora = "--lora" in sys.argv[1:]
     mpt = "--mpt" in sys.argv[1:]
     probes = "--probes" in sys.argv[1:]
+    flash = "--flash" in sys.argv[1:]
     only = ("quantized" if quantized else "speculative" if speculative else "lora" if lora
-            else "mpt" if mpt else "probes" if probes else "")
+            else "mpt" if mpt else "probes" if probes else "flash" if flash else "")
     rows = phase_kernels(device, hd_batch["lengths"], s_hd, (l, l + NEW_TOKENS - 2), only)
     if "--kernels" in sys.argv[1:]:
         return
@@ -4318,6 +4347,14 @@ def main() -> None:
         rows.update(phase_probes(device))
         # no main path runs in this mode, so no launch count is read
         print(json.dumps(rows))
+        return
+    if flash:
+        runs = [phase_train_stage1(device, SEED, rows)]
+        phase_train_parity(device, SEED)
+        runs.append(phase_mpt_train(device, SEED))
+        phase_mpt_train_parity(device, SEED)
+        print(json.dumps({name: {**row, "launches": sum(r.get(name, 0) for r in runs)}
+                          for name, row in rows.items()}))
         return
     if mpt:
         runs = [phase_mpt_serving(device, SEED)]

@@ -43,7 +43,15 @@ plain version with the last head's slopes zeroed; its backward without
 the bias in the recompute and with dk/dv reading the bias by query; K3's
 plain version with the keys at their slot indices instead of the
 compacted token positions, and without slopes. The no-bias cases above
-run unchanged: they hold the tile header's no-bias instantiation.
+hold the same kernels' no-bias form.
+
+K2's forward works on 128 query rows a block (two warpgroups of 64) and
+keys in tiles of 128, its backward on tiles of 64: the edge cases run
+both directions at lengths on either side of those tiles (127-129, 255,
+2049, queries ending inside the keys across a 128-row edge), GQA with
+groups of 4 at 2048 keys, full biases broadcast over N and over H, and
+full-bias rows below -1e30 on either side of the tiles' edges (o = 0,
+lse = +inf: ROADMAP R9, accepted for the port).
 """
 
 import pytest
@@ -219,6 +227,74 @@ def test_flash_bwd_kernel_matches_plain(cuda, n, tq, tk, h, hkv, causal):
         _blocks_close(g, w)
     if tq > tk:
         assert not got[0][:, : tq - tk].any()
+
+
+# K2's forward takes 128 query rows a block and keys in tiles of 128; its
+# backward tiles of 64 keys and 64 queries: lengths on both sides of each
+# edge, one past the longest bucket, and queries ending inside the keys
+# across a 128-row edge
+EDGE_LENGTHS = [(127, 127), (128, 128), (129, 129), (255, 255), (2049, 2049), (192, 320)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("tq,tk", EDGE_LENGTHS)
+def test_flash_kernel_at_tile_edges(cuda, tq, tk, bias):
+    """K2's forward (no bias, and the key-only bias with noise) at lengths
+    around its tiles' edges, causal: o and lse as the other cases."""
+    n, h = 2, 4
+    q = _bf16((n, tq, h, 128), 0, cuda)
+    k, v = _bf16((n, tk, h, 128), 1, cuda), _bf16((n, tk, h, 128), 2, cuda)
+    b = _alibi_rows(h, tk, cuda, 11) if bias else None
+    o, lse = flash_attention(q, k, v, True, b)
+    want_o, want_lse = flash_attention_plain(q, k, v, True, b)
+    _close(o, want_o)
+    _close(lse, want_lse)
+    _blocks_close(o, want_o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("tq,tk", EDGE_LENGTHS)
+def test_flash_bwd_kernel_at_tile_edges(cuda, tq, tk, bias):
+    """K2's backward at the same lengths: dq, dk, dv as the other cases, and
+    two calls give the same bits."""
+    n, h = 2, 4
+    q, do = _bf16((n, tq, h, 128), 0, cuda), _bf16((n, tq, h, 128), 3, cuda)
+    k, v = _bf16((n, tk, h, 128), 1, cuda), _bf16((n, tk, h, 128), 2, cuda)
+    b = _alibi_rows(h, tk, cuda, 12) if bias else None
+    o, lse = flash_attention(q, k, v, True, b)
+    got = flash_attention_bwd(q, k, v, o, lse, do, True, b)
+    again = flash_attention_bwd(q, k, v, o, lse, do, True, b)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, True, b)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        _close(g, w)
+        _blocks_close(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_gqa_group_of_4_at_2048(cuda, causal):
+    """GQA with 4 query heads a kv head at 2048 keys, both directions: the
+    backward sums each group inside its dk/dv block."""
+    n, t, h, hkv = 1, 2048, 8, 2
+    q, do = _bf16((n, t, h, 128), 0, cuda), _bf16((n, t, h, 128), 3, cuda)
+    k, v = _bf16((n, t, hkv, 128), 1, cuda), _bf16((n, t, hkv, 128), 2, cuda)
+    o, lse = flash_attention(q, k, v, causal)
+    want_o, want_lse = flash_attention_plain(q, k, v, causal)
+    _close(o, want_o)
+    _close(lse, want_lse)
+    _blocks_close(o, want_o)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal)
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        _close(g, w)
+        _blocks_close(g, w)
 
 
 @pytest.mark.cuda
@@ -1194,6 +1270,58 @@ def test_flash_full_bias_masked_rows(cuda, masked, causal):
         assert not o[i, r].any() and torch.isinf(lse[i, :, r]).all() and (lse[i, :, r] > 0).all()
     _close(o, want_o)
     _close(lse.view(n * h, t), want_lse)
+    _blocks_close(o, want_o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,h,causal,kind", [
+    (3, 255, 4, True, "1h"),  # broadcast over N
+    (3, 129, 4, False, "1h"),
+    (3, 255, 4, True, "n1"),  # broadcast over H
+    (2, 2049, 4, False, "n1"),
+])
+def test_flash_full_bias_broadcast_at_tile_edges(cuda, n, t, h, causal, kind):
+    """The full-bias form with a bias broadcast over N, then over H, read in
+    place (stride 0), at lengths around the forward's 128-row tiles."""
+    q = _bf16((n, t, h, 128), 0, cuda)
+    k, v = _bf16((n, t, h, 128), 1, cuda), _bf16((n, t, h, 128), 2, cuda)
+    bias = _full_bias(kind, n, h, t, t, cuda, 13)
+    o, lse = flash_attention(q, k, v, causal, bias)
+    want_o, want_lse = flash_attention_plain(q, k, v, causal, bias)
+    _close(o, want_o)
+    _close(lse, want_lse)
+    _blocks_close(o, want_o)
+    dropped = bias.clone()
+    dropped[..., -64:] = 0
+    assert _blocks_rel(flash_attention_plain(q, k, v, causal, dropped)[0],
+                       want_o).max().item() > BLOCK_REL_RMS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_full_bias_masked_rows_at_tile_edges(cuda, causal):
+    """ROADMAP R9, as accepted for the port: rows whose biased logits all lie
+    below -1e30 get o = 0 and lse = +inf, also where they lie on either side
+    of the forward's 128-row block edges and its warpgroups' 64-row halves,
+    and with a bias that is -1e38 only on the keys that row can see."""
+    n, t, h = 2, 300, 4
+    q = _bf16((n, t, h, 128), 0, cuda)
+    k, v = _bf16((n, t, h, 128), 1, cuda), _bf16((n, t, h, 128), 2, cuda)
+    bias = _full_bias("nh", n, h, t, t, cuda, 14)
+    rows = [(0, 63), (0, 64), (0, 127), (0, 128), (1, 129), (1, 255), (1, 256), (1, 299)]
+    for i, r in rows:
+        bias[i, :, r] = float(torch.finfo(torch.float32).min)
+    # row 200: below -1e30 on every key it sees, ordinary values above the
+    # diagonal, which the causal form masks itself
+    bias[0, :, 200, :201] = -1e38
+    dead = rows + ([(0, 200)] if causal else [])
+    o, lse = flash_attention(q, k, v, causal, bias)
+    want_o, want_lse = flash_attention_plain(q, k, v, causal, bias)
+    lse3 = lse.view(n, h, t)
+    for i, r in dead:
+        assert not o[i, r].any() and bool((lse3[i, :, r] == torch.inf).all())
+    _close(o, want_o)
+    _close(lse, want_lse)
     _blocks_close(o, want_o)
 
 
