@@ -14,8 +14,9 @@ Vicuna-7B's with the same head size; `chip_smoke.py` runs it at full
 width. K5 (paged attention) runs at the paged serving path's shapes. K6
 (4-bit GEMV), K7 (int8 GEMV) and K8 (w8a8 GEMM) run at Vicuna-7B's and
 CLIP-L's product shapes and at ragged row counts. K9 (the fused CLIP
-block) runs at CLIP-L's widths and at a small ragged one; K4's verify form
-(T = k+1 fed tokens a sample) at K4's test widths.
+block) runs at CLIP-L's widths (1, 2 and 26 images) and at two small
+ragged ones (W = 384 takes its 128-wide product tiles only); K4's verify
+form (T = k+1 fed tokens a sample) at K4's test widths.
 
 Outputs are held by block measures that do not scale with the tensor's
 largest value: the relative RMS difference of every (sample, 64-row
@@ -44,6 +45,11 @@ the bias in the recompute and with dk/dv reading the bias by query; K3's
 plain version with the keys at their slot indices instead of the
 compacted token positions, and without slopes. The no-bias cases above
 hold the same kernels' no-bias form.
+
+K1 works on 128 query rows a block and keys in tiles of 128 (d = 64): its
+edge cases run lengths 1, 63-65, 127-129 and 577 at 1 and 26 images and 4
+and 16 heads, each failing the plain output without its last key tile,
+and two calls give the same bits.
 
 K2's forward works on 128 query rows a block (two warpgroups of 64) and
 keys in tiles of 128, its backward on tiles of 64: the edge cases run
@@ -175,6 +181,42 @@ def test_vit_attention_kernel_matches_plain(cuda, n, t, w, heads):
     lost = got.clone()
     lost[:, -64:] = 0
     assert _blocks_rel(lost, want).max().item() > BLOCK_REL_RMS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [16, 4])
+@pytest.mark.parametrize("n", [1, 26])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 128, 129, 577])
+def test_vit_attention_kernel_at_tile_edges(cuda, t, n, heads):
+    """K1 takes 128 query rows a block and keys in tiles of 128: lengths on
+    both sides of those edges and the tower's 577, held per (image, 64
+    rows, head). The plain output without the keys of the kernel's last
+    key tile (no key at all where there is one tile: zeros) must fail
+    that hold, and two calls give the same bits."""
+    w = heads * 64
+    q, k, v = (_bf16((n, t, w), s, cuda) for s in range(3))
+    got, again = vit_attention(q, k, v, heads), vit_attention(q, k, v, heads)
+    want = vit_attention_plain(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    kept = (t - 1) // 128 * 128  # the keys before the last key tile
+    got, want = (x.view(n, t, heads, 64) for x in (got, want))
+    if kept:  # the plain version's function over the first `kept` keys
+        qh, kh, vh = (x.reshape(n, -1, heads, 64) for x in (q, k[:, :kept], v[:, :kept]))
+        logits = torch.einsum("nqhd,nkhd->nhqk", qh, kh) * 0.125
+        probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+        lost = torch.einsum("nhqk,nkhd->nqhd", probs, vh)
+    else:
+        lost = torch.zeros_like(want)
+    _blocks_close(got, want)
+    assert _blocks_rel(lost, want).max().item() > BLOCK_REL_RMS
+
+
+@pytest.mark.cuda
+def test_vit_attention_rejects_head_dim_128(cuda):
+    x = _bf16((2, 577, 1024), 0, cuda)
+    with pytest.raises(RuntimeError, match="not supported"):
+        vit_attention(x, x, x, 8)
 
 
 @pytest.mark.cuda
@@ -762,7 +804,10 @@ def _slices(u):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,t,w,f,heads", [(2, 577, 1024, 4096, 16), (3, 130, 256, 512, 4)])
+@pytest.mark.parametrize("n,t,w,f,heads", [(2, 577, 1024, 4096, 16), (3, 130, 256, 512, 4),
+                                           (1, 577, 1024, 4096, 16),
+                                           (26, 577, 1024, 4096, 16),
+                                           (2, 70, 384, 640, 6)])  # 128-wide tiles only
 def test_vit_block_kernel_matches_plain(cuda, n, t, w, f, heads):
     """The update out - x per (image, 64 rows, 128-wide slice); the plain
     version that lost the last 64 keys, or the last 128 MLP units, must

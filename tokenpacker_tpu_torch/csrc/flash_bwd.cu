@@ -410,10 +410,10 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
   CUtensorMap q_map, k_map, v_map, do_map;
-  int rc = encode_rows(&q_map, q, n, tq, h, BT);
-  if (rc == 0) rc = encode_rows(&do_map, dout, n, tq, h, BT);
-  if (rc == 0) rc = encode_rows(&k_map, k, n, tk, hkv, BT);
-  if (rc == 0) rc = encode_rows(&v_map, v, n, tk, hkv, BT);
+  int rc = encode_rows(&q_map, q, n, tq, h, HEAD_DIM, BT);
+  if (rc == 0) rc = encode_rows(&do_map, dout, n, tq, h, HEAD_DIM, BT);
+  if (rc == 0) rc = encode_rows(&k_map, k, n, tk, hkv, HEAD_DIM, BT);
+  if (rc == 0) rc = encode_rows(&v_map, v, n, tk, hkv, HEAD_DIM, BT);
   if (rc != 0) return rc;
   const long rows = (long)n * tq * h;
   if (rows > 0) {

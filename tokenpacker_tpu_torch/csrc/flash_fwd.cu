@@ -362,9 +362,9 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, cons
       flash_fwd_kernel<BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
   CUtensorMap q_map, k_map, v_map;
-  int rc = encode_rows(&q_map, q, n, tq, h, BM);
-  if (rc == 0) rc = encode_rows(&k_map, k, n, tk, hkv, Tile<BIAS>::BN);
-  if (rc == 0) rc = encode_rows(&v_map, v, n, tk, hkv, Tile<BIAS>::BN);
+  int rc = encode_rows(&q_map, q, n, tq, h, HEAD_DIM, BM);
+  if (rc == 0) rc = encode_rows(&k_map, k, n, tk, hkv, HEAD_DIM, Tile<BIAS>::BN);
+  if (rc == 0) rc = encode_rows(&v_map, v, n, tk, hkv, HEAD_DIM, Tile<BIAS>::BN);
   if (rc != 0) return rc;
   dim3 grid((tq + BM - 1) / BM, n * h);
   flash_fwd_kernel<BIAS><<<grid, THREADS, SMEM_BYTES, stream>>>(

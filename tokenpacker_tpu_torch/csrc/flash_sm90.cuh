@@ -1,25 +1,31 @@
-// Hopper building blocks of K2's flash kernels (flash_fwd.cu, flash_bwd.cu):
-// TMA tile loads completed on mbarriers (and cp.async for the full bias),
-// wgmma products with operands in shared memory (SS) or A in registers
-// (RS), and the host-side encoding of the tensor maps.
+// Hopper building blocks of the port's attention and GEMM kernels: K2's
+// flash kernels (flash_fwd.cu, flash_bwd.cu; d = 128), K1's tower attention
+// (vit_attention.cu; d = 64) and K9's block products (vit_block.cu): TMA tile
+// loads completed on mbarriers (and cp.async for K2's full bias), wgmma
+// products with operands in shared memory (SS) or A in registers (RS), and
+// the host-side encoding of the tensor maps.
 // sm_90a only (wgmma does not exist on plain sm_90).
 //
-// Shared-memory tiles. Every q, k, v, o and dO tile of d = 128 lands as two
-// "boxes" of 64 columns (128 bytes a row): box c holds columns 64c..64c+63
-// of all the tile's rows, rows 128 bytes apart, with the 128-byte swizzle
-// (the 16-byte chunk j of row r sits at chunk j ^ (r % 8)). TMA writes that
-// layout (CU_TENSOR_MAP_SWIZZLE_128B) and wgmma reads it through a
-// descriptor of layout type 1, so no thread touches the tile and the
-// 8 rows a tensor core reads at once lie in different banks. Box bases are
-// 1024-byte aligned, as the swizzle pattern requires.
-//  - As a K-major operand (the head dim is the reduction: Q K^T, K Q^T,
-//    dO V^T, V dO^T) the 16-wide slice kk of the reduction starts at box
-//    kk / 4, byte (kk % 4) * 32 of the row; groups of 8 rows are 1024
-//    bytes apart (SBO).
+// Shared-memory tiles. Every tile lands as "boxes" of 64 bf16 columns (128
+// bytes a row): box c holds columns 64c..64c+63 of all the tile's rows,
+// rows 128 bytes apart, with the 128-byte swizzle (the 16-byte chunk j of
+// row r sits at chunk j ^ (r % 8)). A row of d = 128 (K2's q, k, v, o, dO)
+// is two boxes, a row of d = 64 (K1's) one; K9's operands are cut into
+// boxes of 64 columns too. TMA writes that layout
+// (CU_TENSOR_MAP_SWIZZLE_128B) and wgmma reads it through a descriptor of
+// layout type 1, so no thread touches the tile and the 8 rows a tensor core
+// reads at once lie in different banks. Box bases are 1024-byte aligned, as
+// the swizzle pattern requires.
+//  - As a K-major operand (the reduction runs along the row: Q K^T, K Q^T,
+//    dO V^T, V dO^T, K9's A = activation rows) the 16-wide slice kk of the
+//    reduction starts at box kk / 4, byte (kk % 4) * 32 of the row; groups
+//    of 8 rows are 1024 bytes apart (SBO). At d = 64 every slice lies in
+//    the one box.
 //  - As an MN-major B operand (the tile's rows are the reduction: P V,
-//    P^T dO, dS^T Q, dS K) the 16 rows of slice kk start at byte
-//    kk * 2048; groups of 8 rows are 1024 bytes apart (SBO) and the two
-//    64-column boxes one box apart (LBO); wgmma's transpose bit for B.
+//    P^T dO, dS^T Q, dS K, K9's [in, out] weights) the 16 rows of slice kk
+//    start at byte kk * 2048; groups of 8 rows are 1024 bytes apart (SBO)
+//    and neighbouring 64-column boxes one box apart (LBO); wgmma's
+//    transpose bit for B.
 //
 // Accumulator fragments (m64nNk16, fp32): thread t of the warpgroup (warp
 // w = t / 32, lane l) holds d[4j + e] at row 16w + l/4 + 8*(e >> 1) and
@@ -42,7 +48,7 @@ namespace sm90 {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int HEAD_DIM = 128;
+constexpr int HEAD_DIM = 128;  // K2's (Vicuna-7B, MPT-7B); K1 and K9 take 64
 constexpr int ROW_BYTES = 128;  // one box row: 64 bf16
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -111,6 +117,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, i
       " [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One box of a 2-D tensor map ({64 columns, rows} of a row-major matrix)
+// at coordinates (c0 = column, c1 = row) into `dst`; completes on `bar`.
+// Rows past the matrix's end arrive as zeros.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -230,6 +248,84 @@ __device__ __forceinline__ void wgmma_n128_rs(float (&d)[64], const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d[64] (+)= A B, m64n128k16, A from shared memory K-major, B from shared
+// memory MN-major (transpose bit set): K9's products on [in, out] weights.
+__device__ __forceinline__ void wgmma_n128_ss_tb(float (&d)[64], uint64_t a, uint64_t b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : TP_ACC8(0), TP_ACC8(8), TP_ACC8(16), TP_ACC8(24), TP_ACC8(32), TP_ACC8(40),
+        TP_ACC8(48), TP_ACC8(56)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[128] (+)= A B, m64n256k16, A from shared memory K-major, B from shared
+// memory MN-major (transpose bit set): K9's wide products.
+__device__ __forceinline__ void wgmma_n256_ss_tb(float (&d)[128], uint64_t a, uint64_t b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n}\n"
+      : TP_ACC8(0), TP_ACC8(8), TP_ACC8(16), TP_ACC8(24),
+        TP_ACC8(32), TP_ACC8(40), TP_ACC8(48), TP_ACC8(56),
+        TP_ACC8(64), TP_ACC8(72), TP_ACC8(80), TP_ACC8(88),
+        TP_ACC8(96), TP_ACC8(104), TP_ACC8(112), TP_ACC8(120)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+#define TP_OUT8(i)                                                                            \
+  "=f"(d[i]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3]), "=f"(d[i + 4]), "=f"(d[i + 5]), \
+      "=f"(d[i + 6]), "=f"(d[i + 7])
+
+// d[64] = A B, m64n128k16, both from shared memory, K-major: the first
+// slice of a product whose accumulator registers are outputs only, so no
+// earlier definition of them reaches the product (K1's S, whose registers
+// its softmax rewrites in place between products).
+__device__ __forceinline__ void wgmma_n128_ss_set(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : TP_OUT8(0), TP_OUT8(8), TP_OUT8(16), TP_OUT8(24), TP_OUT8(32), TP_OUT8(40),
+        TP_OUT8(48), TP_OUT8(56)
+      : "l"(a), "l"(b), "r"(0));
+}
+
+#undef TP_OUT8
+
+// d[32] += A B, m64n64k16, A (4 registers of bf16 pairs) from registers, B
+// from shared memory, MN-major (transpose bit set): K1's P V at d = 64.
+__device__ __forceinline__ void wgmma_n64_rs(float (&d)[32], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : TP_ACC8(0), TP_ACC8(8), TP_ACC8(16), TP_ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 #undef TP_ACC8
 
 // ---- fragments ----------------------------------------------------------------------
@@ -267,10 +363,12 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Writes this thread's rows `row` and `row + 8` of an accumulator d[64]
-// (rows `stride` elements apart from `dst`) times `mul[0]` and `mul[1]` as
-// bf16 pairs, columns 8j + 2(l % 4); a row at or past `limit` is dropped.
-__device__ __forceinline__ void store_rows(const float (&d)[64], bf16* dst, long stride, int row,
+// Writes this thread's rows `row` and `row + 8` of an accumulator d[N]
+// (N / 4 columns; rows `stride` elements apart from `dst`) times `mul[0]`
+// and `mul[1]` as bf16 pairs, columns 8j + 2(l % 4); a row at or past
+// `limit` is dropped.
+template <int N>
+__device__ __forceinline__ void store_rows(const float (&d)[N], bf16* dst, long stride, int row,
                                            int limit, const float (&mul)[2]) {
   const int c2 = 2 * (threadIdx.x % 4);
 #pragma unroll
@@ -278,7 +376,7 @@ __device__ __forceinline__ void store_rows(const float (&d)[64], bf16* dst, long
     if (row + 8 * r >= limit) continue;
     bf16* out = dst + (long)(row + 8 * r) * stride + c2;
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < N / 4; ++j)
       *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
           __floats2bfloat162_rn(d[4 * j + 2 * r] * mul[r], d[4 * j + 2 * r + 1] * mul[r]);
   }
@@ -311,17 +409,19 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A map over a [n, t, heads, 128] bf16 tensor whose box is {64 columns, 1
-// head, `rows` rows, 1 sample} with the 128-byte swizzle. Returns 0 or an
-// error code (the driver's: CUDA_ERROR_INVALID_VALUE is cudaErrorInvalidValue,
-// CUDA_ERROR_INVALID_CONTEXT cudaErrorDeviceUninitialized, ...).
-inline int encode_rows(CUtensorMap* map, const void* base, int n, int t, int heads, int rows) {
+// A map over a [n, t, heads, d] bf16 tensor (d = 128 or 64) whose box is
+// {64 columns, 1 head, `rows` rows, 1 sample} with the 128-byte swizzle.
+// Returns 0 or a CUresult code (CUDA_ERROR_INVALID_VALUE is
+// cudaErrorInvalidValue, CUDA_ERROR_INVALID_CONTEXT
+// cudaErrorDeviceUninitialized, ...).
+inline int encode_rows(CUtensorMap* map, const void* base, int n, int t, int heads, int d,
+                       int rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
-  const cuuint64_t dims[4] = {(cuuint64_t)HEAD_DIM, (cuuint64_t)heads, (cuuint64_t)(t > 0 ? t : 1),
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)(t > 0 ? t : 1),
                               (cuuint64_t)n};
-  const cuuint64_t strides[3] = {(cuuint64_t)HEAD_DIM * 2, (cuuint64_t)heads * HEAD_DIM * 2,
-                                 (cuuint64_t)(t > 0 ? t : 1) * heads * HEAD_DIM * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
+                                 (cuuint64_t)(t > 0 ? t : 1) * heads * d * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
@@ -329,6 +429,23 @@ inline int encode_rows(CUtensorMap* map, const void* base, int n, int t, int hea
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return (int)r;  // the driver's codes below 1000 are the runtime's
+}
+
+// A map over a row-major [rows, cols] bf16 matrix (cols % 64 == 0) whose box
+// is {64 columns, `box_rows` rows} with the 128-byte swizzle. Returns as
+// encode_rows.
+inline int encode_2d(CUtensorMap* map, const void* base, long rows, long cols, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return (int)r;
 }
 
 }  // namespace sm90

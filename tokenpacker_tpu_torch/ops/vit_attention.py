@@ -2,7 +2,9 @@
 `tokenpacker_tpu/ops/vit_attention.py`).
 
 `vit_attention` takes q/k/v in their natural `[N, T, W]` layout. On a
-CUDA tensor it launches `csrc/vit_attention.cu`; on a CPU tensor it runs
+CUDA tensor it launches `csrc/vit_attention.cu`, a Hopper kernel (wgmma
+products fed by TMA tiles read in place from the `[N, T, heads, 64]`
+rows; S, P and O in registers; head_dim 64 only); on a CPU tensor it runs
 `vit_attention_plain`, the same function in plain PyTorch.
 
 Numerics: the kernel computes fp32 logits, multiplies unnormalized

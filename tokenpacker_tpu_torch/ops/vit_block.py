@@ -5,9 +5,11 @@
 attention -> o with bias, + residual -> LN2 -> fc1 with bias ->
 quick-GELU -> fc2 with bias, + residual on x [N, T, W], with one layer's
 dense params `p` (the `models/clip_vit` layer tree). On a CUDA tensor it
-makes one call into `csrc/vit_block.cu`, which enqueues the block's
-kernels; on a CPU tensor it runs `vit_block_plain`, the same function in
-plain PyTorch.
+makes one call into `csrc/vit_block.cu`, which enqueues the block's seven
+kernels (two LayerNorm row passes, four wgmma products fed by TMA tiles
+with their bias, GELU and residual epilogues, and K1's attention); on a
+CPU tensor it runs `vit_block_plain`, the same function in plain
+PyTorch.
 
 Numerics are the TPU kernel's (`_kernel`), which differ from the per-op
 block of `models/clip_vit` in three places: LayerNorm in fp32 cast to x's
