@@ -6,7 +6,7 @@
     python3 chip_smoke.py --profile-paged  # phases 1-2, then traced paged decode steps
     python3 chip_smoke.py --profile-quantized  # phases 1-2, traced E and F decode steps
     python3 chip_smoke.py --kernels        # phases 1-3 only
-    python3 chip_smoke.py --quantized      # phases 1-2, K6-K8 of phase 3, phases 12-15
+    python3 chip_smoke.py --quantized      # phases 1-2, K3 and K6-K8 of phase 3, phases 12-15
     python3 chip_smoke.py --speculative    # phases 1-2, K9 and K4-verify of phase 3, 16-17
     python3 chip_smoke.py --lora           # phases 1-2, K4-LoRA of phase 3, phases 18-19
     python3 chip_smoke.py --mpt            # phases 1-2, K2-bias and K3-ALiBi of phase 3, 20-23
@@ -113,8 +113,10 @@ failure exits non-zero and prints no final line):
      and one cancelled after its 4th token, 32 greedy tokens each. Checks:
      K9 23 times per admission, K4 once per plain step, K4's verify form
      once per verify round, K1 and K3 never; tokens equal phase 6's plain
-     run (recorded on the same weights) wherever its top-2 margin exceeds
-     LOGIT_BAND, the repeat's too; no state left in the batcher. Printed:
+     run (recorded on the same weights with the same fused tower, so that
+     the two differ only in chunked admission, K4's verify form and
+     speculation) wherever its top-2 margin exceeds LOGIT_BAND, the
+     repeat's too; no state left in the batcher. Printed:
      rounds, tokens a round, tok/s, ms per verify round and per plain
      step, admission latency, peak memory. Then the rigged repeater (64
      tokens, at least 3 tokens a forward, tokens equal its plain decode),
@@ -211,7 +213,8 @@ traces 8 paged decode steps of phase 10's model and pool (8 slots at
 K5's phase-3 lengths); `--profile-quantized` traces 8 decode steps of
 phase 12's nf4 model (as `--profile`) and 8 paged steps in phase 14's
 w8a8 mode (as `--profile-paged`); `--kernels` stops after phase 3; `--quantized`
-runs only the quantized slice's checks (K6-K8 in phase 3, phases 12-15)
+runs only the quantized slice's checks (K3, which E launches, and K6-K8
+in phase 3, phases 12-15)
 `--speculative` only the speculative slice's (the int8 rows' bit
 check, K9 and K4-verify in phase 3, phases 16-17) and `--lora` only the
 multi-LoRA slice's (K4-LoRA in phase 3, phases 18-19) and `--mpt` only
@@ -225,9 +228,14 @@ each printing their kernel rows, and `--tower` K1's and K9's rows of
 phase 3 (with the 23-block tower fused and per op) and phases 4-5, 8-9
 and 16-17 (A, C and G, the paths that launch K1 and K9). None prints
 the final "ok" line. Every K1, K2 and K9 row of phase 3 also prints its
-achieved TFLOP/s: the operations its bound counts over the kernel's
-time. `--flash --kernels` and `--tower --kernels` also run against the
-parent's package when this file is copied into an unpacked parent tree.
+achieved TFLOP/s (the operations its bound counts over the kernel's
+time), every K8 row its TOPS and every K3 row its TB/s, each against the
+card's rate, and the bound's share of the kernel's time (K3, K8 and
+their library calls timed as CUDA graphs of 20 calls). `--flash
+--kernels`, `--tower --kernels`, `--quantized --kernels` and `--mpt
+--kernels` also run against the parent's package when this file is
+copied into an unpacked parent tree (its `tokenpacker_tpu_torch/` is the
+one imported).
 """
 
 from __future__ import annotations
@@ -360,6 +368,19 @@ def bound(nbytes: float, flops: float, rate: float = BF16_FLOP_PER_S) -> tuple[f
 def achieved_tflops(flops: float, ms: float) -> str:
     """The operations a row's bound counts over the kernel's time."""
     return f"achieved {flops / ms / 1e9:.1f} TFLOP/s"
+
+
+def achieved_rate(what: str, work: tuple, rate: float, ms: float, bound_ms: float) -> str:
+    """A row's operations ("ops": TFLOP/s at the bf16 rate, TOPS at the
+    int8 one) or bytes ("bytes": K3's TB/s) over the kernel's time, against
+    the card's rate for them, and the bound's share of the kernel's time."""
+    if what == "ops":
+        unit = "TOPS" if rate == INT8_OPS_PER_S else "TFLOP/s"
+        got, peak = work[1] / ms / 1e9, rate / 1e12
+    else:
+        got, unit, peak = work[0] / ms / 1e9, "TB/s", HBM_BYTES_PER_S / 1e12
+    return (f"achieved {got:.2f} {unit} of {peak:g} ({got / peak:.0%}), "
+            f"at {bound_ms / ms:.0%} of the bound")
 
 
 def row_rel_rms(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
@@ -606,16 +627,16 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
     rows = {}
 
     def case(name, kernel, plain, args, library=None, work=None, check=None,
-             rate=BF16_FLOP_PER_S, graph=False, tflops=False):
+             rate=BF16_FLOP_PER_S, graph=False, library_graph=False, achieved=None):
         out, want = kernel(*args), plain(*args)
         err = check(name, out, want)
         ms = time_ms(lambda: kernel(*args), graph=graph)
         plain_ms = time_ms(lambda: plain(*args))
-        lib_ms = time_ms(library) if library else None
+        lib_ms = time_ms(library, graph=library_graph) if library else None
         b_ms, b_by = bound(*work, rate)
         print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {b_ms:.4f} ms ({b_by})"
-              + (f", {achieved_tflops(work[1], ms)}" if tflops else ""))
+              + (f", {achieved_rate(achieved, work, rate, ms, b_ms)}" if achieved else ""))
         return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                 "bound_ms": b_ms, "bound_by": b_by}
 
@@ -625,7 +646,8 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
         return row
 
     print("phase 3: kernels vs plain versions (bf16; times: the median of 3 runs of back-to-back "
-          "calls between one CUDA event pair, K6 and K7 a CUDA graph of 20 launches)")
+          "calls between one CUDA event pair; K3, K6, K7 and K8 a CUDA graph of 20 launches, "
+          "K3's and K8's library calls too)")
     if only in ("", "probes", "flash"):
         rows["flash_attention_full_bias"] = first_and_worst(
             full_bias_kernel_cases(device, case, hd_lengths))
@@ -642,9 +664,11 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
         rows.update(k1_kernel_rows(device, case, first_and_worst))
         rows["vit_block"] = first_and_worst(k9_cases(device, case))
         return rows
-    if only == "quantized":
-        return {name: first_and_worst(cases)
-                for name, cases in quantized_kernel_cases(device, case).items()}
+    if only == "quantized":  # and K3, which E (phase 12) launches
+        rows.update(k3_kernel_rows(device, case, first_and_worst))
+        rows.update({name: first_and_worst(cases)
+                     for name, cases in quantized_kernel_cases(device, case).items()})
+        return rows
     if only == "":
         rows.update(earlier_kernel_rows(device, case, first_and_worst))
     if only in ("", "speculative"):
@@ -680,15 +704,28 @@ def k1_kernel_rows(device, case, first_and_worst) -> dict:
         work=(4 * n * t * w * 2, 4 * n * heads * t * t * (w // heads)),
         check=lambda name, out, want: compare_tiles(name, out.view(n, t, heads, -1),
                                                     want.view(n, t, heads, -1)),
-        tflops=True)])}
+        achieved="ops")])}
 
 
 def earlier_kernel_rows(device, case, first_and_worst) -> dict:
     """Phase 3's rows of K1, K2 (both directions), K3, K5 and K6-K8."""
-    from tokenpacker_tpu_torch.ops import decode_attention as k3
-
     rows = k1_kernel_rows(device, case, first_and_worst)
     rows.update(k2_kernel_rows(device, case, first_and_worst))
+    rows.update(k3_kernel_rows(device, case, first_and_worst))
+    rows["paged_attention"] = first_and_worst(paged_kernel_cases(device, case))
+    for name, cases in quantized_kernel_cases(device, case).items():
+        rows[name] = first_and_worst(cases)
+    return rows
+
+
+def k3_kernel_rows(device, case, first_and_worst) -> dict:
+    """Phase 3's rows of K3: q [4, 32, 128] over a cache of S = 1040, 32 kv
+    heads with a decoded span after slot 1000 and without one, and 8 kv
+    heads with the span; per (sample, head) row, failing the plain version
+    without the span (or the last 64 keys). Kernel and SDPA each timed as a
+    CUDA graph of 20 calls: at ~0.02 ms a call, back-to-back calls would
+    time the host's launch cost."""
+    from tokenpacker_tpu_torch.ops import decode_attention as k3
 
     cases = []
     n, s = 4, 1040
@@ -718,13 +755,9 @@ def earlier_kernel_rows(device, case, first_and_worst) -> dict:
             work=(2 * keys * hkv * 128 * 2 + 2 * n * 32 * 128 * 2 + 2 * n * 4,
                   4 * keys * 32 * 128),
             check=lambda name, out, want, lost_args=lost_args: compare_rows(
-                name, out, want, k3.decode_attention_plain(*lost_args))))
-    rows["decode_attention"] = first_and_worst(cases)
-    rows["paged_attention"] = first_and_worst(paged_kernel_cases(device, case))
-    for name, cases in quantized_kernel_cases(device, case).items():
-        rows[name] = first_and_worst(cases)
-
-    return rows
+                name, out, want, k3.decode_attention_plain(*lost_args)),
+            graph=True, library_graph=True, achieved="bytes"))
+    return {"decode_attention": first_and_worst(cases)}
 
 
 def k4_cases(device, lc, layers, hd_lengths: np.ndarray, s_hd: int,
@@ -962,7 +995,8 @@ def quantized_kernel_cases(device, case) -> dict:
                 f"K8 s8_gemm {name} x[{m},{k}] wq[{k},{n}]", k8.s8_gemm, k8.s8_gemm_plain,
                 (x, wq, ws), library=int_mm_call(xq, wq), rate=INT8_OPS_PER_S,
                 work=(m * k * 2 + k * n + n * 4 + m * n * 2, 2 * m * k * n),
-                check=lambda nm, got, want, args=(x, wq, ws): compare_s8_gemm(nm, *args)))
+                check=lambda nm, got, want, args=(x, wq, ws): compare_s8_gemm(nm, *args),
+                graph=True, library_graph=True, achieved="ops"))
             del x, xq
         del wq, ws
     torch.cuda.empty_cache()
@@ -985,7 +1019,7 @@ def k2_kernel_rows(device, case, first_and_worst) -> dict:
             k2.flash_attention_plain, (q, kk, vv, True), check=compare_flash_fwd,
             library=lambda q=q, kk=kk, vv=vv: sdpa(q, kk, vv, is_causal=True,
                                                    enable_gqa=hkv != 32),
-            work=(nbytes, 4 * 2 * 32 * 128 * t * (t + 1) / 2), tflops=True))
+            work=(nbytes, 4 * 2 * 32 * 128 * t * (t + 1) / 2), achieved="ops"))
     rows = {"flash_attention": first_and_worst(cases)}
     rows.update(phase_kernels_training_shape(device, case))
     return rows
@@ -1006,7 +1040,7 @@ def phase_kernels_training_shape(device, case) -> dict:
     fwd = case(f"K2 flash causal q[{n},{t},{h},{d}] (training shape)", k2.flash_attention,
                k2.flash_attention_plain, (q, k, v, True), check=compare_flash_fwd,
                library=lambda: sdpa(q, k, v, is_causal=True),
-               work=(4 * elems * 2 + n * h * t * 4, 4 * d * pairs), tflops=True)
+               work=(4 * elems * 2 + n * h * t * 4, 4 * d * pairs), achieved="ops")
     torch.cuda.empty_cache()
     o, lse = k2.flash_attention(q, k, v, True)
 
@@ -1679,6 +1713,11 @@ def w8a8_tower_parity(phase: str, vision_q, cfg, images: np.ndarray, device) -> 
         raise AssertionError(f"{phase}: w8a8 tower features differ by {rel.max().item()}")
     if not lost_rel.min().item() > W8A8_TOWER_REL_RMS:
         raise AssertionError(f"{phase}: the tower band does not see K8 losing its last rows")
+    dev_imgs = imgs.to(device, torch.bfloat16)
+    ms = time_ms(lambda: clip_tower_features(vision_q, vc, dev_imgs, w8a8=True), iters=6,
+                 warmup=1)
+    print(f"  {phase}: one pass of the int8 tower over {imgs.shape[0]} views ({route}, "
+          f"{6 * tower_blocks(cfg)} products): {ms:.3f} ms")
 
 
 @contextlib.contextmanager
@@ -2285,7 +2324,7 @@ def k9_cases(device, case) -> list[dict]:
         cases.append(case(
             f"K9 vit_block [{n},{t},{w}] F {f}, {heads} heads", k9.vit_block, k9.vit_block_plain,
             (x, p, heads, eps), library=lambda x=x: per_op_block(x, p, heads, eps),
-            work=k9_bytes_flops(n, t, w, f), tflops=True,
+            work=k9_bytes_flops(n, t, w, f), achieved="ops",
             check=lambda name, out, want, x=x: compare_update(name, out, want, x,
                                                               losts(x, want))))
         print(f"  (K9's library column is the per-op block: 3 LayerNorm/activation passes, 6 "
@@ -2480,16 +2519,18 @@ def verify_kernel_cases(device, lc, layers, hd_lengths: np.ndarray, s_hd: int,
     return out[True]
 
 
-def plain_reference(params, cfg, batch, device, kv_cache_dtype=torch.int8) -> tuple[list, list]:
+def plain_reference(params, cfg, batch, device, kv_cache_dtype=torch.int8,
+                    vit_block: bool = False) -> tuple[list, list]:
     """Phase 6's plain run of the HD requests, recorded: a batched prefill
-    (the per-op tower) and decode steps (K4 on an int8 tree, else per
-    layer), NEW_TOKENS greedy tokens. Per request its tokens and the top-2
-    margin of the logits behind each."""
+    (the per-op tower, or the fused one with `vit_block`) and decode steps
+    (K4 on an int8 tree, else per layer), NEW_TOKENS greedy tokens. Per
+    request its tokens and the top-2 margin of the logits behind each."""
     from tokenpacker_tpu_torch.generate import decode_step, device_batch, fused_weights, prefill
 
     n, l = batch["token_ids"].shape
     dev = device_batch(batch, torch.bfloat16, device)
-    logits, cache = prefill(params, cfg, dev, l + NEW_TOKENS, kv_cache_dtype)
+    logits, cache = prefill(params, cfg, dev, l + NEW_TOKENS, kv_cache_dtype,
+                            vit_block=vit_block)
     fused = fused_weights(params, cfg)
     toks, margins = [], []
     for step in range(NEW_TOKENS):
@@ -2528,8 +2569,9 @@ def phase_spec_serving(device, seed: int) -> dict:
     one and one cancelled after its 4th token, 32 greedy tokens each. K9
     runs tower_blocks times per admission, K4 once per plain step, K4's
     verify form once per verify round, K1 and K3 never; the tokens equal
-    phase 6's plain run (recorded here on the same weights) wherever its
-    margin is decisive, the repeat's as well; nothing is left in a slot.
+    phase 6's plain run (recorded here on the same weights, through the
+    same fused tower) wherever its margin is decisive, the repeat's as
+    well; nothing is left in a slot.
     Then three short runs: the rigged repeater (o and down zeroed, the head
     tied to the embedding) with one request of 64 tokens, whose drafts
     must land (produced / rounds >= 3) with tokens equal to its plain
@@ -2551,7 +2593,10 @@ def phase_spec_serving(device, seed: int) -> dict:
     params = quantize_lm_int8(init_vlm_on_device(cfg, seed=seed, device=device,
                                                  dtype=torch.bfloat16))
     batch, blocks = make_hd_requests(cfg, seed)
-    ref_tokens, ref_margins = plain_reference(params, cfg, batch, device)
+    # the reference runs G's own tower, K9, so that phase 16 holds what it
+    # is for (chunked admission, K4's verify form, speculation); the fused
+    # tower against the per-op one is phase 17's and K9's phase-3 check
+    ref_tokens, ref_margins = plain_reference(params, cfg, batch, device, vit_block=True)
     torch.cuda.synchronize()
     reqs = paged_requests(cfg, seed)
     reqs = reqs[:4] + [reqs[0], reqs[-1]]
@@ -2560,7 +2605,7 @@ def phase_spec_serving(device, seed: int) -> dict:
           f"speculative_k {SPEC_K}; {len(reqs)} requests, grids {[r['grid'] for r in reqs]}, "
           f"lengths {[int(r['lengths'][0]) for r in reqs]}, {NEW_TOKENS} greedy tokens each, the "
           f"last cancelled after its {CANCEL_AFTER}th ({time.perf_counter() - t0:.2f} s to build "
-          f"and record phase 6's plain run)")
+          f"and record phase 6's plain run with the fused tower)")
     batcher = sched.ContinuousBatcher(
         params, cfg, num_slots=SPEC_SLOTS, max_seq_len=SPEC_SEQ, prefill_chunk_size=256,
         speculative_k=SPEC_K, kv_cache_dtype=torch.int8, vit_block=True, device=device)
@@ -3540,7 +3585,7 @@ def mpt_kernel_cases(device, case, hd_lengths: np.ndarray, span: tuple[int, int]
             lambda *a: k2.flash_attention(*a, True, bias),
             lambda *a: k2.flash_attention_plain(*a, True, bias), (q, k, v), check=check,
             library=lambda q=q, k=k, v=v: sdpa(q, k, v, attn_mask=mask),
-            work=(4 * elems * 2 + n * h * t * 4 + h * t * 4, 4 * d * pairs), tflops=True)
+            work=(4 * elems * 2 + n * h * t * 4 + h * t * 4, 4 * d * pairs), achieved="ops")
         del q, k, v
         torch.cuda.empty_cache()
     out = {"flash_attention_bias": rows[1], "flash_attention_bias_train": rows[MPT_TRAIN_BATCH]}
@@ -3622,7 +3667,7 @@ def mpt_kernel_cases(device, case, hd_lengths: np.ndarray, span: tuple[int, int]
         f"{hd_lengths.tolist()}", k3.decode_attention, k3.decode_attention_plain, args,
         library=lambda: sdpa(q[:, None], ck, cv, attn_mask=dmask),
         work=(2 * keys * h * d * 2 + 2 * n * h * d * 2 + 2 * n * 4 + h * 4, 4 * keys * h * d),
-        check=check_rows)
+        check=check_rows, graph=True, library_graph=True, achieved="bytes")
     del q, ck, cv, dmask
     torch.cuda.empty_cache()
     return out
@@ -3688,7 +3733,7 @@ def full_bias_kernel_cases(device, case, hd_lengths: np.ndarray) -> list[dict]:
             (q, k, v), check=check,
             library=lambda mask=mask: sdpa(q, k, v, attn_mask=mask),
             work=(4 * n * t * h * d * 2 + n * h * t * 4 + bias.numel() * 4, 4 * d * allowed),
-            tflops=True))
+            achieved="ops"))
         del bias, dropped, mask
         torch.cuda.empty_cache()
     del q, k, v

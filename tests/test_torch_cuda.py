@@ -46,6 +46,14 @@ plain version with the keys at their slot indices instead of the
 compacted token positions, and without slopes. The no-bias cases above
 hold the same kernels' no-bias form.
 
+K3 splits each (sample, kv head)'s valid keys across the blocks of one
+cluster in whole tiles of 32: its edge cases put the run's end just below,
+at and above a split boundary, with and without a decoded span, across a
+wide gap, with lengths == needed and with rows that have no valid key (0),
+at groups of 1, 2, 4 and 8, and two calls give the same bits. K8 quantizes
+its rows in a pass of its own and then runs 128- or 192-row tiles: its
+ragged cases run M = 1, 255, 257 and 15,002 at the products' K and N.
+
 K1 works on 128 query rows a block and keys in tiles of 128 (d = 64): its
 edge cases run lengths 1, 63-65, 127-129 and 577 at 1 and 26 images and 4
 and 16 heads, each failing the plain output without its last key tile,
@@ -393,6 +401,64 @@ def test_decode_kernel_reads_only_valid_keys(cuda):
     assert _rows_rel(got, want).max().item() <= BLOCK_REL_RMS
 
 
+def _split_edge_case(case, groups, device):
+    """Lengths, needed and span_start of one K3 split-edge case at n = 4,
+    S = 1040, where `decode_splits` gives 8 splits of whole 32-key tiles
+    (a run of T valid keys: splits of ceil(ceil(T / 8) / 32) * 32). The
+    first three samples put the run's end just below, at and just above
+    256 keys (8 splits of 32: a split boundary), the last holds many."""
+    n, span_start = 4, 0
+    if case == "split_boundaries":  # one range; lengths == needed
+        lengths = needed = [255, 256, 257, 1040]
+    elif case == "boundaries_with_span":  # 17 keys of the span after the prompt
+        span_start = 1000
+        lengths, needed = [238, 239, 240, 900], [span_start + 17] * n
+    elif case == "wide_gap":  # a few prompt keys, ~900 slots of gap, a span
+        span_start = 1000
+        lengths, needed = [1, 5, 40, 100], [1040, 1003, 1001, 1040]
+    elif case == "lengths_equal_needed_with_span":
+        span_start = 512
+        lengths = needed = [100, 300, 511, 512]
+    else:  # "rows_without_keys": samples 0 and 2 have no valid key
+        span_start = 700
+        lengths, needed = [0, 650, 0, 300], [0, 701, 700, 760]
+    as_t = lambda x: torch.tensor(x, dtype=torch.int32, device=device)  # noqa: E731
+    return as_t(lengths), as_t(needed), span_start
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", ["split_boundaries", "boundaries_with_span", "wide_gap",
+                                  "lengths_equal_needed_with_span", "rows_without_keys"])
+def test_decode_kernel_at_split_edges(cuda, case, groups):
+    """K3 where its splits begin and end: each (sample, head) row within
+    BLOCK_REL_RMS of the plain version, a row with no valid key exactly 0,
+    two calls the same bits; the plain version without the last 64 valid
+    keys of each sample (or its span) must fail the hold."""
+    from tokenpacker_tpu_torch.ops.decode_attention import decode_splits
+
+    n, s, h = 4, 1040, 32
+    hkv = h // groups
+    assert decode_splits(n, hkv, s) == 8
+    q = _bf16((n, h, 128), groups, cuda)
+    ck, cv = _bf16((n, s, hkv, 128), 10 + groups, cuda), _bf16((n, s, hkv, 128), 20 + groups, cuda)
+    lengths, needed, span_start = _split_edge_case(case, groups, cuda)
+    got, again = (decode_attention(q, ck, cv, lengths, needed, span_start) for _ in range(2))
+    want = decode_attention_plain(q, ck, cv, lengths, needed, span_start)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if span_start:
+        fewer = torch.where(needed > span_start, torch.full_like(needed, span_start),
+                            (lengths - 64).clamp(min=0))
+    else:
+        fewer = (needed - 64).clamp(min=0)
+    lost = decode_attention_plain(q, ck, cv, torch.minimum(lengths, fewer), fewer, span_start)
+    # the plain softmax gives NaN where a row has no valid key; the kernel 0
+    empty = (needed <= 0) | ((lengths <= 0) & (needed <= span_start))
+    _rows_close(got[~empty], want[~empty], torch.nan_to_num(lost[~empty]))
+    assert not got[empty].any()
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = _bf16((1, 64, 4, 128), 0, cuda)
@@ -711,6 +777,28 @@ def test_s8_gemm_kernel_matches_plain(cuda, m, k, n):
     assert _bf16_steps(y, py).max().item() <= 1
     assert torch.equal(s8_gemm(x, wq, scale), y)
     assert not torch.equal(s8_matmul_plain(pxq[:, :-128], wq[:-128]), pacc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(1024, 1024), (1024, 4096), (4096, 12288), (11008, 4096),
+                                 (4096, 22016)])
+@pytest.mark.parametrize("m", [1, 255, 257, 15002])
+def test_s8_gemm_ragged_rows_bit_equal_plain(cuda, m, k, n):
+    """Ragged M around K8's 128-row tiles (and the tower's 26 x 577 rows)
+    at the products' K and N: the int8 rows, their scales and the int32
+    sums bit-equal to the plain version's, and two calls the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(m * 7 + k + n)
+    x = torch.randn((m, k), generator=g, device=cuda).bfloat16()
+    x[-1] *= 30
+    wq, scale = quantize_int8(torch.randn((k, n), generator=g, device=cuda) * 0.02)
+    y, xq, ax, acc = s8_gemm(x, wq, scale, parts=True)
+    again = s8_gemm(x, wq, scale)
+    py, pxq, pax, pacc = s8_gemm_plain(x, wq, scale, parts=True)
+    torch.cuda.synchronize()
+    assert torch.equal(ax, pax) and torch.equal(xq, pxq)
+    assert torch.equal(acc, pacc)
+    assert _bf16_steps(y, py).max().item() <= 1
+    assert torch.equal(again, y)
 
 
 @pytest.mark.cuda

@@ -19,7 +19,14 @@ from tokenpacker_tpu.ops.decode_attention import (
 )
 from tokenpacker_tpu.ops.flash_attention import _flash_fwd, attention_reference, mha_flash
 from tokenpacker_tpu.ops.vit_attention import vit_attention as jax_vit_attention
-from tokenpacker_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+from tokenpacker_tpu_torch.ops.decode_attention import (
+    MAX_SPLIT_KEYS,
+    MAX_SPLITS,
+    MIN_SPLIT_KEYS,
+    decode_attention,
+    decode_attention_plain,
+    decode_splits,
+)
 from tokenpacker_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 from tokenpacker_tpu_torch.ops.vit_attention import vit_attention
 
@@ -104,3 +111,28 @@ def test_decode_plain_ignores_keys_outside_ranges():
     cv2[:, 35:] = 1e3
     moved = decode_attention_plain(_t(q), _t(ck2), _t(cv2), lengths, needed, span_start=32)
     torch.testing.assert_close(moved, base, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,hkv,s,splits", [
+    (4, 32, 2080, 8), (4, 32, 1040, 8), (4, 8, 1040, 8), (4, 32, 576, 4), (4, 32, 100, 1),
+    (1, 32, 600, 8), (64, 32, 300, 2), (8, 32, 200, 2), (16, 32, 127, 1),
+])
+def test_decode_splits_at_the_serving_shapes(n, hkv, s, splits):
+    """K3's blocks a (sample, kv head): A, E and I's B = 4 with 32 kv heads
+    and S of 576-2080 take 4-8 splits; small caches take one."""
+    assert decode_splits(n, hkv, s) == splits
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_decode_splits_fill_the_card_with_splits_of_whole_tiles(sms):
+    """A power of two up to the cluster size, each split keeping at least
+    MIN_SPLIT_KEYS cache slots; while S allows it, the grid holds two
+    blocks an SM or each split holds at most MAX_SPLIT_KEYS slots."""
+    for n in (1, 2, 4, 8, 32):
+        for hkv in (4, 8, 32):
+            for s in (1, 64, 127, 128, 255, 256, 300, 576, 1040, 2080, 4096):
+                splits = decode_splits(n, hkv, s, sms)
+                assert splits in (1, 2, 4, 8) and splits <= MAX_SPLITS
+                assert splits == 1 or s >= MIN_SPLIT_KEYS * splits
+                if splits < MAX_SPLITS and s >= 2 * MIN_SPLIT_KEYS * splits:
+                    assert n * hkv * splits >= 2 * sms and s <= MAX_SPLIT_KEYS * splits

@@ -1,6 +1,7 @@
 // Hopper building blocks of the port's attention and GEMM kernels: K2's
 // flash kernels (flash_fwd.cu, flash_bwd.cu; d = 128), K1's tower attention
-// (vit_attention.cu; d = 64) and K9's block products (vit_block.cu): TMA tile
+// (vit_attention.cu; d = 64), K9's block products (vit_block.cu) and K8's
+// int8 GEMM (s8_gemm.cu, which adds its own int8 wgmma): TMA tile
 // loads completed on mbarriers (and cp.async for K2's full bias), wgmma
 // products with operands in shared memory (SS) or A in registers (RS), and
 // the host-side encoding of the tensor maps.
@@ -80,6 +81,13 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
                "r"(bytes)
                : "memory");
+}
+
+// Makes this thread's ordinary shared-memory writes visible to the async
+// proxy (wgmma, TMA): a thread that fills an operand tile itself fences
+// before it arrives on the barrier that the tile's readers wait on.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
@@ -443,6 +451,24 @@ inline int encode_2d(CUtensorMap* map, const void* base, long rows, long cols, i
   const cuuint32_t unit[2] = {1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
                             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return (int)r;
+}
+
+// A map over a row-major [rows, cols] int8 matrix (cols % 16 == 0) whose box
+// is {128 columns, `box_rows` rows}, one 128-byte row as a bf16 box, with
+// the 128-byte swizzle (K8's activation rows and weight tiles). Returns as
+// encode_rows.
+inline int encode_2d_s8(CUtensorMap* map, const void* base, long rows, long cols, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols};
+  const cuuint32_t box[2] = {128, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return (int)r;

@@ -48,8 +48,8 @@ SIGNATURES = {
     "tp_flash_fwd_full_bias": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, o, lse, dout, bias, dq, dk, dv, delta, n, tq, tk, h, hkv, d, causal, stream
     "tp_flash_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # q, k, v, lengths, needed, slopes, o, n, s, h, hkv, d, span_start, stream
-    "tp_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # q, k, v, lengths, needed, slopes, o, n, s, h, hkv, d, span_start, splits, stream
+    "tp_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k_pages, v_pages, k_scales, v_scales, page_table, lengths, o, n, h,
     # hkv, d, ps, mp, kv_int8, stream
     "tp_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),

@@ -7,8 +7,10 @@ layout of `generate.decode_step`); with `span_start == 0` keys
 `[0, needed[n])` are valid. No key at or past `needed[n]` is valid
 (callers keep lengths <= needed). `lengths`/`needed` are int32 device
 tensors; the kernel reads them itself and reads no key outside the valid
-ranges. On a CUDA tensor it launches `csrc/decode_attention.cu`; on a
-CPU tensor it runs `decode_attention_plain`.
+ranges. On a CUDA tensor it launches `csrc/decode_attention.cu`, which
+splits each (sample, kv head)'s valid keys across the `decode_splits`
+blocks of one cluster and merges their partials in split order; on a CPU
+tensor it runs `decode_attention_plain`.
 
 With `slopes` [H] fp32 (MPT's ALiBi, MHA only) each logit gains
 slope[head] * tok_pos, the key's true token position: its slot index in
@@ -19,9 +21,31 @@ over `generate.decode_step`'s key positions).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from tokenpacker_tpu_torch.ops import _build
+
+MAX_SPLITS = 8  # the kernel's cluster: the portable cluster size
+MIN_SPLIT_KEYS, MAX_SPLIT_KEYS = 64, 256  # cache slots a split
+
+
+def decode_splits(n: int, hkv: int, s: int, sms: int = 132) -> int:
+    """The blocks that share one (sample, kv head)'s keys in the kernel: a
+    power of two up to MAX_SPLITS, doubled while the grid holds fewer than
+    two blocks an SM or a split would hold more than MAX_SPLIT_KEYS of the
+    S cache slots, as long as each split keeps MIN_SPLIT_KEYS of them."""
+    splits = 1
+    while (splits < MAX_SPLITS and s >= 2 * MIN_SPLIT_KEYS * splits
+           and (n * hkv * splits < 2 * sms or s > MAX_SPLIT_KEYS * splits)):
+        splits *= 2
+    return splits
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _token_positions(lengths: torch.Tensor, s: int, span_start: int) -> torch.Tensor:
@@ -79,10 +103,11 @@ def decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
         lengths=(lengths, i32), needed=(needed, i32), **extra,
     )
     out = torch.empty_like(q)
+    splits = decode_splits(n, hkv, s, _sm_count(q.device.index))
     rc = _build.library().tp_decode_attention(
         q.data_ptr(), ck.data_ptr(), cv.data_ptr(), lengths.data_ptr(), needed.data_ptr(),
         None if slopes is None else slopes.data_ptr(), out.data_ptr(), n, s, h, hkv, d,
-        span_start, stream,
+        span_start, splits, stream,
     )
     _build.check(rc, "decode_attention")
     if slopes is None:

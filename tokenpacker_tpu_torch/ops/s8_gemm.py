@@ -1,14 +1,13 @@
-"""K8: the large-M w8a8 GEMM with the row quantization inside the kernel
+"""K8: the large-M w8a8 GEMM with its own row-quantization pass
 (counterpart of `tokenpacker_tpu/ops/s8_gemm.py`).
 
 s8_gemm(x, wq, wscale) = (quantize(x) @ wq) * ax * wscale in x's dtype,
 the scheme of `ops/q8_matmul` for prefill and admission chunks and the
 int8-quantized CLIP tower (M >= 256, K and N multiples of 128; routing in
-`ops/layers.linear`). On a CUDA tensor it launches `csrc/s8_gemm.cu`,
-which quantizes the rows of its tile into shared memory (so the int8
-activations never go to device memory), takes int8 tensor-core products
-into int32 and applies both scales as it writes bf16. On a CPU tensor it
-runs `s8_gemm_plain`.
+`ops/layers.linear`). On a CUDA tensor it launches `csrc/s8_gemm.cu`:
+a pass that quantizes each row once into int8 rows and scales in device
+memory, then int8 wgmma products fed by TMA into int32, both scales
+applied as it writes bf16. On a CPU tensor it runs `s8_gemm_plain`.
 
 The TPU kernel's tile budget (VMEM), TOKENPACKER_S8GEMM_BIG and its bf16
 staging of the quantized rows are not carried over. It does not clip the
@@ -36,8 +35,9 @@ def s8_gemm_plain(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor, parts
 
 def s8_gemm(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor, parts: bool = False):
     """x [M, K] bf16, wq [K, N] int8, wscale [1, N] f32 -> [M, N] bf16.
-    parts=True (the card checks) also returns the kernel's int8 rows
-    [M, K], their scales [M, 1] and its int32 accumulator [M, N]."""
+    parts=True (the card checks) also returns the int8 rows [M, K] and
+    their scales [M, 1] that the kernel's quantize pass wrote and the GEMM
+    read, and its int32 accumulator [M, N]."""
     if x.device.type == "cpu":
         return s8_gemm_plain(x, wq, wscale, parts)
     m, k = x.shape
@@ -49,15 +49,12 @@ def s8_gemm(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor, parts: bool
     stream = _build.cuda_args("s8_gemm", x=(x, torch.bfloat16), wq=(wq, torch.int8),
                               wscale=(ws, torch.float32))
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    xq = ax = acc = None
-    if parts:
-        xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
-        ax = torch.empty((m, 1), dtype=torch.float32, device=x.device)
-        acc = torch.empty((m, n), dtype=torch.int32, device=x.device)
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    ax = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    acc = torch.empty((m, n), dtype=torch.int32, device=x.device) if parts else None
     rc = _build.library().tp_s8_gemm(
-        x.data_ptr(), wq.data_ptr(), ws.data_ptr(), out.data_ptr(), m, k, n,
-        None if xq is None else xq.data_ptr(), None if ax is None else ax.data_ptr(),
-        None if acc is None else acc.data_ptr(), stream)
+        x.data_ptr(), wq.data_ptr(), ws.data_ptr(), out.data_ptr(), m, k, n, xq.data_ptr(),
+        ax.data_ptr(), None if acc is None else acc.data_ptr(), stream)
     _build.check(rc, "s8_gemm")
     s8_gemm.launches += 1
     return (out, xq, ax, acc) if parts else out
