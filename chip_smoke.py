@@ -212,9 +212,11 @@ configuration (after one untraced step) the same way; `--profile-paged`
 traces 8 paged decode steps of phase 10's model and pool (8 slots at
 K5's phase-3 lengths); `--profile-quantized` traces 8 decode steps of
 phase 12's nf4 model (as `--profile`) and 8 paged steps in phase 14's
-w8a8 mode (as `--profile-paged`); `--kernels` stops after phase 3; `--quantized`
+w8a8 mode (as `--profile-paged`); `--splits` times K5 and K6 at phase
+3's shapes with each split count 1-8 (the planners' table); `--kernels`
+stops after phase 3; `--quantized`
 runs only the quantized slice's checks (K3, which E launches, and K6-K8
-in phase 3, phases 12-15)
+in phase 3, and K5, which F launches; phases 12-15)
 `--speculative` only the speculative slice's (the int8 rows' bit
 check, K9 and K4-verify in phase 3, phases 16-17) and `--lora` only the
 multi-LoRA slice's (K4-LoRA in phase 3, phases 18-19) and `--mpt` only
@@ -229,9 +231,11 @@ phase 3 (with the 23-block tower fused and per op) and phases 4-5, 8-9
 and 16-17 (A, C and G, the paths that launch K1 and K9). None prints
 the final "ok" line. Every K1, K2 and K9 row of phase 3 also prints its
 achieved TFLOP/s (the operations its bound counts over the kernel's
-time), every K8 row its TOPS and every K3 row its TB/s, each against the
-card's rate, and the bound's share of the kernel's time (K3, K8 and
-their library calls timed as CUDA graphs of 20 calls). `--flash
+time), every K8 row its TOPS and every K3, K5 and K6 row its TB/s, each
+against the card's rate, and the bound's share of the kernel's time (K3,
+K5, K8 and their library calls, and K6, timed as CUDA graphs of 20
+calls). The kernels line keeps every phase-3 case of K5 and K6 (all
+four pools, every M and both codes) under "cases". `--flash
 --kernels`, `--tower --kernels`, `--quantized --kernels` and `--mpt
 --kernels` also run against the parent's package when this file is
 copied into an unpacked parent tree (its `tokenpacker_tpu_torch/` is the
@@ -638,16 +642,21 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {b_ms:.4f} ms ({b_by})"
               + (f", {achieved_rate(achieved, work, rate, ms, b_ms)}" if achieved else ""))
         return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                "bound_ms": b_ms, "bound_by": b_by}
+                "bound_ms": b_ms, "bound_by": b_by, "case": name}
 
     def first_and_worst(cases):
         row = dict(cases[0])
         row["max_abs_err"] = max(c["max_abs_err"] for c in cases)
         return row
 
+    def every_case(cases):  # K5 and K6: the first row, and every case's own times
+        keep = ("case", "ms", "library_ms", "bound_ms", "max_abs_err")
+        return {**first_and_worst(cases), "cases": [
+            {k: round(c[k], 5) if isinstance(c[k], float) else c[k] for k in keep} for c in cases]}
+
     print("phase 3: kernels vs plain versions (bf16; times: the median of 3 runs of back-to-back "
-          "calls between one CUDA event pair; K3, K6, K7 and K8 a CUDA graph of 20 launches, "
-          "K3's and K8's library calls too)")
+          "calls between one CUDA event pair; K3, K5, K6, K7 and K8 a CUDA graph of 20 "
+          "launches, K3's, K5's and K8's library calls too)")
     if only in ("", "probes", "flash"):
         rows["flash_attention_full_bias"] = first_and_worst(
             full_bias_kernel_cases(device, case, hd_lengths))
@@ -664,13 +673,12 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
         rows.update(k1_kernel_rows(device, case, first_and_worst))
         rows["vit_block"] = first_and_worst(k9_cases(device, case))
         return rows
-    if only == "quantized":  # and K3, which E (phase 12) launches
+    if only == "quantized":  # and K3 and K5, which E and F (phases 12, 14) launch
         rows.update(k3_kernel_rows(device, case, first_and_worst))
-        rows.update({name: first_and_worst(cases)
-                     for name, cases in quantized_kernel_cases(device, case).items()})
+        rows.update(k5_to_k8_rows(device, case, first_and_worst, every_case))
         return rows
     if only == "":
-        rows.update(earlier_kernel_rows(device, case, first_and_worst))
+        rows.update(earlier_kernel_rows(device, case, first_and_worst, every_case))
     if only in ("", "speculative"):
         check_int8_rows(device)
         rows["vit_block"] = first_and_worst(k9_cases(device, case))
@@ -707,14 +715,20 @@ def k1_kernel_rows(device, case, first_and_worst) -> dict:
         achieved="ops")])}
 
 
-def earlier_kernel_rows(device, case, first_and_worst) -> dict:
+def earlier_kernel_rows(device, case, first_and_worst, every_case) -> dict:
     """Phase 3's rows of K1, K2 (both directions), K3, K5 and K6-K8."""
     rows = k1_kernel_rows(device, case, first_and_worst)
     rows.update(k2_kernel_rows(device, case, first_and_worst))
     rows.update(k3_kernel_rows(device, case, first_and_worst))
-    rows["paged_attention"] = first_and_worst(paged_kernel_cases(device, case))
+    rows.update(k5_to_k8_rows(device, case, first_and_worst, every_case))
+    return rows
+
+
+def k5_to_k8_rows(device, case, first_and_worst, every_case) -> dict:
+    """Phase 3's rows of K5 and K6-K8; K5's and K6's keep every case's row."""
+    rows = {"paged_attention": every_case(paged_kernel_cases(device, case))}
     for name, cases in quantized_kernel_cases(device, case).items():
-        rows[name] = first_and_worst(cases)
+        rows[name] = (every_case if name == "q4_matmul" else first_and_worst)(cases)
     return rows
 
 
@@ -864,7 +878,8 @@ def paged_kernel_cases(device, case) -> list[dict]:
     plain version with each sequence's last valid page dropped must fail.
     The library yardstick reads the pages already gathered into a dense
     [8, 2560, Hkv, 128] view (dequantized for an int8 pool) with a mask:
-    the gather is not timed."""
+    the gather is not timed. Kernel and library each timed as a CUDA graph
+    of 20 calls, with the kernel's achieved TB/s."""
     from tokenpacker_tpu_torch.ops import paged_attention as k5
     from tokenpacker_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
 
@@ -900,10 +915,92 @@ def paged_kernel_cases(device, case) -> list[dict]:
                 q[:, None], kd, vd, attn_mask=valid[:, None, None, :], enable_gqa=hkv != h),
             work=(nbytes, 4 * keys * h * d),
             check=lambda name, out, want, args=args: compare_rows(
-                name, out, want, k5.paged_attention_plain(*args[:4], dropped, *args[5:]))))
+                name, out, want, k5.paged_attention_plain(*args[:4], dropped, *args[5:])),
+            graph=True, library_graph=True, achieved="bytes"))
         del kp, vp, ks, vs, kd, vd, args
     torch.cuda.empty_cache()
     return cases
+
+
+def split_sweep(device) -> None:
+    """`--splits`: K5 and K6 at phase 3's shapes (K5's four pools; K6 nf4 at
+    qkv for M = 1, 4, 8, 16, 32 and at o, gateup, down and lm_head for M =
+    4) launched with each split count 1-8 through the library's entry
+    points, each timed as a CUDA graph of 20 calls beside its relative
+    error against the plain version; the split count that
+    `paged_splits` / `q4_splits` choose is marked. The planners' constants
+    are read from this table."""
+    from tokenpacker_tpu_torch.config import preset_config
+    from tokenpacker_tpu_torch.ops import _build
+    from tokenpacker_tpu_torch.ops import paged_attention as k5
+    from tokenpacker_tpu_torch.ops import q4_matmul as k6
+    from tokenpacker_tpu_torch.ops.kv_quant import quantize_kv
+    from tokenpacker_tpu_torch.ops.quantize import q4_meta, quantize_4bit
+
+    lib = _build.library()
+
+    def stream():  # the current one: a graph capture runs on its own
+        return torch.cuda.current_stream().cuda_stream
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+
+    def sweep(name, launch, out, want, nbytes, chosen):
+        cells = []
+        for splits in (1, 2, 4, 8):
+            def call(splits=splits):
+                _build.check(launch(splits), name)
+            call()
+            rel = ((out.float() - want.float()).norm() / want.float().norm()).item()
+            ms = time_ms(call, graph=True)
+            cells.append(f"{'*' if splits == chosen else ''}{splits}: {ms:.4f} ms "
+                         f"{nbytes / ms / 1e9:.2f} TB/s (rel {rel:.1e})")
+        print(f"  {name}: " + "; ".join(cells))
+
+    print("splits: each split count, CUDA graphs of 20 calls (* the planner's choice)")
+    n, h, d, ps, mp = PAGED_SLOTS, 32, 128, PAGE_SIZE, PAGES_PER_SEQ
+    g = torch.Generator(device=device).manual_seed(SEED + 8)
+    lengths = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device=device)
+    table = (torch.randperm(n * mp, generator=g, device=device) + 1).view(n, mp).int()
+    keys = int(lengths.sum())
+    for hkv, int8 in ((32, True), (32, False), (8, True), (8, False)):
+        q = bf16((n, h, d), 40, device)
+        kf, vf = (torch.randn((n * mp + 1, ps, hkv, d), generator=g, device=device)
+                  for _ in range(2))
+        if int8:
+            (kp, ks), (vp, vs) = quantize_kv(kf), quantize_kv(vf)
+        else:
+            kp, vp, ks, vs = kf.bfloat16(), vf.bfloat16(), None, None
+        del kf, vf
+        out = torch.empty_like(q)
+        row = hkv * d * (1 if int8 else 2) + (4 * hkv if int8 else 0)
+        sweep(f"K5 {hkv} kv heads {'int8' if int8 else 'bf16'} pool",
+              lambda splits, q=q, kp=kp, vp=vp, ks=ks, vs=vs, out=out, hkv=hkv, int8=int8:
+              lib.tp_paged_attention(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                                     ks.data_ptr() if int8 else None,
+                                     vs.data_ptr() if int8 else None, table.data_ptr(),
+                                     lengths.data_ptr(), out.data_ptr(), n, h, hkv, d, ps, mp,
+                                     int(int8), splits, stream()),
+              out, k5.paged_attention_plain(q, kp, vp, table, lengths, ks, vs), 2 * keys * row,
+              k5.paged_splits(n, hkv, mp, ps, sms))
+        del kp, vp, ks, vs
+    cfg_lm = preset_config(HD_PRESET).lm
+    dm, f, vocab = cfg_lm.hidden_size, cfg_lm.intermediate_size, cfg_lm.vocab_size
+    shapes = {"qkv": (dm, 3 * dm), "o": (dm, dm), "gateup": (dm, 2 * f), "down": (f, dm),
+              "lm_head": (dm, vocab)}
+    for name, (k, nn) in shapes.items():
+        leaf = quantize_4bit(torch.randn((k, nn), generator=g, device=device) * 0.02, 64, "nf4")
+        packed, absmax = leaf[q4_meta(leaf)[0]], leaf["absmax"]
+        for m in ((1, 4, 8, 16, 32) if name == "qkv" else (4,)):
+            x = torch.randn((m, k), generator=g, device=device).bfloat16()
+            out = torch.empty((m, nn), dtype=torch.bfloat16, device=device)
+            sweep(f"K6 nf4 {name} x[{m},{k}]",
+                  lambda splits, x=x, out=out, m=m, k=k, nn=nn, packed=packed, absmax=absmax:
+                  lib.tp_q4_matmul(x.data_ptr(), packed.data_ptr(), absmax.data_ptr(),
+                                   out.data_ptr(), m, k, nn, 1, splits, stream()),
+                  out, k6.q4_matmul_plain(x, leaf), k * nn // 2 + k // 64 * nn * 4,
+                  k6.q4_splits(k, nn, sms))
+        del leaf, packed, absmax
+    torch.cuda.empty_cache()
 
 
 def int_mm_call(xq: torch.Tensor, wq: torch.Tensor):
@@ -930,8 +1027,10 @@ def quantized_kernel_cases(device, case) -> dict:
     weight. K7 at M = 8 (F's decode) and 64, K8 at M = 256 (F's admission
     chunks) and 2048 on the LM and 26 x 577 (B's 26 crops) on the tower,
     held bit for bit (`compare_exact`, `compare_s8_gemm`); library:
-    torch._int_mm on the same int8 operands; bound at the int8 rate.
-    Returns {kernel name: [case rows]}, the first row the main path's."""
+    torch._int_mm on the same int8 operands; bound at the int8 rate. K6's
+    rows print their achieved TB/s (above 3.35 where the graph's 20 calls
+    find the weight in the 50 MB L2). Returns {kernel name: [case rows]},
+    the first row the main path's."""
     from tokenpacker_tpu_torch.config import preset_config
     from tokenpacker_tpu_torch.ops import q4_matmul as k6
     from tokenpacker_tpu_torch.ops import q8_matmul as k7
@@ -967,7 +1066,7 @@ def quantized_kernel_cases(device, case) -> dict:
                 out["q4_matmul"].append(case(
                     f"K6 q4_matmul {qt} {name} x[{m},{k}] W[{k},{n}]", k6.q4_matmul,
                     k6.q4_matmul_plain, (x, leaf), library=lambda x=x, dense=dense: x @ dense,
-                    graph=True,
+                    graph=True, achieved="bytes",
                     work=(m * k * 2 + k * n // 2 + k // 64 * n * 4 + m * n * 2, 2 * m * k * n),
                     check=lambda nm, got, want, lost=lost, leaf=leaf: compare_rows(
                         nm + " per (row, 128-wide slice)", slices(got), slices(want),
@@ -4307,7 +4406,7 @@ def profile_hd_decode(device, seed: int, batch, steps: int = 8, four_bit: bool =
           f"{busy / steps:.3f} ms/step (idle share {1 - busy / (wall * 1e3):.3f})")
     if four_bit:
         print_families(kernels, (
-            ("K6", ("q4_partial", "q4_epilogue")), ("K3", ("decode_attention",)),
+            ("K6", ("q4_matmul", "q4_partial", "q4_epilogue")), ("K3", ("decode_attention",)),
             ("GEMM (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),
             ("copies and casts", ("copy",)), ("reductions (norms, argmax)", ("reduce",)),
             ("index and scatter (embedding, cache writes)", ("index", "scatter")),
@@ -4398,6 +4497,9 @@ def main() -> None:
 
     if "--profile-train" in sys.argv[1:]:
         profile_train_step(device, SEED)
+        return
+    if "--splits" in sys.argv[1:]:
+        split_sweep(device)
         return
     if "--profile-paged" in sys.argv[1:]:
         profile_paged_decode(device, SEED)

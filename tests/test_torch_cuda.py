@@ -650,14 +650,20 @@ def test_paged_attention_kernel_matches_plain(cuda, n, hkv, ps, mp, int8):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lengths,mp,splits", [([1, 64, 130, 600], 10, 1),
+                                               ([1, 700, 130, 2080], 64, 8)])
 @pytest.mark.parametrize("int8", [True, False])
-def test_paged_attention_reads_no_page_past_the_length(cuda, int8):
+def test_paged_attention_reads_no_page_past_the_length(cuda, int8, lengths, mp, splits):
     """Pages past each length, the rows past it in its last page and the
     pages of stale table entries are poisoned with NaN: the output stays
-    finite and equal to that of the clean pool."""
-    n, ps, mp = 4, 64, 10
-    q, k, v, table, lens, (ks, vs) = _paged_inputs(cuda, n, 32, 8, ps, mp, [1, 64, 130, 600],
-                                                   int8)
+    finite and equal to that of the clean pool. With mp = 64 each (sequence,
+    kv head) at 8 kv heads is split over 8 blocks, and the 2,080-key
+    sequence's last split ends inside its last page."""
+    from tokenpacker_tpu_torch.ops.paged_attention import paged_splits
+
+    n, ps = 4, 64
+    assert paged_splits(n, 8, mp, ps) == splits
+    q, k, v, table, lens, (ks, vs) = _paged_inputs(cuda, n, 32, 8, ps, mp, lengths, int8)
     want = paged_attention(q, k, v, table, lens, ks, vs)
     # past length 1: stale entries (two pages that sequence 2 does not
     # reach) and the null page 0
@@ -676,6 +682,38 @@ def test_paged_attention_reads_no_page_past_the_length(cuda, int8):
     got = paged_attention(q, k, v, table, lens, ks, vs)
     assert torch.isfinite(got.float()).all()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("n,hkv,positions,splits", [(8, 32, 2560, 2), (8, 8, 2560, 4),
+                                                    (8, 8, 4096, 8), (2, 32, 4096, 8)])
+@pytest.mark.parametrize("ps", [64, 32, 16])
+def test_paged_attention_kernel_at_split_edges(cuda, ps, n, hkv, positions, splits, int8):
+    """K5 where its splits begin and end: D's and F's pool (8 sequences,
+    2,560 positions) at 32 and 8 kv heads, and tables of 4,096 positions
+    that take 8 splits. Lengths 1, ps, ps + 1, two pages a split, mp * ps,
+    one shorter than a split's share beside the 2,080-key one, and 0 (a
+    row with no key gives exactly 0), the first n of them. Each (sequence,
+    head) row within BLOCK_REL_RMS of the plain version, which without
+    each sequence's last valid page must fail that; two calls the same
+    bits."""
+    from tokenpacker_tpu_torch.ops.paged_attention import paged_splits
+
+    mp = positions // ps
+    assert paged_splits(n, hkv, mp, ps) == splits
+    lengths = ([1, ps, ps + 1, 2 * splits * ps, mp * ps, 100, 2080, 0] if n == 8
+               else [100, 2080])
+    q, k, v, table, lens, (ks, vs) = _paged_inputs(cuda, n, 32, hkv, ps, mp, lengths, int8,
+                                                   seed=ps + hkv)
+    got = paged_attention(q, k, v, table, lens, ks, vs)
+    again = paged_attention(q, k, v, table, lens, ks, vs)
+    want = paged_attention_plain(q, k, v, table, lens, ks, vs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert n < 8 or not got[-1].any()
+    dropped = (lens - ((lens - 1) % ps + 1)).clamp(min=0)
+    _rows_close(got, want, paged_attention_plain(q, k, v, table, dropped, ks, vs))
 
 
 @pytest.mark.cuda
@@ -710,19 +748,31 @@ def _slices_rel(got, want):
     return _rows_rel(got.reshape(m, n // 128, 128), want.reshape(m, n // 128, 128))
 
 
+# every M up to 32 at Vicuna-7B's qkv and at down's K, whose 172
+# quantization blocks the 8 splits do not divide evenly
+Q4_EVERY_M = [(m, k, n) for m in (1, 2, 4, 8, 9, 16, 17, 24, 32)
+              for k, n in ((4096, 12288), (11008, 4096)) if (m, k, n) != (32, 11008, 4096)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant_type", ["nf4", "int4"])
 @pytest.mark.parametrize("m,k,n", [(4, 4096, 12288), (1, 4096, 4096), (32, 11008, 4096),
-                                   (3, 1024, 640), (17, 512, 1024), (8, 4096, 32000)])
+                                   (3, 1024, 640), (17, 512, 1024), (8, 4096, 32000)]
+                         + [c for c in Q4_EVERY_M if c not in ((4, 4096, 12288),)])
 def test_q4_matmul_kernel_matches_plain(cuda, quant_type, m, k, n):
-    """Per (row, 128-wide slice) within BLOCK_REL_RMS; the plain version
-    without the weight's last 64 rows must fail that. Two calls give the
-    same bits."""
+    """One launch a call; per (row, 128-wide slice) within BLOCK_REL_RMS;
+    the plain version without the weight's last 64 rows must fail that.
+    Two calls give the same bits."""
+    from tokenpacker_tpu_torch.ops.q4_matmul import q4_splits
+
+    assert k != 11008 or (k // 64) % q4_splits(k, n)
     g = torch.Generator(device=cuda).manual_seed(m + k)
     w = torch.randn((k, n), generator=g, device=cuda) * 0.02
     leaf = quantize_4bit(w, 64, quant_type)
     x = torch.randn((m, k), generator=g, device=cuda).bfloat16()
+    before = q4_matmul.launches
     got, again = q4_matmul(x, leaf), q4_matmul(x, leaf)
+    assert q4_matmul.launches == before + 2
     want = q4_matmul_plain(x, leaf)
     torch.cuda.synchronize()
     assert torch.equal(got, again) and got.dtype == torch.bfloat16
@@ -837,6 +887,8 @@ def test_quantized_products_reject_what_the_kernels_do_not_take(cuda):
         q4_matmul(x, quantize_4bit(w[:, :192], block=128))
     with pytest.raises(ValueError, match="bfloat16"):
         q4_matmul(x.float(), quantize_4bit(w[:, :192]))
+    with pytest.raises(ValueError, match="M <= 32"):
+        q4_matmul(torch.zeros((33, 256), dtype=torch.bfloat16, device=cuda), quantize_4bit(w[:, :192]))
     xq = torch.zeros((2, 80), dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match="K % 32"):
         s8_matmul(xq, torch.zeros((80, 64), dtype=torch.int8, device=cuda))

@@ -45,7 +45,13 @@ from tokenpacker_tpu_torch.models.llama import KVCache
 from tokenpacker_tpu_torch.models.splice import build_splice_plan
 from tokenpacker_tpu_torch.models.vlm import encode_images
 from tokenpacker_tpu_torch.ops import paged_kv
-from tokenpacker_tpu_torch.ops.paged_attention import paged_attention, paged_attention_plain
+from tokenpacker_tpu_torch.ops.decode_attention import MAX_SPLITS
+from tokenpacker_tpu_torch.ops.paged_attention import (
+    MIN_SPLIT_POSITIONS,
+    paged_attention,
+    paged_attention_plain,
+    paged_splits,
+)
 from tokenpacker_tpu_torch.serve import prefix_cache
 from tokenpacker_tpu_torch.serve.multi_lora import Adapter
 from tokenpacker_tpu_torch.serve import scheduler as sched
@@ -163,6 +169,39 @@ def _decode_case(lm, int8):
     table[1, :2] = [4, 5]
     table[2, 1] = 2
     return (k, v, table, np.array([10, 5, 5], np.int32), ks, vs)
+
+
+@pytest.mark.parametrize("n,hkv,mp,ps,splits", [
+    (8, 32, 40, 64, 2), (8, 8, 40, 64, 4), (4, 8, 64, 64, 8), (1, 32, 160, 16, 4),
+    (4, 8, 10, 64, 1), (2, 32, 2, 64, 1), (8, 32, 1, 64, 1), (64, 32, 40, 64, 1),
+])
+def test_paged_splits_at_the_serving_shapes(n, hkv, mp, ps, splits):
+    """K5's blocks a (sequence, kv head): D's and F's pool (8 slots, 32 kv
+    heads, 40 pages of 64) takes 2 splits, its 8-kv-head form 4; a table
+    of one page, or a grid that fills the card, takes one."""
+    assert paged_splits(n, hkv, mp, ps) == splits
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_paged_splits_take_whole_pages_and_fill_the_card(sms):
+    """A power of two up to the cluster size, never more splits than the
+    table has pages (each split can take a whole page) nor fewer than
+    MIN_SPLIT_POSITIONS positions a split; while the table allows it, the
+    grid holds two blocks an SM. D's and F's grid (8 slots, 32 kv heads)
+    and its 8-kv-head form fill every SM."""
+    for n in (1, 2, 4, 8, 32):
+        for hkv in (4, 8, 32):
+            for ps in (16, 32, 64):
+                for mp in (1, 2, 3, 5, 8, 10, 40, 64, 130):
+                    splits = paged_splits(n, hkv, mp, ps, sms)
+                    assert splits in (1, 2, 4, 8) and splits <= MAX_SPLITS
+                    assert splits <= mp
+                    assert splits == 1 or mp * ps >= MIN_SPLIT_POSITIONS * splits
+                    if (splits < MAX_SPLITS and 2 * splits <= mp
+                            and mp * ps >= 2 * MIN_SPLIT_POSITIONS * splits):
+                        assert n * hkv * splits >= 2 * sms
+    for hkv in (32, 8):
+        assert 8 * hkv * paged_splits(8, hkv, 40, 64, sms) >= sms
 
 
 @pytest.mark.parametrize("form", ["bf16 unfused, bf16 pool", "fp32 int8 fused, int8 pool"])

@@ -34,7 +34,8 @@ from tokenpacker_tpu_torch.io.weights import (
 from tokenpacker_tpu_torch.models.splice import build_splice_plan
 from tokenpacker_tpu_torch.ops import layers
 from tokenpacker_tpu_torch.ops import quantize as tq
-from tokenpacker_tpu_torch.ops.q4_matmul import q4_matmul, q4_matmul_plain
+from tokenpacker_tpu_torch.ops.decode_attention import MAX_SPLITS
+from tokenpacker_tpu_torch.ops.q4_matmul import BLOCK_COLS, q4_matmul, q4_matmul_plain, q4_splits
 
 QUANT_TYPES = ("nf4", "int4")
 SEP, NEWLINE = 7, 8  # stand-in ids of "," and "\n" in the tiny vocabulary
@@ -143,6 +144,37 @@ def _spy(monkeypatch, name):
 
     monkeypatch.setattr(layers, name, spy)
     return calls
+
+
+# Vicuna-7B's 4-bit products (E's shapes): qkv, o, gateup, down, lm_head
+E_SHAPES = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096), (4096, 32000)]
+
+
+@pytest.mark.parametrize("k,n,splits", [
+    (4096, 12288, 4), (4096, 4096, 8), (4096, 22016, 2), (11008, 4096, 8), (4096, 32000, 2),
+    (128, 4096, 2), (64, 640, 1), (1024, 1024, 8),
+])
+def test_q4_splits_at_the_4bit_shapes(k, n, splits):
+    """K6's blocks a 128-column tile: E's products take 2-8 splits; a K of
+    one or two quantization blocks takes no more splits than blocks."""
+    assert q4_splits(k, n) == splits
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_q4_splits_take_whole_blocks_and_fill_the_card(sms):
+    """A power of two up to the cluster size, never more splits than K has
+    64-row quantization blocks; while K allows it, the grid holds two
+    blocks an SM. E's products fill every SM."""
+    for k in (64, 128, 192, 512, 1024, 4096, 11008):
+        for n in (16, 640, 1024, 4096, 12288, 22016, 32000):
+            splits = q4_splits(k, n, sms)
+            tiles = -(-n // BLOCK_COLS)
+            assert splits in (1, 2, 4, 8) and splits <= MAX_SPLITS
+            assert splits <= k // 64
+            if splits < MAX_SPLITS and 2 * splits <= k // 64:
+                assert tiles * splits >= 2 * sms
+    for k, n in E_SHAPES:
+        assert -(-n // BLOCK_COLS) * q4_splits(k, n, sms) >= sms
 
 
 @pytest.mark.parametrize("quant_type", QUANT_TYPES)

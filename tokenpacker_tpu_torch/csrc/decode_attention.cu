@@ -28,14 +28,12 @@
 //     the same shared tile, each thread 2 features of every head over a
 //     quarter of the tile's keys;
 //   - the partial (m, l, acc[d]) of each head stays in the block's shared
-//     memory; after a cluster barrier the split-0 block copies the others'
-//     into its free K/V ring through distributed shared memory (several
-//     loads in flight a thread: one remote load after another, each
-//     waited for, cost more than the whole key loop at 8 kv heads) and
-//     merges them in split order, so two calls give the same bits, in the
-//     same launch, with no workspace in device memory and no counter to
-//     reset. The splits (a power of two up to the portable cluster size of
-//     8) are chosen on the host from S and the grid
+//     memory and the split-0 block merges the cluster's partials in split
+//     order through distributed shared memory (csrc/split_merge.cuh,
+//     which K5 shares: one remote load after another, each waited for,
+//     cost more than the whole key loop at 8 kv heads, so several are in
+//     flight a thread). The splits (a power of two up to the portable
+//     cluster size of 8) are chosen on the host from S and the grid
 //     (ops/decode_attention.py:decode_splits).
 // The value product uses the probabilities rounded to bf16 while the row
 // sum adds them in fp32, as the TPU kernel does. A row with no valid key
@@ -48,16 +46,17 @@
 // The logits reach ~1.7e3 at 2k positions; they stay in fp32 and the
 // running max keeps exp in range. MPT is MHA, so only G = 1 takes slopes.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <cmath>
 
-namespace cg = cooperative_groups;
+#include "split_merge.cuh"
 
 namespace {
+
+using namespace split_merge;
 
 using bf16 = __nv_bfloat16;
 
@@ -76,45 +75,8 @@ constexpr int RING = STAGES * TILE * ROW;
 // sum: PART floats), [G][TILE] logits (probabilities after the softmax
 // pass) and [G] rescales.
 template <int G>
-__host__ __device__ constexpr int part_floats() {
-  return G * D + 2 * G;
-}
-
-template <int G>
 constexpr size_t smem_bytes() {
-  return 2 * RING + sizeof(float) * (part_floats<G>() + G * TILE + G);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from src, or 16 zero bytes (nothing read) where !valid
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+  return 2 * RING + sizeof(float) * (part_floats<G, D>() + G * TILE + G);
 }
 
 // The valid keys of one sample as one run: run index v < a_end is key v,
@@ -158,15 +120,12 @@ __global__ void __launch_bounds__(THREADS, 2)
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* k_ring = smem;
   unsigned char* v_ring = smem + RING;
-  constexpr int PART = part_floats<G>();
+  constexpr int PART = part_floats<G, D>();
   static_assert(MAX_SPLITS * PART * sizeof(float) <= 2 * RING, "the gather fits the rings");
   float* part_acc = reinterpret_cast<float*>(smem + 2 * RING);  // [G][D]
-  float* part_m = part_acc + G * D;                             // [G]
-  float* part_l = part_m + G;                                   // [G]
   float* p_s = part_acc + PART;                                 // [G][TILE]
   float* alpha_s = p_s + G * TILE;                              // [G]
 
-  cg::cluster_group cluster = cg::this_cluster();
   const int split = blockIdx.x, splits = gridDim.x, kvh = blockIdx.y, n = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
@@ -297,66 +256,13 @@ __global__ void __launch_bounds__(THREADS, 2)
     }
   }
 
-  // the block's partial: the key groups' sums through K's ring (free now)
+  // the block's partial (the key groups' sums through K's ring, free
+  // now), then the cluster's merge, gathered into the split-0 block's rings
   cp_async_wait<0>();
   __syncthreads();
-  float* red = reinterpret_cast<float*>(k_ring);  // [KEY_GROUPS][G][D]
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-    *reinterpret_cast<float2*>(red + (kq * G + g) * D + 2 * fp) = make_float2(acc[g][0], acc[g][1]);
-  if (warp < G && lane == 0) {
-    part_m[warp] = m_run;
-    part_l[warp] = l_run;
-  }
-  __syncthreads();
-  for (int i = tid; i < G * D; i += THREADS) {
-    float sum = 0.f;
-#pragma unroll
-    for (int gr = 0; gr < KEY_GROUPS; ++gr) sum += red[gr * G * D + i];
-    part_acc[i] = sum;
-  }
-
-  // the split-0 block gathers the cluster's partials into its rings (free
-  // now) through distributed shared memory, 4 float2 loads in flight a
-  // thread, then merges them in split order
-  cluster.sync();
-  float2* gather = reinterpret_cast<float2*>(smem);  // [splits][PART / 2]
-  if (split == 0) {
-    const int total = splits * (PART / 2);
-    for (int base = tid; base < total; base += 4 * THREADS) {
-      float2 got[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int i = base + u * THREADS;
-        if (i < total) {
-          const int r = i / (PART / 2);
-          const float2* remote =
-              reinterpret_cast<const float2*>(cluster.map_shared_rank(part_acc, r));
-          got[u] = remote[i - r * (PART / 2)];
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (base + u * THREADS < total) gather[base + u * THREADS] = got[u];
-    }
-  }
-  cluster.sync();  // the others' partials are read: they may exit
-  if (split != 0) return;
-  const float* parts = reinterpret_cast<const float*>(gather);
-  for (int i = tid; i < G * D; i += THREADS) {
-    const int g = i / D;
-    float mx = -INFINITY;
-    for (int r = 0; r < splits; ++r) mx = fmaxf(mx, parts[r * PART + G * D + g]);
-    float l = 0.f, out = 0.f;
-    for (int r = 0; r < splits; ++r) {
-      const float* pr = parts + r * PART;
-      if (pr[G * D + g] == -INFINITY) continue;  // a split that saw no key
-      const float f = expf(pr[G * D + g] - mx);
-      l += pr[G * D + G + g] * f;
-      out += pr[i] * f;
-    }
-    o[((long)n * h + (long)kvh * G) * D + i] = __float2bfloat16(l > 0.f ? out / l : 0.f);
-  }
+  block_partial<G, D, THREADS>(reinterpret_cast<float*>(k_ring), part_acc, acc, m_run, l_run);
+  merge_cluster<G, D, THREADS>(part_acc, reinterpret_cast<float2*>(smem), split, splits,
+                               o + ((long)n * h + (long)kvh * G) * D);
 }
 
 template <int G, bool ALIBI = false>

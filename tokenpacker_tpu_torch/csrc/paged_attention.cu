@@ -1,4 +1,6 @@
-// K5: single-query decode attention through a page table (paged KV pool).
+// K5: single-query decode attention through a page table (paged KV pool),
+// with each sequence's pages split across the blocks of a thread-block
+// cluster.
 //
 // Replaces tokenpacker_tpu/ops/paged_attention.py:paged_attention (_kernel,
 // whose PrefetchScalarGridSpec carries the page table and the lengths).
@@ -6,29 +8,40 @@
 // What bounds it on the H100: one decode step reads each valid K/V row of
 // a sequence once (plus an f32 scale per row and kv head for an int8 pool)
 // for about 4 FLOP per byte, far below the ~295 FLOP/byte where the tensor
-// cores would be the limit. So the only lever is to read no byte twice and
-// nothing past a sequence's length. The design:
-//   - one block per (kv head, sequence) serves the G = H / Hkv query heads
-//     of that kv head, so each K/V row is read once;
-//   - the block reads lengths[n] and its row of the page table itself and
-//     walks only the pages [0, ceil(len / PS)); within the last page only
-//     the rows below len are read. Table entries past that may be stale
-//     or 0 and are never read;
-//   - each thread loads its share of the next page's K and V rows (16
-//     bytes at a time, all issued together) into registers while the
-//     block computes the current page, so memory latency is paid about
-//     once a page and overlaps the compute; a page is then staged in
-//     shared memory, warps form the G x PS logits (a lane holds 4
-//     features, warp sums), warp g updates head g's fp32 online softmax,
-//     and each thread accumulates two output columns of every head over
-//     a quarter of the page's rows;
+// cores would be the limit. So the levers are to read no byte twice and
+// nothing past a sequence's length, and to keep enough bytes in flight.
+// One block per (kv head, sequence) is 64 blocks at 8 kv heads and 8
+// sequences, one of them walking 2,080 keys alone; so the grid is (split,
+// kv head, sequence) and the splits of one (kv head, sequence) form one
+// cluster, as in K3 (decode_attention.cu):
+//   - each block serves the G = H / Hkv query heads of its kv head, so
+//     each K/V row is read once; it reads lengths[n] itself and takes its
+//     share of the sequence's ceil(len / PS) valid pages, in whole pages,
+//     balanced over the true length (not over the table's MP entries): no
+//     table entry at or past that is read (they may be stale or 0), and a
+//     split with no page writes an empty partial;
+//   - it streams its pages' K and V rows through a 3-stage cp.async ring of
+//     32-row tiles, 16-byte copies gathered through the page table (the
+//     int8 pool's scales by 4-byte copies beside them); each thread reads
+//     the table entries of its rows a tile before their copies, so no copy
+//     waits on a dependent load. A row at or past the length is
+//     zero-filled, never read, so 0 x NaN cannot reach the sums;
+//   - tile by tile: each half-warp takes one key (16 lanes x 8 features)
+//     and reduces its G dot products in 4 shuffles; warp g takes head g's
+//     32 logits, one max, one rescale and the tile's row sum; then the P V
+//     pass over the same shared tile, each thread 2 features of every
+//     head over a quarter of the tile's keys;
 //   - an int8 pool is never dequantized: the logits are multiplied by the
 //     K scale of their (position, kv head) and the probabilities by the V
 //     scale before the product with int8 V cast to float, as the TPU
 //     kernel folds them. A bf16 pool rounds the probabilities to bf16
-//     before the value product while the row sum adds them in fp32.
-// A row with no valid key (len 0) gives 0. Splitting long sequences across
-// blocks (flash-decoding) and a TMA page pipeline are later work.
+//     before the value product while the row sum adds them in fp32;
+//   - the block's partial (m, l, acc[G][D]) is merged by the split-0 block
+//     in split order through distributed shared memory, in the same launch
+//     (csrc/split_merge.cuh, shared with K3): no workspace, no counter, two
+//     calls give the same bits. The splits (a power of two up to 8) are
+//     chosen on the host (ops/paged_attention.py:paged_splits).
+// A row with no valid key (len 0) gives 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,39 +49,65 @@
 
 #include <cmath>
 
+#include "split_merge.cuh"
+
 namespace {
 
+using namespace split_merge;
 using bf16 = __nv_bfloat16;
 
 constexpr int D = 128;          // head_dim (Vicuna-7B)
-constexpr int NW = 8;           // warps per block
-constexpr int NT = NW * 32;     // threads per block
-constexpr int PAIRS = D / 2;    // output column pairs
-constexpr int RG = NT / PAIRS;  // row groups of the value product (4)
+constexpr int TILE = 32;        // keys a tile
+constexpr int STAGES = 3;       // tiles in the cp.async ring
+constexpr int THREADS = 256;    // 8 warps: one per head in the softmax pass (G <= 8)
+constexpr int KEY_GROUPS = 4;   // P V pass: thread t takes keys t / 64 + 4 i of a tile
+constexpr int MAX_SPLITS = 8;   // the portable cluster size
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+template <typename T>
+__host__ __device__ constexpr int row_bytes() {
+  return D * (int)sizeof(T);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+template <typename T>
+__host__ __device__ constexpr int ring_bytes() {
+  return STAGES * TILE * row_bytes<T>();
 }
 
-// 4 consecutive elements of a staged row -> float
-__device__ __forceinline__ void load4(const bf16* p, float* out) {
+// Dynamic shared memory: a region holding K's ring, V's ring and (int8
+// pool) the K and V scales' rings; after the key loop the key groups'
+// sums, then the cluster's partials gathered by the split-0 block; then
+// the block's partial (PART floats), [G][TILE] logits (probabilities
+// after the softmax pass) and [G] rescales.
+template <int G, typename T>
+__host__ __device__ constexpr int region_bytes() {
+  constexpr int rings = 2 * ring_bytes<T>() + (sizeof(T) == 1 ? 2 * STAGES * TILE * 4 : 0);
+  constexpr int gather = MAX_SPLITS * part_floats<G, D>() * 4;
+  constexpr int red = KEY_GROUPS * G * D * 4;
+  return rings > gather ? (rings > red ? rings : red) : (gather > red ? gather : red);
+}
+
+template <int G, typename T>
+constexpr size_t smem_bytes() {
+  return region_bytes<G, T>() + sizeof(float) * (part_floats<G, D>() + G * TILE + G);
+}
+
+// 8 consecutive features of a staged row -> float
+__device__ __forceinline__ void load8(const bf16* p, float* out) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(e[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void load8(const int8_t* p, float* out) {
   const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 lo = __bfloat1622float2(b[0]), hi = __bfloat1622float2(b[1]);
-  out[0] = lo.x; out[1] = lo.y; out[2] = hi.x; out[3] = hi.y;
-}
-
-__device__ __forceinline__ void load4(const int8_t* p, float* out) {
-  const char4 c = *reinterpret_cast<const char4*>(p);
-  out[0] = c.x; out[1] = c.y; out[2] = c.z; out[3] = c.w;
+  const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = (float)e[i];
 }
 
 __device__ __forceinline__ float2 load2(const bf16* p) {
@@ -80,203 +119,235 @@ __device__ __forceinline__ float2 load2(const int8_t* p) {
   return make_float2(c.x, c.y);
 }
 
+// The page of position v0 + r of the sequence (0 at or past v1: not read)
+template <int PS>
+__device__ __forceinline__ int page_of(const int* trow, int v0, int r, int v1) {
+  return v0 + r < v1 ? __ldg(trow + (v0 + r) / PS) : 0;
+}
+
+// Positions [v0, v0 + TILE) of the sequence into the ring's tile (zeros at
+// or past v1): thread t copies the 16-byte chunks t % 8 (+ 8) of row t / 8
+// of K and of V from page `page` (the table's entry for its row); with an
+// int8 pool threads 0-31 copy row t's K scale and threads 32-63 row t -
+// 32's V scale from page `spage`.
+template <int PS, typename T>
+__device__ __forceinline__ void load_tile(unsigned char* kdst, unsigned char* vdst, float* ksd,
+                                          float* vsd, const T* kp, const T* vp, const float* ks,
+                                          const float* vs, int page, int spage, int hkv, int kvh,
+                                          int v0, int v1) {
+  constexpr int ROW = row_bytes<T>();
+  const int tid = threadIdx.x;
+  {
+    const int r = tid / 8, c = tid % 8, pos = v0 + r;
+    const bool ok = pos < v1;
+    // element offset of (page, row, kv head) in [P, PS, Hkv, D]
+    const long off = ok ? (((long)page * PS + pos % PS) * hkv + kvh) * D : 0;
+    const unsigned char* ksrc = reinterpret_cast<const unsigned char*>(kp + off);
+    const unsigned char* vsrc = reinterpret_cast<const unsigned char*>(vp + off);
+#pragma unroll
+    for (int j = 0; j < ROW / 128; ++j) {
+      const int ch = 16 * (c + 8 * j);
+      cp_async_16(kdst + r * ROW + ch, ksrc + ch, ok);
+      cp_async_16(vdst + r * ROW + ch, vsrc + ch, ok);
+    }
+  }
+  if constexpr (sizeof(T) == 1) {
+    if (tid < 2 * TILE) {
+      const int r = tid % TILE, pos = v0 + r;
+      const bool ok = pos < v1;
+      const long si = ok ? ((long)spage * PS + pos % PS) * hkv + kvh : 0;
+      if (tid < TILE) cp_async_4(ksd + r, ks + si, ok);
+      else cp_async_4(vsd + r, vs + si, ok);
+    }
+  }
+}
+
 template <int PS, int G, typename T>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(THREADS, 2)
     paged_attention_kernel(const bf16* __restrict__ q, const T* __restrict__ kp,
                            const T* __restrict__ vp, const float* __restrict__ ks,
                            const float* __restrict__ vs, const int* __restrict__ table,
                            const int* __restrict__ lengths, bf16* __restrict__ o, int mp,
                            int h, int hkv, float scale) {
   constexpr bool INT8 = sizeof(T) == 1;
-  constexpr int CPR = D * (int)sizeof(T) / 16;  // 16-byte chunks per row
-  constexpr int TILE = PS * D;                  // elements of one staged page
-  constexpr int KV_BYTES = 2 * TILE * (int)sizeof(T);
-  constexpr int RED_BYTES = (RG - 1) * G * D * (int)sizeof(float);
-  constexpr int SMEM = KV_BYTES > RED_BYTES ? KV_BYTES : RED_BYTES;
-  constexpr int LOADS = (PS * CPR + NT - 1) / NT;  // 16-byte chunks a thread loads per tile
-  __shared__ __align__(16) unsigned char smem[SMEM];
-  __shared__ float s_p[G][PS];  // logits, then the probabilities of the product
-  __shared__ float s_ks[PS], s_vs[PS];
-  __shared__ float s_alpha[G], s_l[G];
-  T* k_tile = reinterpret_cast<T*>(smem);
-  T* v_tile = k_tile + TILE;
+  constexpr int ROW = row_bytes<T>();
+  constexpr int RING = ring_bytes<T>();
+  constexpr int PART = part_floats<G, D>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* k_ring = smem;
+  unsigned char* v_ring = smem + RING;
+  float* ks_ring = reinterpret_cast<float*>(smem + 2 * RING);  // [STAGES][TILE] (int8)
+  float* vs_ring = ks_ring + STAGES * TILE;
+  float* part_acc = reinterpret_cast<float*>(smem + region_bytes<G, T>());  // PART floats
+  float* p_s = part_acc + PART;                                            // [G][TILE]
+  float* alpha_s = p_s + G * TILE;                                         // [G]
 
-  const int kvh = blockIdx.x, n = blockIdx.y;
+  const int split = blockIdx.x, splits = gridDim.x, kvh = blockIdx.y, n = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int len = lengths[n];
-  const int pages = min((len + PS - 1) / PS, mp);  // keys past mp * PS are not attended
-  const long row = (long)hkv * D;  // elements between positions of a page
 
-  float qr[G][4];
+  // this split's whole pages of the sequence's valid ones, balanced
+  const int len = min(lengths[n], mp * PS);  // keys past mp * PS are not attended
+  const int pages = max(0, (len + PS - 1) / PS);
+  const int p0 = split * pages / splits, p1 = (split + 1) * pages / splits;
+  const int v0 = p0 * PS, v1 = min(len, p1 * PS);
+  const int tiles = v1 > v0 ? (v1 - v0 + TILE - 1) / TILE : 0;
+  const int* trow = table + (long)n * mp;
+
+  // logits pass: lane l16 of each half-warp holds features 8 l16 .. 8 l16 + 7
+  const int l16 = lane % 16, half = lane / 16;
+  float qf[G][8];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    load4(q + ((long)n * h + (long)kvh * G + g) * D + lane * 4, qr[g]);
+    load8(q + ((long)n * h + (long)kvh * G + g) * D + 8 * l16, qf[g]);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) qr[g][e] *= scale;
+    for (int i = 0; i < 8; ++i) qf[g][i] *= scale;
   }
-  // head `warp`'s softmax state (warps >= G hold none)
+  // softmax pass: warp g < G keeps head g's running max and row sum
   float m_run = -INFINITY, l_run = 0.f;
-  // this thread's output columns 2*cp, 2*cp+1 over row group rg
-  const int cp = tid % PAIRS, rg = tid / PAIRS;
+  // P V pass: features 2 fp, 2 fp + 1 of every head over keys kq + 4 i
+  const int fp = tid % 64, kq = tid / 64;
   float acc[G][2];
 #pragma unroll
   for (int g = 0; g < G; ++g) acc[g][0] = acc[g][1] = 0.f;
 
-  // page j's valid rows (and scales) of this kv head -> registers
-  uint4 kr[LOADS], vr[LOADS];
-  float ksr = 0.f, vsr = 0.f;
-  auto fetch = [&](int j) {
-    const int page = table[(long)n * mp + j];
-    const int valid = min(PS, len - j * PS);
-    const long base = (long)page * PS * row + (long)kvh * D;
-#pragma unroll
-    for (int i = 0; i < LOADS; ++i) {
-      const int c = tid + i * NT;
-      if (c < valid * CPR) {
-        const long src = base + (c / CPR) * row;
-        kr[i] = reinterpret_cast<const uint4*>(kp + src)[c % CPR];
-        vr[i] = reinterpret_cast<const uint4*>(vp + src)[c % CPR];
-      }
-    }
-    if (INT8 && tid < valid) {
-      const long si = ((long)page * PS + tid) * hkv + kvh;
-      ksr = ks[si];
-      vsr = vs[si];
-    }
+  // The table entries of this thread's rows are read a tile ahead of the
+  // copies that use them, so no copy waits on a dependent load.
+  const int row_kv = tid / 8, row_s = tid % TILE;
+  auto pages_of = [&](int t, int& page, int& spage) {
+    page = page_of<PS>(trow, v0 + t * TILE, row_kv, v1);
+    spage = INT8 && tid < 2 * TILE ? page_of<PS>(trow, v0 + t * TILE, row_s, v1) : 0;
   };
-  if (pages > 0) fetch(0);
-
-  for (int j = 0; j < pages; ++j) {
-    const int valid = min(PS, len - j * PS);
-    __syncthreads();  // the previous page's tiles are no longer read
+  auto load = [&](int t, int page, int spage) {
+    const int s = t % STAGES;
+    load_tile<PS, T>(k_ring + s * TILE * ROW, v_ring + s * TILE * ROW, ks_ring + s * TILE,
+                     vs_ring + s * TILE, kp, vp, ks, vs, page, spage, hkv, kvh, v0 + t * TILE,
+                     v1);
+  };
+  int page, spage;
 #pragma unroll
-    for (int i = 0; i < LOADS; ++i) {
-      const int c = tid + i * NT;
-      if (c < valid * CPR) {
-        reinterpret_cast<uint4*>(k_tile + (c / CPR) * D)[c % CPR] = kr[i];
-        reinterpret_cast<uint4*>(v_tile + (c / CPR) * D)[c % CPR] = vr[i];
-      }
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < tiles) {
+      pages_of(t, page, spage);
+      load(t, page, spage);
     }
-    if (INT8 && tid < valid) {
-      s_ks[tid] = ksr;
-      s_vs[tid] = vsr;
-    }
-    __syncthreads();
-    if (j + 1 < pages) fetch(j + 1);  // in flight while this page is computed
+    cp_async_commit();
+  }
+  pages_of(STAGES - 1, page, spage);
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // tile t landed; every thread is done with tile t - 1
+    if (t + STAGES - 1 < tiles) load(t + STAGES - 1, page, spage);
+    cp_async_commit();
+    pages_of(t + STAGES, page, spage);  // used by the next tile's copies
+    const int s = t % STAGES;
+    const T* kt = reinterpret_cast<const T*>(k_ring + s * TILE * ROW);
+    const T* vt = reinterpret_cast<const T*>(v_ring + s * TILE * ROW);
+    const float* kst = ks_ring + s * TILE;
+    const float* vst = vs_ring + s * TILE;
+    const int base = v0 + t * TILE;
 
-    // logits: warp w takes rows w, w + NW, ...
-    for (int r = warp; r < valid; r += NW) {
-      float kf[4];
-      load4(k_tile + r * D + lane * 4, kf);
+#pragma unroll
+    for (int pass = 0; pass < TILE / 16; ++pass) {
+      const int r = pass * 16 + warp * 2 + half;
+      float kf[8];
+      load8(kt + r * D + 8 * l16, kf);
+      float dot[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        float dot = 0.f;
+        dot[g] = 0.f;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dot += qr[g][e] * kf[e];
-        dot = warp_sum(dot);
-        if (lane == 0) s_p[g][r] = INT8 ? dot * s_ks[r] : dot;
+        for (int i = 0; i < 8; ++i) dot[g] += qf[g][i] * kf[i];
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+#pragma unroll
+        for (int g = 0; g < G; ++g) dot[g] += __shfl_xor_sync(0xffffffffu, dot[g], off);
+      if (l16 == 0) {
+        const bool ok = base + r < v1;
+        const float kscale = INT8 ? kst[r] : 1.f;
+#pragma unroll
+        for (int g = 0; g < G; ++g) p_s[g * TILE + r] = ok ? dot[g] * kscale : -INFINITY;
       }
     }
     __syncthreads();
-
-    // online softmax: warp g owns head g
     if (warp < G) {
-      float s[PS / 32 > 0 ? PS / 32 : 1];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int i = 0; i * 32 < PS; ++i) {
-        const int r = lane + i * 32;
-        s[i] = (r < PS && r < valid) ? s_p[warp][r] : -INFINITY;
-        mx = fmaxf(mx, s[i]);
-      }
-      mx = warp_max(mx);
-      const float m_new = fmaxf(m_run, mx);
-      const float alpha = expf(m_run - m_new);  // 0 for the first page
-      float psum = 0.f;
-#pragma unroll
-      for (int i = 0; i * 32 < PS; ++i) {
-        const int r = lane + i * 32;
-        if (r < PS && r < valid) {
-          const float p = expf(s[i] - m_new);
-          psum += p;
-          s_p[warp][r] = INT8 ? p * s_vs[r] : __bfloat162float(__float2bfloat16(p));
-        }
-      }
-      l_run = l_run * alpha + warp_sum(psum);
+      const float x = p_s[warp * TILE + lane];
+      const float m_new = fmaxf(m_run, warp_max(x));
+      const float alpha = m_new == -INFINITY ? 1.f : expf(m_run - m_new);
+      const float p = x == -INFINITY ? 0.f : expf(x - m_new);
+      l_run = l_run * alpha + warp_sum(p);
       m_run = m_new;
-      if (lane == 0) s_alpha[warp] = alpha;
+      p_s[warp * TILE + lane] = INT8 ? p * vst[lane] : __bfloat162float(__float2bfloat16(p));
+      if (lane == 0) alpha_s[warp] = alpha;
     }
     __syncthreads();
-
-    // value product over this thread's rows rg, rg + RG, ...
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      acc[g][0] *= s_alpha[g];
-      acc[g][1] *= s_alpha[g];
+      const float al = alpha_s[g];
+      acc[g][0] *= al;
+      acc[g][1] *= al;
     }
-    for (int r = rg; r < valid; r += RG) {
-      const float2 v = load2(v_tile + r * D + 2 * cp);
+#pragma unroll
+    for (int i = 0; i < TILE / KEY_GROUPS; ++i) {
+      const int r = kq + KEY_GROUPS * i;
+      const float2 vv = load2(vt + r * D + 2 * fp);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        const float p = s_p[g][r];
-        acc[g][0] += p * v.x;
-        acc[g][1] += p * v.y;
+        const float p = p_s[g * TILE + r];
+        acc[g][0] += p * vv.x;
+        acc[g][1] += p * vv.y;
       }
     }
   }
 
-  // merge the row groups (the staged tiles are free now) and normalise
+  // the block's partial (the key groups' sums through the free region),
+  // then the cluster's merge, gathered into the split-0 block's region
+  cp_async_wait<0>();
   __syncthreads();
-  float* red = reinterpret_cast<float*>(smem);  // [RG - 1][G][D]
-  if (rg > 0) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      red[((rg - 1) * G + g) * D + 2 * cp] = acc[g][0];
-      red[((rg - 1) * G + g) * D + 2 * cp + 1] = acc[g][1];
-    }
-  }
-  if (warp < G && lane == 0) s_l[warp] = l_run;
-  __syncthreads();
-  if (rg == 0) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float a0 = acc[g][0], a1 = acc[g][1];
-      for (int i = 0; i < RG - 1; ++i) {
-        a0 += red[(i * G + g) * D + 2 * cp];
-        a1 += red[(i * G + g) * D + 2 * cp + 1];
-      }
-      const float l = s_l[g];
-      const float inv = l > 0.f ? 1.f / l : 0.f;
-      __nv_bfloat162 out;
-      out.x = __float2bfloat16(a0 * inv);
-      out.y = __float2bfloat16(a1 * inv);
-      *reinterpret_cast<__nv_bfloat162*>(o + ((long)n * h + (long)kvh * G + g) * D + 2 * cp) = out;
-    }
-  }
+  block_partial<G, D, THREADS>(reinterpret_cast<float*>(smem), part_acc, acc, m_run, l_run);
+  merge_cluster<G, D, THREADS>(part_acc, reinterpret_cast<float2*>(smem), split, splits,
+                               o + ((long)n * h + (long)kvh * G) * D);
 }
 
 template <int PS, int G, typename T>
 int launch(const void* q, const void* kp, const void* vp, const void* ks, const void* vs,
            const void* table, const void* lengths, void* o, int n, int h, int hkv, int mp,
-           cudaStream_t stream) {
-  dim3 grid(hkv, n);
-  paged_attention_kernel<PS, G, T><<<grid, NT, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
-      static_cast<const float*>(ks), static_cast<const float*>(vs),
-      static_cast<const int*>(table), static_cast<const int*>(lengths), static_cast<bf16*>(o),
-      mp, h, hkv, 1.0f / sqrtf((float)D));
+           int splits, cudaStream_t stream) {
+  auto* kernel = paged_attention_kernel<PS, G, T>;
+  constexpr size_t bytes = smem_bytes<G, T>();
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, hkv, n);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const bf16*>(q), static_cast<const T*>(kp),
+                         static_cast<const T*>(vp), static_cast<const float*>(ks),
+                         static_cast<const float*>(vs), static_cast<const int*>(table),
+                         static_cast<const int*>(lengths), static_cast<bf16*>(o), mp, h, hkv,
+                         1.0f / sqrtf((float)D));
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 template <int PS, typename T>
 int launch_groups(int groups, const void* q, const void* kp, const void* vp, const void* ks,
                   const void* vs, const void* table, const void* lengths, void* o, int n, int h,
-                  int hkv, int mp, cudaStream_t st) {
+                  int hkv, int mp, int splits, cudaStream_t st) {
   switch (groups) {
-    case 1: return launch<PS, 1, T>(q, kp, vp, ks, vs, table, lengths, o, n, h, hkv, mp, st);
-    case 2: return launch<PS, 2, T>(q, kp, vp, ks, vs, table, lengths, o, n, h, hkv, mp, st);
-    case 4: return launch<PS, 4, T>(q, kp, vp, ks, vs, table, lengths, o, n, h, hkv, mp, st);
-    case 8: return launch<PS, 8, T>(q, kp, vp, ks, vs, table, lengths, o, n, h, hkv, mp, st);
+    case 1: return launch<PS, 1, T>(q, kp, vp, ks, vs, table, lengths, o, n, h, hkv, mp, splits, st);
+    case 2: return launch<PS, 2, T>(q, kp, vp, ks, vs, table, lengths, o, n, h, hkv, mp, splits, st);
+    case 4: return launch<PS, 4, T>(q, kp, vp, ks, vs, table, lengths, o, n, h, hkv, mp, splits, st);
+    case 8: return launch<PS, 8, T>(q, kp, vp, ks, vs, table, lengths, o, n, h, hkv, mp, splits, st);
     default: return -1;
   }
 }
@@ -284,11 +355,17 @@ int launch_groups(int groups, const void* q, const void* kp, const void* vp, con
 template <typename T>
 int launch_pages(int ps, int groups, const void* q, const void* kp, const void* vp,
                  const void* ks, const void* vs, const void* table, const void* lengths, void* o,
-                 int n, int h, int hkv, int mp, cudaStream_t st) {
+                 int n, int h, int hkv, int mp, int splits, cudaStream_t st) {
   switch (ps) {
-    case 16: return launch_groups<16, T>(groups, q, kp, vp, ks, vs, table, lengths, o, n, h, hkv, mp, st);
-    case 32: return launch_groups<32, T>(groups, q, kp, vp, ks, vs, table, lengths, o, n, h, hkv, mp, st);
-    case 64: return launch_groups<64, T>(groups, q, kp, vp, ks, vs, table, lengths, o, n, h, hkv, mp, st);
+    case 16:
+      return launch_groups<16, T>(groups, q, kp, vp, ks, vs, table, lengths, o, n, h, hkv, mp,
+                                  splits, st);
+    case 32:
+      return launch_groups<32, T>(groups, q, kp, vp, ks, vs, table, lengths, o, n, h, hkv, mp,
+                                  splits, st);
+    case 64:
+      return launch_groups<64, T>(groups, q, kp, vp, ks, vs, table, lengths, o, n, h, hkv, mp,
+                                  splits, st);
     default: return -1;
   }
 }
@@ -299,18 +376,20 @@ int launch_pages(int ps, int groups, const void* q, const void* kp, const void* 
 // k_scales, v_scales [P, ps, hkv] f32 (kv_int8 = 1; null pointers
 // otherwise); page_table: [n, mp] int32; lengths: [n] int32; all on the
 // device and contiguous. d = 128, ps in {16, 32, 64}, h / hkv in {1, 2, 4,
-// 8}. Returns 0, a cudaError_t code, or -1 for a shape it does not take.
+// 8}; splits in {1, 2, 4, 8} (blocks a (sequence, kv head), one cluster).
+// Returns 0, a cudaError_t code, or -1 for a shape it does not take.
 extern "C" int tp_paged_attention(const void* q, const void* k_pages, const void* v_pages,
                                   const void* k_scales, const void* v_scales,
                                   const void* page_table, const void* lengths, void* o, int n,
-                                  int h, int hkv, int d, int ps, int mp, int kv_int8,
+                                  int h, int hkv, int d, int ps, int mp, int kv_int8, int splits,
                                   void* stream) {
   if (d != D || hkv <= 0 || h % hkv != 0 || mp <= 0) return -1;
+  if (splits < 1 || splits > MAX_SPLITS || (splits & (splits - 1))) return -1;
   if (n == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kv_int8)
     return launch_pages<int8_t>(ps, h / hkv, q, k_pages, v_pages, k_scales, v_scales, page_table,
-                                lengths, o, n, h, hkv, mp, st);
+                                lengths, o, n, h, hkv, mp, splits, st);
   return launch_pages<bf16>(ps, h / hkv, q, k_pages, v_pages, nullptr, nullptr, page_table,
-                            lengths, o, n, h, hkv, mp, st);
+                            lengths, o, n, h, hkv, mp, splits, st);
 }

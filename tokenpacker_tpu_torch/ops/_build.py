@@ -51,8 +51,8 @@ SIGNATURES = {
     # q, k, v, lengths, needed, slopes, o, n, s, h, hkv, d, span_start, splits, stream
     "tp_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k_pages, v_pages, k_scales, v_scales, page_table, lengths, o, n, h,
-    # hkv, d, ps, mp, kv_int8, stream
-    "tp_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # hkv, d, ps, mp, kv_int8, splits, stream
+    "tp_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # weight table, layers, b, t_tok, d, f, heads, head_dim, s, eps, theta,
     # h, len0, start2, end2, write_pos, positions, cache_k, cache_v, k_scale,
     # v_scale, kv_int8, k_new, v_new, work, lora a_d, a_f, b_qkv, b_o, b_gu,
@@ -62,8 +62,8 @@ SIGNATURES = {
                         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # params table, buffers table, n, t, w, f, heads, eps, stream
     "tp_vit_block": (ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _I, _I, _I, _I, _F, _P),
-    # x, packed, absmax, out, work, m, k, n, nf4, stream
-    "tp_q4_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, packed, absmax, out, m, k, n, nf4, splits, stream
+    "tp_q4_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # xq, wq, out, m, k, n, stream
     "tp_s8_matmul": (_P, _P, _P, _I, _I, _I, _P),
     # x, wq, wscale, y, m, k, n, xq_out, ax_out, acc_out, stream
@@ -155,8 +155,6 @@ def library() -> ctypes.CDLL:
     lib.tp_error_string.restype = ctypes.c_char_p
     lib.tp_fused_decode_workspace.argtypes = (_I, _I, _I, _I, _I)
     lib.tp_fused_decode_workspace.restype = ctypes.c_longlong
-    lib.tp_q4_matmul_workspace.argtypes = (_I, _I, _I)
-    lib.tp_q4_matmul_workspace.restype = ctypes.c_longlong
     lib.tp_probe_gemv_chain_partials.argtypes = (_I, _I, _I, _I, _I)
     lib.tp_probe_gemv_chain_partials.restype = ctypes.c_longlong
     return lib

@@ -12,8 +12,10 @@ scales fold into the logits and the probabilities, K and V are never
 dequantized. A row with no valid key gives 0.
 
 On a CUDA tensor `paged_attention` launches `csrc/paged_attention.cu`
-(bf16 q, a bf16 or int8 pool, d=128, ps 16/32/64, groups 1/2/4/8); on a
-CPU tensor it runs `paged_attention_plain`.
+(bf16 q, a bf16 or int8 pool, d=128, ps 16/32/64, groups 1/2/4/8), which
+splits each (sequence, kv head)'s valid pages across the `paged_splits`
+blocks of one cluster and merges their partials in split order; on a CPU
+tensor it runs `paged_attention_plain`.
 """
 
 from __future__ import annotations
@@ -21,6 +23,26 @@ from __future__ import annotations
 import torch
 
 from tokenpacker_tpu_torch.ops import _build
+from tokenpacker_tpu_torch.ops.decode_attention import MAX_SPLITS, _sm_count
+
+# the table positions a split keeps at least: on an H100 (phase 3's pools,
+# lengths 65-2080 in 40 pages of 64) 32 kv heads ran fastest at 2-4 splits
+# and 8 kv heads at 4, 7-12% ahead of 8 splits of 320 positions
+MIN_SPLIT_POSITIONS = 512
+
+
+def paged_splits(n: int, hkv: int, mp: int, ps: int, sms: int = 132) -> int:
+    """The blocks that share one (sequence, kv head)'s pages in the kernel,
+    chosen as `decode_splits` chooses K3's over the table's mp * ps
+    positions: a power of two up to MAX_SPLITS, doubled while the grid
+    holds fewer than two blocks an SM, as long as each split keeps a whole
+    page and MIN_SPLIT_POSITIONS positions. The kernel hands each split
+    whole pages of the true length, balanced."""
+    splits = 1
+    while (splits < MAX_SPLITS and 2 * splits <= mp
+           and mp * ps >= 2 * MIN_SPLIT_POSITIONS * splits and n * hkv * splits < 2 * sms):
+        splits *= 2
+    return splits
 
 
 def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
@@ -88,11 +110,12 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
         tensors.update(k_scales=(k_scales, torch.float32), v_scales=(v_scales, torch.float32))
     stream = _build.cuda_args("paged_attention", **tensors)
     out = torch.empty_like(q)
+    splits = paged_splits(n, hkv, mp, ps, _sm_count(q.device.index))
     rc = _build.library().tp_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scales.data_ptr() if int8 else None, v_scales.data_ptr() if int8 else None,
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), n, h, hkv, d, ps, mp,
-        int(int8), stream,
+        int(int8), splits, stream,
     )
     _build.check(rc, "paged_attention")
     paged_attention.launches += 1
