@@ -204,10 +204,13 @@ writes at T = 1 and T = 5, bit-equal to the CPU's and `quantize_kv`'s.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}.
 
-`--profile` instead traces phase 6's model and requests with
-torch.profiler over 8 decode steps after the prefill: device time per
-step by kernel family, the host-clock time per step and the device's busy
-share of it. `--profile-train` traces one stage-1 step of phase 8's
+`--profile` instead times phase 6's model and requests over 8 decode
+steps after the prefill, untraced and then under torch.profiler: the
+host-clock time per step both ways, the device's busy share of it and
+the device time per step by kernel family, each kernel counted from the
+end of the one before it (K4 launches overlap their predecessors); then
+the same on that cache for G's verify step (T = 5) and H's plain and
+verify steps with two adapters (K4-LoRA). `--profile-train` traces one stage-1 step of phase 8's
 configuration (after one untraced step) the same way; `--profile-paged`
 traces 8 paged decode steps of phase 10's model and pool (8 slots at
 K5's phase-3 lengths); `--profile-quantized` traces 8 decode steps of
@@ -639,7 +642,8 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
         lib_ms = time_ms(library, graph=library_graph) if library else None
         b_ms, b_by = bound(*work, rate)
         print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {b_ms:.4f} ms ({b_by})"
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {b_ms:.4f} ms ({b_by}, "
+              f"{b_ms / ms:.0%} of the kernel's time)"
               + (f", {achieved_rate(achieved, work, rate, ms, b_ms)}" if achieved else ""))
         return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "case": name}
@@ -649,7 +653,7 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
         row["max_abs_err"] = max(c["max_abs_err"] for c in cases)
         return row
 
-    def every_case(cases):  # K5 and K6: the first row, and every case's own times
+    def every_case(cases):  # K5-K7: the first row, and every case's own times
         keep = ("case", "ms", "library_ms", "bound_ms", "max_abs_err")
         return {**first_and_worst(cases), "cases": [
             {k: round(c[k], 5) if isinstance(c[k], float) else c[k] for k in keep} for c in cases]}
@@ -725,10 +729,11 @@ def earlier_kernel_rows(device, case, first_and_worst, every_case) -> dict:
 
 
 def k5_to_k8_rows(device, case, first_and_worst, every_case) -> dict:
-    """Phase 3's rows of K5 and K6-K8; K5's and K6's keep every case's row."""
+    """Phase 3's rows of K5 and K6-K8; K5's, K6's and K7's keep every case's
+    row."""
     rows = {"paged_attention": every_case(paged_kernel_cases(device, case))}
     for name, cases in quantized_kernel_cases(device, case).items():
-        rows[name] = (every_case if name == "q4_matmul" else first_and_worst)(cases)
+        rows[name] = (every_case if name in ("q4_matmul", "s8_matmul") else first_and_worst)(cases)
     return rows
 
 
@@ -859,7 +864,8 @@ def k4_cases(device, lc, layers, hd_lengths: np.ndarray, s_hd: int,
         ms, plain_ms = time_ms(kernel), time_ms(plain, iters=5, warmup=1)
         b_ms, b_by = bound(*k4_bytes_flops(lc, b, keys, int8))
         print(f"  {tag} {lc.num_hidden_layers} layers: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, library none, bound {b_ms:.4f} ms ({b_by}; {keys} valid cache rows)")
+              f"ms, library none, bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.0%} of the kernel's "
+              f"time; {keys} valid cache rows)")
         cases.append({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
                       "bound_ms": b_ms, "bound_by": b_by})
         del cache, c2, kc, vc, weights, lm
@@ -1024,7 +1030,7 @@ def quantized_kernel_cases(device, case) -> dict:
     int4, at M = 4 (E's decode), 1, 8, 32, held per (row, 128-wide output
     slice) against its plain version, which must fail that hold without
     the last 64 rows of K; library: x @ the already dequantized bf16
-    weight. K7 at M = 8 (F's decode) and 64, K8 at M = 256 (F's admission
+    weight. K7 at M = 8 (F's decode), 64, 1, 16 and 32, K8 at M = 256 (F's admission
     chunks) and 2048 on the LM and 26 x 577 (B's 26 crops) on the tower,
     held bit for bit (`compare_exact`, `compare_s8_gemm`); library:
     torch._int_mm on the same int8 operands; bound at the int8 rate. K6's
@@ -1074,7 +1080,7 @@ def quantized_kernel_cases(device, case) -> dict:
             del leaf, dense
     for name, (k, n) in lm_shapes.items():
         wq, _ = quantize_int8(weight(k, n))
-        for m in (8, 64):
+        for m in (8, 64, 1, 16, 32):
             xq, _ = k7.quantize_activations(acts(m, k))
             out["s8_matmul"].append(case(
                 f"K7 s8_matmul {name} xq[{m},{k}] wq[{k},{n}]", k7.s8_matmul, k7.s8_matmul_plain,
@@ -2609,8 +2615,8 @@ def verify_kernel_cases(device, lc, layers, hd_lengths: np.ndarray, s_hd: int,
         b_ms, b_by = bound(*k4_bytes_flops(lc, b, keys, int8, t))
         print(f"  {tag} {lc.num_hidden_layers} layers: kernel {ms:.4f} ms (K4 at T = 1 on the same "
               f"cache in this call {step_ms:.4f} ms, ratio {ms / step_ms:.3f}), plain "
-              f"{plain_ms:.4f} ms, library none, bound {b_ms:.4f} ms ({b_by}; {keys} valid cache "
-              f"rows)")
+              f"{plain_ms:.4f} ms, library none, bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.0%} of "
+              f"the kernel's time; {keys} valid cache rows)")
         out[int8] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
                      "bound_ms": b_ms, "bound_by": b_by, "t1_ms": step_ms}
         del cache, kc, vc_, weights, lm
@@ -3221,7 +3227,8 @@ def lora_kernel_cases(device, lc, layers, hd_lengths: np.ndarray, s_hd: int,
         k4_name = "K4" if t == 1 else "K4-verify"
         print(f"  {tag} {lc.num_hidden_layers} layers: kernel {ms:.4f} ms ({k4_name} without the "
               f"term on the same cache in this call {base_ms:.4f} ms, +{ms - base_ms:.4f}), plain "
-              f"{plain_ms:.4f} ms, library none, bound {b_ms:.4f} ms ({b_by}; the adapters "
+              f"{plain_ms:.4f} ms, library none, bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.0%} of "
+              f"the kernel's time, ratio {ms / base_ms:.3f}; the adapters "
               f"{lbytes / 1e6:.1f} MB of {(nbytes + lbytes) / 1e9:.3f} GB; {keys} valid cache "
               f"rows)")
         row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
@@ -4366,17 +4373,81 @@ def profile_train_step(device, seed: int) -> None:
         ("elementwise and copies", ("elementwise", "catarray", "copy_kernel", "index"))))
 
 
-def profile_hd_decode(device, seed: int, batch, steps: int = 8, four_bit: bool = False) -> None:
-    """`--profile`: phase 6's model and requests; torch.profiler over
-    `steps` decode steps after the prefill (two warm steps first). With
-    `four_bit` (`--profile-quantized`), phase 12's: the nf4 LM and a bf16
-    cache, each step per layer with K6 and K3."""
+def exclusive_kernels(prof):
+    """(name, device ms, count) of every device-side event of a trace (kernels,
+    copies), each event's ms the time it adds to the device's busy span: its
+    end less the later of its start and every earlier event's end. A kernel
+    launched with programmatic dependent launch starts before its
+    predecessor ends and counts only past that end, so the sum over the
+    events is the busy time (the union of their spans), in either launch
+    mode."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    out, last = {}, float("-inf")
+    for start, end, name in spans:
+        ms = max(0.0, end - max(start, last)) / 1e3
+        last = max(last, end)
+        t, c = out.get(name, (0.0, 0))
+        out[name] = (t + ms, c + 1)
+    return [(name, ms, count) for name, (ms, count) in out.items()]
+
+
+# K4's inner kernels: the GEMV with its epilogue, the attention in either
+# form and the first layer's lora_u; for a tree of the earlier design, its
+# partial-sum GEMVs, epilogue kernels and row_rms
+K4_FAMILIES = (
+    ("K4 GEMV with epilogue", ("gemv_kernel",)), ("K4 attention T=1", ("attention_kernel",)),
+    ("K4 attention T>1", ("attention_mma_kernel",)), ("K4 lora_u", ("lora_u",)),
+    ("K4 GEMV partials (earlier design)", ("gemv_partial", "gemv_mma")),
+    ("K4 epilogues (earlier design)", ("epilogue",)), ("K4 row_rms (earlier design)", ("row_rms",)),
+    ("GEMM (cuBLAS: the LM head)", ("nvjet", "gemm", "xmma", "cutlass")),
+    ("reductions (norm, argmax)", ("reduce",)), ("index (embedding)", ("index",)),
+    ("elementwise and copies", ("elementwise", "copy")))
+
+
+def profile_steps(label: str, run, steps: int, rules, top: int = 24) -> None:
+    """`run(i)` for i < steps untraced, then the same steps under
+    torch.profiler: the host clock a step both ways, the device's busy
+    time a step (the union of its events' spans) and idle share of the
+    traced steps, then the device time a step by kernel family
+    (`exclusive_kernels`)."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        run(i)
+    torch.cuda.synchronize()
+    untraced = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            run(i)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps * 1e3
+    kernels = exclusive_kernels(prof)
+    busy = sum(ms for _, ms, _ in kernels) / steps
+    print(f"profile: {label}, {steps} steps: host clock {untraced:.3f} ms/step untraced, "
+          f"{wall:.3f} traced; device busy {busy:.3f} ms/step (idle share {1 - busy / wall:.3f})")
+    print_families(kernels, rules, steps, top=top)
+
+
+def profile_hd_decode(device, seed: int, batch, steps: int = 8, four_bit: bool = False) -> None:
+    """`--profile`: phase 6's model and requests (B), the decode steps after
+    the prefill (two warm steps first), each with K4's own launches
+    (`profile_steps`); then, on the same cache, G's verify step (T = SPEC_K
+    + 1: the last token and random drafts) and, with phase 3's two adapters
+    on slots ad0, ad1, none and ad0, H's plain and verify steps (K4-LoRA).
+    With `four_bit` (`--profile-quantized`), phase 12's: the nf4 LM and a
+    bf16 cache, each step per layer with K6 and K3."""
     from tokenpacker_tpu_torch.config import preset_config
     from tokenpacker_tpu_torch.generate import decode_step, device_batch, fused_weights, prefill
     from tokenpacker_tpu_torch.io.weights import (init_vlm_on_device, quantize_lm_4bit,
                                                   quantize_lm_int8)
+    from tokenpacker_tpu_torch.serve.multi_lora import SlotLora
+    from tokenpacker_tpu_torch.speculative import verify_step
 
     cfg = preset_config(HD_PRESET)
     params = init_vlm_on_device(cfg, seed=seed, device=device, dtype=torch.bfloat16)
@@ -4385,36 +4456,48 @@ def profile_hd_decode(device, seed: int, batch, steps: int = 8, four_bit: bool =
     dev = device_batch(batch, cfg.dtype, device)
     l = batch["token_ids"].shape[1]
     cache_dtype = None if four_bit else torch.int8
-    logits, cache = prefill(params, cfg, dev, l + steps + 2, kv_cache_dtype=cache_dtype)
+    logits, cache = prefill(params, cfg, dev, l + NEW_TOKENS, kv_cache_dtype=cache_dtype)
     tok = logits.argmax(-1)
     for step in range(2):
         logits, cache = decode_step(params, cfg, cache, tok, dev["lengths"], step, l, fused)
         tok = logits.argmax(-1)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for step in range(2, 2 + steps):
-            logits, cache = decode_step(params, cfg, cache, tok, dev["lengths"], step, l, fused)
-            tok = logits.argmax(-1)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = device_kernels(prof)
-    busy = sum(ms for _, ms, _ in kernels)
-    print(f"profile: {HD_PRESET} {'nf4, bf16 cache' if four_bit else 'int8'}, "
-          f"B={dev['token_ids'].shape[0]}, S={cache.k.shape[2]}, "
-          f"{steps} decode steps: host clock {wall / steps * 1e3:.3f} ms/step, device busy "
-          f"{busy / steps:.3f} ms/step (idle share {1 - busy / (wall * 1e3):.3f})")
+    n = tok.shape[0]
+    name = f"{HD_PRESET} {'nf4, bf16 cache' if four_bit else 'int8, int8 cache'}, B={n}, " \
+           f"S={cache.k.shape[2]}"
+
+    def plain(p, w):
+        def run(i):
+            decode_step(p, cfg, cache, tok, dev["lengths"], 2 + i, l, w)
+        return run
+
     if four_bit:
-        print_families(kernels, (
+        profile_steps(name + " decode", plain(params, fused), steps, (
             ("K6", ("q4_matmul", "q4_partial", "q4_epilogue")), ("K3", ("decode_attention",)),
             ("GEMM (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),
             ("copies and casts", ("copy",)), ("reductions (norms, argmax)", ("reduce",)),
             ("index and scatter (embedding, cache writes)", ("index", "scatter")),
-            ("elementwise", ("elementwise",))), steps)
+            ("elementwise", ("elementwise",))), top=15)
         return
-    print_families(kernels, tuple((f, (f,)) for f in (
-        "gemv_partial", "qkv_epilogue", "attention_kernel", "residual_epilogue",
-        "gateup_epilogue")), steps)
+    g = torch.Generator(device=device).manual_seed(seed + 44)
+    drafts = torch.randint(3, cfg.lm.vocab_size, (n, SPEC_K), generator=g, device=device)
+    fed = torch.cat([tok[:, None], drafts], 1)
+
+    def verify(p, w):
+        def run(i):
+            verify_step(p, cfg, cache, fed, dev["lengths"], 2 + i, l, w)
+        return run
+
+    sl = SlotLora(params, cfg, random_adapters(cfg.lm, SEED + 40, LORA_SCALE), n)
+    for i, slot in enumerate(LORA_SLOTS[:n]):
+        sl.set_slot(i, slot)
+    lp = {**params, "lm": {**params["lm"], "fd_slot_lora": sl._fd | {"sel": sl.sel}}}
+    lfused = fused_weights(lp, cfg)
+    for label, run in ((" decode (B)", plain(params, fused)),
+                       (f" verify T={SPEC_K + 1} (G's step)", verify(params, fused)),
+                       (f" decode, 2 adapters r={LORA_RANK} (H)", plain(lp, lfused)),
+                       (f" verify T={SPEC_K + 1}, 2 adapters (H)", verify(lp, lfused))):
+        run(0)  # warm
+        profile_steps(name + label, run, steps, K4_FAMILIES)
 
 
 def profile_paged_decode(device, seed: int, steps: int = 8, w8a8: bool = False) -> None:
@@ -4494,6 +4577,12 @@ def main() -> None:
     path, seconds = _build.build()
     _build.library()
     print(f"phase 2: built {path.name} in {seconds:.2f} s (0 = already built)")
+    from tokenpacker_tpu_torch.ops import fused_decode as k4
+
+    if hasattr(k4, "pdl_probe"):  # K4 launches with these attributes; a refusal fails its calls
+        rc = k4.pdl_probe(device)
+        print("phase 2: K4's launch attributes (thread-block cluster, programmatic dependent "
+              f"launch): {'accepted' if rc == 0 else f'refused (error {rc})'}")
 
     if "--profile-train" in sys.argv[1:]:
         profile_train_step(device, SEED)

@@ -105,6 +105,13 @@ BLOCK_REL_RMS = 2e-2
 # update reads 0.015-0.018 on an H100 where a lossy update reads 0.40-1.8;
 # at this file's widths 0.009-0.040 (T = 5 the highest), lossy 1.0-1.2
 LORA_UPDATE_REL_RMS = 5e-2
+# The edge cases' adapter entries: phase 3's serving size (chip_smoke.py
+# LORA_SCALE). At `_lora_bundle`'s 0.15 the adapters lift the hidden state
+# to ~40, where one bf16 step of a fed token's q or k (0.25) moves a logit
+# by ~1, and at T >= 5 fed tokens (which then take most of the attention)
+# kernel and plain version, which sum the term in different orders, read
+# 0.02-0.06 apart per slice
+LORA_EDGE_SCALE = 0.03
 
 
 @pytest.fixture
@@ -801,6 +808,32 @@ def test_s8_matmul_kernel_bit_equal_plain(cuda, m, k, n):
     assert not torch.equal(lost, want)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(32, 16), (1440, 16), (1440, 1040)])
+@pytest.mark.parametrize("m", [1, 7, 8, 9, 16, 17, 33, 63, 64])
+def test_s8_matmul_kernel_at_every_row_tile(cuda, m, k, n):
+    """One launch at every row count around the kernel's 8-row tiles, at the
+    smallest K and N it takes (one half-full stage, one 16-column group)
+    and at K = 1440 (23 stages, the last half full, over 8 uneven splits,
+    `s8_splits`), bit-equal to the plain product; two calls give the same
+    bits and each adds one launch."""
+    g = torch.Generator(device=cuda).manual_seed(m * 7 + k + n)
+    xq = torch.randint(-127, 128, (m, k), generator=g, device=cuda, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (k, n), generator=g, device=cuda, dtype=torch.int8)
+    before = s8_matmul.launches
+    got, again = s8_matmul(xq, wq), s8_matmul(xq, wq)
+    torch.cuda.synchronize()
+    assert s8_matmul.launches == before + 2
+    assert torch.equal(got, s8_matmul_plain(xq, wq)) and torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_s8_matmul_takes_at_most_64_rows(cuda):
+    xq = torch.zeros((65, 64), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="M <= 64"):
+        s8_matmul(xq, torch.zeros((64, 64), dtype=torch.int8, device=cuda))
+
+
 def _bf16_steps(got, want):
     """How many bf16 steps apart two bf16 tensors are, element by element
     (signs equal or both zero on the serving values)."""
@@ -1172,6 +1205,115 @@ def test_fused_verify_at_one_token_is_the_decode_step(cuda):
                                                    pos[:, None]), "kernel")
     torch.cuda.synchronize()
     assert torch.equal(h, hv[:, 0]) and torch.equal(kn, knv[:, :, 0])
+
+
+# cache lengths whose valid rows (len0 plus a decoded span of 7) total 32,
+# 33, 256, 257, 512, 8, 31 and 63: on and around the attention's 32-key
+# tiles and, at S = 544 (2 splits, `att_splits`), its split edges
+EDGE_LEN0 = (25, 26, 249, 250, 505, 1, 24, 56)
+
+
+def _edge_inputs(cuda, b, t, int8):
+    """K4's rig (`_k4_inputs`, 2 layers, d 1024, f 2816) at S = 544 with
+    EDGE_LEN0's lengths, a decoded span [520, 527), T fed tokens a sample
+    written from 527 on (h0 [B, D] at T = 1, [B, T, D] above)."""
+    cfg, lm, cache, _ = _k4_inputs(cuda, b, 544, int8)
+    len0 = torch.tensor([EDGE_LEN0[i % len(EDGE_LEN0)] for i in range(b)], dtype=torch.int32,
+                        device=cuda)
+    start2 = torch.full_like(len0, 520)
+    end2 = start2 + 7
+    g = torch.Generator(device=cuda).manual_seed(11 * b + t)
+    h0 = (torch.randn((b, t, cfg.hidden_size), generator=g, device=cuda) * 0.05).bfloat16()
+    pos = (len0[:, None] + 7 + torch.arange(t, device=cuda)).int()
+    if t == 1:
+        h0, pos = h0[:, 0], pos[:, 0]
+    return cfg, lm, cache, (h0, len0, start2, end2, end2, pos)
+
+
+def _written_rows_are_quantize_kv(c, kn, vn, wpos, b, t):
+    cols = wpos.long()[:, None] + torch.arange(t, device=wpos.device)
+    rows = torch.arange(b, device=wpos.device)[:, None].expand(b, t)
+    for cache_rows, scales, new in ((c.k, c.k_scale, kn), (c.v, c.v_scale, vn)):
+        q, sc = quantize_kv(new)
+        assert torch.equal(cache_rows[:, rows, cols], q)
+        assert torch.equal(scales[:, rows, cols], sc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("t", [1, 2, 5, 16])
+@pytest.mark.parametrize("b", [1, 3, 8])
+def test_fused_decode_at_row_and_token_edges(cuda, b, t, int8):
+    """K4 (T = 1) and K4-verify at 1-128 rows (B x T: one to four GEMV
+    passes of 32, every row tile of the tensor-core GEMV) and 1-16 fed
+    tokens, cache lengths on the attention's tile and split edges: the
+    hidden state per (sample, token, 128-wide slice) and the new rows per
+    (layer, sample, token, head) within BLOCK_REL_RMS of the plain version,
+    two calls bit-identical, the written int8 rows equal to `quantize_kv` of
+    the returned rows."""
+    cfg, lm, cache, args = _edge_inputs(cuda, b, t, int8)
+    (h, kn, vn, c), (h2, _, _, _) = (_lora_run(cfg, lm, cache, args, None, True) for _ in range(2))
+    hp, knp, vnp, _ = _lora_run(cfg, lm, cache, args, None, False)
+    torch.cuda.synchronize()
+    assert torch.equal(h, h2)
+    assert torch.isfinite(h.float()).all()
+    assert _rows_rel(h.view(b, t, -1, 128), hp.view(b, t, -1, 128)).max().item() <= BLOCK_REL_RMS
+    for got, want in ((kn, knp), (vn, vnp)):
+        assert _rows_rel(got, want).max().item() <= BLOCK_REL_RMS
+    if int8:
+        _written_rows_are_quantize_kv(c, kn, vn, args[4], b, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("t", [1, 2, 5, 16])
+@pytest.mark.parametrize("b", [1, 3, 8])
+def test_fused_decode_lora_at_row_and_token_edges(cuda, b, t, int8):
+    """K4-LoRA at the same edges, slots cycling "a", "b", none, adapter
+    entries of LORA_EDGE_SCALE: the hidden state per (sample, token,
+    128-wide slice) and the new rows within BLOCK_REL_RMS of the plain
+    version's with the same bundle (which the plain version without the
+    bundle must fail), two calls bit-identical, and a sample with no
+    adapter (an all-zero mask row) gets K4's bits without the bundle."""
+    cfg, lm, cache, args = _edge_inputs(cuda, b, t, int8)
+    slots = [("a", "b", None)[i % 3] for i in range(b)]
+    bundle = _lora_bundle(cfg, lm, slots, scale=LORA_EDGE_SCALE)
+    hk, kn, vn, c = _lora_run(cfg, lm, cache, args, bundle, True)
+    hk2 = _lora_run(cfg, lm, cache, args, bundle, True)[0]
+    hk0 = _lora_run(cfg, lm, cache, args, None, True)[0]
+    hp, knp, vnp, _ = _lora_run(cfg, lm, cache, args, bundle, False)
+    hp0 = _lora_run(cfg, lm, cache, args, None, False)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(hk, hk2)
+    adapted = [i for i, sl in enumerate(slots) if sl is not None]
+
+    def slices(h):
+        return h[adapted].view(len(adapted), t, -1, 128)
+
+    _rows_close(slices(hk), slices(hp), slices(hp0))  # the plain version without the term fails
+    assert _rows_rel(hk.view(b, t, -1, 128), hp.view(b, t, -1, 128)).max().item() <= BLOCK_REL_RMS
+    for got, want in ((kn, knp), (vn, vnp)):
+        assert _rows_rel(got, want).max().item() <= BLOCK_REL_RMS
+    for i, sl in enumerate(slots):
+        if sl is None:
+            assert torch.equal(hk[i], hk0[i])
+    if int8:
+        _written_rows_are_quantize_kv(c, kn, vn, args[4], b, t)
+
+
+@pytest.mark.cuda
+def test_fused_decode_launches_the_step_plan(cuda):
+    """The splits K4's host code launches (`kernel_plan`) are `step_plan`'s,
+    the mirror that the CPU tests check: B's and G's steps on this card, then
+    a sweep of samples, fed tokens, widths and cache lengths at 132 and 114
+    SMs."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    cases = [(4, 1, 4096, 11008, 32, 2080, sms), (4, 5, 4096, 11008, 32, 2080, sms)]
+    cases += [(b, t, heads * 128, f, heads, s, n) for b in (1, 3, 4, 8) for t in (1, 5, 16)
+              for heads in (8, 32) for f in (2816, 11008) for s in (160, 544, 2080)
+              for n in (132, 114)]
+    for case in cases:
+        assert k4.kernel_plan(*case) == k4.step_plan(*case), case
 
 
 # ---- item: int8 rows bit for bit -------------------------------------------------

@@ -28,6 +28,7 @@ from tokenpacker_tpu_torch.io.weights import init_lm_on_device, params_from_jax,
 from tokenpacker_tpu_torch.models.llama import KVCache
 from tokenpacker_tpu_torch.ops import fused_decode
 from tokenpacker_tpu_torch.ops.kv_quant import dequantize_kv
+from tokenpacker_tpu_torch.ops.splits import MAX_SPLITS, STAGE_ROWS, cluster_splits
 
 # the JAX test's own bounds (tests/test_fused_decode.py): bf16 sums in
 # another order, f32 vs bf16-rounded k*q products
@@ -208,3 +209,70 @@ def test_unported_forms_raise(trees):
                                          cache.v, z, z, z, z, z)
     with pytest.raises(ValueError, match="not an int8"):
         fused_decode.FusedWeights({"layers": []}, cfg)
+
+
+# K4's GEMV and attention plans on the card (`step_plan`: `cluster_splits`
+# and `att_splits`, which the kernel's host code computes alike and a card
+# test of tests/test_torch_cuda.py holds to them): Vicuna-7B's products
+# and B's cache
+@pytest.mark.parametrize("name,k,splits", [
+    ("qkv", 4096, 4), ("o", 4096, 8), ("gateup", 4096, 2), ("down", 11008, 8),
+])
+def test_gemv_splits_at_vicuna_7b(name, k, splits):
+    """qkv's 96 tiles take 4 splits, o's and down's 32 take 8, gate/up's 172
+    (64 gate and 64 up columns each) take 2: every product holds two
+    blocks an SM or the cluster's 8."""
+    tiles = fused_decode.gemv_tiles(4096, 11008)[name]
+    assert cluster_splits(k, tiles) == splits
+    assert fused_decode.step_plan(4, 1, 4096, 11008, 32, 2080)[name] == splits
+    assert tiles * splits >= 132
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_gemv_splits_keep_whole_stages(sms):
+    """A power of two up to the cluster size, never more splits than K has
+    64-row stages; while K allows it, the grid holds two blocks an SM."""
+    for k in (32, 64, 96, 512, 1024, 2816, 4096, 11008):
+        for tiles in (1, 4, 8, 22, 32, 44, 96, 172):
+            splits = cluster_splits(k, tiles, sms)
+            stages = -(-k // STAGE_ROWS)
+            assert splits in (1, 2, 4, 8) and splits <= stages
+            if splits < MAX_SPLITS and 2 * splits <= stages:
+                assert tiles * splits >= 2 * sms
+
+
+@pytest.mark.parametrize("b,heads,s,t,splits", [
+    (4, 32, 2080, 1, 2), (4, 32, 2080, 5, 2), (4, 32, 1040, 1, 2), (8, 32, 2080, 1, 1),
+    (1, 8, 544, 1, 2), (1, 8, 544, 16, 2), (3, 8, 160, 1, 1), (1, 32, 2080, 5, 8),
+    (1, 32, 2080, 1, 8),
+])
+def test_att_splits_fill_the_card_in_whole_tiles(b, heads, s, t, splits):
+    """B's attention (4 samples, 32 heads, S = 2080) takes 2 splits at T =
+    1 (256 blocks: one wave of two an SM) and 2 in the verify form, whose
+    tiles cost more; a split keeps at least 256 of the S slots (8 tiles of
+    32 keys)."""
+    assert fused_decode.att_splits(b, heads, s, t) == splits
+    assert fused_decode.step_plan(b, t, heads * 128, 11008, heads, s)["attention"] == splits
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_att_splits_keep_256_slots_a_split(sms):
+    for b in (1, 3, 4, 8):
+        for heads in (8, 32):
+            for s in (64, 160, 544, 1040, 2080, 4096):
+                for t in (1, 5):
+                    splits = fused_decode.att_splits(b, heads, s, t, sms)
+                    assert splits in (1, 2, 4, 8) and (splits == 1 or s >= 256 * splits)
+                    if t == 1:  # one wave of two blocks an SM
+                        assert splits == 1 or b * heads * splits <= 2 * sms
+                    if splits < MAX_SPLITS and s >= 512 * splits:
+                        assert b * heads * splits > sms if t == 1 else b * heads * splits >= sms
+
+
+def test_gemv_tiles_cover_every_column():
+    """qkv's tiles are whole heads (a tile of q, k or v is one head of
+    128), gate/up's cover f in runs of 64 gate and 64 up columns."""
+    for d, f in ((4096, 11008), (1024, 2816), (512, 1024), (256, 688)):
+        tiles = fused_decode.gemv_tiles(d, f)
+        assert tiles["qkv"] == 3 * (d // 128) and tiles["o"] == tiles["down"] == d // 128
+        assert (tiles["gateup"] - 1) * 64 < f <= tiles["gateup"] * 64

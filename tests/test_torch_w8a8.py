@@ -38,14 +38,18 @@ from tokenpacker_tpu_torch.io.weights import (
 )
 from tokenpacker_tpu_torch.models import clip_vit
 from tokenpacker_tpu_torch.ops import layers
+from tokenpacker_tpu_torch.ops.decode_attention import MAX_SPLITS
 from tokenpacker_tpu_torch.ops.q8_matmul import (
+    BLOCK_COLS,
     quantize_activations,
     s8_matmul,
     s8_matmul_plain,
+    s8_splits,
     w8a8_matmul,
 )
 from tokenpacker_tpu_torch.ops.quantize import quantize_int8
 from tokenpacker_tpu_torch.ops.s8_gemm import s8_gemm, s8_gemm_plain, w8a8_gemm
+from tokenpacker_tpu_torch.ops.splits import STAGE_ROWS
 from tokenpacker_tpu_torch.serve.scheduler import PagedContinuousBatcher
 
 
@@ -90,6 +94,38 @@ def test_s8_matmul_plain_bit_equal_jax_kernel(m, k, n):
         want = (xq.astype(np.int64) @ wq.astype(np.int64)).astype(np.int32)
     np.testing.assert_array_equal(got.numpy(), want)
     assert torch.equal(got, s8_matmul_plain(torch.from_numpy(xq), torch.from_numpy(wq)))
+
+
+# Vicuna-7B's w8a8 decode products (F's shapes): qkv, o, gateup, down, lm_head
+F_SHAPES = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096), (4096, 32000)]
+
+
+@pytest.mark.parametrize("k,n,splits", [
+    (4096, 12288, 4), (4096, 4096, 8), (4096, 22016, 2), (11008, 4096, 8), (4096, 32000, 2),
+    (32, 16, 1), (96, 48, 2), (1440, 16, 8), (1024, 1040, 8),
+])
+def test_s8_splits_at_the_w8a8_shapes(k, n, splits):
+    """K7's blocks a 128-column tile: F's products take 2-8 splits; a K of
+    one or two 64-row stages takes no more splits than stages, and a K of
+    23 stages (the last one half full) takes 8 uneven ones."""
+    assert s8_splits(k, n) == splits
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_s8_splits_take_whole_stages_and_fill_the_card(sms):
+    """A power of two up to the cluster size, never more splits than K has
+    64-row stages; while K allows it, the grid holds two blocks an SM. F's
+    products fill every SM."""
+    for k in (32, 64, 96, 128, 1024, 1440, 4096, 11008):
+        for n in (16, 48, 640, 1024, 4096, 12288, 22016, 32000):
+            splits = s8_splits(k, n, sms)
+            stages, tiles = -(-k // STAGE_ROWS), -(-n // BLOCK_COLS)
+            assert splits in (1, 2, 4, 8) and splits <= MAX_SPLITS
+            assert splits <= stages
+            if splits < MAX_SPLITS and 2 * splits <= stages:
+                assert tiles * splits >= 2 * sms
+    for k, n in F_SHAPES:
+        assert -(-n // BLOCK_COLS) * s8_splits(k, n, sms) >= sms
 
 
 def test_w8a8_matmul_matches_jax():

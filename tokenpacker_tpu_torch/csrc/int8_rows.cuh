@@ -1,5 +1,4 @@
-// Helpers shared by the quantized-product kernels (q4_matmul.cu,
-// s8_matmul.cu, s8_gemm.cu).
+// Helpers shared by the int8 product kernels (s8_matmul.cu, s8_gemm.cu).
 #pragma once
 
 #include <stdint.h>
@@ -15,12 +14,4 @@ __device__ __forceinline__ void transpose4(uint32_t r0, uint32_t r1, uint32_t r2
   col[1] = __byte_perm(t0, u0, 0x7632);
   col[2] = __byte_perm(t1, u1, 0x5410);
   col[3] = __byte_perm(t1, u1, 0x7632);
-}
-
-// the smallest power of two >= rows: the compiled row count a launch of
-// `rows` x rows uses (the rows past `rows` read as 0)
-inline int padded_rows(int rows) {
-  int r = 1;
-  while (r < rows) r *= 2;
-  return r;
 }

@@ -1,5 +1,6 @@
 // Building blocks shared by the split decode kernels: K3
-// (decode_attention.cu), K5 (paged_attention.cu) and K6 (q4_matmul.cu).
+// (decode_attention.cu), K5 (paged_attention.cu), K6 (q4_matmul.cu), K7
+// (s8_matmul.cu) and K4 (fused_decode.cu).
 //
 //   - the cp.async ring's copies (16 bytes, or 4 for K5's int8 scales),
 //     zero-filled where the source is not valid: nothing is read there,

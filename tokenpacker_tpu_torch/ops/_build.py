@@ -60,12 +60,16 @@ SIGNATURES = {
     "tp_fused_decode": (ctypes.POINTER(_P), _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P,
                         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
                         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # b, t_tok, d, f, heads, s, sms, out[5] (K4's splits a launch)
+    "tp_fused_decode_plan": (_I, _I, _I, _I, _I, _I, _I, _P),
+    # stream
+    "tp_fused_decode_pdl_probe": (_P,),
     # params table, buffers table, n, t, w, f, heads, eps, stream
     "tp_vit_block": (ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _I, _I, _I, _I, _F, _P),
     # x, packed, absmax, out, m, k, n, nf4, splits, stream
     "tp_q4_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # xq, wq, out, m, k, n, stream
-    "tp_s8_matmul": (_P, _P, _P, _I, _I, _I, _P),
+    # xq, wq, out, m, k, n, splits, stream
+    "tp_s8_matmul": (_P, _P, _P, _I, _I, _I, _I, _P),
     # x, wq, wscale, y, m, k, n, xq_out, ax_out, acc_out, stream
     "tp_s8_gemm": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
     # the card probes (csrc/stream_probes.cu). src, row_pitch, chunk_pitch,

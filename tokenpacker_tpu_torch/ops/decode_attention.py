@@ -21,13 +21,11 @@ over `generate.decode_step`'s key positions).
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from tokenpacker_tpu_torch.ops import _build
+from tokenpacker_tpu_torch.ops.splits import MAX_SPLITS, sm_count
 
-MAX_SPLITS = 8  # the kernel's cluster: the portable cluster size
 MIN_SPLIT_KEYS, MAX_SPLIT_KEYS = 64, 256  # cache slots a split
 
 
@@ -41,11 +39,6 @@ def decode_splits(n: int, hkv: int, s: int, sms: int = 132) -> int:
            and (n * hkv * splits < 2 * sms or s > MAX_SPLIT_KEYS * splits)):
         splits *= 2
     return splits
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _token_positions(lengths: torch.Tensor, s: int, span_start: int) -> torch.Tensor:
@@ -103,7 +96,7 @@ def decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
         lengths=(lengths, i32), needed=(needed, i32), **extra,
     )
     out = torch.empty_like(q)
-    splits = decode_splits(n, hkv, s, _sm_count(q.device.index))
+    splits = decode_splits(n, hkv, s, sm_count(q.device.index))
     rc = _build.library().tp_decode_attention(
         q.data_ptr(), ck.data_ptr(), cv.data_ptr(), lengths.data_ptr(), needed.data_ptr(),
         None if slopes is None else slopes.data_ptr(), out.data_ptr(), n, s, h, hkv, d,

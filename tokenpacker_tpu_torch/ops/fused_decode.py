@@ -9,8 +9,11 @@ RMSNorm -> gate/up GEMV -> SiLU * up -> down GEMV, residual. The final
 norm and the LM head stay outside, as in the JAX package.
 
 On CUDA tensors `fused_decode_hidden` makes one call into
-`csrc/fused_decode.cu`, which loops over the layers and enqueues a few
-kernels per layer; on CPU tensors it runs `fused_decode_hidden_plain`,
+`csrc/fused_decode.cu`, which loops over the layers and enqueues five
+kernels a layer (qkv, o, gate/up and down GEMVs, each with its epilogue
+and its K split over a thread-block cluster, and the attention, its keys
+split over a cluster: `step_plan`), each launched with programmatic
+dependent launch; on CPU tensors it runs `fused_decode_hidden_plain`,
 the same function in plain PyTorch. Either way the new k/v rows are
 written into the cache **in place** at `write_pos` (the JAX function
 returns updated copies): int8 rows with their scales from
@@ -52,8 +55,64 @@ from tokenpacker_tpu_torch.models.llama import rope_cos_sin
 from tokenpacker_tpu_torch.ops import _build
 from tokenpacker_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
 from tokenpacker_tpu_torch.ops.quantize import is_qleaf
+from tokenpacker_tpu_torch.ops.splits import MAX_SPLITS, cluster_splits
 
 HEAD_DIM = 128
+BLOCK_COLS = 128  # columns a GEMV block (gate/up: 64 gate and the same 64 up)
+
+
+def gemv_tiles(d: int, f: int) -> dict:
+    """K4's column tiles a product: qkv and o, down 128 columns a tile;
+    gate/up 64 gate columns and the same 64 up columns."""
+    return {"qkv": 3 * d // BLOCK_COLS, "o": d // BLOCK_COLS, "gateup": -(-f // 64),
+            "down": d // BLOCK_COLS}
+
+
+def att_splits(b: int, heads: int, s: int, t: int = 1, sms: int = 132) -> int:
+    """The blocks that share one (head, sample)'s cache keys in K4's
+    attention (`fused_decode.cu:att_splits`): a power of two up to
+    MAX_SPLITS, doubled while each split keeps 256 of the S cache slots
+    and the grid, at T = 1, stays within one wave of two blocks an SM or,
+    at T > 1 fed tokens, holds fewer than one block an SM."""
+    splits = 1
+    while (splits < MAX_SPLITS and s >= 2 * 256 * splits
+           and (b * heads * 2 * splits <= 2 * sms if t == 1 else b * heads * splits < sms)):
+        splits *= 2
+    return splits
+
+
+PLAN_KEYS = ("qkv", "o", "gateup", "down", "attention")
+
+
+def step_plan(b: int, t: int, d: int, f: int, heads: int, s: int, sms: int = 132) -> dict:
+    """The splits of each of K4's five launches a layer for B samples of T
+    fed tokens, hidden d, MLP f, over a cache of S slots, on a card of
+    `sms` SMs: the GEMVs' `splits.cluster_splits` over their tiles and the
+    attention's `att_splits`. The kernel computes them in its host code;
+    `kernel_plan` reads that back."""
+    tiles = gemv_tiles(d, f)
+    plan = {name: cluster_splits(f if name == "down" else d, tiles[name], sms)
+            for name in PLAN_KEYS[:4]}
+    plan["attention"] = att_splits(b, heads, s, t, sms)
+    return plan
+
+
+def kernel_plan(b: int, t: int, d: int, f: int, heads: int, s: int, sms: int) -> dict:
+    """What `tp_fused_decode` launches for the same step (card only: it
+    loads the built library)."""
+    out = (ctypes.c_int * 5)()
+    _build.library().tp_fused_decode_plan(b, t, d, f, heads, s, sms, ctypes.addressof(out))
+    return dict(zip(PLAN_KEYS, out))
+
+
+def pdl_probe(device) -> int:
+    """0 where the CUDA runtime takes the launch attributes K4 uses (a cluster
+    and programmatic stream serialization) on `device`, else its
+    cudaError_t code; no fallback: a refused attribute fails K4's call."""
+    with torch.cuda.device(device):
+        rc = _build.library().tp_fused_decode_pdl_probe(torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+    return rc
 # per layer: ln1, qkv q/scale, o q/scale, ln2, gateup q/scale, down q/scale
 _MATRICES = (("attn", "qkv"), ("attn", "o"), ("mlp", "gateup"), ("mlp", "down"))
 

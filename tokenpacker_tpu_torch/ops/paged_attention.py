@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from tokenpacker_tpu_torch.ops import _build
-from tokenpacker_tpu_torch.ops.decode_attention import MAX_SPLITS, _sm_count
+from tokenpacker_tpu_torch.ops.splits import MAX_SPLITS, sm_count
 
 # the table positions a split keeps at least: on an H100 (phase 3's pools,
 # lengths 65-2080 in 40 pages of 64) 32 kv heads ran fastest at 2-4 splits
@@ -110,7 +110,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
         tensors.update(k_scales=(k_scales, torch.float32), v_scales=(v_scales, torch.float32))
     stream = _build.cuda_args("paged_attention", **tensors)
     out = torch.empty_like(q)
-    splits = paged_splits(n, hkv, mp, ps, _sm_count(q.device.index))
+    splits = paged_splits(n, hkv, mp, ps, sm_count(q.device.index))
     rc = _build.library().tp_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scales.data_ptr() if int8 else None, v_scales.data_ptr() if int8 else None,

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from tokenpacker_tpu_torch.ops import _build
-from tokenpacker_tpu_torch.ops.decode_attention import MAX_SPLITS, _sm_count
+from tokenpacker_tpu_torch.ops.splits import cluster_splits, sm_count
 from tokenpacker_tpu_torch.ops.quantize import dequantize_4bit, q4_meta
 
 BLOCK_COLS = 128  # output columns a block of the kernel
@@ -33,12 +33,9 @@ def q4_splits(k: int, n: int, sms: int = 132) -> int:
     """The blocks that share one 128-column tile's K in the kernel: a power
     of two up to MAX_SPLITS, doubled while the grid holds fewer than two
     blocks an SM, as long as each split keeps a whole 64-row quantization
-    block. The kernel hands each split whole blocks, balanced."""
-    qblocks, tiles = k // 64, -(-n // BLOCK_COLS)
-    splits = 1
-    while splits < MAX_SPLITS and 2 * splits <= qblocks and tiles * splits < 2 * sms:
-        splits *= 2
-    return splits
+    block (`splits.cluster_splits`). The kernel hands each split whole
+    blocks, balanced."""
+    return cluster_splits(k, -(-n // BLOCK_COLS), sms)
 
 
 def q4_matmul_plain(x: torch.Tensor, qleaf: dict) -> torch.Tensor:
@@ -69,7 +66,7 @@ def q4_matmul(x: torch.Tensor, qleaf: dict) -> torch.Tensor:
     lib = _build.library()
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     rc = lib.tp_q4_matmul(xm.data_ptr(), packed.data_ptr(), absmax.data_ptr(), out.data_ptr(), m,
-                          k, n, int(quant_type == "nf4"), q4_splits(k, n, _sm_count(x.device.index)),
+                          k, n, int(quant_type == "nf4"), q4_splits(k, n, sm_count(x.device.index)),
                           stream)
     _build.check(rc, "q4_matmul")
     q4_matmul.launches += 1

@@ -7,8 +7,10 @@ TOKENPACKER_W8A8=1) quantizes activations per row (symmetric absmax,
 int8: y = (xq @ q) * ax * scale. It is a different numerics point from
 weight-only int8 (it adds the activations' rounding), hence opt-in.
 
-On a CUDA tensor `s8_matmul` launches `csrc/s8_matmul.cu` (dp4a into
-int32); on a CPU tensor it runs `s8_matmul_plain`. The plain product is
+On a CUDA tensor `s8_matmul` launches `csrc/s8_matmul.cu`: one launch
+for up to 64 rows, the int8 products on the tensor cores, K split over
+the `s8_splits` blocks of one cluster and summed in shared memory; on a
+CPU tensor it runs `s8_matmul_plain`. The plain product is
 taken in float64, exact on either device: every product and partial sum
 is an integer below 127 * 127 * K < 2^53. (`torch.matmul` has no integer
 kernel on CUDA; `torch._int_mm` is only the timed yardstick in
@@ -21,6 +23,18 @@ from __future__ import annotations
 import torch
 
 from tokenpacker_tpu_torch.ops import _build
+from tokenpacker_tpu_torch.ops.splits import cluster_splits, sm_count
+
+BLOCK_COLS = 128  # output columns a block of the kernel
+MAX_ROWS = 64  # rows of x the kernel takes (the route's M <= 64)
+
+
+def s8_splits(k: int, n: int, sms: int = 132) -> int:
+    """The blocks that share one 128-column tile's K in the kernel: a power
+    of two up to MAX_SPLITS, doubled while the grid holds fewer than two
+    blocks an SM, as long as each split keeps a 64-row stage
+    (`splits.cluster_splits`)."""
+    return cluster_splits(k, -(-n // BLOCK_COLS), sms)
 
 
 def quantize_activations(x: torch.Tensor):
@@ -41,18 +55,19 @@ def s8_matmul_plain(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
 
 
 def s8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
-    """xq [M, K] int8 @ wq [K, N] int8 -> exact int32 [M, N]."""
+    """xq [M, K] int8 @ wq [K, N] int8 -> exact int32 [M, N]; on the card
+    M is at most MAX_ROWS."""
     if xq.device.type == "cpu":
         return s8_matmul_plain(xq, wq)
     m, k = xq.shape
     n = wq.shape[1]
-    if wq.shape != (k, n) or k % 32 or n % 16:
+    if wq.shape != (k, n) or k % 32 or n % 16 or m > MAX_ROWS:
         raise ValueError(f"s8_matmul: xq {tuple(xq.shape)}, wq {tuple(wq.shape)}: the kernel "
-                         "takes K % 32 == 0 and N % 16 == 0")
+                         f"takes K % 32 == 0, N % 16 == 0 and M <= {MAX_ROWS}")
     stream = _build.cuda_args("s8_matmul", xq=(xq, torch.int8), wq=(wq, torch.int8))
-    out = torch.zeros((m, n), dtype=torch.int32, device=xq.device)
+    out = torch.empty((m, n), dtype=torch.int32, device=xq.device)
     rc = _build.library().tp_s8_matmul(xq.data_ptr(), wq.data_ptr(), out.data_ptr(), m, k, n,
-                                       stream)
+                                       s8_splits(k, n, sm_count(xq.device.index)), stream)
     _build.check(rc, "s8_matmul")
     s8_matmul.launches += 1
     return out
