@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py              # the smoke run, phases 1-24
+    python3 chip_smoke.py              # the smoke run, phases 1-27 (25-27 before 24)
     python3 chip_smoke.py --profile    # phases 1-2, then the profile below
     python3 chip_smoke.py --profile-train  # phases 1-2, then a traced training step
     python3 chip_smoke.py --profile-paged  # phases 1-2, then traced paged decode steps
@@ -13,6 +13,7 @@
     python3 chip_smoke.py --probes         # phases 1-2, K2 full-bias of phase 3, phase 24
     python3 chip_smoke.py --flash          # phases 1-2, every K2 row of phase 3, 8-9, 22-23
     python3 chip_smoke.py --tower          # phases 1-2, K1 and K9 of phase 3, 4-5, 8-9, 16-17
+    python3 chip_smoke.py --sampling       # phases 1-2, then 25-27
 
 Phases, one result line each or more (every failure raises, so any
 failure exits non-zero and prints no final line):
@@ -176,6 +177,34 @@ failure exits non-zero and prints no final line):
      chains' values within GEMV_REL, each check failing a lossy output
      (a chunk, layer or byte order lost); GB/s and the share of 3.35 TB/s,
      the decision ratios of P2 (int4/int8) and P3b (packed/int8).
+ 25. configuration K: B's model (TokenPacker-HD-7b, the LM in int8, an
+     int8 cache) and phase 6's 4 HD requests through `Generator.generate`
+     at temperature 0.7, top_p 0.9, top_k 50, min_p 0.05,
+     repetition_penalty 1.1 with an explicit generator, 32 tokens: K4 once
+     a decode step; every token in the support of the filters applied to
+     the penalized logits of its step (the sampler wrapped here); top_k 1
+     gives the greedy tokens up to a bf16 tie; the sampler alone on a [4,
+     32000] bf16 step under the sync debug mode "error"; 4,096 draws from
+     one 16-token distribution within total variation 0.05, unseeded and
+     over 4,096 seeds. Printed: ms a step, greedy and sampled in turns;
+ 26. configuration L: G's dense batcher (fused tower, chunks of 256,
+     speculative_k 4) and D's paged batcher (prefix cache on) each serve 8
+     requests of phase 6's images (2 greedy, 2 sampled at temperature 0.8
+     and top_p 0.95, 1 with min_p 0.1, 1 greedy with repetition_penalty
+     1.2, 1 greedy with logprobs=3, 1 sampled with seed 1234, which is
+     also submitted alone first): the greedy requests' tokens, in this
+     run and in a greedy-only run, equal a recorded plain run's wherever
+     its margin is decisive (so each other up to where either parts from
+     it at a near-tie), the seeded request's two runs up to a draw within
+     the band, logprob entries within 1e-3 of log_softmax of the recorded raw
+     logits with sorted top lists; the dense batcher runs verify rounds
+     only while a greedy slot is active, and every other slot takes one
+     token a round; K4, K4-verify, K5 and K9 counted against the steps;
+ 27. configuration M: phase 6's first 2 HD requests through
+     `beam.beam_generate` with 4 beams, 16 tokens and length_penalty 1:
+     K4 at 8 rows once a step, each score within 0.02 a token of a
+     teacher-forced prefill of prompt + beam (K2), whether the batch
+     equals each request searched alone printed, num_beams 17 refused.
 Phase 3 also holds K2's full-bias form (no serving or training path
 reaches it) at MPT-7B's prefix-LM attention, [4, 2048, 32, 128], not
 causal: the prefix-LM mask with B's prompt lengths plus ALiBi as a [4, 32,
@@ -183,7 +212,7 @@ causal: the prefix-LM mask with B's prompt lengths plus ALiBi as a [4, 32,
 with rows below -1e30 (o = 0, lse = +inf), each failing the plain version
 with the bias's last key tile dropped; SDPA with the bias as a bf16 mask is
 its library column. The six kernels no path reaches (K2 full-bias and the
-probes' five) are counted over phases 4-23: 0.
+probes' five) are counted over phases 4-23 and 25-27: 0.
 Phase 3 also holds K9 at [8, 577, 1024] and [26, 577, 1024] by its
 block's update out - x per (image, 64 rows, 128-wide slice), failing the
 plain block that lost its last 64 keys or its MLP's last 128 units, with
@@ -232,7 +261,8 @@ with K3-ALiBi, which shares their function) and phases 8-9 and 22-23,
 each printing their kernel rows, and `--tower` K1's and K9's rows of
 phase 3 (with the 23-block tower fused and per op) and phases 4-5, 8-9
 and 16-17 (A, C and G, the paths that launch K1 and K9). None prints
-the final "ok" line. Every K1, K2 and K9 row of phase 3 also prints its
+the final "ok" line; nor does `--sampling` (phases 25-27, no phase 3),
+which prints their launch counts. Every K1, K2 and K9 row of phase 3 also prints its
 achieved TFLOP/s (the operations its bound counts over the kernel's
 time), every K8 row its TOPS and every K3, K5 and K6 row its TB/s, each
 against the card's rate, and the bound's share of the kernel's time (K3,
@@ -2625,23 +2655,37 @@ def verify_kernel_cases(device, lc, layers, hd_lengths: np.ndarray, s_hd: int,
 
 
 def plain_reference(params, cfg, batch, device, kv_cache_dtype=torch.int8,
-                    vit_block: bool = False) -> tuple[list, list]:
+                    vit_block: bool = False, repetition_penalty: float = 1.0) -> tuple[list, list]:
     """Phase 6's plain run of the HD requests, recorded: a batched prefill
     (the per-op tower, or the fused one with `vit_block`) and decode steps
-    (K4 on an int8 tree, else per layer), NEW_TOKENS greedy tokens. Per
-    request its tokens and the top-2 margin of the logits behind each."""
-    from tokenpacker_tpu_torch.generate import decode_step, device_batch, fused_weights, prefill
+    (K4 on an int8 tree, else per layer), NEW_TOKENS greedy tokens (of the
+    logits penalized by `repetition_penalty`, `generate.apply_penalties`).
+    Per request its tokens and the top-2 margin of the logits behind
+    each."""
+    from tokenpacker_tpu_torch.generate import (
+        apply_penalties,
+        decode_step,
+        device_batch,
+        fused_weights,
+        prefill,
+        prompt_presence_mask,
+    )
 
     n, l = batch["token_ids"].shape
     dev = device_batch(batch, torch.bfloat16, device)
     logits, cache = prefill(params, cfg, dev, l + NEW_TOKENS, kv_cache_dtype,
                             vit_block=vit_block)
     fused = fused_weights(params, cfg)
+    presence = torch.as_tensor(prompt_presence_mask(batch, cfg.lm.vocab_size), device=device)
+    counts = torch.zeros((n, cfg.lm.vocab_size), dtype=torch.int32, device=device)
     toks, margins = [], []
     for step in range(NEW_TOKENS):
+        if repetition_penalty != 1.0:
+            logits = apply_penalties(logits, counts, presence, repetition_penalty)
         top2 = logits.float().topk(2, dim=-1).values
         margins.append(top2[:, 0] - top2[:, 1])
         toks.append(logits.argmax(dim=-1))
+        counts[torch.arange(n, device=device), toks[-1]] += 1
         if step < NEW_TOKENS - 1:
             logits, cache = decode_step(params, cfg, cache, toks[-1], dev["lengths"], step, l,
                                         fused)
@@ -3566,6 +3610,508 @@ def phase_lora_parity(device, seed: int) -> None:
 # ---- MPT: K2's key-only bias, K3's slopes, cells I and J ---------------------------
 
 MPT_TRAIN_BATCH, MPT_TRAIN_STEPS = 4, 3  # phase 22: batch 4 padded to TRAIN_SEQ, no remat
+
+
+# -- phases 25-27: the generation surface on B's model ------------------------------------
+
+# phase 25's sampled requests: LLaVA's CLI temperature band with the OpenAI
+# front end's filters and HF's repetition penalty
+SAMPLED = dict(temperature=0.7, top_p=0.9, top_k=50, min_p=0.05, repetition_penalty=1.1)
+SEED_REQ = 1234  # phase 26's seeded request
+TV_LIMIT = 0.05  # total variation of 4,096 draws (sampling noise alone: ~0.03)
+LP_BAND = 1e-3  # phase 26's logprob entries against log_softmax of the recorded raw logits
+BEAMS, BEAM_TOKENS = 4, 16
+# phase 27: a beam's score (sum of log-probabilities / len**lp) against one
+# teacher-forced prefill of prompt + beam, per token: the beam decodes over
+# an int8 cache (K4), the prefill attends the unquantized keys (K2) in bf16
+BEAM_SCORE_BAND = 0.02
+
+
+def sampling_counters() -> dict:
+    from tokenpacker_tpu_torch.ops.decode_attention import decode_attention
+    from tokenpacker_tpu_torch.ops.flash_attention import flash_attention
+    from tokenpacker_tpu_torch.ops.fused_decode import fused_decode_hidden, fused_verify_hidden
+    from tokenpacker_tpu_torch.ops.paged_attention import paged_attention
+    from tokenpacker_tpu_torch.ops.vit_attention import vit_attention
+    from tokenpacker_tpu_torch.ops.vit_block import vit_block
+
+    return {"vit_attention": vit_attention, "vit_block": vit_block,
+            "flash_attention": flash_attention, "decode_attention": decode_attention,
+            "fused_decode": fused_decode_hidden, "fused_verify": fused_verify_hidden,
+            "paged_attention": paged_attention}
+
+
+def tie_agree(name: str, got: list, want: list, margins: list) -> int:
+    """`got` equals `want` up to the first difference, which must come
+    where the reference's top-2 margin is 0: a bf16 tie, which a sampler
+    keeps (top_k's `< kth` rule) and the argmax breaks by the lower id.
+    Returns how many leading tokens are equal."""
+    agree = 0
+    for j, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            if margins[j] != 0.0:
+                raise AssertionError(f"{name}: token {j} differs where the greedy margin is "
+                                     f"{margins[j]:.4f}, not a tie")
+            break
+        agree += 1
+    return agree
+
+
+def tv_distance(toks: torch.Tensor, p: torch.Tensor) -> float:
+    freq = torch.bincount(toks, minlength=p.numel()).double() / toks.numel()
+    return 0.5 * (freq - p.double()).abs().sum().item()
+
+
+def phase_sampled_generator(device, seed: int, params, cfg, batch, card: str) -> dict:
+    """Phase 25 (configuration K): B's model and requests through
+    `Generator.generate` at SAMPLED with an explicit generator, 32 tokens.
+    Checks: one K4 call a decode step; every token in the support of the
+    filters applied to the penalized logits of its step (recorded by
+    wrapping the sampler here); the same generator seed gives the same
+    tokens; top_k = 1 at temperature 0.7 gives the greedy tokens up to a
+    bf16 tie; the sampler on a [4, 32000] bf16 step under the sync debug
+    mode "error"; 4,096 draws from one 16-token distribution within
+    TV_LIMIT, unseeded and seeded (seeds 0-4095 at one step). Printed: ms a
+    step, greedy and sampled in turns (host clock)."""
+    from tokenpacker_tpu_torch import generate as gen_mod
+
+    counters = sampling_counters()
+    gen = gen_mod.Generator(params, cfg, kv_cache_dtype=torch.int8)
+    ref_tokens, ref_margins = plain_reference(params, cfg, batch, device)
+
+    def run(**kw):
+        res = gen.generate(batch, max_new_tokens=NEW_TOKENS, **kw)
+        torch.cuda.synchronize()
+        return res
+
+    def sampled():
+        return run(generator=torch.Generator(device=device).manual_seed(seed), **SAMPLED)
+
+    run()
+    sampled()  # warm both paths
+    order, res = ("greedy", "sampled", "sampled", "greedy"), []
+    for i, label in enumerate(order):
+        if i == 1:
+            reset_counts(counters)
+        res.append(sampled() if label == "sampled" else run())
+        if i == 1:
+            launches = read_counts(counters)
+    steps = res[1].stats["decode_steps"]
+    want = {"vit_attention": tower_blocks(cfg), "vit_block": 0,
+            "flash_attention": cfg.lm.num_hidden_layers, "decode_attention": 0,
+            "fused_decode": steps, "fused_verify": 0, "paged_attention": 0}
+    print(f"phase 25: {HD_PRESET} int8 LM, int8 cache, phase 6's {batch['token_ids'].shape[0]} "
+          f"HD requests through Generator.generate at {SAMPLED}, {NEW_TOKENS} tokens, an explicit "
+          f"generator seeded {seed}: launches {launches} ({steps} decode steps)")
+    if launches != want:
+        raise AssertionError(f"phase 25: launch counts {launches} != {want}")
+    if res[1].sequences != res[2].sequences:
+        raise AssertionError("phase 25: two sampled calls with the same generator seed differ")
+    ms = [r.stats["decode_s"] / r.stats["decode_steps"] * 1e3 for r in res]
+    greedy_ms, sampled_ms = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
+    print(f"  ms a decode step (host clock, greedy / sampled / sampled / greedy in turns): "
+          f"{[round(m, 3) for m in ms]}; sampling adds {sampled_ms - greedy_ms:+.3f} ms a step "
+          f"at B = {batch['token_ids'].shape[0]} ({card})")
+    g_agree = [decisive_agree(f"phase 25 greedy request {i}", res[0].sequences[i], ref_tokens[i],
+                              ref_margins[i]) for i in range(len(ref_tokens))]
+
+    # every draw inside the filters' support of the logits it was drawn from
+    real, held = gen_mod.sample_tokens, []
+
+    def recording(logits, temperature, top_p=None, top_k=None, min_p=None, generator=None,
+                  keys=None):
+        toks = real(logits, temperature, top_p, top_k, min_p, generator, keys)
+        kept = torch.isfinite(gen_mod.filter_logits(logits, temperature, top_k, top_p, min_p))
+        held.append(kept.gather(-1, toks[:, None]).all())
+        return toks
+
+    gen_mod.sample_tokens = recording
+    try:
+        recorded = sampled()
+    finally:
+        gen_mod.sample_tokens = real
+    inside = bool(torch.stack(held).all())
+    if recorded.sequences != res[1].sequences or not inside or len(held) != steps + 1:
+        raise AssertionError(f"phase 25: recorded run equal {recorded.sequences == res[1].sequences}"
+                             f", every token in its step's support {inside}, {len(held)} draws")
+    one = run(temperature=0.7, top_k=1, generator=torch.Generator(device=device).manual_seed(seed))
+    k1 = [tie_agree(f"phase 25 top_k=1 request {i}", one.sequences[i], ref_tokens[i],
+                    ref_margins[i]) for i in range(len(ref_tokens))]
+    print(f"  tokens per request {[len(s) for s in res[1].sequences]}, first request "
+          f"{res[1].sequences[0][:8]}...; all {len(held)} draws x {len(ref_tokens)} rows inside "
+          f"the support of the filters on their penalized logits; greedy tokens equal the "
+          f"recorded plain run for {g_agree} of {NEW_TOKENS}; top_k=1 at temperature 0.7 equals "
+          f"them for {k1} (exactly: {one.sequences == res[0].sequences})")
+
+    # the sampler alone on a [4, 32000] bf16 step: no host sync
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    vocab = cfg.lm.vocab_size
+    logits = (torch.randn((4, vocab), generator=g) * 3).to(device=device, dtype=torch.bfloat16)
+    rows = [torch.tensor(x, device=device) for x in ([0.0, 0.7, 1.0, 0.8], [1.0, 0.9, 0.95, 1.0],
+                                                    [0, 50, 0, 40], [0.0, 0.05, 0.1, 0.0])]
+    rows.append(torch.as_tensor(gen_mod.seed_keys([-1, -1, SEED_REQ, 7], [0, 3, 5, 0]),
+                                device=device))
+    counts = torch.randint(0, 3, (4, vocab), generator=g, dtype=torch.int32).to(device)
+    presence = (torch.rand((4, vocab), generator=g) < 0.01).to(device)
+    rep = torch.tensor([[1.0], [1.1], [1.2], [1.0]], device=device)
+    gen_d = torch.Generator(device=device).manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pen = gen_mod.apply_penalties(logits, counts, presence, rep, 0.1, 0.2)
+        toks = gen_mod.sample_tokens(pen, *rows[:4], gen_d, rows[4])
+        gen_mod.logprob_rows(logits, toks, 3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sampler_ms = time_ms(lambda: gen_mod.sample_tokens(
+        gen_mod.apply_penalties(logits, counts, presence, rep, 0.1, 0.2), *rows[:4], gen_d,
+        rows[4]))
+    plain_ms = time_ms(lambda: gen_mod.sample_tokens(logits, 0.7, 0.9, 50, 0.05, gen_d))
+
+    # the draw's distribution
+    p_logits = (torch.randn(16, generator=g) * 1.5).to(device)
+    p = torch.softmax(p_logits / 0.9, -1)
+    n = 4096
+    tiled = p_logits.expand(n, 16)
+    tv_free = tv_distance(gen_mod.sample_tokens(tiled, 0.9, generator=gen_d), p)
+    tv_seeded = tv_distance(gen_mod.sample_tokens(
+        tiled, 0.9, keys=torch.as_tensor(gen_mod.seed_keys(np.arange(n), np.zeros(n)),
+                                         device=device)), p)
+    print(f"  the sampler alone (penalties, 4 filters, seeded and unseeded rows) on [4, {vocab}] "
+          f"bf16 under sync debug mode 'error': no host sync, {sampler_ms:.4f} ms a call, "
+          f"{plain_ms:.4f} for phase 25's settings without penalties or seeds (CUDA events over "
+          f"back-to-back calls, launch-bound; {card}); {n} draws from a 16-token distribution: total variation "
+          f"{tv_free:.4f} unseeded, {tv_seeded:.4f} over seeds 0-{n - 1} (limit {TV_LIMIT})")
+    if max(tv_free, tv_seeded) > TV_LIMIT:
+        raise AssertionError(f"phase 25: total variation {tv_free}, {tv_seeded} > {TV_LIMIT}")
+    return launches
+
+
+def row_setting(x, row: int):
+    """One row's value of a sampler setting: None, a number, or a tensor of
+    one value a row (or of one value for all)."""
+    if isinstance(x, torch.Tensor) and x.numel() > 1:
+        return x.reshape(-1)[row:row + 1]
+    return x
+
+
+def check_logprob_entries(name: str, entries: list, rows: list, n_top: int) -> float:
+    """Each entry against log_softmax of the raw logits recorded for it: the
+    chosen and the listed logprobs within LP_BAND, the list sorted and
+    equal in value to the row's top n_top. Returns the worst difference."""
+    if len(entries) != len(rows) or not entries:
+        raise AssertionError(f"{name}: {len(entries)} logprob entries for {len(rows)} tokens")
+    worst = 0.0
+    for e, row in zip(entries, rows):
+        lp = torch.log_softmax(row, dim=-1)
+        values = [v for _, v in e["top"]]
+        if values != sorted(values, reverse=True) or len(values) != n_top:
+            raise AssertionError(f"{name}: a top list is not sorted or not {n_top} long")
+        worst = max([worst, abs(e["logprob"] - lp[e["id"]].item())]
+                    + [abs(v - lp[t].item()) for t, v in e["top"]]
+                    + (torch.tensor(values) - lp.topk(n_top).values).abs().tolist())
+    if worst > LP_BAND:
+        raise AssertionError(f"{name}: logprob entries {worst} from the recomputed ones")
+    return worst
+
+
+def phase_sampling_batchers(device, seed: int, params, cfg, batch, card: str) -> list[dict]:
+    """Phase 26 (configuration L): G's dense batcher (fused tower, chunks of
+    256, speculative_k 4) and D's paged batcher (prefix cache on) serve 8
+    requests of phase 6's images: 2 greedy, 2 sampled (temperature 0.8,
+    top_p 0.95), 1 sampled with min_p 0.1, 1 greedy with
+    repetition_penalty 1.2, 1 greedy with logprobs=3, 1 sampled with seed
+    1234, which is also submitted alone first. Checks per batcher: the
+    greedy requests' tokens, in this run and in a greedy-only run, equal
+    the recorded plain run's wherever its margin is decisive (so each
+    other up to where either parts from it at a near-tie); the seeded
+    request's two runs equal up to a step where a draw's Gumbel margin is
+    within the band; logprob entries within LP_BAND of log_softmax of the recorded
+    raw logits; in the dense batcher, verify rounds while greedy slots are
+    active and one token a round for every other slot. Launch counts of
+    K4, K4-verify, K5 and K9 printed and checked against the steps."""
+    from tokenpacker_tpu_torch.generate import filter_logits, gumbel_noise
+    from tokenpacker_tpu_torch.generate import seed_keys as gen_mod_keys
+    from tokenpacker_tpu_torch.serve import scheduler as sched
+
+    reqs = paged_requests(cfg, seed)[:4]
+    mix = [("greedy", 0, {}), ("greedy", 1, {}),
+           ("sampled", 2, dict(temperature=0.8, top_p=0.95)),
+           ("sampled", 3, dict(temperature=0.8, top_p=0.95)),
+           ("min_p", 0, dict(temperature=0.8, min_p=0.1)),
+           ("penalized", 1, dict(repetition_penalty=1.2)),
+           ("logprobs", 2, dict(logprobs=3)),
+           ("seeded", 3, dict(temperature=0.8, top_p=0.95, seed=SEED_REQ))]
+    greedy = [i for i, (kind, _, _) in enumerate(mix)
+              if kind in ("greedy", "penalized", "logprobs")]
+    counters = sampling_counters()
+    runs = []
+    real_sample, real_lp, real_entry = (sched.sample_tokens, sched.logprob_rows,
+                                        sched.token_logprob_entry)
+    for kind in ("dense", "paged"):
+        dense = kind == "dense"
+
+        def make():
+            if dense:
+                return sched.ContinuousBatcher(
+                    params, cfg, num_slots=SPEC_SLOTS, max_seq_len=SPEC_SEQ,
+                    prefill_chunk_size=256, speculative_k=SPEC_K, kv_cache_dtype=torch.int8,
+                    vit_block=True, device=device)
+            return sched.PagedContinuousBatcher(
+                params, cfg, num_slots=PAGED_SLOTS, num_pages=2 * PAGED_SLOTS * PAGES_PER_SEQ + 1,
+                page_size=PAGE_SIZE, max_pages_per_seq=PAGES_PER_SEQ, prefill_chunk_size=256,
+                kv_cache_dtype=torch.int8, device=device)
+
+        ref_tokens, ref_margins = plain_reference(params, cfg, batch, device, vit_block=dense)
+        pen_tokens, pen_margins = plain_reference(params, cfg, batch, device, vit_block=dense,
+                                                  repetition_penalty=1.2)
+        live = {"batcher": None, "seeded": None, "lp": None}
+        # the seeded request's key at each of its steps
+        step_of = {int(k): step for step, k in enumerate(
+            gen_mod_keys([SEED_REQ] * NEW_TOKENS, np.arange(NEW_TOKENS)))}
+
+        def rec_sample(logits, temperature, top_p=None, top_k=None, min_p=None, generator=None,
+                       keys=None):
+            toks = real_sample(logits, temperature, top_p, top_k, min_p, generator, keys)
+            if keys is not None:
+                for r, key in enumerate(torch.as_tensor(keys).reshape(-1).tolist()):
+                    if key not in step_of:
+                        continue
+                    f = filter_logits(logits[r:r + 1], row_setting(temperature, r),
+                                      row_setting(top_k, r), row_setting(top_p, r),
+                                      row_setting(min_p, r))
+                    z = (f + gumbel_noise(f.shape, f.device, None, [key]))[0].topk(2).values
+                    live["seeded"][step_of[key]] = (int(toks[r]), (z[0] - z[1]).item())
+            return toks
+
+        def rec_lp(logits, toks, n_top):
+            for slot, r in enumerate(live["batcher"].slots):
+                if r is not None and r.logprobs is not None:
+                    live["lp"].append(logits[slot].float().cpu())
+            return real_lp(logits, toks, n_top)
+
+        def rec_entry(logits_row, tok, n_top):
+            live["lp"].append(logits_row.float().cpu())
+            return real_entry(logits_row, tok, n_top)
+
+        def serve(batcher, items, seeded_log, advances=None):
+            """Submit in order; the tokens, the futures, the stats' change."""
+            live.update(batcher=batcher, seeded=seeded_log, lp=[])
+            before = dict(batcher.stats)
+            futs = [batcher.submit(reqs[j], max_new_tokens=NEW_TOKENS, **o) for _, j, o in items]
+            tokens = [f.result(timeout=600) for f in futs]
+            torch.cuda.synchronize()
+            delta = {k: batcher.stats[k] - before[k] for k in ("decode_steps", "verify_rounds")}
+            return tokens, futs, delta
+
+        sched.sample_tokens, sched.logprob_rows, sched.token_logprob_entry = (
+            rec_sample, rec_lp, rec_entry)
+        try:
+            batcher = make()
+            advances = []
+            if dense:  # the tokens a round of every slot that does not draft
+                real_round = batcher._verify_round
+
+                def counting_round(active, b=batcher, real_round=real_round):
+                    before = {slot: len(r.tokens) for slot, r in enumerate(b.slots)
+                              if r is not None and not r.plain_greedy}
+                    if not any(r is not None and r.plain_greedy for r in b.slots):
+                        raise AssertionError("phase 26: a verify round without a greedy slot")
+                    held = list(b.slots)
+                    real_round(active)
+                    advances.extend(len(held[slot].tokens) - n for slot, n in before.items())
+
+                batcher._verify_round = counting_round
+            batcher.start()
+            alone_log, mixed_log = {}, {}
+            alone, _, _ = serve(batcher, [mix[-1]], alone_log)
+            reset_counts(counters)
+            t0 = time.perf_counter()
+            mixed, futs, delta = serve(batcher, mix, mixed_log)
+            wall = time.perf_counter() - t0
+            launches = read_counts(counters)
+            lp_rows = live["lp"]
+            batcher.stop()
+            only = make()
+            only.start()
+            greedy_only, g_futs, _ = serve(only, [mix[i] for i in greedy], {})
+            g_lp_rows = live["lp"]
+            only.stop()
+        finally:
+            sched.sample_tokens, sched.logprob_rows, sched.token_logprob_entry = (
+                real_sample, real_lp, real_entry)
+        runs.append(launches)
+        name = f"phase 26 {kind}"
+        steps, rounds = delta["decode_steps"], delta["verify_rounds"]
+        layers = cfg.lm.num_hidden_layers
+        if dense:
+            ok = (launches["fused_decode"] == steps and launches["fused_verify"] == rounds
+                  and launches["vit_block"] % tower_blocks(cfg) == 0
+                  and launches["vit_attention"] == launches["paged_attention"] == 0)
+        else:
+            ok = (launches["paged_attention"] == layers * steps and launches["fused_decode"] == 0
+                  and launches["fused_verify"] == 0 and launches["vit_block"] == 0)
+        print(f"{name}: {'G' if dense else 'D'}'s batcher, 8 requests {[k for k, _, _ in mix]} "
+              f"of phase 6's images (the seeded one also alone first): served in {wall:.3f} s "
+              f"(host clock), tokens {[len(t) for t in mixed]}; {steps} plain steps, {rounds} "
+              f"verify rounds; launches {launches} ({card})")
+        if not ok:
+            raise AssertionError(f"{name}: launch counts {launches} against {steps} steps and "
+                                 f"{rounds} rounds")
+        # both runs are held to the recorded plain run wherever its margin is
+        # decisive, so they equal each other up to where either parts from it
+        # at a near-tie (after that the plain run's margins are another
+        # context's, and the two may part legitimately)
+        agree = []
+        for pos, i in enumerate(greedy):
+            j = mix[i][1]
+            toks, margins = ((pen_tokens[j], pen_margins[j]) if mix[i][0] == "penalized"
+                             else (ref_tokens[j], ref_margins[j]))
+            a = decisive_agree(f"{name} request {i}", mixed[i], toks, margins)
+            b = decisive_agree(f"{name} greedy-only request {i}", greedy_only[pos], toks, margins)
+            both = next((k for k, (x, y) in enumerate(zip(mixed[i], greedy_only[pos])) if x != y),
+                        min(len(mixed[i]), len(greedy_only[pos])))
+            agree.append((a, b, both))
+        same = [mixed[i] == greedy_only[pos] for pos, i in enumerate(greedy)]
+        print(f"  greedy, penalized and logprob requests: tokens equal to the recorded plain run "
+              f"(mixed run, greedy-only run) and to each other for the first {agree} of "
+              f"{NEW_TOKENS}; identical to the greedy-only run {same}")
+        # the seeded request: its two runs, held where a draw's margin is decisive
+        band = LOGIT_BAND / mix[-1][2]["temperature"]
+        for log, toks in ((alone_log, alone[0]), (mixed_log, mixed[-1])):
+            if [log[k][0] for k in range(len(toks))] != toks:
+                raise AssertionError(f"{name}: the recorded seeded draws differ from the tokens")
+        s_agree = 0
+        for k, (a, b) in enumerate(zip(alone[0], mixed[-1])):
+            if a != b:
+                gap = min(alone_log[k][1], mixed_log[k][1])
+                if gap > band:
+                    raise AssertionError(f"{name}: seeded token {k} differs where the draw's "
+                                         f"margin {gap:.4f} exceeds {band:.4f}")
+                break
+            s_agree += 1
+        lp_worst = check_logprob_entries(f"{name} logprobs", futs[6]._tp_request.lp_entries,
+                                         lp_rows, 3)
+        g_lp = check_logprob_entries(f"{name} greedy-only logprobs",
+                                     g_futs[greedy.index(6)]._tp_request.lp_entries, g_lp_rows, 3)
+        print(f"  seeded request (seed {SEED_REQ}) alone in slot 0, then in a later slot among the "
+              f"rest: identical {alone[0] == mixed[-1]}, {s_agree} of {NEW_TOKENS} equal (a "
+              f"difference only where the draw's Gumbel margin is within {band:.3f}); logprob "
+              f"entries within {max(lp_worst, g_lp):.2e} of log_softmax of the recorded raw "
+              f"logits (band {LP_BAND}), top lists sorted")
+        if dense:
+            if rounds == 0 or not advances or set(advances) != {1}:
+                raise AssertionError(f"{name}: {rounds} verify rounds, advances of non-drafting "
+                                     f"slots {sorted(set(advances))}")
+            print(f"  {rounds} verify rounds, every one with a greedy slot active; the other "
+                  f"slots advanced {len(advances)} times, one token a round each")
+        del batcher, only
+        release_earlier_phases()
+    return runs
+
+
+def teacher_forced_sum(params, cfg, req: dict, seq: list, device) -> float:
+    """Sum of log p(seq_j | prompt, seq_<j) by one prefill of the request's
+    prompt followed by `seq` (K2, cache-less)."""
+    from tokenpacker_tpu_torch.generate import device_batch
+    from tokenpacker_tpu_torch.models.lm_api import lm_logits
+    from tokenpacker_tpu_torch.models.vlm import vlm_hidden
+
+    true_len = int(req["lengths"][0])
+    extra = np.asarray(seq, np.int64)
+    b = {"token_ids": np.concatenate([req["token_ids"][0, :true_len], extra])[None],
+         "is_image": np.concatenate([req["is_image"][0, :true_len],
+                                     np.zeros(len(extra), bool)])[None],
+         "image_slot": np.concatenate([req["image_slot"][0, :true_len],
+                                       np.zeros(len(extra), np.int64)])[None],
+         "lengths": np.array([true_len + len(extra)]), "images": req["images"]}
+    dev = device_batch(b, cfg.dtype, device)
+    l = b["token_ids"].shape[1]
+    hidden = vlm_hidden(params, cfg, {**dev, "positions": torch.arange(l, device=device)[None]})
+    logits = lm_logits(params["lm"], cfg.lm, hidden[0, true_len - 1:l - 1]).float()
+    lp = torch.log_softmax(logits, dim=-1)
+    return lp.gather(-1, torch.as_tensor(extra, device=device)[:, None]).sum().item()
+
+
+def phase_beams(device, seed: int, params, cfg, batch, card: str) -> dict:
+    """Phase 27 (configuration M): phase 6's first 2 HD requests through
+    `beam.beam_generate(num_beams=4, max_new_tokens=16, length_penalty=1)`
+    over an int8 cache. Checks: K4 at 8 rows every step, once a step; each
+    score equals the teacher-forced sum of log-probabilities of its
+    sequence (one prefill of prompt + beam through K2) over its length
+    within BEAM_SCORE_BAND; num_beams 17 raises ValueError. Printed: whether
+    the batch equals each sample's batch-1 search (K4's plans at 4 and 8
+    rows may round otherwise)."""
+    from tokenpacker_tpu_torch import beam as beam_mod
+    from tokenpacker_tpu_torch import generate as gen_mod
+
+    counters = sampling_counters()
+    views = int(batch["image_slot"][:2][batch["is_image"][:2]].max()) + 1
+    two = {**{k: batch[k][:2] for k in ("token_ids", "is_image", "image_slot", "lengths")},
+           "images": batch["images"][:views]}
+    reqs = paged_requests(cfg, seed)[:2]
+    rows, real = [], gen_mod.fused_decode_hidden
+
+    def recording(lm, lc, emb, *args, **kw):
+        rows.append(emb.shape[0])
+        return real(lm, lc, emb, *args, **kw)
+
+    gen_mod.fused_decode_hidden = recording
+    try:
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        seqs, scores = beam_mod.beam_generate(params, cfg, two, BEAMS, BEAM_TOKENS, 1.0,
+                                              kv_cache_dtype=torch.int8)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts(counters)
+    finally:
+        gen_mod.fused_decode_hidden = real
+    print(f"phase 27: {HD_PRESET} int8 LM, int8 cache, phase 6's first 2 HD requests through "
+          f"beam_generate(num_beams={BEAMS}, max_new_tokens={BEAM_TOKENS}, length_penalty=1.0) in "
+          f"{seconds:.3f} s (host clock, {card}): K4 rows per step {sorted(set(rows))}, "
+          f"launches {launches}")
+    if set(rows) != {2 * BEAMS} or launches["fused_decode"] != len(rows):
+        raise AssertionError(f"phase 27: K4 ran at rows {sorted(set(rows))}, {len(rows)} steps, "
+                             f"{launches['fused_decode']} launches")
+    worst = 0.0
+    for i, (seq, score) in enumerate(zip(seqs, scores)):
+        tf = teacher_forced_sum(params, cfg, reqs[i], seq, device) / len(seq)
+        worst = max(worst, abs(tf - score))
+        if abs(tf - score) > BEAM_SCORE_BAND:
+            raise AssertionError(f"phase 27: request {i} score {score} against the teacher-forced "
+                                 f"{tf} (band {BEAM_SCORE_BAND} a token)")
+    alone = [beam_mod.beam_generate(params, cfg, req, BEAMS, BEAM_TOKENS, 1.0,
+                                    kv_cache_dtype=torch.int8) for req in reqs]
+    try:
+        beam_mod.beam_generate(params, cfg, two, 17, 2)
+        raise AssertionError("phase 27: num_beams=17 was taken")
+    except ValueError as e:
+        refused = str(e)
+    print(f"  beams {[len(s) for s in seqs]} tokens, scores {[round(s, 4) for s in scores]}, "
+          f"within {worst:.4f} a token of the teacher-forced prefill (band {BEAM_SCORE_BAND}); "
+          f"batched equal to batch-1 per sample: "
+          f"{[a[0][0] == s for a, s in zip(alone, seqs)]} (scores "
+          f"{[round(a[1][0], 4) for a in alone]}); num_beams=17: ValueError ({refused})")
+    return launches
+
+
+def phase_sampling(device, seed: int, batch, card: str) -> list[dict]:
+    """Phases 25-27 on one build of B's model: TokenPacker-HD-7b, random
+    weights from the seed, the LM quantized to int8, an int8 cache."""
+    from tokenpacker_tpu_torch.config import preset_config
+    from tokenpacker_tpu_torch.io.weights import init_vlm_on_device, quantize_lm_int8
+
+    release_earlier_phases()
+    cfg = preset_config(HD_PRESET)
+    params = quantize_lm_int8(init_vlm_on_device(cfg, seed=seed, device=device,
+                                                 dtype=torch.bfloat16))
+    runs = [phase_sampled_generator(device, seed, params, cfg, batch, card)]
+    runs += phase_sampling_batchers(device, seed, params, cfg, batch, card)
+    runs.append(phase_beams(device, seed, params, cfg, batch, card))
+    del params
+    release_earlier_phases()
+    return runs
 
 
 def release_earlier_phases() -> None:
@@ -4584,6 +5130,12 @@ def main() -> None:
         print("phase 2: K4's launch attributes (thread-block cluster, programmatic dependent "
               f"launch): {'accepted' if rc == 0 else f'refused (error {rc})'}")
 
+    if "--sampling" in sys.argv[1:]:
+        hd_batch, _ = make_hd_requests(preset_config(HD_PRESET), SEED)
+        runs = phase_sampling(device, SEED, hd_batch, card.splitlines()[0] if card else "")
+        print(json.dumps({"launches": {name: sum(r.get(name, 0) for r in runs)
+                                       for name in sampling_counters()}}))
+        return
     if "--profile-train" in sys.argv[1:]:
         profile_train_step(device, SEED)
         return
@@ -4672,7 +5224,7 @@ def main() -> None:
                           for name, row in rows.items()}))
         return
     # K2's full-bias form and the probes: no serving or training path
-    # reaches them; counted over all of the main-path phases 4-23
+    # reaches them; counted over all of the main-path phases 4-23 and 25-27
     unreached = probe_counters()
     reset_counts(unreached)
     runs = [phase_end_to_end(device, SEED)]
@@ -4695,6 +5247,7 @@ def main() -> None:
     phase_mpt_parity(device, SEED)
     runs.append(phase_mpt_train(device, SEED))
     phase_mpt_train_parity(device, SEED)
+    runs += phase_sampling(device, SEED, hd_batch, card.splitlines()[0] if card else "")
     counts = read_counts(unreached)
     counts["bitcast_pack"] += counts.pop("bitcast_unpack")
     runs.append(counts)
@@ -4748,10 +5301,11 @@ def main() -> None:
     }
     kernels = []
     for name, (source, replaces) in meta.items():
-        # launches: summed over the ten main-path runs (phases 4, 6, 8,
-        # 10, 12, 14, 16, 18, 20 and 22), each counted from 0 just before
-        # its run and read just after; the six that no path reaches over
-        # phases 4-23 as a whole (0)
+        # launches: summed over the fourteen main-path runs (phases 4, 6,
+        # 8, 10, 12, 14, 16, 18, 20 and 22, phase 25's sampled Generator,
+        # phase 26's two batchers and phase 27's beams), each counted from
+        # 0 just before its run and read just after; the six that no path
+        # reaches over phases 4-23 and 25-27 as a whole (0)
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(r.get(name, 0) for r in runs), **rows[name]})
     print(json.dumps({"kernels": kernels}))

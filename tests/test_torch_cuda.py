@@ -1792,3 +1792,107 @@ def test_probe_kernels_reject_what_they_do_not_take(cuda):
         int4_ring.chain(_bf16((3, 1024), 0, cuda), _int8((2, 1024, 4096), 0, cuda), 3, "int8")
     with pytest.raises(ValueError):
         bitcast_pack.stream(_bf16((2, 1024), 0, cuda), _int8((2, 1024, 4096), 0, cuda), 3, True)
+
+
+# -- sampling, penalties, logprobs and the beam reorder on the card ---------------------
+# (no kernel of their own: plain PyTorch ops that must stay on the device)
+
+
+def _sampling_rows(device, n=4, vocab=32000):
+    """A [n, vocab] bf16 step's inputs as the batchers make them: per-row
+    settings, the seed keys (`generate.seed_keys`), penalty counts and
+    prompt presence, all on `device`."""
+    from tokenpacker_tpu_torch.generate import seed_keys
+
+    g = torch.Generator(device="cpu").manual_seed(21)
+    logits = (torch.randn((n, vocab), generator=g) * 3).to(device=device, dtype=torch.bfloat16)
+    rows = {
+        "temperature": torch.tensor([0.0, 0.7, 1.0, 0.8], device=device)[:n],
+        "top_p": torch.tensor([1.0, 0.9, 0.95, 1.0], device=device)[:n],
+        "top_k": torch.tensor([0, 50, 0, 40], device=device)[:n],
+        "min_p": torch.tensor([0.0, 0.05, 0.1, 0.0], device=device)[:n],
+        "keys": torch.as_tensor(seed_keys([-1, -1, 1234, 7], [0, 3, 5, 0]), device=device)[:n],
+    }
+    counts = torch.randint(0, 3, (n, vocab), generator=g, dtype=torch.int32).to(device)
+    presence = (torch.rand((n, vocab), generator=g) < 0.01).to(device)
+    return logits, rows, counts, presence
+
+
+@pytest.mark.cuda
+def test_sampler_runs_without_a_host_sync(cuda):
+    """Penalties, the four filters, the seeded and unseeded draw and the
+    logprob rows on a [4, 32000] bf16 step under the sync debug mode
+    "error": none of them waits for the device."""
+    from tokenpacker_tpu_torch.generate import apply_penalties, logprob_rows, sample_tokens
+
+    logits, rows, counts, presence = _sampling_rows(cuda)
+    rep = torch.tensor([[1.0], [1.1], [1.2], [1.0]], device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pen = apply_penalties(logits, counts, presence, rep, 0.1, 0.2)
+        toks = sample_tokens(pen, rows["temperature"], rows["top_p"], rows["top_k"],
+                             rows["min_p"], gen, rows["keys"])
+        chosen, top_lps, top_ids = logprob_rows(logits, toks, 5)
+        greedy = sample_tokens(logits, 0.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert toks.device.type == "cuda" and toks[0] == pen[0].argmax()
+    assert greedy.shape == (4,) and top_ids.shape == (4, 5)
+
+
+@pytest.mark.cuda
+def test_sampler_on_the_card_matches_the_cpu(cuda):
+    """On the same logits the card's filters keep the CPU's entries, its
+    penalties and seeded noise are the CPU's bit for bit, its draws lie in
+    the filters' support, and a seeded row draws the CPU's token."""
+    from tokenpacker_tpu_torch.generate import (
+        apply_penalties,
+        filter_logits,
+        sample_tokens,
+        seeded_uniform,
+    )
+
+    logits, rows, counts, presence = _sampling_rows(cuda)
+    cpu_rows = {k: v.cpu() for k, v in rows.items()}
+    pen = apply_penalties(logits, counts, presence, 1.2, 0.3, 0.1)
+    pen_cpu = apply_penalties(logits.cpu(), counts.cpu(), presence.cpu(), 1.2, 0.3, 0.1)
+    assert torch.equal(pen.cpu(), pen_cpu)
+    args = [rows[k] for k in ("temperature", "top_k", "top_p", "min_p")]
+    kept = torch.isfinite(filter_logits(pen, *args))
+    assert torch.equal(kept.cpu(), torch.isfinite(filter_logits(
+        pen_cpu, *[cpu_rows[k] for k in ("temperature", "top_k", "top_p", "min_p")])))
+    u = seeded_uniform(rows["keys"], 32000)
+    assert torch.equal(u.cpu(), seeded_uniform(cpu_rows["keys"], 32000))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for _ in range(20):
+        toks = sample_tokens(pen, rows["temperature"], rows["top_p"], rows["top_k"],
+                             rows["min_p"], gen, rows["keys"])
+        assert kept[torch.arange(4, device=cuda), toks].all()
+    cpu_toks = sample_tokens(pen_cpu, cpu_rows["temperature"], cpu_rows["top_p"],
+                             cpu_rows["top_k"], cpu_rows["min_p"], torch.Generator(),
+                             cpu_rows["keys"])
+    assert torch.equal(toks[2:].cpu(), cpu_toks[2:])  # the seeded rows
+
+
+@pytest.mark.cuda
+def test_beam_reorder_moves_int8_scales_on_the_card(cuda):
+    """The beam reorder of an int8 cache on the card: k, v and both scales
+    of the decoded span come from the source rows, the prompt's rows stay."""
+    from tokenpacker_tpu_torch.beam import _gather_cache
+
+    lc = LMConfig(vocab_size=256, hidden_size=512, intermediate_size=1024, num_hidden_layers=2,
+                  num_attention_heads=4)
+    cache = KVCache.create(lc, 6, 64, dtype=torch.int8, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for name in ("k", "v", "k_scale", "v_scale"):
+        a = getattr(cache, name)
+        a.copy_(torch.randint(-100, 100, a.shape, device=cuda, generator=g).to(a.dtype))
+    before = {name: getattr(cache, name).clone() for name in ("k", "v", "k_scale", "v_scale")}
+    idx = torch.tensor([2, 2, 0, 5, 3, 3], device=cuda)
+    _gather_cache(cache, idx, 32, 48)
+    for name, old in before.items():
+        a = getattr(cache, name)
+        assert torch.equal(a[:, :, :32], old[:, :, :32]) and torch.equal(a[:, :, 48:], old[:, :, 48:])
+        assert torch.equal(a[:, :, 32:48], old[:, idx, 32:48])

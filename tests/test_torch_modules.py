@@ -353,7 +353,8 @@ def test_port_imports_no_jax():
         "tokenpacker_tpu_torch.ops.s8_gemm, tokenpacker_tpu_torch.ops.vit_block, "
         "tokenpacker_tpu_torch.speculative, tokenpacker_tpu_torch.serve.multi_lora, "
         "tokenpacker_tpu_torch.probes.dma_stride, tokenpacker_tpu_torch.probes.int4_ring, "
-        "tokenpacker_tpu_torch.probes.bitcast_pack, tokenpacker_tpu_torch.probes.stream_dtype; "
+        "tokenpacker_tpu_torch.probes.bitcast_pack, tokenpacker_tpu_torch.probes.stream_dtype, "
+        "tokenpacker_tpu_torch.beam; "
         "bad = [m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'tokenpacker_tpu', 'scripts')]; "
         "assert not bad, bad"

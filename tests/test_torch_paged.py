@@ -683,15 +683,26 @@ def test_batcher_crash_fails_every_future(model, monkeypatch, fails, chunk):
     dict(frequency_penalty=0.5), dict(logprobs=2),
 ])
 def test_unported_submit_options_raise_at_submit(model, option):
+    """submit's options, refused with NotImplementedError until sampling
+    was ported, are now taken and served (tests/test_torch_sampling.py
+    holds them against the JAX batcher): the request gets its 4 tokens,
+    and with logprobs an entry a token. An adapter with none loaded is
+    refused at submit, as the JAX batcher refuses it."""
     cfg, params = model["cfg"], model["int8"]
-    batcher = PagedContinuousBatcher(params, cfg, device="cpu", **MIXED)  # never started
-    # an adapter is ported (tests/test_torch_multi_lora.py): with none loaded
-    # it is refused as the JAX batcher refuses it
-    exc, match = ((KeyError, "no LoRA adapters") if "adapter" in option
-                  else (NotImplementedError, "not ported"))
-    with pytest.raises(exc, match=match):
-        batcher.submit(_request(cfg, 0), 4, **option)
-    assert batcher.queue.empty()
+    batcher = PagedContinuousBatcher(params, cfg, device="cpu", **MIXED)
+    if "adapter" in option:
+        with pytest.raises(KeyError, match="no LoRA adapters"):
+            batcher.submit(_request(cfg, 0), 4, **option)
+        assert batcher.queue.empty()
+        return
+    batcher.start()
+    try:
+        fut = batcher.submit(_request(cfg, 0), 4, **option)
+        tokens = fut.result(timeout=120)
+    finally:
+        batcher.stop()
+    assert len(tokens) == 4 and all(0 <= t < cfg.lm.vocab_size for t in tokens)
+    assert len(fut._tp_request.lp_entries) == (4 if "logprobs" in option else 0)
 
 
 def test_prompt_longer_than_the_page_budget_is_refused_at_submit(model):
@@ -713,10 +724,13 @@ def test_prompt_longer_than_the_page_budget_is_refused_at_submit(model):
 @pytest.mark.parametrize("option", [dict(temperature=0.7), dict(temperature=0.7, speculative_k=2),
                                     dict(temperature=0.7, adapters={"a": Adapter({}, 2)})])
 def test_unported_batcher_options_raise_when_made(model, option):
-    # speculation and adapters are ported (tests/test_torch_speculative.py,
-    # tests/test_torch_multi_lora.py); sampling beside them is not
-    with pytest.raises(NotImplementedError, match="not ported"):
-        PagedContinuousBatcher(model["int8"], model["cfg"], device="cpu", **MIXED, **option)
+    """A batcher made with temperature > 0 (beside speculation or adapters),
+    refused until sampling was ported, is made, and its temperature is
+    the default of the requests that give none."""
+    batcher = PagedContinuousBatcher(model["int8"], model["cfg"], device="cpu", **MIXED, **option)
+    batcher.submit(_request(model["cfg"], 0), 4)
+    batcher.submit(_request(model["cfg"], 0), 4, temperature=0.0)
+    assert [batcher.queue.get_nowait().temperature for _ in range(2)] == [0.7, 0.0]
 
 
 def test_batcher_refuses_params_on_another_device(model):

@@ -150,9 +150,24 @@ def test_greedy_stops_at_eos(model, batch):
     dict(presence_penalty=0.5), dict(frequency_penalty=0.5),
 ])
 def test_unported_generate_options_raise(model, batch, kwargs):
+    """Each of these options, refused with NotImplementedError until the
+    generation surface was ported, now does what it does in the JAX
+    engine: at temperature 0 the sampling filters leave greedy decoding
+    as it is, num_beams runs beam search, speculation at a batch of 2 is
+    ignored and the penalties change the tokens, each time as JAX's
+    tokens do (tests/test_torch_sampling.py and test_torch_beam.py hold
+    them in depth); a positive temperature samples, the same tokens on
+    each call without a generator (a fresh one seeded 0)."""
     cfg_j, tree, cfg, params = model
-    with pytest.raises(NotImplementedError):
-        generate.Generator(params, cfg).generate(batch, max_new_tokens=2, **kwargs)
+    got = generate.Generator(params, cfg).generate(batch, max_new_tokens=4, **kwargs)
+    if kwargs.get("temperature", 0.0) > 0.0:
+        again = generate.Generator(params, cfg).generate(batch, max_new_tokens=4, **kwargs)
+        assert got.sequences == again.sequences
+        assert all(len(s) == 4 and all(0 <= t < cfg.lm.vocab_size for t in s)
+                   for s in got.sequences)
+        return
+    want = jax_generate.Generator(tree, cfg_j).generate(batch, max_new_tokens=4, **kwargs)
+    assert got.sequences == want.sequences
 
 
 def test_pick_bucket_matches_jax():

@@ -417,14 +417,16 @@ def test_dense_batcher_cancel_and_stop_rule(model, requests):
 
 
 def test_dense_batcher_refuses_what_it_does_not_take(model):
+    """A prompt past max_seq_len and params on another device are refused;
+    a sampling temperature and logprobs, refused until sampling was
+    ported, are taken (tests/test_torch_sampling.py serves them)."""
     cfg, params = model["cfg"], model["params"]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ContinuousBatcher(params, cfg, device="cpu", temperature=0.5)
+    assert ContinuousBatcher(params, cfg, device="cpu", temperature=0.5).temperature == 0.5
     batcher = ContinuousBatcher(params, cfg, device="cpu", max_seq_len=16)
     with pytest.raises(ValueError, match="max_seq_len"):
         batcher.submit(_request(cfg, 0, pad_to=32), 4)
-    with pytest.raises(NotImplementedError, match="logprobs"):
-        batcher.submit(_request(cfg, 0, pad_to=16), 4, logprobs=2)
+    batcher.submit(_request(cfg, 0, pad_to=16), 4, logprobs=2)
+    assert batcher.queue.get_nowait().logprobs == 2
     with pytest.raises(ValueError, match="params are on cpu"):
         ContinuousBatcher(params, cfg)  # device="cuda"
 

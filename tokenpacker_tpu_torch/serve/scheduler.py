@@ -3,7 +3,11 @@
 `PagedContinuousBatcher` over a paged KV pool.
 
 Up to `num_slots` requests decode together, one batched step per token,
-and new requests are admitted into free slots between steps. The dense
+and new requests are admitted into free slots between steps. Each request
+brings its own sampling: `submit`'s temperature (the batcher's
+`temperature` when None), top_p, top_k, min_p, seed, the repetition,
+presence and frequency penalties and logprobs, as the JAX batchers take
+them. The dense
 batcher gives each slot a row of one [L, slots, max_seq_len] cache: an
 admission prefills the request alone (batch 1) and copies its rows into
 the slot (`generate.insert_into_cache`), and a step is
@@ -27,16 +31,31 @@ decode steps.
 `splice_batch` is one request's splice plan (numpy token_ids / is_image /
 image_slot [1, L], lengths [1], images [views, H, W, 3] or None).
 Streaming: `on_token=callable(token_id)`; `cancel(fut)` stops a request
-before the next step.
+before the next step. With `logprobs=n` a request's `lp_entries` get one
+`generate.token_logprob_entry` a token (raw logits, n alternatives),
+appended before `on_token` fires.
 
-With `speculative_k` = k > 0 every step becomes a verify round: each slot
-feeds its last token and up to k prompt-lookup drafts
+Sampling (`generate.sample_tokens`, one row a slot): unseeded rows draw
+from the batcher's `torch.Generator` on its device, seeded 0 (JAX's
+PRNGKey(0)); a request with a `seed` draws its token k from
+`generate.seeded_uniform` with the key `generate.seed_keys(seed, k)`,
+so its tokens do not depend on its slot, its neighbours or the other
+batcher. The penalty counts live on
+the device ([slots, V] int32, made at the first penalized request, a
+scatter of each step's tokens), and a step with no penalized slot
+applies none.
+
+With `speculative_k` = k > 0 a step becomes a verify round while some
+active slot is plain greedy (greedy, unpenalized, no logprobs): such a
+slot feeds its last token and up to k prompt-lookup drafts
 (`speculative.propose_ngram_host`) and advances by its own acceptance
-(`speculative.accept_greedy`); the dense batcher verifies with
+(`speculative.accept_greedy`), and every other slot rides along with one
+token a round, sampled from its penalized position-0 logits; the dense
+batcher verifies with
 `speculative.verify_step_cb` (K4's verify form on an int8 fused tree),
 the paged one with `ops/paged_kv.paged_verify_step` (the page-gather
 path, as in the JAX package). When fewer than SPEC_EMA_THRESHOLD drafts a
-slot are accepted on average (an EMA over rounds), the batcher decodes
+plain-greedy slot are accepted on average (an EMA over rounds), the batcher decodes
 plainly for SPEC_BACKOFF_ROUNDS steps (doubling on each repeat) before it
 tries again.
 
@@ -46,11 +65,9 @@ TOKENPACKER_KV_CACHE), the w8a8 mode of the int8 products the explicit
 of 256 rows and more, K7 for decode steps and the first-token logits),
 the fused tower block the explicit `vit_block` (TOKENPACKER_VIT_BLOCK),
 and the device the explicit `device` (the params must be there; "cpu"
-runs every kernel's plain version). This port is greedy: sampling,
-penalties and logprobs raise NotImplementedError when the batcher is made
-or the request is submitted, never inside the loop. The host keeps the
-slots' lengths, so the loop syncs once per step (the argmax), not once
-per slot.
+runs every kernel's plain version). The host keeps the slots' lengths
+and settings, so the loop syncs once per step (the tokens' copy to the
+host), not once per slot.
 
 Both LM families serve through `ContinuousBatcher` (MPT: K2's ALiBi form
 in whole-prompt admissions, `sdpa` with ALiBi for chunks and verify
@@ -85,14 +102,20 @@ import torch
 
 from tokenpacker_tpu_torch.config import TokenPackerVLMConfig
 from tokenpacker_tpu_torch.generate import (
+    apply_penalties,
     cache_len_tile,
     decode_step_cb,
     device_batch,
     fused_weights,
     insert_into_cache,
+    logprob_rows,
     pick_bucket,
     prefill,
     prefill_chunk,
+    prompt_presence_mask,
+    sample_tokens,
+    seed_keys,
+    token_logprob_entry,
 )
 from tokenpacker_tpu_torch.models.llama import KVCache
 from tokenpacker_tpu_torch.models.lm_api import embedding_table, lm_logits
@@ -117,7 +140,6 @@ from tokenpacker_tpu_torch.speculative import accept_greedy, propose_ngram_host,
 # (doubled on each repeat, at most 512) before trying again
 SPEC_EMA_THRESHOLD = 0.15
 SPEC_BACKOFF_ROUNDS = 32
-_LATER = "sampling is ROADMAP queue 1 item 4"
 
 
 @dataclass
@@ -126,16 +148,38 @@ class _Request:
     max_new_tokens: int
     future: Future
     on_token: object = None
+    temperature: float = 0.0
+    top_p: float | None = None
+    top_k: int | None = None
+    min_p: float | None = None
+    seed: int | None = None  # the OpenAI `seed`: token k draws with seed_keys(seed, k)
+    repetition_penalty: float = 1.0
+    presence_penalty: float = 0.0
+    frequency_penalty: float = 0.0
+    logprobs: int | None = None  # None: off; n: an entry a token with n alternatives
+    lp_entries: list = field(default_factory=list)  # appended before on_token fires
     cancelled: bool = False  # set from any thread; honoured before the next step
     tokens: list = field(default_factory=list)
     ctx: list = field(default_factory=list)  # prompt-lookup context (speculation)
     adapter: str | None = None  # multi-LoRA serving (serve/multi_lora)
 
+    @property
+    def has_penalties(self) -> bool:
+        return (self.repetition_penalty != 1.0 or self.presence_penalty != 0.0
+                or self.frequency_penalty != 0.0)
+
+    @property
+    def plain_greedy(self) -> bool:
+        """Greedy, unpenalized, without logprobs: the slots that draft and
+        take bursts in verify rounds (acceptance compares drafts with the
+        raw argmax, and a burst has no logits of its own)."""
+        return self.temperature <= 0.0 and not self.has_penalties and self.logprobs is None
+
 
 class _SlotBatcher:
     """What both batchers share: submission and cancellation, the loop
-    thread and its crash nets, the admission schedule, greedy emission and
-    speculative rounds. A subclass owns the cache: admission (`_admit`,
+    thread and its crash nets, the admission schedule, sampling, penalties,
+    logprobs, emission and speculative rounds. A subclass owns the cache: admission (`_admit`,
     `_start_pending`, `_step_pending`), `_decode_step`, `_verify`, slot
     release and its room rule."""
 
@@ -143,8 +187,6 @@ class _SlotBatcher:
                  temperature: float, speculative_k: int, prefill_chunk_size: int | None,
                  adapters: dict | None, kv_cache_dtype: torch.dtype | None, w8a8: bool,
                  vit_block: bool, device: torch.device | str):
-        if temperature > 0.0:
-            raise NotImplementedError(f"not ported yet (greedy only): temperature > 0; {_LATER}")
         if adapters and cfg.lm.model_family != "llama":
             raise NotImplementedError("multi-LoRA serving (adapters=) is llama-only, as the JAX "
                                       "package's serve/multi_lora is")
@@ -157,6 +199,7 @@ class _SlotBatcher:
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.num_slots = num_slots
+        self.temperature = temperature  # the default of requests that give none
         self.speculative_k = speculative_k
         self.kv_cache_dtype = kv_cache_dtype or cfg.dtype
         self.w8a8 = w8a8
@@ -173,6 +216,9 @@ class _SlotBatcher:
         self._spec_accept_ema = 1.0
         self._spec_backoff = 0
         self._spec_fail_streak = 0  # doubles the backoff on each repeat
+        # unseeded rows' noise: JAX's PRNGKey(0), as a generator on the device
+        self._gen = torch.Generator(device=self.device).manual_seed(0)
+        self._pen = None  # the penalty rows on the device, made at the first penalized request
         # host-clock step time (ended by the argmax's copy to the host):
         # every plain step, and the steps of loop iterations that ran no
         # admission work ("alone"), whose time no prefill shares; verify
@@ -212,20 +258,6 @@ class _SlotBatcher:
                min_p: float | None = None, seed: int | None = None, adapter: str | None = None,
                repetition_penalty: float = 1.0, presence_penalty: float = 0.0,
                frequency_penalty: float = 0.0, logprobs: int | None = None) -> Future:
-        unported = {
-            "temperature > 0": temperature is not None and temperature > 0.0,
-            "top_p": top_p is not None,
-            "top_k": top_k is not None,
-            "min_p": min_p is not None,
-            "seed": seed is not None,
-            "repetition/presence/frequency penalties": (
-                repetition_penalty != 1.0 or presence_penalty != 0.0 or frequency_penalty != 0.0),
-            "logprobs": logprobs is not None,
-        }
-        asked = [name for name, on in unported.items() if on]
-        if asked:
-            raise NotImplementedError(f"not ported yet (greedy only): {', '.join(asked)}; "
-                                      f"{_LATER}")
         if adapter is not None:  # an unknown adapter: KeyError here, as in the JAX batchers
             if self.slot_lora is None:
                 raise KeyError(f"no LoRA adapters loaded (requested {adapter!r})")
@@ -236,7 +268,10 @@ class _SlotBatcher:
             fut.set_exception(RuntimeError(f"batcher loop died: {self.dead!r}"))
             return fut
         req = _Request(batch=batch, max_new_tokens=max_new_tokens, future=fut, on_token=on_token,
-                       adapter=adapter)
+                       temperature=self.temperature if temperature is None else temperature,
+                       top_p=top_p, top_k=top_k, min_p=min_p, seed=seed,
+                       repetition_penalty=repetition_penalty, presence_penalty=presence_penalty,
+                       frequency_penalty=frequency_penalty, logprobs=logprobs, adapter=adapter)
         fut._tp_request = req  # handle for cancel()
         self.queue.put(req)
         return fut
@@ -318,9 +353,25 @@ class _SlotBatcher:
         return req.cancelled
 
     def _seat(self, slot: int, req: _Request, logits: torch.Tensor, true_len: int):
-        """An admission's host tail: the slot takes the request (and its
-        adapter) at its true length, with its first (greedy) token."""
-        tok = int(logits[0].argmax())
+        """An admission's tail: the request's first token from its prompt's
+        logits [1, V] (penalized by the prompt alone; its logprob entry
+        from the raw ones), then the slot takes the request (and its
+        adapter) at its true length."""
+        self._pen_setup(slot, req)
+        first = logits
+        if req.has_penalties:
+            first = apply_penalties(logits, self._pen["counts"][slot:slot + 1],
+                                    self._pen["prompt"][slot:slot + 1], req.repetition_penalty,
+                                    req.presence_penalty, req.frequency_penalty)
+        keys = None
+        if req.seed is not None:
+            keys = torch.as_tensor(seed_keys([req.seed], [0]), device=self.device)
+        tok = int(sample_tokens(first, req.temperature, req.top_p, req.top_k, req.min_p,
+                                self._gen, keys)[0])
+        if req.has_penalties:
+            self._pen["counts"][slot, tok] += 1
+        if req.logprobs is not None:
+            req.lp_entries.append(token_logprob_entry(logits[0], tok, req.logprobs))
         self._bind_slot_adapter(slot, req)
         self.slots[slot] = req
         self.lengths[slot] = true_len
@@ -362,13 +413,116 @@ class _SlotBatcher:
     def _drop_pending(self, p: dict):
         """Release what a cancelled chunked admission holds."""
 
+    # -- sampling, penalties and logprobs (generate.sample_tokens) --------------
+
+    def _pen_setup(self, slot: int, req: _Request):
+        """The slot's penalty rows at admission: zero counts, the prompt's
+        presence row. The [slots, V] rows are made at the first penalized
+        request; unpenalized serving never touches them."""
+        if not req.has_penalties and self._pen is None:
+            return
+        v = self.cfg.lm.vocab_size
+        if self._pen is None:
+            self._pen = {
+                "counts": torch.zeros((self.num_slots, v), dtype=torch.int32, device=self.device),
+                "prompt": torch.zeros((self.num_slots, v), dtype=torch.bool, device=self.device),
+            }
+        self._pen["counts"][slot] = 0
+        self._pen["prompt"][slot] = (torch.as_tensor(prompt_presence_mask(req.batch, v)[0],
+                                                     device=self.device)
+                                     if req.has_penalties else False)
+
+    def _sampling_rows(self) -> dict | None:
+        """The active slots' settings as device rows, one a slot, for
+        `_sample`; made before a step is launched, so that their copies to
+        the device wait on no device work. None when every active slot is
+        greedy and unpenalized (the step's tokens are its argmax). A
+        filter that no slot uses is left off; identity penalty values
+        leave a row bit-unchanged."""
+        reqs = self.slots
+        active = [r for r in reqs if r is not None]
+        sampled = any(r.temperature > 0.0 for r in active)
+        penalized = any(r.has_penalties for r in active)
+        if not sampled and not penalized:
+            return None
+
+        def row(get, default, dtype):
+            return np.array([get(r) if r is not None else default for r in reqs], dtype)
+
+        def put(x, dtype=torch.float32):
+            return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+        rows = {"temperature": 0.0, "top_p": None, "top_k": None, "min_p": None, "keys": None,
+                "pen": None}
+        if sampled:
+            rows["temperature"] = put(row(lambda r: r.temperature, 0.0, np.float32))
+            top_p = row(lambda r: r.top_p or 1.0, 1.0, np.float32)
+            top_k = row(lambda r: r.top_k or 0, 0, np.int64)
+            min_p = row(lambda r: r.min_p or 0.0, 0.0, np.float32)
+            if (top_p < 1.0).any():
+                rows["top_p"] = put(top_p)
+            if ((top_k > 0) & (top_k < self.cfg.lm.vocab_size)).any():
+                rows["top_k"] = put(top_k, torch.int64)
+            if ((min_p > 0.0) & (min_p <= 1.0)).any():
+                rows["min_p"] = put(min_p)
+            if any(r.seed is not None for r in active):
+                # token k of a seeded request draws with the key of (seed, k)
+                rows["keys"] = put(seed_keys(row(lambda r: -1 if r.seed is None else r.seed, -1,
+                                                 np.int64),
+                                             row(lambda r: len(r.tokens), 0, np.int64)),
+                                   torch.int64)
+        if penalized:
+            pen = [(r.repetition_penalty, r.presence_penalty, r.frequency_penalty)
+                   if r is not None and r.has_penalties else (1.0, 0.0, 0.0) for r in reqs]
+            rows["pen"] = [put(np.array(col, np.float32)) for col in zip(*pen)]
+            rows["pen_rows"] = put(row(lambda r: int(r.has_penalties), 0, np.int32)[:, None],
+                                   torch.int32)
+        return rows
+
+    def _sample(self, logits: torch.Tensor, rows: dict | None) -> torch.Tensor:
+        """The step's token a slot [slots] on the device: penalties, then
+        `generate.sample_tokens`; the penalized slots' counts take the
+        tokens."""
+        if rows is None:
+            return sample_tokens(logits, 0.0)
+        if rows["pen"] is not None:
+            logits = apply_penalties(logits, self._pen["counts"], self._pen["prompt"],
+                                     *rows["pen"])
+        toks = sample_tokens(logits, rows["temperature"], rows["top_p"], rows["top_k"],
+                             rows["min_p"], self._gen, rows["keys"])
+        if rows["pen"] is not None:
+            self._pen["counts"].scatter_add_(1, toks[:, None], rows["pen_rows"])
+        return toks
+
+    def _lp_rows(self, logits: torch.Tensor, toks: torch.Tensor):
+        """The step's logprob rows on the device (raw logits), or None when
+        no active slot asked."""
+        asked = [r.logprobs for r in self.slots if r is not None and r.logprobs is not None]
+        return logprob_rows(logits, toks, max(asked)) if asked else None
+
+    def _lp_record(self, lp, toks: np.ndarray):
+        """Append each asking slot's entry for its token toks[slot]."""
+        if lp is None:
+            return
+        chosen, top_lps, top_ids = (x.cpu().tolist() for x in lp)
+        for slot, req in enumerate(self.slots):
+            if req is not None and req.logprobs is not None:
+                entry = {"id": int(toks[slot]), "logprob": chosen[slot]}
+                if req.logprobs > 0:
+                    entry["top"] = list(zip(top_ids[slot][:req.logprobs],
+                                            top_lps[slot][:req.logprobs]))
+                req.lp_entries.append(entry)
+
     # -- decoding ----------------------------------------------------------
 
     def _decode(self, active: np.ndarray, alone: bool):
         t0 = time.perf_counter()
+        rows = self._sampling_rows()
         logits = self._decode_step(torch.as_tensor(self.next_tokens, device=self.device),
                                    torch.as_tensor(active, device=self.device))
-        toks = logits.argmax(dim=-1).cpu().numpy()
+        toks_dev = self._sample(logits, rows)
+        lp = self._lp_rows(logits, toks_dev)
+        toks = toks_dev.cpu().numpy()
         seconds = time.perf_counter() - t0
         self.stats["decode_s"] += seconds
         self.stats["decode_steps"] += 1
@@ -376,14 +530,15 @@ class _SlotBatcher:
             self.stats["alone_s"] += seconds
             self.stats["alone_steps"] += 1
         self.lengths += active
+        self._lp_record(lp, toks)
         for slot in range(self.num_slots):
             if self.slots[slot] is not None:
                 self.next_tokens[slot] = int(toks[slot])
                 self._emit(slot, int(toks[slot]))
 
     def _propose_fed(self):
-        """Per-slot verify inputs [slots, k + 1]: the last token, the drafts,
-        -1 padding; and the draft counts."""
+        """Per-slot verify inputs [slots, k + 1]: the last token, the drafts
+        of a plain-greedy slot, -1 padding; and the draft counts."""
         k = self.speculative_k
         fed = np.full((self.num_slots, k + 1), -1, np.int64)
         dks = np.zeros(self.num_slots, np.int64)
@@ -391,38 +546,59 @@ class _SlotBatcher:
             if req is None:
                 continue
             fed[slot, 0] = self.next_tokens[slot]
-            d = propose_ngram_host(req.ctx, k)
-            fed[slot, 1:1 + len(d)] = d
-            dks[slot] = len(d)
+            if req.plain_greedy:
+                d = propose_ngram_host(req.ctx, k)
+                fed[slot, 1:1 + len(d)] = d
+                dks[slot] = len(d)
         return fed, dks
 
     def _verify_round(self, active: np.ndarray):
-        """One speculative step for every active slot: each feeds its drafts
-        and advances by its own acceptance; the EMA of accepted drafts a
-        slot decides the backoff."""
+        """One speculative step for every active slot: a plain-greedy slot
+        feeds its drafts and advances by its own acceptance, any other
+        takes one token sampled from its penalized position-0 logits (its
+        logprob entry from the raw ones); the EMA of accepted drafts a
+        plain-greedy slot decides the backoff."""
         t0 = time.perf_counter()
+        k = self.speculative_k
+        rows = self._sampling_rows()
         fed, dks = self._propose_fed()
         logits = self._verify(torch.as_tensor(fed, device=self.device),
                               torch.as_tensor(active, device=self.device))
-        preds = logits.argmax(dim=-1).cpu().numpy()  # [slots, k + 1]
+        preds = logits.argmax(dim=-1)  # [slots, k + 1]
+        lp = None
+        if any(r is not None and not r.plain_greedy for r in self.slots):
+            sampled0 = self._sample(logits[:, 0], rows)
+            lp = self._lp_rows(logits[:, 0], sampled0)
+            preds = torch.cat([preds, sampled0[:, None]], dim=1)  # one copy to the host
+        preds = preds.cpu().numpy()
         self.stats["verify_s"] += time.perf_counter() - t0
         self.stats["verify_rounds"] += 1
         eos = self.cfg.lm.eos_token_id
-        bursts = {slot: accept_greedy(preds[slot], fed[slot, 1:], int(dks[slot]), eos)
-                  for slot, req in enumerate(self.slots) if req is not None}
-        accepted = sum(len(b) - 1 for b in bursts.values())
-        ratio = accepted / len(bursts)
-        self._spec_accept_ema = 0.9 * self._spec_accept_ema + 0.1 * ratio
-        if ratio > 0.5:
-            self._spec_fail_streak = 0  # drafts are landing again
-        if self._spec_accept_ema < SPEC_EMA_THRESHOLD:
-            self._spec_backoff = min(SPEC_BACKOFF_ROUNDS * 2**self._spec_fail_streak, 512)
-            self._spec_fail_streak += 1
+        bursts, n_greedy, accepted = {}, 0, 0
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            if req.plain_greedy:
+                bursts[slot] = accept_greedy(preds[slot], fed[slot, 1:], int(dks[slot]), eos)
+                n_greedy += 1
+                accepted += len(bursts[slot]) - 1
+            else:
+                bursts[slot] = [int(preds[slot, k + 1])]
+        if n_greedy:
+            ratio = accepted / n_greedy
+            self._spec_accept_ema = 0.9 * self._spec_accept_ema + 0.1 * ratio
+            if ratio > 0.5:
+                self._spec_fail_streak = 0  # drafts are landing again
+            if self._spec_accept_ema < SPEC_EMA_THRESHOLD:
+                self._spec_backoff = min(SPEC_BACKOFF_ROUNDS * 2**self._spec_fail_streak, 512)
+                self._spec_fail_streak += 1
         # lengths advance before the emission, so that the room rule sees
         # the state after the round
         for slot, burst in bursts.items():
             self.lengths[slot] += len(burst)
         self._lengths_changed()
+        if lp is not None:
+            self._lp_record(lp, preds[:, k + 1])
         for slot, burst in bursts.items():
             for tok in burst:
                 if self.slots[slot] is None:
@@ -483,7 +659,10 @@ class _SlotBatcher:
             if not active.any():
                 continue
             self._before_step()
-            if self.speculative_k > 0:
+            # verify rounds run while some slot drafts: without one, a k+1-wide
+            # round would cost more than a plain step for nothing
+            if self.speculative_k > 0 and any(r is not None and r.plain_greedy
+                                              for r in self.slots):
                 if self._spec_backoff > 0:
                     self._spec_backoff -= 1
                     if self._spec_backoff == 0:
