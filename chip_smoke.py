@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py              # the smoke run, phases 1-27 (25-27 before 24)
+    python3 chip_smoke.py              # the smoke run, phases 1-30 (25-30 before 24)
     python3 chip_smoke.py --profile    # phases 1-2, then the profile below
     python3 chip_smoke.py --profile-train  # phases 1-2, then a traced training step
     python3 chip_smoke.py --profile-paged  # phases 1-2, then traced paged decode steps
@@ -14,6 +14,7 @@
     python3 chip_smoke.py --flash          # phases 1-2, every K2 row of phase 3, 8-9, 22-23
     python3 chip_smoke.py --tower          # phases 1-2, K1 and K9 of phase 3, 4-5, 8-9, 16-17
     python3 chip_smoke.py --sampling       # phases 1-2, then 25-27
+    python3 chip_smoke.py --checkpoints    # phases 1-2, K6 and K7 at MPT-7B's up/down, 28-30
 
 Phases, one result line each or more (every failure raises, so any
 failure exits non-zero and prints no final line):
@@ -204,7 +205,32 @@ failure exits non-zero and prints no final line):
      `beam.beam_generate` with 4 beams, 16 tokens and length_penalty 1:
      K4 at 8 rows once a step, each score within 0.02 a token of a
      teacher-forced prefill of prompt + beam (K2), whether the batch
-     equals each request searched alone printed, num_beams 17 refused.
+     equals each request searched alone printed, num_beams 17 refused;
+ 28. TokenPacker-HD-7b's weights from phase 6's seed written in the
+     reference's layout (`export_vlm_state_dict` cast to bf16, two
+     `pytorch_model-0000k-of-00002.bin` shards, `config.json` from
+     `to_hf_dict`; the LM's depth cut only if no disk holds it), then
+     `api.load_pretrained_model(dir, load_8bit=True)` and `load_4bit=True`
+     (nf4): every tensor bit-equal to `quantize_lm_int8` / `quantize_lm_4bit`
+     of the weights in memory, phase 6's 4 HD requests' 32 greedy tokens
+     equal to a `Generator` over those, one K4 call a decode step (8-bit)
+     or K6 for every decode product and K3 (4-bit); the write's and each
+     load's seconds and GB/s, the host's peak resident set and the card's
+     peak memory over the load;
+ 29. full widths at 2 LM layers: a stage-1 delta (LM-only base,
+     `mm_projector.bin`, the tower through TOKENPACKER_CLIP_PATH) and a
+     rank-16 LoRA adapter with a projector (`write_peft`) load through the
+     API, `io/surgery`'s extract-mm-projector, merge-lora and consolidate
+     write what loads back, each held against the weights it was made
+     from (bit-equal; LoRA targets within one bf16 step of W + (alpha / r)
+     B A); `serve/cli.main --load-8bit` chats two turns through a patched
+     `input`, each answer equal to `generate_stream`'s text;
+ 30. MPT-7B behind the HD-7b tower with an nf4 LM answers phase 6's 4 HD
+     requests with 32 greedy tokens (K6 four times a layer a step,
+     K3-ALiBi once, K2-bias at the prefill; checks as in 4), then card vs
+     CPU at 2 MPT layers for the nf4, int8 weight-only and w8a8 forms in
+     the bands of phases 13, 7 and 15, each failing the same run with
+     every quantized product losing the last 128 rows of K.
 Phase 3 also holds K2's full-bias form (no serving or training path
 reaches it) at MPT-7B's prefix-LM attention, [4, 2048, 32, 128], not
 causal: the prefix-LM mask with B's prompt lengths plus ALiBi as a [4, 32,
@@ -212,7 +238,7 @@ causal: the prefix-LM mask with B's prompt lengths plus ALiBi as a [4, 32,
 with rows below -1e30 (o = 0, lse = +inf), each failing the plain version
 with the bias's last key tile dropped; SDPA with the bias as a bf16 mask is
 its library column. The six kernels no path reaches (K2 full-bias and the
-probes' five) are counted over phases 4-23 and 25-27: 0.
+probes' five) are counted over phases 4-23 and 25-30: 0.
 Phase 3 also holds K9 at [8, 577, 1024] and [26, 577, 1024] by its
 block's update out - x per (image, 64 rows, 128-wide slice), failing the
 plain block that lost its last 64 keys or its MLP's last 128 units, with
@@ -260,15 +286,16 @@ phase 3 (serving, training, key-only bias forward and backward, full-bias;
 with K3-ALiBi, which shares their function) and phases 8-9 and 22-23,
 each printing their kernel rows, and `--tower` K1's and K9's rows of
 phase 3 (with the 23-block tower fused and per op) and phases 4-5, 8-9
-and 16-17 (A, C and G, the paths that launch K1 and K9). None prints
-the final "ok" line; nor does `--sampling` (phases 25-27, no phase 3),
-which prints their launch counts. Every K1, K2 and K9 row of phase 3 also prints its
+and 16-17 (A, C and G, the paths that launch K1 and K9), and
+`--checkpoints` K6's and K7's rows at MPT-7B's up and down and phases
+28-30. None prints the final "ok" line; nor does `--sampling` (phases
+25-27, no phase 3), which prints their launch counts. Every K1, K2 and K9 row of phase 3 also prints its
 achieved TFLOP/s (the operations its bound counts over the kernel's
 time), every K8 row its TOPS and every K3, K5 and K6 row its TB/s, each
 against the card's rate, and the bound's share of the kernel's time (K3,
 K5, K8 and their library calls, and K6, timed as CUDA graphs of 20
-calls). The kernels line keeps every phase-3 case of K5 and K6 (all
-four pools, every M and both codes) under "cases". `--flash
+calls). The kernels line keeps every phase-3 case of K5, K6 and K7 (all
+four pools, every M, both codes, MPT-7B's up and down) under "cases". `--flash
 --kernels`, `--tower --kernels`, `--quantized --kernels` and `--mpt
 --kernels` also run against the parent's package when this file is
 copied into an unpacked parent tree (its `tokenpacker_tpu_torch/` is the
@@ -654,7 +681,8 @@ def k4_bytes_flops(lc, b: int, keys: int, int8: bool, t: int = 1) -> tuple[float
 def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, int],
                   only: str = "") -> dict:
     """Phase 3: every kernel vs its plain version at the paths' shapes
-    (`only` "quantized": K6-K8 alone; "speculative": the int8 rows' bit
+    (`only` "checkpoints": K6 and K7 at MPT-7B's up and down alone;
+    "quantized": K6-K8 alone; "speculative": the int8 rows' bit
     check, K9 and K4's verify form alone; "lora": K4-LoRA alone; "mpt":
     K2-bias and K3-ALiBi alone; "flash": every K2 row, and K3-ALiBi;
     "tower": K1 and K9, with the 23-block tower fused and per op)."""
@@ -707,6 +735,9 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
         rows.update(k1_kernel_rows(device, case, first_and_worst))
         rows["vit_block"] = first_and_worst(k9_cases(device, case))
         return rows
+    if only == "checkpoints":  # K6 and K7 at MPT-7B's up and down, which phase 30 launches
+        return {name: every_case(cases)
+                for name, cases in quantized_kernel_cases(device, case, ("mpt",)).items()}
     if only == "quantized":  # and K3 and K5, which E and F (phases 12, 14) launch
         rows.update(k3_kernel_rows(device, case, first_and_worst))
         rows.update(k5_to_k8_rows(device, case, first_and_worst, every_case))
@@ -1053,7 +1084,7 @@ def int_mm_call(xq: torch.Tensor, wq: torch.Tensor):
     return lambda: torch._int_mm(a, wq)
 
 
-def quantized_kernel_cases(device, case) -> dict:
+def quantized_kernel_cases(device, case, which: tuple = ("hd", "mpt")) -> dict:
     """Phase 3, K6, K7 and K8 at TokenPacker-HD-7b's product shapes (the
     fused Vicuna-7B layout, [K, N]: qkv, o, gateup, down, lm_head; CLIP-L's
     q/k/v/o, fc1, fc2), random weights quantized on the card. K6, nf4 and
@@ -1065,9 +1096,14 @@ def quantized_kernel_cases(device, case) -> dict:
     held bit for bit (`compare_exact`, `compare_s8_gemm`); library:
     torch._int_mm on the same int8 operands; bound at the int8 rate. K6's
     rows print their achieved TB/s (above 3.35 where the graph's 20 calls
-    find the weight in the 50 MB L2). Returns {kernel name: [case rows]},
-    the first row the main path's."""
+    find the weight in the 50 MB L2). `which` "mpt" adds (alone: only)
+    MPT-7B's two products that no HD-7b product has the shape of, up
+    [4096, 16384] and down [16384, 4096] (K = 16384 splits K further than
+    Vicuna's largest, 11008): K6 nf4 at M = 4 and 32 (phase 30's decode
+    and K6's largest M), K7 at M = 8 and 64, held as above. Returns
+    {kernel name: [case rows]}, the first row the main path's."""
     from tokenpacker_tpu_torch.config import preset_config
+    from tokenpacker_tpu_torch.models.mpt import mpt_config
     from tokenpacker_tpu_torch.ops import q4_matmul as k6
     from tokenpacker_tpu_torch.ops import q8_matmul as k7
     from tokenpacker_tpu_torch.ops import s8_gemm as k8
@@ -1077,6 +1113,9 @@ def quantized_kernel_cases(device, case) -> dict:
     d, f, vocab = cfg.lm.hidden_size, cfg.lm.intermediate_size, cfg.lm.vocab_size
     lm_shapes = {"qkv": (d, 3 * d), "o": (d, d), "gateup": (d, 2 * f), "down": (f, d),
                  "lm_head": (d, vocab)}
+    mc = mpt_config()
+    mpt_f = mc.intermediate_size
+    mpt_shapes = {"MPT-7B up": (mc.hidden_size, mpt_f), "MPT-7B down": (mpt_f, mc.hidden_size)}
     w, wi = cfg.vision.hidden_size, cfg.vision.intermediate_size
     tower_shapes = {"tower q/k/v/o": (w, w), "tower fc1": (w, wi), "tower fc2": (wi, w)}
     g = torch.Generator(device=device).manual_seed(SEED + 11)
@@ -1090,27 +1129,25 @@ def quantized_kernel_cases(device, case) -> dict:
     def slices(y):  # [M, N] -> [M, N / 128, 128]
         return y.view(y.shape[0], -1, 128)
 
-    out = {"q4_matmul": [], "s8_matmul": [], "s8_gemm": []}
-    for qt in ("nf4", "int4"):
-        for name, (k, n) in lm_shapes.items():
-            leaf = quantize_4bit(weight(k, n), 64, qt)
-            dense = dequantize_4bit(leaf, torch.bfloat16)
-            for m in (4, 1, 8, 32):
-                x = acts(m, k)
-                lost = x.clone()
-                lost[:, -64:] = 0
-                out["q4_matmul"].append(case(
-                    f"K6 q4_matmul {qt} {name} x[{m},{k}] W[{k},{n}]", k6.q4_matmul,
-                    k6.q4_matmul_plain, (x, leaf), library=lambda x=x, dense=dense: x @ dense,
-                    graph=True, achieved="bytes",
-                    work=(m * k * 2 + k * n // 2 + k // 64 * n * 4 + m * n * 2, 2 * m * k * n),
-                    check=lambda nm, got, want, lost=lost, leaf=leaf: compare_rows(
-                        nm + " per (row, 128-wide slice)", slices(got), slices(want),
-                        slices(k6.q4_matmul_plain(lost, leaf)), "the last 64 rows of K")))
-            del leaf, dense
-    for name, (k, n) in lm_shapes.items():
+    def k6_cases(qt, name, k, n, ms):
+        leaf = quantize_4bit(weight(k, n), 64, qt)
+        dense = dequantize_4bit(leaf, torch.bfloat16)
+        for m in ms:
+            x = acts(m, k)
+            lost = x.clone()
+            lost[:, -64:] = 0
+            out["q4_matmul"].append(case(
+                f"K6 q4_matmul {qt} {name} x[{m},{k}] W[{k},{n}]", k6.q4_matmul,
+                k6.q4_matmul_plain, (x, leaf), library=lambda x=x, dense=dense: x @ dense,
+                graph=True, achieved="bytes",
+                work=(m * k * 2 + k * n // 2 + k // 64 * n * 4 + m * n * 2, 2 * m * k * n),
+                check=lambda nm, got, want, lost=lost, leaf=leaf: compare_rows(
+                    nm + " per (row, 128-wide slice)", slices(got), slices(want),
+                    slices(k6.q4_matmul_plain(lost, leaf)), "the last 64 rows of K")))
+
+    def k7_cases(name, k, n, ms):
         wq, _ = quantize_int8(weight(k, n))
-        for m in (8, 64, 1, 16, 32):
+        for m in ms:
             xq, _ = k7.quantize_activations(acts(m, k))
             out["s8_matmul"].append(case(
                 f"K7 s8_matmul {name} xq[{m},{k}] wq[{k},{n}]", k7.s8_matmul, k7.s8_matmul_plain,
@@ -1118,24 +1155,36 @@ def quantized_kernel_cases(device, case) -> dict:
                 work=(m * k + k * n + m * n * 4, 2 * m * k * n),
                 check=lambda nm, got, want, xq=xq, wq=wq: compare_exact(
                     nm, got, want, k7.s8_matmul_plain(xq[:, :-128], wq[:-128]))))
-        del wq
-    k8_shapes = [(nm, sh, (256, 2048)) for nm, sh in lm_shapes.items() if nm != "lm_head"]
-    k8_shapes += [(nm, sh, (26 * 577,)) for nm, sh in tower_shapes.items()]
-    for name, (k, n), ms in k8_shapes:
-        wq, ws = quantize_int8(weight(k, n))
-        for m in ms:
-            x = acts(m, k)
-            xq, _ = k7.quantize_activations(x)
-            out["s8_gemm"].append(case(
-                f"K8 s8_gemm {name} x[{m},{k}] wq[{k},{n}]", k8.s8_gemm, k8.s8_gemm_plain,
-                (x, wq, ws), library=int_mm_call(xq, wq), rate=INT8_OPS_PER_S,
-                work=(m * k * 2 + k * n + n * 4 + m * n * 2, 2 * m * k * n),
-                check=lambda nm, got, want, args=(x, wq, ws): compare_s8_gemm(nm, *args),
-                graph=True, library_graph=True, achieved="ops"))
-            del x, xq
-        del wq, ws
+
+    out = {"q4_matmul": [], "s8_matmul": [], "s8_gemm": []}
+    if "hd" in which:
+        for qt in ("nf4", "int4"):
+            for name, (k, n) in lm_shapes.items():
+                k6_cases(qt, name, k, n, (4, 1, 8, 32))
+        for name, (k, n) in lm_shapes.items():
+            k7_cases(name, k, n, (8, 64, 1, 16, 32))
+        k8_shapes = [(nm, sh, (256, 2048)) for nm, sh in lm_shapes.items() if nm != "lm_head"]
+        k8_shapes += [(nm, sh, (26 * 577,)) for nm, sh in tower_shapes.items()]
+        for name, (k, n), ms in k8_shapes:
+            wq, ws = quantize_int8(weight(k, n))
+            for m in ms:
+                x = acts(m, k)
+                xq, _ = k7.quantize_activations(x)
+                out["s8_gemm"].append(case(
+                    f"K8 s8_gemm {name} x[{m},{k}] wq[{k},{n}]", k8.s8_gemm, k8.s8_gemm_plain,
+                    (x, wq, ws), library=int_mm_call(xq, wq), rate=INT8_OPS_PER_S,
+                    work=(m * k * 2 + k * n + n * 4 + m * n * 2, 2 * m * k * n),
+                    check=lambda nm, got, want, args=(x, wq, ws): compare_s8_gemm(nm, *args),
+                    graph=True, library_graph=True, achieved="ops"))
+                del x, xq
+            del wq, ws
+    if "mpt" in which:
+        for name, (k, n) in mpt_shapes.items():
+            k6_cases("nf4", name, k, n, (4, 32))
+        for name, (k, n) in mpt_shapes.items():
+            k7_cases(name, k, n, (8, 64))
     torch.cuda.empty_cache()
-    return out
+    return {name: cases for name, cases in out.items() if cases}
 
 
 def k2_kernel_rows(device, case, first_and_worst) -> dict:
@@ -1236,11 +1285,12 @@ def read_counts(counters: dict) -> dict:
     return {k: getattr(*counter(c)) for k, c in counters.items()}
 
 
-def check_generation(name, gen, batch, cfg, want: dict, counters: dict) -> dict:
+def check_generation(name, gen, batch, cfg, want: dict, counters: dict,
+                     tokens: list | None = None) -> dict:
     """Two identical greedy calls: launch counts of the first against
     `want` (`counters`: {name: wrapper or (wrapper, attribute)}), tokens in
-    the vocabulary, finite logits, identical tokens. Prints TTFT, decode
-    rate and peak memory of the second."""
+    the vocabulary, finite logits, identical tokens (appended to `tokens`
+    if given). Prints TTFT, decode rate and peak memory of the second."""
     n, l = batch["token_ids"].shape
     reset_counts(counters)
     torch.cuda.reset_peak_memory_stats()
@@ -1263,6 +1313,8 @@ def check_generation(name, gen, batch, cfg, want: dict, counters: dict) -> dict:
         raise AssertionError(f"{name}: non-finite logits")
     if second.sequences != toks:
         raise AssertionError(f"{name}: two identical greedy calls returned different tokens")
+    if tokens is not None:
+        tokens.append(toks)
     st = second.stats
     new_tokens = n * st["decode_steps"]
     print(f"  tokens per request {[len(s) for s in toks]}, first request {toks[0][:8]}..., "
@@ -1550,6 +1602,11 @@ class WordTokenizer:
     def __call__(self, text: str):
         words = re.findall(r"\n|[^\s]+", text)
         return SimpleNamespace(input_ids=[1] + [self.convert_tokens_to_ids(w) for w in words])
+
+    def decode(self, ids, skip_special_tokens=True):
+        """Words it has seen, "<id>" for the others (phases 28-29's texts)."""
+        words = {i: w for w, i in self.vocab.items()}
+        return " ".join(words.get(int(i), f"<{int(i)}>") for i in ids)
 
 
 def write_caption_dataset(root: Path, n: int, seed: int) -> Path:
@@ -5097,6 +5154,629 @@ def profile_paged_decode(device, seed: int, steps: int = 8, w8a8: bool = False) 
         ("elementwise", ("elementwise",))), steps)
 
 
+# -- phases 28-30: checkpoints, the public API and MPT's quantized forms --------
+
+# the reference's 7B checkpoints ship as pytorch_model-0000k-of-0000n.bin
+# shards of at most ~10 GB (HF's default max_shard_size)
+CKPT_SHARD_BYTES = 10 * 10**9
+CKPT_DIR = Path(__file__).resolve().parent / "_checkpoints"  # gitignored
+
+
+def trees_equal(name: str, got, want, path: str = "") -> int:
+    """Every tensor of `got` bit-equal to `want`'s, with the same keys,
+    dtypes and shapes (a None leaf counts as absent). Returns the number of
+    tensors compared; raises at the first difference."""
+    if isinstance(want, dict):
+        keys = {k for k, v in want.items() if v is not None}
+        got_keys = {k for k, v in got.items() if v is not None}
+        if keys != got_keys:
+            raise AssertionError(f"{name}: {path} has keys {sorted(got_keys)}, expected "
+                                 f"{sorted(keys)}")
+        return sum(trees_equal(name, got[k], want[k], f"{path}.{k}") for k in sorted(keys))
+    if isinstance(want, list):
+        if len(got) != len(want):
+            raise AssertionError(f"{name}: {path} has {len(got)} entries, expected {len(want)}")
+        return sum(trees_equal(name, g, w, f"{path}[{i}]") for i, (g, w) in enumerate(zip(got,
+                                                                                         want)))
+    if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"{name}: {path} differs ({got.dtype} {tuple(got.shape)} against "
+                             f"{want.dtype} {tuple(want.shape)})")
+    return 1
+
+
+def lm_copy(params) -> dict:
+    """The params with a new LM dict and layer list (the layer dicts and
+    every tensor shared), so that `quantize_lm_*` of the copy, which works
+    in place, leaves `params` as it is."""
+    lm = params["lm"]
+    return {**params, "lm": {**lm, "layers": list(lm["layers"])}}
+
+
+class PeakRss:
+    """The process's peak resident set while the block runs (a thread reads
+    /proc/self/status every 10 ms), and the resident set before it."""
+
+    @staticmethod
+    def rss() -> int:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        return 0
+
+    def __enter__(self):
+        import threading
+
+        self.before = self.peak = self.rss()
+        self._stop = threading.Event()
+
+        def poll():
+            while not self._stop.wait(0.01):
+                self.peak = max(self.peak, self.rss())
+
+        self._thread = threading.Thread(target=poll, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.rss())
+
+
+def checkpoint_place(need: int) -> tuple[Path, int]:
+    """Where to write a checkpoint of `need` bytes: the checkout's
+    `_checkpoints` directory, or the temporary directory if only that one
+    has room; returns it and its free bytes (the larger where neither has
+    room, for the caller to cut the depth)."""
+    import shutil
+
+    CKPT_DIR.mkdir(exist_ok=True)
+    places = [(CKPT_DIR, shutil.disk_usage(CKPT_DIR).free),
+              (Path(tempfile.gettempdir()), shutil.disk_usage(tempfile.gettempdir()).free)]
+    print(f"  free disk: {', '.join(f'{p} {free / 1e9:.1f} GB' for p, free in places)}; "
+          f"the checkpoint needs {need / 1e9:.2f} GB")
+    for place, free in places:
+        if free > 1.2 * need:
+            return place, free
+    return max(places, key=lambda x: x[1])
+
+
+def write_hf_checkpoint(path: Path, params, cfg) -> dict:
+    """The reference's layout from the port's params: `export_vlm_state_dict`
+    (fp32 numpy, as the JAX package writes it) cast to bf16 (exact for bf16
+    weights), as `pytorch_model-0000k-of-0000n.bin` shards of at most
+    CKPT_SHARD_BYTES with HF's index file, and `config.json` from
+    `to_hf_dict()`. Returns the bytes and seconds of the export, the cast
+    and the writes."""
+    from tokenpacker_tpu_torch.io.hf_export import export_vlm_state_dict
+
+    path.mkdir(parents=True)
+    t0 = time.perf_counter()
+    sd = export_vlm_state_dict(params, cfg)
+    t1 = time.perf_counter()
+    groups, size = [[]], 0
+    for k, v in sd.items():
+        if size + v.size * 2 > CKPT_SHARD_BYTES and groups[-1]:
+            groups.append([])
+            size = 0
+        groups[-1].append(k)
+        size += v.size * 2
+    total, write_s, weight_map = 0, 0.0, {}
+    cast_s = 0.0
+    for i, keys in enumerate(groups):
+        name = f"pytorch_model-{i + 1:05d}-of-{len(groups):05d}.bin"
+        t = time.perf_counter()
+        shard = {k: torch.from_numpy(sd.pop(k)).to(torch.bfloat16) for k in keys}
+        cast_s += time.perf_counter() - t
+        t = time.perf_counter()
+        torch.save(shard, path / name)
+        write_s += time.perf_counter() - t
+        total += sum(x.numel() * 2 for x in shard.values())
+        weight_map.update({k: name for k in keys})
+        del shard
+    (path / "pytorch_model.bin.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map}))
+    (path / "config.json").write_text(json.dumps(cfg.to_hf_dict(), indent=2))
+    return {"bytes": total, "shards": len(groups), "export_s": t1 - t0, "cast_s": cast_s,
+            "write_s": write_s}
+
+
+@contextlib.contextmanager
+def api_stand_ins():
+    """`api._load_tokenizer` replaced by the word tokenizer (no tokenizer
+    is loaded, and the card's machine has no `transformers`), HF set
+    offline; restored after."""
+    import os
+
+    from tokenpacker_tpu_torch import api
+
+    offline = {"HF_HUB_OFFLINE": "1", "TRANSFORMERS_OFFLINE": "1"}
+    real, saved = api._load_tokenizer, {k: os.environ.get(k) for k in offline}
+    api._load_tokenizer = lambda path: WordTokenizer()
+    os.environ.update(offline)
+    try:
+        yield api
+    finally:
+        api._load_tokenizer = real
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_checkpoint_load(device, seed: int, batch, blocks) -> dict:
+    """Phase 28: TokenPacker-HD-7b's weights from phase 6's seed, written in
+    the reference's layout (bf16 shards and config.json), loaded through
+    `api.load_pretrained_model(dir, load_8bit=True)` and again with
+    `load_4bit=True` (nf4): every leaf bit-equal to `quantize_lm_int8` /
+    `quantize_lm_4bit` of the weights in memory, phase 6's 4 HD requests
+    with 32 greedy tokens equal to a `Generator` over those (one K4 call a
+    decode step with load_8bit; with load_4bit K6 for every decode
+    product and K3 for the attention). Prints the write's and each load's
+    seconds and GB/s, the host's peak resident set and the card's peak
+    memory over each load. Where the disk cannot hold the checkpoint, the
+    LM's depth is cut (never its widths) and the line says so."""
+    import shutil
+
+    from tokenpacker_tpu_torch.config import preset_config
+    from tokenpacker_tpu_torch.generate import Generator
+    from tokenpacker_tpu_torch.io.weights import (
+        init_vlm_on_device,
+        quantize_lm_4bit,
+        quantize_lm_int8,
+    )
+    from tokenpacker_tpu_torch.ops.decode_attention import decode_attention
+    from tokenpacker_tpu_torch.ops.flash_attention import flash_attention
+    from tokenpacker_tpu_torch.ops.fused_decode import fused_decode_hidden
+    from tokenpacker_tpu_torch.ops.q4_matmul import q4_matmul
+    from tokenpacker_tpu_torch.ops.quantize import tree_bytes
+    from tokenpacker_tpu_torch.ops.vit_attention import vit_attention
+
+    release_earlier_phases()
+    cfg = preset_config(HD_PRESET)
+    lc = cfg.lm
+    params = init_vlm_on_device(cfg, seed=seed, device=device, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    need = tree_bytes(params)
+    per_layer = tree_bytes(params["lm"]["layers"][0])
+    place, free = checkpoint_place(need)
+    depth = lc.num_hidden_layers
+    if free < 1.2 * need:  # cut the depth, never a width
+        depth = int((free / 1.2 - (need - depth * per_layer)) // per_layer)
+        if depth < 1:
+            raise AssertionError(f"phase 28: {free / 1e9:.1f} GB free cannot hold one layer")
+        cfg = dataclasses.replace(cfg, lm=dataclasses.replace(lc, num_hidden_layers=depth))
+        del params["lm"]["layers"][depth:]
+        torch.cuda.empty_cache()
+    cut = "" if depth == lc.num_hidden_layers else f" (LM depth cut to {depth}: disk)"
+    root = Path(tempfile.mkdtemp(prefix="phase28_", dir=place))
+    path = root / "tokenpacker-hd-7b-9patch-144token"
+    runs = []
+    try:
+        w = write_hf_checkpoint(path, params, cfg)
+        print(f"phase 28: {HD_PRESET}{cut}, random weights from seed {seed} written in the "
+              f"reference's layout to {path}: {w['bytes'] / 1e9:.3f} GB in {w['shards']} bf16 "
+              f"shards; export (fp32 numpy) {w['export_s']:.2f} s, cast {w['cast_s']:.2f} s, "
+              f"write {w['write_s']:.2f} s = {w['bytes'] / w['write_s'] / 1e9:.2f} GB/s")
+        depth = cfg.lm.num_hidden_layers
+        forms = (("load_8bit", dict(load_8bit=True), quantize_lm_int8,
+                  {"decode_attention": 0, "fused_decode": NEW_TOKENS - 1, "q4_matmul": 0}),
+                 ("load_4bit nf4", dict(load_4bit=True), lambda p: quantize_lm_4bit(p, "nf4"),
+                  {"decode_attention": depth * (NEW_TOKENS - 1), "fused_decode": 0,
+                   "q4_matmul": (4 * depth + 1) * (NEW_TOKENS - 1) + 1}))
+        counters = {"vit_attention": vit_attention, "flash_attention": flash_attention,
+                    "decode_attention": decode_attention, "fused_decode": fused_decode_hidden,
+                    "q4_matmul": q4_matmul}
+        for label, flags, quantize, want in forms:
+            with api_stand_ins() as api:
+                torch.cuda.synchronize()
+                resident = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                with PeakRss() as rss:
+                    t0 = time.perf_counter()
+                    tokenizer, model, _, context_len = api.load_pretrained_model(str(path),
+                                                                                 **flags)
+                    torch.cuda.synchronize()
+                    load_s = time.perf_counter() - t0
+            card_peak = torch.cuda.max_memory_allocated() - resident
+            loaded = model.params
+            ref = quantize(lm_copy(params))
+            leaves = trees_equal(f"phase 28 {label}", loaded, ref)
+            if model.cfg.to_hf_dict() != cfg.to_hf_dict() or context_len != cfg.model_max_length:
+                raise AssertionError(f"phase 28 {label}: the loaded config differs")
+            print(f"  {label}: load_pretrained_model in {load_s:.2f} s "
+                  f"({w['bytes'] / load_s / 1e9:.2f} GB/s of checkpoint), host resident set "
+                  f"{rss.before / 2**30:.2f} -> peak {rss.peak / 2**30:.2f} GiB, card peak "
+                  f"{card_peak / 2**30:.3f} GiB over the {resident / 2**30:.3f} GiB held before; "
+                  f"{leaves} tensors bit-equal to the in-memory weights "
+                  f"{'quantized' if flags else ''} ({tree_bytes(loaded['lm']) / 2**30:.3f} GiB "
+                  f"LM)")
+            got_tokens, want_tokens = [], []
+            run = check_generation(f"phase 28 {label}", model.generator, batch, model.cfg,
+                                   {"vit_attention": tower_blocks(cfg), "flash_attention": depth,
+                                    **want}, counters, got_tokens)
+            ref_gen = Generator(ref, model.cfg, tokenizer)
+            reset_counts(counters)
+            want_tokens = ref_gen.generate(batch, max_new_tokens=NEW_TOKENS).sequences
+            if got_tokens[0] != want_tokens:
+                raise AssertionError(f"phase 28 {label}: the loaded model's tokens differ from "
+                                     "the in-memory weights'")
+            print(f"  {label}: 4 HD requests (grids {blocks}), {NEW_TOKENS} greedy tokens equal "
+                  f"to a Generator over the in-memory weights, first request "
+                  f"{got_tokens[0][0][:8]}...")
+            runs.append(run)
+            del model, loaded, ref, ref_gen, tokenizer
+            release_earlier_phases()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del params
+    release_earlier_phases()
+    return {k: sum(r.get(k, 0) for r in runs) for k in counters}
+
+
+def phase_checkpoint_layouts(device, seed: int) -> dict:
+    """Phase 29: TokenPacker-HD-7b at full width and 2 LM layers, random
+    bf16 weights from the seed, in the other layouts and through the tools.
+    A stage-1 delta (an LM-only base, `mm_projector.bin`, the tower in its
+    own directory through TOKENPACKER_CLIP_PATH) loads bit-equal to the
+    weights; a rank-16 LoRA adapter over all seven targets with a
+    projector (`write_peft`) merges into the full checkpoint, every target
+    within one bf16 step of W + (alpha / r) B A (fp32) and every other leaf
+    bit-equal, the projector the adapter's; `surgery`'s
+    extract-mm-projector writes the projector's tensors, merge-lora and
+    consolidate write checkpoints that load back bit-equal to the LoRA load
+    and to the weights. Then `serve/cli.main --load-8bit` on the full
+    checkpoint chats two turns at temperature 0 through a patched `input`
+    (the word tokenizer in place of `_load_tokenizer`): each printed
+    answer equals `generate_stream`'s text for the same prompt."""
+    import os
+    import shutil
+
+    from tokenpacker_tpu_torch.config import preset_config
+    from tokenpacker_tpu_torch.io import surgery
+    from tokenpacker_tpu_torch.io.hf_export import export_vlm_state_dict, to_torch_state_dict
+    from tokenpacker_tpu_torch.io.weights import init_vlm_on_device
+    from tokenpacker_tpu_torch.ops.quantize import tree_bytes
+
+    release_earlier_phases()
+    full = preset_config(HD_PRESET)
+    cfg = dataclasses.replace(full, lm=dataclasses.replace(full.lm, num_hidden_layers=2))
+    params = init_vlm_on_device(cfg, seed=seed, device=device, dtype=torch.bfloat16)
+    sd = to_torch_state_dict(export_vlm_state_dict(params, cfg), torch.bfloat16)
+    tower = "model.vision_tower.vision_tower."
+    # the full checkpoint, its LM, its tower, a consolidated copy and the
+    # fp32 merge: about six times the weights
+    root = Path(tempfile.mkdtemp(prefix="phase29_",
+                                 dir=checkpoint_place(6 * tree_bytes(params))[0]))
+    t0 = time.perf_counter()
+    try:
+        def write(name: str, tensors: dict, file: str = "pytorch_model.bin",
+                  config: bool = True) -> str:
+            d = root / name
+            d.mkdir(exist_ok=True)
+            torch.save(tensors, d / file)
+            if config:
+                (d / "config.json").write_text(json.dumps(cfg.to_hf_dict()))
+            return str(d)
+
+        full_dir = write("tokenpacker-hd-7b-2layers", sd)
+        clip_dir = write("clip", {k[len(tower):]: v for k, v in sd.items()
+                                  if k.startswith(tower)}, config=False)
+        base_dir = write("base", {k: v for k, v in sd.items()
+                                  if not k.startswith((tower, "model.mm_projector."))})
+        delta_dir = write("stage1", {k: v for k, v in sd.items()
+                                     if k.startswith("model.mm_projector.")}, "mm_projector.bin")
+        adapter = random_adapters(cfg.lm, seed + 29, LORA_SERVE_SCALE, names=("ad",))["ad"]
+        adapter_projector = init_vlm_on_device(cfg, seed=seed + 29, device=device,
+                                               dtype=torch.bfloat16)["projector"]
+        lora_dir = root / "lora"
+        write_peft(lora_dir, adapter, adapter_projector)
+        (lora_dir / "config.json").write_text(json.dumps(cfg.to_hf_dict()))
+        checked = {}
+        with api_stand_ins() as api:
+            os.environ["TOKENPACKER_CLIP_PATH"] = clip_dir
+            delta = api.load_pretrained_model(delta_dir, base_dir)[1].params
+            del os.environ["TOKENPACKER_CLIP_PATH"]
+            checked["stage-1 delta"] = trees_equal("phase 29 stage-1 delta", delta, params)
+            del delta
+            lora = api.load_pretrained_model(str(lora_dir), full_dir)[1].params
+            worst, moved = lora_merge_steps(lora, params, lora_dir, device)
+            # lora_merge_steps put the base's tensors in the targets' place:
+            # the rest must be the base's weights and the adapter's projector
+            checked["LoRA"] = trees_equal("phase 29 LoRA", lora,
+                                          {**params, "projector": adapter_projector})
+            del lora
+            extracted = root / "mm_projector.bin"
+            surgery.extract_mm_projector(full_dir, str(extracted))
+            checked["extract-mm-projector"] = trees_equal(
+                "phase 29 extract-mm-projector", torch.load(extracted, weights_only=True),
+                {k: v for k, v in sd.items() if k.startswith("model.mm_projector.")})
+            surgery.merge_lora(str(lora_dir), full_dir, str(root / "merged"))
+            merged = api.load_pretrained_model(str(root / "merged"))[1].params
+            fresh = api.load_pretrained_model(str(lora_dir), full_dir)[1].params
+            checked["merge-lora"] = trees_equal("phase 29 merge-lora", merged, fresh)
+            del merged, fresh
+            surgery.consolidate(full_dir, str(root / "consolidated"))
+            cons = api.load_pretrained_model(str(root / "consolidated"))[1].params
+            checked["consolidate"] = trees_equal("phase 29 consolidate", cons, params)
+            del cons
+        print(f"phase 29: {HD_PRESET} at 2 LM layers, full widths, bf16 weights from seed {seed}: "
+              f"tensors bit-equal per layout and tool {checked}; LoRA targets within "
+              f"{worst:.3f} bf16 steps of W + (alpha / r) B A (moved up to {moved:.4f} from the "
+              f"base) ({time.perf_counter() - t0:.1f} s)")
+        return cli_two_turns(device, root, full_dir, cfg)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        del params
+        release_earlier_phases()
+
+
+def lora_merge_steps(lora, params, lora_dir: Path, device) -> tuple[float, float]:
+    """Phase 29's LoRA targets: how many bf16 steps (units in the last place
+    of bf16 at the value) each loaded kernel lies from W + (alpha / r) B A
+    computed in fp32 on the card from the adapter's file and the base
+    weights, the worst one (0.5 is the rounding of an exact merge; the
+    loader's fp32 sums on the host may round to the other neighbour); and
+    the most any target moved from its base. Puts the base's tensor in
+    each target's place in `lora`, for the caller's comparison of the
+    rest."""
+    from tokenpacker_tpu_torch.serve.multi_lora import _TORCH_NAMES
+
+    lora_sd = torch.load(lora_dir / "adapter_model.bin", weights_only=True)
+    worst, moved = 0.0, 0.0
+    for i, layer in enumerate(lora["lm"]["layers"]):
+        for torch_name, (part, leaf) in _TORCH_NAMES.items():
+            key = f"base_model.model.model.layers.{i}.{torch_name}"
+            a = lora_sd[f"{key}.lora_A.weight"].to(device).float()
+            b = lora_sd[f"{key}.lora_B.weight"].to(device).float()
+            base = params["lm"]["layers"][i][part][leaf]["kernel"]
+            want = base.float() + (LORA_ALPHA / LORA_RANK) * (b @ a).t()
+            got = layer[part][leaf]["kernel"].float()
+            ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+            steps = (got - want).abs() / ulp.clamp_min(2.0**-133)
+            worst = max(worst, steps.max().item())
+            moved = max(moved, (got - base.float()).abs().max().item())
+            layer[part][leaf]["kernel"] = base
+    if worst > 1.0:
+        raise AssertionError(f"phase 29: a merged LoRA target lies {worst:.3f} bf16 steps from "
+                             "W + (alpha / r) B A")
+    if moved == 0.0:
+        raise AssertionError("phase 29: the LoRA merge left the targets as they were")
+    return worst, moved
+
+
+def cli_two_turns(device, root: Path, model_dir: str, cfg) -> dict:
+    """Phase 29's chat: `serve/cli.main` with --load-8bit on `model_dir`,
+    temperature 0, 16 new tokens, two turns through a patched `input`;
+    each printed answer must equal the text `generate_stream` gives on the
+    model it loaded for the prompt the llava_v1 template makes (the image
+    in the first turn, the first answer in the second's history). Returns
+    the launches of the chat."""
+    import builtins
+    import io
+
+    from PIL import Image
+
+    from tokenpacker_tpu_torch.data.conversation import conv_templates
+    from tokenpacker_tpu_torch.data.mm_tokenize import tokenizer_image_token
+    from tokenpacker_tpu_torch.generate import pick_bucket
+    from tokenpacker_tpu_torch.image.processing import process_image
+    from tokenpacker_tpu_torch.models.splice import build_splice_plan
+    from tokenpacker_tpu_torch.ops.decode_attention import decode_attention
+    from tokenpacker_tpu_torch.ops.flash_attention import flash_attention
+    from tokenpacker_tpu_torch.ops.fused_decode import fused_decode_hidden
+    from tokenpacker_tpu_torch.ops.vit_attention import vit_attention
+    from tokenpacker_tpu_torch.serve import cli
+
+    rng = np.random.default_rng(SEED + 29)
+    image = root / "image.png"
+    Image.fromarray(rng.integers(0, 256, (448, 672, 3), dtype=np.uint8)).save(image)
+    turns = ["describe the image", "and what else"]
+    fed = iter(turns)
+    new = 16
+
+    def fake_input(prompt):
+        print(prompt, end="")
+        try:
+            return next(fed)
+        except StopIteration:
+            raise EOFError from None
+
+    counters = {"vit_attention": vit_attention, "flash_attention": flash_attention,
+                "decode_attention": decode_attention, "fused_decode": fused_decode_hidden}
+    loaded = {}
+    with api_stand_ins() as api:
+        real_load, real_input = api.load_pretrained_model, builtins.input
+
+        def load(*args, **kw):
+            loaded["out"] = real_load(*args, **kw)
+            return loaded["out"]
+
+        api.load_pretrained_model, builtins.input = load, fake_input
+        out = io.StringIO()
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                cli.main(["--model-path", model_dir, "--image-file", str(image), "--load-8bit",
+                          "--temperature", "0", "--max-new-tokens", str(new)])
+            torch.cuda.synchronize()
+        finally:
+            api.load_pretrained_model, builtins.input = real_load, real_input
+    launches = read_counts(counters)
+    seconds = time.perf_counter() - t0
+    tok, model, _, _ = loaded["out"]
+    mc = model.cfg
+    crops, hb, wb = process_image(Image.open(image).convert("RGB"), mc.image_aspect_ratio,
+                                  mc.patch_num, mc.vision.image_size)
+    conv = conv_templates["llava_v1"].copy()
+    answers = []
+    for i, text in enumerate(turns):
+        conv.append_message(conv.roles[0], ("<image>\n" if i == 0 else "") + text)
+        conv.append_message(conv.roles[1], None)
+        ids = np.asarray(tokenizer_image_token(conv.get_prompt(), tok), np.int64)
+        args = ([ids], [[(hb, wb)]], mc.tokens_per_view, "slice", tok.convert_tokens_to_ids(","),
+                tok.convert_tokens_to_ids("\n"), tok.pad_token_id)
+        plan = build_splice_plan(*args)
+        plan = build_splice_plan(*args, pad_to=pick_bucket(int(plan.lengths[0])))
+        batch = {"token_ids": plan.token_ids, "is_image": plan.is_image,
+                 "image_slot": plan.image_slot, "lengths": plan.lengths,
+                 "images": crops.transpose(0, 2, 3, 1)}
+        texts = list(model.generator.generate_stream(batch, max_new_tokens=new,
+                                                     stop_strings=(conv.sep2,)))
+        answers.append(texts[-1] if texts else "")
+        conv.messages[-1][-1] = answers[-1]
+    printed = out.getvalue().split("USER: ")
+    if len(printed) != 4 or printed[-1] != "":
+        raise AssertionError(f"phase 29: the chat printed {out.getvalue()!r}")
+    for line, answer in zip(printed[1:3], answers):
+        if not line.startswith(f"ASSISTANT: {answer}\n[turn took "):
+            raise AssertionError(f"phase 29: the chat printed {line!r}, generate_stream gave "
+                                 f"{answer!r}")
+    print(f"  serve/cli.main --load-8bit ({hb}x{wb} grid, 2 turns, {new} tokens a turn, "
+          f"{seconds:.2f} s with the load): the printed answers equal generate_stream's texts "
+          f"{[a[:40] for a in answers]}; launches {launches}")
+    if launches["fused_decode"] == 0 or launches["decode_attention"] != 0:
+        raise AssertionError(f"phase 29: the chat's decode steps are not on K4: {launches}")
+    del model, loaded
+    return launches
+
+
+@contextlib.contextmanager
+def lossy_quantized_products():
+    """Within the block, every product of MPT's layers over a quantized
+    kernel (4-bit, int8 weight-only or w8a8, whatever its route) loses
+    the last 128 rows of K: phase 30 shows that each of its bands fails
+    that."""
+    from tokenpacker_tpu_torch.models import mpt
+
+    real = mpt.linear
+
+    def lossy(params, x, w8a8=False):
+        if isinstance(params["kernel"], dict):
+            x = x.clone()
+            x[..., -128:] = 0
+        return real(params, x, w8a8)
+
+    mpt.linear = lossy
+    try:
+        yield
+    finally:
+        mpt.linear = real
+
+
+def phase_mpt_quantized(device, seed: int) -> dict:
+    """Phase 30: MPT's quantized forms. MPT-7B behind the HD-7b tower
+    (`mpt_vlm_config`) with its LM from `quantize_lm_4bit` (nf4; `wte`
+    stays dense) answers phase 6's 4 HD requests with 32 greedy tokens: K6
+    four times a layer a decode step (wqkv, out, up, down; the tied logits
+    are a dense product), K3-ALiBi once a layer a step, K2-bias once a
+    layer at the prefill (whose products, of more than 32 rows, take the
+    dequantized weight); checks as in phase 4. Then card against CPU at
+    full width and 2 layers, prefill and 4 decode steps fed the CPU's
+    tokens, for the nf4, the int8 weight-only and the w8a8 forms, in the
+    bands of phases 13, 7 (LOGIT_BAND) and 15 (W8A8_LOGIT_BAND); each band
+    must fail the same card run with every quantized product losing the
+    last 128 rows of K."""
+    from tokenpacker_tpu_torch.generate import Generator, decode_step, device_batch, prefill
+    from tokenpacker_tpu_torch.io.weights import (
+        init_vlm_on_device,
+        params_to,
+        quantize_lm_4bit,
+        quantize_lm_int8,
+    )
+    from tokenpacker_tpu_torch.ops.q4_matmul import q4_matmul
+    from tokenpacker_tpu_torch.ops.q8_matmul import s8_matmul
+    from tokenpacker_tpu_torch.ops.quantize import tree_bytes
+    from tokenpacker_tpu_torch.ops.s8_gemm import s8_gemm
+
+    release_earlier_phases()
+    cfg = mpt_vlm_config()
+    t0 = time.perf_counter()
+    params = init_vlm_on_device(cfg, seed=seed, device=device, dtype=torch.bfloat16)
+    bf16_lm = tree_bytes(params["lm"])
+    quantize_lm_4bit(params, "nf4")
+    torch.cuda.synchronize()
+    batch, blocks = make_hd_requests(cfg, seed)
+    n, l = batch["token_ids"].shape
+    print(f"phase 30: MPT-7B behind {HD_PRESET}'s tower and projector, random weights from seed "
+          f"{seed}, LM quantized to nf4 on the card ({bf16_lm / 2**30:.3f} -> "
+          f"{tree_bytes(params['lm']) / 2**30:.3f} GiB, wte dense) in "
+          f"{time.perf_counter() - t0:.2f} s; bf16 cache; {n} requests, grids {blocks}, bucket {l}")
+    depth = cfg.lm.num_hidden_layers
+    counters = {**mpt_counters(), "q4_matmul": q4_matmul, "s8_matmul": s8_matmul,
+                "s8_gemm": s8_gemm}
+    want = {name: 0 for name in counters}
+    want.update(vit_attention=tower_blocks(cfg), flash_attention_bias=depth,
+                decode_attention_alibi=depth * (NEW_TOKENS - 1),
+                q4_matmul=4 * depth * (NEW_TOKENS - 1))
+    gen = Generator(params, cfg)
+    if gen.fused is not False:
+        raise AssertionError("phase 30: an MPT tree must decode per layer")
+    launches = check_generation("phase 30", gen, batch, cfg, want, counters)
+    del params, gen
+    release_earlier_phases()
+
+    cfg2 = mpt_vlm_config(n_layers=2)
+    cpu_cfg = dataclasses.replace(cfg2, dtype=torch.float32)
+    batch, blocks = make_hd_requests(cfg2, seed + 1, sizes=((672, 336), (336, 336)),
+                                     text_lens=(40, 70))
+    l = batch["token_ids"].shape[1]
+    steps = 4
+    # K6 / K7 a decode step: four products a layer; the prefill's (2 x l rows)
+    # take the dequantized weight (4-bit) or K8 (w8a8, 2 x l >= 256)
+    forms = (("nf4", lambda p: quantize_lm_4bit(p, "nf4"), False, LOGIT_BAND,
+              {"q4_matmul": steps * 4 * 2, "s8_matmul": 0, "s8_gemm": 0}),
+             ("int8 weight-only", quantize_lm_int8, False, LOGIT_BAND,
+              {"q4_matmul": 0, "s8_matmul": 0, "s8_gemm": 0}),
+             ("w8a8", quantize_lm_int8, True, W8A8_LOGIT_BAND,
+              {"q4_matmul": 0, "s8_matmul": steps * 4 * 2, "s8_gemm": 4 * 2}))
+    kernels = {"q4_matmul": q4_matmul, "s8_matmul": s8_matmul, "s8_gemm": s8_gemm}
+    for label, quantize, w8a8, band, want in forms:
+        params = quantize(init_vlm_on_device(cfg2, seed=seed, device=device,
+                                             dtype=torch.bfloat16))
+        cpu_params = params_to(params, "cpu", torch.float32)
+        t0 = time.perf_counter()
+
+        def run(p, c, dev, tokens=None):
+            """Prefill and `steps` decode steps; returns the logits of each and
+            the tokens fed (the argmax of this run's logits unless given)."""
+            b = device_batch(batch, c.dtype, dev)
+            logits, cache = prefill(p, c, b, l + steps, w8a8=w8a8)
+            out, fed = [logits.float().cpu()], []
+            for step in range(steps):
+                tok = tokens[step] if tokens is not None else out[-1].argmax(-1)
+                fed.append(tok)
+                logits, cache = decode_step(p, c, cache, tok.to(dev), b["lengths"], step, l,
+                                            w8a8=w8a8)
+                out.append(logits.float().cpu())
+            return out, fed
+
+        cpu_logits, fed = run(cpu_params, cpu_cfg, "cpu")
+        reset_counts(kernels)
+        gpu_logits, _ = run(params, cfg2, device, fed)
+        got = read_counts(kernels)
+        results = [band_check(f"phase 30 {label} step {i}", g, c, band)
+                   for i, (g, c) in enumerate(zip(gpu_logits, cpu_logits))]
+        with lossy_quantized_products():
+            lost_logits, _ = run(params, cfg2, device, fed)
+        lost = max((g - c).abs().max().item() for g, c in zip(lost_logits, cpu_logits))
+        print(f"  {label}: full widths, 2 MPT layers, 2 HD requests (grids {blocks}): card bf16 "
+              f"vs CPU fp32, prefill + {steps} decode steps ({time.perf_counter() - t0:.1f} s) "
+              f"max|dlogit| per step {[round(r[0], 4) for r in results]} band={band}; top-1 "
+              f"agree {[r[2] for r in results]}; launches {got}; with every quantized product "
+              f"losing the last 128 rows of K max|dlogit| {lost:.4f}")
+        if got != want:
+            raise AssertionError(f"phase 30 {label}: launches {got} != {want}")
+        if not lost > band:
+            raise AssertionError(f"phase 30 {label}: the band does not see products losing rows")
+        del params, cpu_params
+        release_earlier_phases()
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible; this check runs only on a GPU")
@@ -5135,6 +5815,14 @@ def main() -> None:
         runs = phase_sampling(device, SEED, hd_batch, card.splitlines()[0] if card else "")
         print(json.dumps({"launches": {name: sum(r.get(name, 0) for r in runs)
                                        for name in sampling_counters()}}))
+        return
+    if "--checkpoints" in sys.argv[1:]:
+        hd_batch, hd_blocks = make_hd_requests(preset_config(HD_PRESET), SEED)
+        rows = phase_kernels(device, hd_batch["lengths"], 0, (0, 0), "checkpoints")
+        runs = [phase_checkpoint_load(device, SEED, hd_batch, hd_blocks),
+                phase_checkpoint_layouts(device, SEED), phase_mpt_quantized(device, SEED)]
+        print(json.dumps({name: {**row, "launches": sum(r.get(name, 0) for r in runs)}
+                          for name, row in rows.items()}))
         return
     if "--profile-train" in sys.argv[1:]:
         profile_train_step(device, SEED)
@@ -5224,7 +5912,7 @@ def main() -> None:
                           for name, row in rows.items()}))
         return
     # K2's full-bias form and the probes: no serving or training path
-    # reaches them; counted over all of the main-path phases 4-23 and 25-27
+    # reaches them; counted over all of the main-path phases 4-23 and 25-30
     unreached = probe_counters()
     reset_counts(unreached)
     runs = [phase_end_to_end(device, SEED)]
@@ -5248,6 +5936,9 @@ def main() -> None:
     runs.append(phase_mpt_train(device, SEED))
     phase_mpt_train_parity(device, SEED)
     runs += phase_sampling(device, SEED, hd_batch, card.splitlines()[0] if card else "")
+    runs.append(phase_checkpoint_load(device, SEED, hd_batch, hd_blocks))
+    runs.append(phase_checkpoint_layouts(device, SEED))
+    runs.append(phase_mpt_quantized(device, SEED))
     counts = read_counts(unreached)
     counts["bitcast_pack"] += counts.pop("bitcast_unpack")
     runs.append(counts)
@@ -5301,11 +5992,12 @@ def main() -> None:
     }
     kernels = []
     for name, (source, replaces) in meta.items():
-        # launches: summed over the fourteen main-path runs (phases 4, 6,
+        # launches: summed over the seventeen main-path runs (phases 4, 6,
         # 8, 10, 12, 14, 16, 18, 20 and 22, phase 25's sampled Generator,
-        # phase 26's two batchers and phase 27's beams), each counted from
-        # 0 just before its run and read just after; the six that no path
-        # reaches over phases 4-23 and 25-27 as a whole (0)
+        # phase 26's two batchers, phase 27's beams, phase 28's two loaded
+        # models, phase 29's chat and phase 30's nf4 MPT), each counted
+        # from 0 just before its run and read just after; the six that no
+        # path reaches over phases 4-23 and 25-30 as a whole (0)
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(r.get(name, 0) for r in runs), **rows[name]})
     print(json.dumps({"kernels": kernels}))

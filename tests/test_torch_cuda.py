@@ -759,13 +759,17 @@ def _slices_rel(got, want):
 # quantization blocks the 8 splits do not divide evenly
 Q4_EVERY_M = [(m, k, n) for m in (1, 2, 4, 8, 9, 16, 17, 24, 32)
               for k, n in ((4096, 12288), (11008, 4096)) if (m, k, n) != (32, 11008, 4096)]
+# MPT-7B's up and down ([K, N]): K = 16384 splits K further than any
+# Vicuna-7B product (its largest K is 11008)
+MPT_PRODUCTS = ((4096, 16384), (16384, 4096))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant_type", ["nf4", "int4"])
 @pytest.mark.parametrize("m,k,n", [(4, 4096, 12288), (1, 4096, 4096), (32, 11008, 4096),
                                    (3, 1024, 640), (17, 512, 1024), (8, 4096, 32000)]
-                         + [c for c in Q4_EVERY_M if c not in ((4, 4096, 12288),)])
+                         + [c for c in Q4_EVERY_M if c not in ((4, 4096, 12288),)]
+                         + [(m, k, n) for m in (1, 4, 32) for k, n in MPT_PRODUCTS])
 def test_q4_matmul_kernel_matches_plain(cuda, quant_type, m, k, n):
     """One launch a call; per (row, 128-wide slice) within BLOCK_REL_RMS;
     the plain version without the weight's last 64 rows must fail that.
@@ -792,7 +796,8 @@ def test_q4_matmul_kernel_matches_plain(cuda, quant_type, m, k, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(8, 4096, 12288), (64, 11008, 4096), (1, 4096, 32000),
-                                   (5, 96, 48), (17, 1024, 1040), (40, 4096, 22016)])
+                                   (5, 96, 48), (17, 1024, 1040), (40, 4096, 22016)]
+                         + [(m, k, n) for m in (8, 64) for k, n in MPT_PRODUCTS])
 def test_s8_matmul_kernel_bit_equal_plain(cuda, m, k, n):
     """int32 output bit-equal to the plain (float64) product; the product
     without the last 128 rows (or 32 for k < 256) must differ."""

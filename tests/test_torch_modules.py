@@ -202,9 +202,13 @@ def test_llama_apply_without_cache_matches_jax(vlm):
 def test_unported_lm_options_raise():
     from tokenpacker_tpu_torch.io.weights import quantize_lm_int8
 
-    # MPT runs (tests/test_torch_mpt.py); its int8 and 4-bit forms are not ported
-    with pytest.raises(NotImplementedError, match="MPT"):
-        quantize_lm_int8({"lm": {"wte": torch.zeros(8, 64), "layers": []}})
+    # MPT runs (tests/test_torch_mpt.py) and so do its int8 and 4-bit forms
+    # (tests/test_torch_checkpoint.py): the unfused tree, `wte` left dense
+    wte, wqkv = torch.randn(8, 64), torch.randn(64, 192)
+    mpt_lm = quantize_lm_int8({"lm": {"wte": wte, "layers": [{"attn": {"wqkv": {"kernel": wqkv}}}]}},
+                              min_size=1)["lm"]
+    assert mpt_lm["wte"] is wte and set(mpt_lm["layers"][0]["attn"]["wqkv"]["kernel"]) == {
+        "q", "scale"}
     lora = {"layers": [], "lm_head": {"kernel": {"q": torch.zeros((64, 8), dtype=torch.int8),
                                                  "scale": torch.ones((1, 8)),
                                                  "lora_a": torch.zeros((64, 2)),

@@ -594,7 +594,10 @@ def test_mpt_refuses_int8_cache_paged_adapters_remat_and_quantization(model, tin
     """The JAX package keeps float caches for MPT (it ignores
     TOKENPACKER_KV_CACHE there); the port raises on an int8 cache instead.
     The paged pool and multi-LoRA serving are llama-only in both packages;
-    MPT has no rematerialization; its int8 and 4-bit forms are not ported."""
+    MPT has no rematerialization. Quantization is no longer refused: the
+    int8 and 4-bit forms quantize the unfused tree and keep the tied `wte`
+    dense, as the JAX api does (their parity with JAX is in
+    `test_torch_checkpoint.py`)."""
     cfg, params = model["cfg"], model["params"]
     batch = _batch(cfg)
     with pytest.raises(ValueError, match="model dtype"):
@@ -612,8 +615,10 @@ def test_mpt_refuses_int8_cache_paged_adapters_remat_and_quantization(model, tin
     with pytest.raises(ValueError, match="rematerialization"):
         Trainer(cfg, TrainConfig(), RunConfig(remat="full"), params, ds, Tok(), device="cpu")
     for quantize in (quantize_lm_int8, quantize_lm_4bit):
-        with pytest.raises(NotImplementedError, match="MPT"):
-            quantize({"lm": dict(params["lm"])})
+        lm = dict(params["lm"], layers=list(params["lm"]["layers"]))
+        got = quantize({"lm": lm}, min_size=1024)["lm"]
+        assert got["wte"] is params["lm"]["wte"]
+        assert isinstance(got["layers"][0]["attn"]["wqkv"]["kernel"], dict)
 
 
 def test_params_from_jax_carries_a_jax_init_vlm_tree(model):

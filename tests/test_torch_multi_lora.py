@@ -598,13 +598,31 @@ def test_projector_override_applies_at_admission_only(vlm):
 
 @pytest.mark.parametrize("cls", [ContinuousBatcher, PagedContinuousBatcher])
 def test_submit_refuses_an_unknown_adapter(vlm, cls):
-    """As the JAX batchers: an adapter name that is not loaded, or any name
-    when none are, is a KeyError, here at submit; nothing is queued."""
-    kw = PAGED if cls is PagedContinuousBatcher else dict(num_slots=2, max_seq_len=64)
-    with_ads = cls(vlm["params"], vlm["cfg"], device="cpu", adapters=vlm["port_ads"], **kw)
-    with pytest.raises(KeyError, match="nope"):
-        with_ads.submit(_request(vlm["cfg"], 0), 4, adapter="nope")
-    plain = cls(vlm["params"], vlm["cfg"], device="cpu", **kw)
-    with pytest.raises(KeyError, match="no LoRA adapters"):
-        plain.submit(_request(vlm["cfg"], 0), 4, adapter="ad_a")
-    assert with_ads.queue.empty() and plain.queue.empty()
+    """As the JAX batchers of the same kind: an adapter name that is not
+    loaded, or any name when none are, returns a future that already holds
+    the KeyError, with the same message; nothing is queued. A dead loop
+    is reported first, as in JAX."""
+    paged = cls is PagedContinuousBatcher
+    kw = PAGED if paged else dict(num_slots=2, max_seq_len=64)
+    jax_cls = JaxPaged if paged else JaxBatcher
+    made = {}
+    for side, make, params, cfg, ads in (
+            ("port", lambda p, c, **k: cls(p, c, device="cpu", **k, **kw), vlm["params"],
+             vlm["cfg"], vlm["port_ads"]),
+            ("jax", lambda p, c, **k: jax_cls(p, c, **k, **kw), vlm["tree"], vlm["cfg_j"],
+             vlm["jax_ads"])):
+        made[side] = (make(params, cfg, adapters=ads), make(params, cfg))
+    got = {}
+    for side, (with_ads, plain) in made.items():
+        futs = (with_ads.submit(_request(vlm["cfg"], 0), 4, adapter="nope"),
+                plain.submit(_request(vlm["cfg"], 0), 4, adapter="ad_a"))
+        assert all(f.done() for f in futs), side
+        got[side] = [(type(f.exception()), str(f.exception())) for f in futs]
+        assert with_ads.queue.empty() and plain.queue.empty(), side
+    assert got["port"] == got["jax"]
+    assert got["port"][0][0] is KeyError and "nope" in got["port"][0][1]
+    assert "no LoRA adapters" in got["port"][1][1]
+    with_ads = made["port"][0]
+    with_ads.dead = RuntimeError("boom")
+    fut = with_ads.submit(_request(vlm["cfg"], 0), 4, adapter="nope")
+    assert isinstance(fut.exception(), RuntimeError) and with_ads.queue.empty()

@@ -1,13 +1,16 @@
 """Configuration dataclasses (counterpart of `tokenpacker_tpu/config.py`).
 
 The same fields and defaults as the JAX package, without JAX: `dtype` is
-a `torch.dtype`. Only what the serving paths read is here, with the
-released-checkpoint preset table; the HF `config.json` round trip waits
-for the checkpoint loader.
+a `torch.dtype`. With the released-checkpoint preset table and the HF
+`config.json` round trip of `TokenPackerVLMConfig` (`from_hf_dict`,
+`from_json`, `to_hf_dict`), as the JAX package reads and writes it: the
+LM keys are LLaMA's, so `model_family`, `alibi` and `no_bias` are
+neither written nor read.
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
 
 import torch
@@ -138,6 +141,91 @@ class TokenPackerVLMConfig:
     @property
     def tokens_per_view(self) -> int:
         return (self.vision.grid // self.scale_factor) ** 2
+
+    # ---- HF config.json interop -------------------------------------------
+
+    @classmethod
+    def from_hf_dict(cls, d: dict) -> "TokenPackerVLMConfig":
+        lm = LMConfig(
+            vocab_size=d.get("vocab_size", 32000),
+            hidden_size=d.get("hidden_size", 4096),
+            intermediate_size=d.get("intermediate_size", 11008),
+            num_hidden_layers=d.get("num_hidden_layers", 32),
+            num_attention_heads=d.get("num_attention_heads", 32),
+            num_key_value_heads=d.get("num_key_value_heads"),
+            max_position_embeddings=d.get("max_position_embeddings", 4096),
+            rms_norm_eps=d.get("rms_norm_eps", 1e-5),
+            rope_theta=d.get("rope_theta", 10000.0),
+            bos_token_id=d.get("bos_token_id", 1),
+            eos_token_id=d.get("eos_token_id", 2),
+            pad_token_id=d.get("pad_token_id", 0) or 0,
+        )
+        vis_kwargs = dict(d.get("mm_vision_cfg", {}))  # towers other than ViT-L
+        if "multi_layers" in vis_kwargs:
+            vis_kwargs["multi_layers"] = tuple(vis_kwargs["multi_layers"])
+        vision = VisionConfig(
+            select_layer=d.get("mm_vision_select_layer", -2),
+            select_feature=d.get("mm_vision_select_feature", "patch"),
+            **vis_kwargs,
+        )
+        return cls(
+            vision=vision,
+            lm=lm,
+            scale_factor=d.get("scale_factor", 2),
+            patch_num=d.get("patch_num", 9),
+            image_aspect_ratio=d.get("image_aspect_ratio", "pad"),
+            mm_projector_type=d.get("mm_projector_type", "tokenpacker"),
+            mm_use_im_start_end=d.get("mm_use_im_start_end", False),
+            mm_use_im_patch_token=d.get("mm_use_im_patch_token", False),
+            model_max_length=d.get("max_length", d.get("model_max_length", 2048)),
+        )
+
+    @classmethod
+    def from_json(cls, path: str) -> "TokenPackerVLMConfig":
+        with open(path) as f:
+            return cls.from_hf_dict(json.load(f))
+
+    def to_hf_dict(self) -> dict:
+        default_tower = VisionConfig(select_layer=self.vision.select_layer,
+                                     select_feature=self.vision.select_feature)
+        return {
+            "model_type": "llava",
+            "architectures": ["LlavaLlamaForCausalLM"],
+            "vocab_size": self.lm.vocab_size,
+            "hidden_size": self.lm.hidden_size,
+            "intermediate_size": self.lm.intermediate_size,
+            "num_hidden_layers": self.lm.num_hidden_layers,
+            "num_attention_heads": self.lm.num_attention_heads,
+            "num_key_value_heads": self.lm.kv_heads,
+            "max_position_embeddings": self.lm.max_position_embeddings,
+            "rms_norm_eps": self.lm.rms_norm_eps,
+            "rope_theta": self.lm.rope_theta,
+            "bos_token_id": self.lm.bos_token_id,
+            "eos_token_id": self.lm.eos_token_id,
+            "pad_token_id": self.lm.pad_token_id,
+            "mm_hidden_size": self.vision.hidden_size,
+            "mm_projector_type": self.mm_projector_type,
+            "mm_vision_select_layer": self.vision.select_layer,
+            "mm_vision_select_feature": self.vision.select_feature,
+            "mm_vision_tower": "openai/clip-vit-large-patch14-336",
+            "mm_use_im_start_end": self.mm_use_im_start_end,
+            "mm_use_im_patch_token": self.mm_use_im_patch_token,
+            "scale_factor": self.scale_factor,
+            "patch_num": self.patch_num,
+            "image_aspect_ratio": self.image_aspect_ratio,
+            "use_mm_proj": True,
+            # a tower other than the released ViT-L round-trips through
+            # mm_vision_cfg (layer_norm_eps is not written, as in JAX)
+            **({} if self.vision == default_tower else {"mm_vision_cfg": {
+                "hidden_size": self.vision.hidden_size,
+                "intermediate_size": self.vision.intermediate_size,
+                "num_hidden_layers": self.vision.num_hidden_layers,
+                "num_attention_heads": self.vision.num_attention_heads,
+                "image_size": self.vision.image_size,
+                "patch_size": self.vision.patch_size,
+                "multi_layers": list(self.vision.multi_layers),
+            }}),
+        }
 
 
 def vicuna_13b() -> LMConfig:

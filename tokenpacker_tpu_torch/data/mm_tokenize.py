@@ -40,3 +40,13 @@ def tokenizer_image_token(
     if return_array:
         return np.asarray(ids, dtype=np.int64)
     return ids
+
+
+def get_model_name_from_path(model_path: str) -> str:
+    """The last path component, or "<parent>_checkpoint-N" for a trainer's
+    checkpoint directory (reference mm_utils.py)."""
+    model_path = model_path.strip("/")
+    parts = model_path.split("/")
+    if parts[-1].startswith("checkpoint-"):
+        return parts[-2] + "_" + parts[-1]
+    return parts[-1]

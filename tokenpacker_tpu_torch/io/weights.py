@@ -124,20 +124,21 @@ def params_to(params, device: torch.device | str, dtype: torch.dtype):
 
 
 def _quantize_lm(params, quantize, min_size: int):
-    """Fuse q/k/v and gate/up, then `quantize(tree, min_size)` the LM, in
-    place, layer by layer (the layer threshold is min_size over the layer
-    count, as the JAX package counts its stacked leaves), so on the card
-    the bf16 and the quantized LM never coexist whole (once the caller
-    holds no other reference to the bf16 layers). Returns `params`. An MPT
-    LM raises: its int8 and 4-bit forms are ROADMAP queue 1 work."""
+    """`quantize(tree, min_size)` over the LM, in place, layer by layer (the
+    layer threshold is min_size over the layer count, as the JAX package
+    counts its stacked leaves), so on the card the bf16 and the quantized
+    LM never coexist whole (once the caller holds no other reference to
+    the bf16 layers). A llama LM has its q/k/v and gate/up fused first; an
+    MPT LM is quantized as it is (its `wqkv` is fused already, and its tied
+    `wte` is no kernel, so it stays dense), as the JAX `api.py` does.
+    Returns `params`."""
     lm = params["lm"]
-    if "wte" in lm:
-        raise NotImplementedError("the int8 and 4-bit MPT forms (the JAX api.py:139-166) are "
-                                  "not ported yet")
+    fuse = "wte" not in lm
     layers = lm["layers"]
-    per_layer = -(-min_size // len(layers))
+    per_layer = -(-min_size // max(len(layers), 1))
     for i, layer in enumerate(layers):
-        layers[i] = quantize(fuse_llama_layers({"layers": [layer]}), per_layer)["layers"][0]
+        tree = {"layers": [layer]}
+        layers[i] = quantize(fuse_llama_layers(tree) if fuse else tree, per_layer)["layers"][0]
     lm.update(quantize({k: v for k, v in lm.items() if k != "layers"}, min_size))
     return params
 
@@ -212,6 +213,42 @@ def init_lm_on_device(lm_cfg, seed: int = 0, device: torch.device | str = "cuda"
     return _init_lm(lm_cfg, _normal_fn(gen, dtype), gen, dtype)
 
 
+def _init_tower(vc, normal) -> dict:
+    def scale(n):
+        return normal(n, std=0.1, mean=1.0)
+
+    def lin(i, o):
+        return {"kernel": normal(i, o), "bias": normal(o)}
+
+    def ln(n):
+        return {"scale": scale(n), "bias": normal(n)}
+
+    w = vc.hidden_size
+    return {
+        "class_embedding": normal(w),
+        "patch_embed": {"kernel": normal(3 * vc.patch_size**2, w)},
+        "pos_embed": normal(vc.seq_len, w),
+        "pre_ln": ln(w),
+        "post_ln": ln(w),
+        "layers": [
+            {
+                "ln1": ln(w),
+                "attn": {name: lin(w, w) for name in ("q", "k", "v", "o")},
+                "ln2": ln(w),
+                "mlp": {"fc1": lin(w, vc.intermediate_size), "fc2": lin(vc.intermediate_size, w)},
+            }
+            for _ in range(vc.num_hidden_layers)
+        ],
+    }
+
+
+def init_tower_on_device(vision_cfg, seed: int = 0, device: torch.device | str = "cuda",
+                         dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The tower part of `init_vlm_on_device` alone, from its own seed (the
+    same values as the tower of `init_vlm_on_device(cfg, seed)`)."""
+    return _init_tower(vision_cfg, _normal_fn(_generator(seed, device), dtype))
+
+
 def init_vlm_on_device(cfg: TokenPackerVLMConfig, seed: int = 0,
                        device: torch.device | str = "cuda",
                        dtype: torch.dtype = torch.bfloat16):
@@ -238,24 +275,8 @@ def init_vlm_on_device(cfg: TokenPackerVLMConfig, seed: int = 0,
     def ln(n):
         return {"scale": scale(n), "bias": normal(n)}
 
-    vc, pc = cfg.vision, cfg.projector
-    w = vc.hidden_size
-    vision = {
-        "class_embedding": normal(w),
-        "patch_embed": {"kernel": normal(3 * vc.patch_size**2, w)},
-        "pos_embed": normal(vc.seq_len, w),
-        "pre_ln": ln(w),
-        "post_ln": ln(w),
-        "layers": [
-            {
-                "ln1": ln(w),
-                "attn": {name: lin(w, w) for name in ("q", "k", "v", "o")},
-                "ln2": ln(w),
-                "mlp": {"fc1": lin(w, vc.intermediate_size), "fc2": lin(vc.intermediate_size, w)},
-            }
-            for _ in range(vc.num_hidden_layers)
-        ],
-    }
+    vision = _init_tower(cfg.vision, normal)
+    pc = cfg.projector
     e = pc.embed_dim
     projector = {
         "q_proj": lin(pc.kv_dim, e, bias=False),

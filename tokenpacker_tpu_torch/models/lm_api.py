@@ -28,10 +28,11 @@ def lm_apply(params, cfg: LMConfig, inputs_embeds, positions, cache=None, decode
     """positions [N, T] drive RoPE (llama); MPT's ALiBi reads key_positions,
     the optional [N, S] true token position of each cache slot on the
     `attn_bias` route (the slot indices by default; K3 compacts the
-    bucketed decode layout itself). `w8a8` and `remat` are llama's."""
+    bucketed decode layout itself). `remat` is llama's; `w8a8` is the
+    int8 products' mode in both families."""
     if cfg.model_family == "mpt":
         return _mpt.mpt_apply(params, cfg, inputs_embeds, cache, decode_info, remat, attn_bias,
-                              key_positions)
+                              key_positions, w8a8)
     return _llama.llama_apply(params, cfg, inputs_embeds, positions, cache, decode_info, remat,
                               attn_bias, w8a8)
 

@@ -32,6 +32,12 @@ a causal mask, and only key positions matter. Attention routes as in
 The KV cache is `models/llama.KVCache` in the model dtype (the JAX
 package keeps float caches for MPT); an int8 cache raises. There is no
 rematerialization (the JAX package's `mpt_apply` has none).
+
+Every product goes through `ops/layers.linear`, so a quantized LM
+(`io/weights.quantize_lm_int8` / `quantize_lm_4bit`, as the JAX `api.py`
+quantizes the unfused MPT tree) runs on the repo's kernels: K6 for a
+4-bit product of at most 32 rows, K7 / K8 for int8 ones in the w8a8 mode.
+`wte` is no kernel, so it stays dense and the logits a dense product.
 """
 
 from __future__ import annotations
@@ -139,11 +145,12 @@ def init_mpt(cfg: LMConfig, generator: torch.Generator, dtype=torch.float32):
     }
 
 
-def _layer(p, cfg: LMConfig, x, cache: KVCache | None, layer: int, route: dict):
+def _layer(p, cfg: LMConfig, x, cache: KVCache | None, layer: int, route: dict, w8a8: bool):
     n, t, d = x.shape
     h = cfg.num_attention_heads
     y = layer_norm(p["norm_1"], x)
-    q, k, v = (z.reshape(n, t, h, d // h) for z in linear(p["attn"]["wqkv"], y).split(d, dim=-1))
+    q, k, v = (z.reshape(n, t, h, d // h)
+               for z in linear(p["attn"]["wqkv"], y, w8a8).split(d, dim=-1))
     if cache is not None:
         at = cache.write_index(n, t)
         cache.k[layer][at] = k
@@ -157,14 +164,14 @@ def _layer(p, cfg: LMConfig, x, cache: KVCache | None, layer: int, route: dict):
         lengths, needed, span_start = route["decode_info"]
         attn = decode_attention(q[:, 0].contiguous(), cache.k[layer], cache.v[layer], lengths,
                                 needed, span_start, route["slopes"])[:, None]
-    x = x + linear(p["attn"]["out"], attn.reshape(n, t, d))
+    x = x + linear(p["attn"]["out"], attn.reshape(n, t, d), w8a8)
     y = layer_norm(p["norm_2"], x)
-    return x + linear(p["ffn"]["down"], gelu(linear(p["ffn"]["up"], y)))
+    return x + linear(p["ffn"]["down"], gelu(linear(p["ffn"]["up"], y, w8a8)), w8a8)
 
 
 def mpt_apply(params, cfg: LMConfig, inputs_embeds: torch.Tensor, cache: KVCache | None = None,
               decode_info=None, remat: str = "", attn_bias: torch.Tensor | None = None,
-              key_positions: torch.Tensor | None = None):
+              key_positions: torch.Tensor | None = None, w8a8: bool = False):
     """Run the decoder stack over [N, T, D] embeddings (module docstring for
     the routes). With a cache the new k/v rows are written at
     `cache.length` (per sample for a tensor of lengths) and the length
@@ -196,7 +203,7 @@ def mpt_apply(params, cfg: LMConfig, inputs_embeds: torch.Tensor, cache: KVCache
         route = {"decode_info": decode_info, "slopes": alibi_slopes(h, device=device)}
     x = inputs_embeds
     for i, p in enumerate(params["layers"]):
-        x = _layer(p, cfg, x, cache, i, route)
+        x = _layer(p, cfg, x, cache, i, route, w8a8)
     if cache is not None:
         # not in place: a tensor of lengths may be the caller's
         cache.length = cache.length + t

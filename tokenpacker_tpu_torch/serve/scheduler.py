@@ -77,8 +77,9 @@ MPT.
 
 Multi-LoRA serving: `adapters={name: serve.multi_lora.Adapter}` fixes the
 adapter set when the batcher is made, and `submit(..., adapter=name)`
-picks one per request (None: the base model; a name that is not loaded
-raises KeyError at submit). Steps and verify rounds run on the overlay
+picks one per request (None: the base model; for a name that is not
+loaded `submit` returns a future that already holds the KeyError, as the
+JAX batchers do, after the dead-loop check). Steps and verify rounds run on the overlay
 of `SlotLora`, whose selection row of a slot is set when a request takes
 it: the dense batcher's steps and rounds through K4-LoRA on an int8
 fused tree, the paged batcher's through `ops/layers.linear`'s term. An
@@ -258,15 +259,19 @@ class _SlotBatcher:
                min_p: float | None = None, seed: int | None = None, adapter: str | None = None,
                repetition_penalty: float = 1.0, presence_penalty: float = 0.0,
                frequency_penalty: float = 0.0, logprobs: int | None = None) -> Future:
-        if adapter is not None:  # an unknown adapter: KeyError here, as in the JAX batchers
-            if self.slot_lora is None:
-                raise KeyError(f"no LoRA adapters loaded (requested {adapter!r})")
-            self.slot_lora.adapter_index(adapter)
-        self._check_prompt(batch)  # refused here: inside the loop it would fail every request
         fut: Future = Future()
         if self.dead is not None:
             fut.set_exception(RuntimeError(f"batcher loop died: {self.dead!r}"))
             return fut
+        if adapter is not None:  # an unknown adapter: a future holding the KeyError, as in JAX
+            try:
+                if self.slot_lora is None:
+                    raise KeyError(f"no LoRA adapters loaded (requested {adapter!r})")
+                self.slot_lora.adapter_index(adapter)
+            except KeyError as e:
+                fut.set_exception(e)
+                return fut
+        self._check_prompt(batch)  # refused here: inside the loop it would fail every request
         req = _Request(batch=batch, max_new_tokens=max_new_tokens, future=fut, on_token=on_token,
                        temperature=self.temperature if temperature is None else temperature,
                        top_p=top_p, top_k=top_k, min_p=min_p, seed=seed,
