@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py              # the smoke run, phases 1-30 (25-30 before 24)
+    python3 chip_smoke.py              # the smoke run, phases 1-31 (25-31 before 24)
     python3 chip_smoke.py --profile    # phases 1-2, then the profile below
     python3 chip_smoke.py --profile-train  # phases 1-2, then a traced training step
     python3 chip_smoke.py --profile-paged  # phases 1-2, then traced paged decode steps
@@ -15,6 +15,7 @@
     python3 chip_smoke.py --tower          # phases 1-2, K1 and K9 of phase 3, 4-5, 8-9, 16-17
     python3 chip_smoke.py --sampling       # phases 1-2, then 25-27
     python3 chip_smoke.py --checkpoints    # phases 1-2, K6 and K7 at MPT-7B's up/down, 28-30
+    python3 chip_smoke.py --serving        # phases 1-2, phase 28's checkpoint write, 31
 
 Phases, one result line each or more (every failure raises, so any
 failure exits non-zero and prints no final line):
@@ -230,7 +231,22 @@ failure exits non-zero and prints no final line):
      K3-ALiBi once, K2-bias at the prefill; checks as in 4), then card vs
      CPU at 2 MPT layers for the nf4, int8 weight-only and w8a8 forms in
      the bands of phases 13, 7 and 15, each failing the same run with
-     every quantized product losing the last 128 rows of K.
+     every quantized product losing the last 128 rows of K;
+ 31. configuration P, the HTTP serving stack over phase 28's directory:
+     the port's controller, a paged `ModelWorker` (load_8bit, int8 pool,
+     4 slots, 2,048 positions, chunks of 256) that registers and beats
+     itself, the OpenAI gateway and the web server on localhost ports;
+     phase 6's images as base64 PNG through the gateway, 4 at once (2
+     greedy, one streamed with top_logprobs 3; one sampled; one seeded),
+     the seeded one again alone, one request straight to the worker, one
+     web chat turn in "Pad" mode; then a direct worker (speculative_k 4)
+     with one greedy and one sampled request. Error codes, usage and
+     finish_reason, greedy ids against a plain run over the loaded
+     weights where its margin is decisive, the seeded runs up to a draw
+     within the band, logprob entries within 1e-3 of their raw logits,
+     /metrics, the web server's logs, and K1, K2, K4, K4-verify and K5
+     counted against the steps; TTFT and ms a token at the client beside
+     the batcher's, the loads' seconds and the phase timings printed.
 Phase 3 also holds K2's full-bias form (no serving or training path
 reaches it) at MPT-7B's prefix-LM attention, [4, 2048, 32, 128], not
 causal: the prefix-LM mask with B's prompt lengths plus ALiBi as a [4, 32,
@@ -238,7 +254,7 @@ causal: the prefix-LM mask with B's prompt lengths plus ALiBi as a [4, 32,
 with rows below -1e30 (o = 0, lse = +inf), each failing the plain version
 with the bias's last key tile dropped; SDPA with the bias as a bf16 mask is
 its library column. The six kernels no path reaches (K2 full-bias and the
-probes' five) are counted over phases 4-23 and 25-30: 0.
+probes' five) are counted over phases 4-23 and 25-31: 0.
 Phase 3 also holds K9 at [8, 577, 1024] and [26, 577, 1024] by its
 block's update out - x per (image, 64 rows, 128-wide slice), failing the
 plain block that lost its last 64 keys or its MLP's last 128 units, with
@@ -288,8 +304,9 @@ each printing their kernel rows, and `--tower` K1's and K9's rows of
 phase 3 (with the 23-block tower fused and per op) and phases 4-5, 8-9
 and 16-17 (A, C and G, the paths that launch K1 and K9), and
 `--checkpoints` K6's and K7's rows at MPT-7B's up and down and phases
-28-30. None prints the final "ok" line; nor does `--sampling` (phases
-25-27, no phase 3), which prints their launch counts. Every K1, K2 and K9 row of phase 3 also prints its
+28-30. None prints the final "ok" line; nor do `--sampling` (phases
+25-27, no phase 3) and `--serving` (phase 28's write and phase 31),
+which print their launch counts. Every K1, K2 and K9 row of phase 3 also prints its
 achieved TFLOP/s (the operations its bound counts over the kernel's
 time), every K8 row its TOPS and every K3, K5 and K6 row its TB/s, each
 against the card's rate, and the bound's share of the kernel's time (K3,
@@ -309,6 +326,7 @@ import dataclasses
 import gc
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -628,8 +646,10 @@ def make_requests(cfg, seed: int):
     }
 
 
-def make_hd_requests(cfg, seed: int, sizes=((1008, 1008), (900, 600), (400, 1100), (500, 500)),
-                     text_lens=(300, 200, 120, 40)):
+HD_SIZES = ((1008, 1008), (900, 600), (400, 1100), (500, 500))  # phase 6's images (w, h)
+
+
+def make_hd_requests(cfg, seed: int, sizes=HD_SIZES, text_lens=(300, 200, 120, 40)):
     """One synthetic HD image per request, slice-mode preprocessing and
     splice; token ids in place of text. The default sizes give the grids
     3x3, 2x3, 3x1 and 2x2 (10, 7, 4 and 5 crops)."""
@@ -5306,33 +5326,15 @@ def api_stand_ins():
                 os.environ[k] = v
 
 
-def phase_checkpoint_load(device, seed: int, batch, blocks) -> dict:
-    """Phase 28: TokenPacker-HD-7b's weights from phase 6's seed, written in
-    the reference's layout (bf16 shards and config.json), loaded through
-    `api.load_pretrained_model(dir, load_8bit=True)` and again with
-    `load_4bit=True` (nf4): every leaf bit-equal to `quantize_lm_int8` /
-    `quantize_lm_4bit` of the weights in memory, phase 6's 4 HD requests
-    with 32 greedy tokens equal to a `Generator` over those (one K4 call a
-    decode step with load_8bit; with load_4bit K6 for every decode
-    product and K3 for the attention). Prints the write's and each load's
-    seconds and GB/s, the host's peak resident set and the card's peak
-    memory over each load. Where the disk cannot hold the checkpoint, the
-    LM's depth is cut (never its widths) and the line says so."""
-    import shutil
-
+def write_phase28_checkpoint(device, seed: int) -> dict:
+    """Phase 28's write: TokenPacker-HD-7b's weights from phase 6's seed in
+    the reference's layout (bf16 shards and config.json) under a new
+    temporary directory `root`, the LM's depth cut only where no disk holds
+    it. Returns {"root", "path", "cfg", "params" (the bf16 weights on the
+    card), "write" (`write_hf_checkpoint`'s figures)}."""
     from tokenpacker_tpu_torch.config import preset_config
-    from tokenpacker_tpu_torch.generate import Generator
-    from tokenpacker_tpu_torch.io.weights import (
-        init_vlm_on_device,
-        quantize_lm_4bit,
-        quantize_lm_int8,
-    )
-    from tokenpacker_tpu_torch.ops.decode_attention import decode_attention
-    from tokenpacker_tpu_torch.ops.flash_attention import flash_attention
-    from tokenpacker_tpu_torch.ops.fused_decode import fused_decode_hidden
-    from tokenpacker_tpu_torch.ops.q4_matmul import q4_matmul
+    from tokenpacker_tpu_torch.io.weights import init_vlm_on_device
     from tokenpacker_tpu_torch.ops.quantize import tree_bytes
-    from tokenpacker_tpu_torch.ops.vit_attention import vit_attention
 
     release_earlier_phases()
     cfg = preset_config(HD_PRESET)
@@ -5353,13 +5355,50 @@ def phase_checkpoint_load(device, seed: int, batch, blocks) -> dict:
     cut = "" if depth == lc.num_hidden_layers else f" (LM depth cut to {depth}: disk)"
     root = Path(tempfile.mkdtemp(prefix="phase28_", dir=place))
     path = root / "tokenpacker-hd-7b-9patch-144token"
-    runs = []
     try:
         w = write_hf_checkpoint(path, params, cfg)
-        print(f"phase 28: {HD_PRESET}{cut}, random weights from seed {seed} written in the "
-              f"reference's layout to {path}: {w['bytes'] / 1e9:.3f} GB in {w['shards']} bf16 "
-              f"shards; export (fp32 numpy) {w['export_s']:.2f} s, cast {w['cast_s']:.2f} s, "
-              f"write {w['write_s']:.2f} s = {w['bytes'] / w['write_s'] / 1e9:.2f} GB/s")
+    except BaseException:
+        shutil.rmtree(root, ignore_errors=True)
+        raise
+    print(f"phase 28: {HD_PRESET}{cut}, random weights from seed {seed} written in the "
+          f"reference's layout to {path}: {w['bytes'] / 1e9:.3f} GB in {w['shards']} bf16 "
+          f"shards; export (fp32 numpy) {w['export_s']:.2f} s, cast {w['cast_s']:.2f} s, "
+          f"write {w['write_s']:.2f} s = {w['bytes'] / w['write_s'] / 1e9:.2f} GB/s")
+    return {"root": root, "path": path, "cfg": cfg, "params": params, "write": w}
+
+
+def phase_checkpoint_load(device, seed: int, batch, blocks, ckpt: dict | None = None) -> dict:
+    """Phase 28: TokenPacker-HD-7b's weights from phase 6's seed, written in
+    the reference's layout (bf16 shards and config.json), loaded through
+    `api.load_pretrained_model(dir, load_8bit=True)` and again with
+    `load_4bit=True` (nf4): every leaf bit-equal to `quantize_lm_int8` /
+    `quantize_lm_4bit` of the weights in memory, phase 6's 4 HD requests
+    with 32 greedy tokens equal to a `Generator` over those (one K4 call a
+    decode step with load_8bit; with load_4bit K6 for every decode
+    product and K3 for the attention). Prints the write's and each load's
+    seconds and GB/s, the host's peak resident set and the card's peak
+    memory over each load. Where the disk cannot hold the checkpoint, the
+    LM's depth is cut (never its widths) and the line says so. `ckpt`:
+    what `write_phase28_checkpoint` returned (phase 31 serves the same
+    directory, and its caller deletes it); None writes one here and
+    deletes it at the end."""
+    import shutil
+
+    from tokenpacker_tpu_torch.generate import Generator
+    from tokenpacker_tpu_torch.io.weights import quantize_lm_4bit, quantize_lm_int8
+    from tokenpacker_tpu_torch.ops.decode_attention import decode_attention
+    from tokenpacker_tpu_torch.ops.flash_attention import flash_attention
+    from tokenpacker_tpu_torch.ops.fused_decode import fused_decode_hidden
+    from tokenpacker_tpu_torch.ops.q4_matmul import q4_matmul
+    from tokenpacker_tpu_torch.ops.quantize import tree_bytes
+    from tokenpacker_tpu_torch.ops.vit_attention import vit_attention
+
+    own = ckpt is None  # a checkpoint written here is deleted here
+    ckpt = ckpt or write_phase28_checkpoint(device, seed)
+    params, cfg, path, w = ckpt["params"], ckpt["cfg"], ckpt["path"], ckpt["write"]
+    ckpt["params"] = None  # this phase frees them when it ends
+    runs = []
+    try:
         depth = cfg.lm.num_hidden_layers
         forms = (("load_8bit", dict(load_8bit=True), quantize_lm_int8,
                   {"decode_attention": 0, "fused_decode": NEW_TOKENS - 1, "q4_matmul": 0}),
@@ -5410,7 +5449,8 @@ def phase_checkpoint_load(device, seed: int, batch, blocks) -> dict:
             del model, loaded, ref, ref_gen, tokenizer
             release_earlier_phases()
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if own:
+            shutil.rmtree(ckpt["root"], ignore_errors=True)
     del params
     release_earlier_phases()
     return {k: sum(r.get(k, 0) for r in runs) for k in counters}
@@ -5777,6 +5817,558 @@ def phase_mpt_quantized(device, seed: int) -> dict:
     return launches
 
 
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_CHUNK = 4, 2048, 256  # phase 31's paged worker
+SERVE_TEXTS = ("Describe this image in detail.", "What objects can you see here?",
+               "Write a short story about this picture.", "What colors dominate the scene?")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def serve_http(handler, port: int | None = None):
+    """A ThreadingHTTPServer on localhost in a daemon thread: (base URL,
+    server); `stop_http` ends it."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    server = ThreadingHTTPServer(("localhost", port or free_port()), handler)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return f"http://localhost:{server.server_address[1]}", server
+
+
+def stop_http(server) -> None:
+    server.shutdown()
+    server.server_close()
+
+
+def http_call(url: str, body=None, stream: bool = False, timeout: float = 600) -> dict:
+    """POST `body` (GET without one): {"status", "json"} or, streamed,
+    {"status", "events", "times"} (each SSE event and its arrival on the
+    host clock, None for [DONE]); "sent" is when the request went out."""
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data, {"Content-Type": "application/json"})
+    sent = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        if not stream:
+            raw = resp.read()
+            try:
+                return {"status": resp.status, "sent": sent, "json": json.loads(raw)}
+            except json.JSONDecodeError:
+                return {"status": resp.status, "sent": sent, "text": raw.decode()}
+        events, times = [], []
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            if line.startswith(b"data: "):
+                times.append(time.perf_counter())
+                payload = line[len(b"data: "):].strip()
+                events.append(None if payload == b"[DONE]" else json.loads(payload))
+        return {"status": resp.status, "sent": sent, "events": events, "times": times}
+
+
+def metric_values(text: str) -> dict:
+    """{series: value} of a /metrics scrape."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            out[name] = float(value)
+    return out
+
+
+def hd_images_b64(seed: int) -> list[str]:
+    """Phase 6's 4 HD images (`make_hd_requests`' draws) as base64 PNG."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for w, h in HD_SIZES:
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(buf, format="PNG")
+        out.append(base64.b64encode(buf.getvalue()).decode())
+    return out
+
+
+def chat_body(text: str, image: str, **kw) -> dict:
+    return {"model": HD_PRESET, "max_tokens": NEW_TOKENS, "temperature": 0.0,
+            "messages": [{"role": "user", "content": [
+                {"type": "text", "text": text},
+                {"type": "image_url", "image_url": {"url": "data:image/png;base64," + image}}]}],
+            **kw}
+
+
+def wire_tee(worker, wire: list) -> None:
+    """Record every request the worker streams: (its params, its chunks
+    as parsed JSON), appended when the stream ends."""
+    gate = worker.generate_stream_gate
+
+    def tee(params):
+        chunks, it = [], gate(params)
+        try:
+            for c in it:
+                chunks.append(json.loads(c[:-1]))
+                yield c
+        finally:
+            it.close()
+            wire.append((params, chunks))
+
+    worker.generate_stream_gate = tee
+
+
+def wire_ids(chunks: list) -> list:
+    """A stream's token ids, from its logprob entries' `id`."""
+    return [e["id"] for c in chunks for e in c.get("logprobs", [])]
+
+
+def check_stream(name: str, worker, params: dict, chunks: list, n_ids: int | None = None) -> dict:
+    """Every chunk error_code 0; the final chunk's usage (prompt_tokens the
+    spliced length, completion_tokens the tokens streamed) and
+    finish_reason ("length" at the cap, else "stop") right. Returns the
+    final chunk."""
+    if not chunks or any(c.get("error_code") != 0 for c in chunks):
+        raise AssertionError(f"phase 31 {name}: an error chunk or no chunk: {chunks[-1:]}")
+    final = chunks[-1]
+    _, spliced = worker.plan(params["prompt"], params.get("images"))
+    n = len(chunks) - 1 if n_ids is None else n_ids
+    usage = {"prompt_tokens": spliced, "completion_tokens": n, "total_tokens": spliced + n}
+    finish = "length" if n == params["max_new_tokens"] else "stop"
+    if final.get("usage") != usage or final.get("finish_reason") != finish:
+        raise AssertionError(f"phase 31 {name}: final chunk {final.get('usage')} "
+                             f"{final.get('finish_reason')}, expected {usage} {finish}")
+    return final
+
+
+def seeded_draw_margin(row: torch.Tensor, step: int, a: int, b: int, temperature: float) -> float:
+    """|z_a - z_b| of the seeded request's Gumbel-max draw at `step`
+    (z = logits / temperature + the noise of seed_keys(SEED_REQ, step))."""
+    from tokenpacker_tpu_torch.generate import gumbel_noise, seed_keys
+
+    key = int(seed_keys([SEED_REQ], [step])[0])
+    z = row.float().reshape(1, -1) / temperature + gumbel_noise((1, row.numel()), row.device,
+                                                                None, [key])
+    return abs(z[0, a] - z[0, b]).item()
+
+
+def phase_serving(device, seed: int, model_dir: Path, card: str) -> dict:
+    """Phase 31 (configuration P, the HTTP serving stack): the port's
+    controller, `ModelWorker`, OpenAI gateway and web server on localhost
+    ports in this process, over phase 28's TokenPacker-HD-7b directory.
+
+    A paged worker (`load_8bit`, an int8 pool, 4 slots, 2,048 positions,
+    chunks of 256) registers itself and beats once. Through the gateway
+    go phase 6's 4 HD images as base64 PNG at once: two greedy chat
+    requests (one streamed, with top_logprobs 3), one sampled at
+    temperature 0.8 and top_p 0.95, one sampled at 0.8 with seed 1234;
+    then the seeded one again alone; then one request straight to
+    /worker_generate_stream and one chat turn through the web server
+    with an image in "Pad" mode. The worker drains, and a second worker
+    over the same directory (scheduler "none", speculative_k 4) takes one
+    greedy request (speculative, K4-verify) and one sampled request (K4)
+    through the gateway.
+
+    Checks (every failure raises): every chunk's error_code 0; usage and
+    finish_reason; ids (from the logprob entries' `id`, or the stream's
+    tokens where speculation streams no entries) of each greedy request
+    equal to a recorded plain run over the weights the worker loaded
+    wherever its margin is decisive; the seeded request's two runs equal
+    up to a draw whose Gumbel margin is within 2 LOGIT_BAND / temperature
+    in both; every logprob entry within LP_BAND of log_softmax of its
+    step's raw logits; the web server's frames and logs; /metrics on the
+    controller and the worker counting the requests, TTFT and tokens; K1,
+    K2, K4, K4-verify and K5 counted against the steps taken (K2 from the
+    direct worker only). Prints the loads' and warm-ups' seconds, TTFT
+    through the gateway beside submit-to-first-token on the batcher, ms a
+    token at the SSE client beside the batcher's ms a step, and the
+    worker's phase timings, with the card's name and power limit."""
+    import threading
+
+    from tokenpacker_tpu_torch import generate as gen_mod
+    from tokenpacker_tpu_torch.serve import controller, metrics, model_worker, openai_api
+    from tokenpacker_tpu_torch.serve import scheduler as sched
+    from tokenpacker_tpu_torch.serve import web_server
+    from tokenpacker_tpu_torch.utils.profiling import GLOBAL_STATS
+
+    release_earlier_phases()
+    counters = sampling_counters()
+    images = hd_images_b64(seed)
+    ctl = controller.Controller("shortest_queue")
+    cbase, cserver = serve_http(controller.make_handler(ctl))
+    gw = openai_api.Gateway(cbase)
+    gbase, gserver = serve_http(openai_api.make_handler(gw))
+    logdir = Path(tempfile.mkdtemp(prefix="phase31_logs_"))
+    real_logdir, web_server.LOGDIR = web_server.LOGDIR, str(logdir)
+    webbase, webserver = serve_http(web_server.make_handler(cbase))
+    real_lp_rows, real_entry = sched.logprob_rows, gen_mod.token_logprob_entry
+    servers = [cserver, gserver, webserver]
+    runs = []
+    try:
+        # -- the paged worker ------------------------------------------------
+        wport = free_port()
+        with api_stand_ins():
+            worker = model_worker.ModelWorker(
+                cbase, f"http://localhost:{wport}", str(model_dir), load_8bit=True,
+                scheduler="paged", scheduler_slots=SERVE_SLOTS, scheduler_max_len=SERVE_MAX_LEN,
+                scheduler_prefill_chunk=SERVE_CHUNK, kv_cache_dtype=torch.int8, warmup=True)
+        cfg, batcher = worker.cfg, worker.batcher
+        depth = cfg.lm.num_hidden_layers
+        print(f"phase 31: {card}; paged worker over {model_dir.name} (load_8bit, int8 pool of "
+              f"{batcher.num_pages} pages of 64, {SERVE_SLOTS} slots): load "
+              f"{worker.load_s:.2f} s, warm-up {worker.warmup_s:.2f} s")
+        wbase, wserver = serve_http(model_worker.make_handler(worker), wport)
+        servers.append(wserver)
+        if http_call(cbase + "/list_models", {})["json"]["models"] != [HD_PRESET]:
+            raise AssertionError("phase 31: the worker did not register itself")
+        beats = metrics.CONTROLLER_HEARTBEATS.value()
+        worker.send_heart_beat()
+        if metrics.CONTROLLER_HEARTBEATS.value() != beats + 1:
+            raise AssertionError("phase 31: the controller did not count the heartbeat")
+        bodies = {
+            "greedy": chat_body(SERVE_TEXTS[0], images[0], logprobs=True, top_logprobs=0),
+            "greedy streamed": chat_body(SERVE_TEXTS[1], images[1], logprobs=True,
+                                         top_logprobs=3, stream=True,
+                                         stream_options={"include_usage": True}),
+            "sampled": chat_body(SERVE_TEXTS[2], images[2], temperature=0.8, top_p=0.95,
+                                 logprobs=True, top_logprobs=0),
+            "seeded": chat_body(SERVE_TEXTS[3], images[3], temperature=0.8, seed=SEED_REQ,
+                                logprobs=True, top_logprobs=0),
+        }
+        prompts = {k: openai_api.render_chat_prompt(HD_PRESET, b["messages"])[0]
+                   for k, b in bodies.items()}
+        direct_prompt = openai_api.render_chat_prompt(HD_PRESET, chat_body(
+            "Is there anything unusual in this image?", images[0])["messages"])[0]
+        for text in [*prompts.values(), direct_prompt]:
+            worker.tokenizer(text)  # the word ids are fixed before requests run at once
+
+        # raw logits of every logprob entry, and submit / first-token times,
+        # per batcher request (keyed by its id)
+        rows, timing = {}, {}
+        real_seat, real_submit = batcher._seat, batcher.submit
+
+        def seat(slot, req, logits, true_len):
+            if req.logprobs is not None:
+                rows.setdefault(id(req), []).append(logits[0].float().cpu())
+            return real_seat(slot, req, logits, true_len)
+
+        def lp_rows(logits, toks, n_top):
+            for slot, req in enumerate(batcher.slots):
+                if req is not None and req.logprobs is not None:
+                    rows.setdefault(id(req), []).append(logits[slot].float().cpu())
+            return real_lp_rows(logits, toks, n_top)
+
+        def submit(batch, **kw):
+            on_token, box = kw.pop("on_token"), {}
+
+            def first(tok):
+                box.setdefault("first", time.perf_counter())
+                on_token(tok)
+
+            t = time.perf_counter()
+            fut = real_submit(batch, on_token=first, **kw)
+            timing[id(fut._tp_request)] = (t, box, fut._tp_request)
+            return fut
+
+        batcher._seat, batcher.submit, sched.logprob_rows = seat, submit, lp_rows
+        wire: list = []
+        wire_tee(worker, wire)
+
+        def request_of(chunks):
+            """The batcher request behind a stream: the one whose logprob
+            entries (ids and values) begin with the stream's."""
+            sent = [(e["id"], e["logprob"]) for c in chunks for e in c.get("logprobs", [])]
+            for _, _, r in timing.values():
+                if sent and [(e["id"], e["logprob"]) for e in r.lp_entries[:len(sent)]] == sent:
+                    return r
+            raise AssertionError("phase 31: a stream matches no batcher request")
+
+        scrape0 = metric_values(http_call(wbase + "/metrics")["text"])
+        stats0, prefix0 = dict(batcher.stats), batcher.prefix.stats()
+        GLOBAL_STATS.reset()  # the process's phase timers: this worker's requests alone
+        reset_counts(counters)
+        results = {}
+
+        def call(name):
+            results[name] = http_call(gbase + "/v1/chat/completions", bodies[name],
+                                      stream=bodies[name].get("stream", False))
+
+        threads = [threading.Thread(target=call, args=(k,)) for k in bodies]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        together_s = time.perf_counter() - t0
+        if set(results) != set(bodies):
+            raise AssertionError(f"phase 31: requests without an answer: "
+                                 f"{set(bodies) - set(results)}")
+        stats1 = dict(batcher.stats)
+        first_seeded = results["seeded"]
+        call("seeded")
+        results["seeded again"], results["seeded"] = results["seeded"], first_seeded
+        direct = {"prompt": direct_prompt, "images": [images[0]], "temperature": 0.0,
+                  "max_new_tokens": NEW_TOKENS, "logprobs": 0}
+        direct_frames = [json.loads(f) for f in http_call(
+            wbase + "/worker_generate_stream", direct)["text"].split("\0") if f]
+        web_body = {"model": HD_PRESET, "history": [["user", "What is in the picture?"]],
+                    "image": images[1], "image_process_mode": "Pad", "temperature": 0.0,
+                    "max_new_tokens": NEW_TOKENS}
+        web_frames = [json.loads(f) for f in http_call(
+            webbase + "/chat", web_body)["text"].split("\0") if f]
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+        stats2, prefix2 = dict(batcher.stats), batcher.prefix.stats()
+        scrape1 = metric_values(http_call(wbase + "/metrics")["text"])
+        ctl_scrape = metric_values(http_call(cbase + "/metrics")["text"])
+        status = http_call(wbase + "/worker_get_status", {})["json"]
+
+        # the streams as the worker sent them, by prompt (the seeded one twice)
+        by_prompt: dict = {}
+        for params, chunks in wire:
+            by_prompt.setdefault(params["prompt"], []).append((params, chunks))
+        if len(wire) != 7:
+            raise AssertionError(f"phase 31: the worker streamed {len(wire)} requests, not 7")
+        finals = {}
+        for name, prompt in prompts.items():
+            for k, (params, chunks) in enumerate(by_prompt[prompt]):
+                tag = name if k == 0 else "seeded again"
+                finals[tag] = check_stream(tag, worker, params, chunks, len(wire_ids(chunks)))
+        (dparams, dchunks), = by_prompt[direct_prompt]
+        if dchunks != direct_frames:
+            raise AssertionError("phase 31: the direct request's frames differ from its stream")
+        finals["direct"] = check_stream("direct", worker, dparams, dchunks,
+                                        len(wire_ids(dchunks)))
+        (wparams, wchunks), = [(p, c) for p, c in wire
+                               if p["prompt"] not in prompts.values() and p["prompt"] != direct_prompt]
+        check_stream("web chat", worker, wparams, wchunks)
+        if not web_frames or any(f.get("error_code") or f["text"].startswith(
+                ("error: ", "image error: ")) for f in web_frames):
+            raise AssertionError(f"phase 31: the web server answered {web_frames[-1:]}")
+        logs = sorted(p.name.split("-", 3)[-1] for p in logdir.iterdir())
+        if logs != ["conv.json", "images.json"]:
+            raise AssertionError(f"phase 31: the web server's logs are {logs}")
+
+        # the gateway's answers against the worker's streams
+        for name, res in results.items():
+            if res["status"] != 200:
+                raise AssertionError(f"phase 31 {name}: gateway status {res['status']}")
+            if "events" in res:
+                evs = [e for e in res["events"] if e is not None]
+                usage = [e["usage"] for e in evs if not e["choices"]]
+                finish = [e["choices"][0]["finish_reason"] for e in evs if e["choices"]][-1]
+                content = [x for e in evs if e["choices"]
+                           for x in (e["choices"][0].get("logprobs") or {}).get("content", [])]
+            else:
+                usage = [res["json"]["usage"]]
+                finish = res["json"]["choices"][0]["finish_reason"]
+                content = res["json"]["choices"][0]["logprobs"]["content"]
+            final = finals[name]
+            if usage != [final["usage"]] or finish != final["finish_reason"]:
+                raise AssertionError(f"phase 31 {name}: the gateway's usage {usage} / {finish} "
+                                     f"differ from the worker's {final['usage']}")
+            if len(content) != final["usage"]["completion_tokens"]:
+                raise AssertionError(f"phase 31 {name}: {len(content)} logprob entries")
+
+        # ids against the plain run over the loaded weights; logprob entries
+        # against their raw logits; the seeded runs against each other
+        params_loaded = worker.model.params
+        greedy_agree = {}
+        seeded_runs = []
+        lp_worst = 0.0
+        for name in ("greedy", "greedy streamed", "sampled", "seeded", "seeded again", "direct"):
+            prompt = direct_prompt if name == "direct" else prompts[name.replace(" again", "")]
+            runs_of = by_prompt[prompt]
+            params, chunks = runs_of[1] if name == "seeded again" else runs_of[0]
+            req = request_of(chunks)
+            ids = wire_ids(chunks)
+            entries = [x for c in chunks for x in c.get("logprobs", [])]
+            n_top = {"greedy streamed": 3}.get(name, 0)
+            checked = [{"id": e["id"], "logprob": e["logprob"],
+                        "top": [(t[0], t[2]) for t in e.get("top", [])]} for e in entries]
+            if n_top:
+                lp_worst = max(lp_worst, check_logprob_entries(
+                    f"phase 31 {name}", checked, rows[id(req)][:len(ids)], n_top))
+            else:
+                for e, row in zip(checked, rows[id(req)][:len(ids)]):
+                    lp_worst = max(lp_worst, abs(e["logprob"] - torch.log_softmax(
+                        row, -1)[e["id"]].item()))
+            if name in ("greedy", "greedy streamed", "direct"):
+                batch, _ = worker.plan(params["prompt"], params["images"])
+                ref, margins = plain_reference(params_loaded, cfg, batch, device)
+                greedy_agree[name] = decisive_agree(f"phase 31 {name}", ids, ref[0], margins[0])
+            if name.startswith("seeded"):
+                seeded_runs.append((ids, rows[id(req)][:len(ids)]))
+        if lp_worst > LP_BAND:
+            raise AssertionError(f"phase 31: logprob entries {lp_worst} from their logits")
+        (ids_a, rows_a), (ids_b, rows_b) = seeded_runs
+        seeded_agree = 0
+        for j, (a, b) in enumerate(zip(ids_a, ids_b)):
+            if a != b:
+                margins = [seeded_draw_margin(r[j].to(device), j, a, b, 0.8)
+                           for r in (rows_a, rows_b)]
+                if max(margins) > 2 * LOGIT_BAND / 0.8:
+                    raise AssertionError(f"phase 31: the seeded runs part at token {j} where "
+                                         f"the draws' margins are {margins}")
+                break
+            seeded_agree += 1
+
+        # launches against the steps
+        steps = stats2["decode_steps"] - stats0["decode_steps"]
+        encodes = 7 - (prefix2["prefix_vision_encodes_skipped"]
+                       - prefix0["prefix_vision_encodes_skipped"])
+        want = {"vit_attention": tower_blocks(cfg) * encodes, "vit_block": 0,
+                "flash_attention": 0, "decode_attention": 0, "fused_decode": 0,
+                "fused_verify": 0, "paged_attention": depth * steps}
+        if launches != want or steps == 0:
+            raise AssertionError(f"phase 31 paged worker: launches {launches} != {want}")
+        runs.append(launches)
+
+        # metrics: requests, TTFT and tokens counted
+        generated = (sum(f["usage"]["completion_tokens"] for f in finals.values())
+                     + wchunks[-1]["usage"]["completion_tokens"])
+        dispatches = f'tokenpacker_controller_dispatches_total{{model="{HD_PRESET}"}}'
+        delta = {k: scrape1.get(k, 0.0) - scrape0.get(k, 0.0) for k in (
+            "tokenpacker_worker_requests_total", "tokenpacker_worker_ttft_seconds_count",
+            "tokenpacker_worker_generated_tokens_total", "tokenpacker_worker_errors_total")}
+        delta[dispatches] = ctl_scrape.get(dispatches, 0.0) - scrape0.get(dispatches, 0.0)
+        want_delta = {"tokenpacker_worker_requests_total": 7.0,
+                      "tokenpacker_worker_ttft_seconds_count": 7.0,
+                      "tokenpacker_worker_generated_tokens_total": float(generated),
+                      "tokenpacker_worker_errors_total": 0.0,
+                      dispatches: 6.0}  # the gateway's 5 and the web server's 1
+        if delta != want_delta or ctl_scrape.get("tokenpacker_controller_heartbeats_total",
+                                                 0) < 1:
+            raise AssertionError(f"phase 31: /metrics moved by {delta}, expected {want_delta}")
+
+        # what the clients and the batcher saw
+        sse = results["greedy streamed"]
+        content_times = [t for e, t in zip(sse["events"], sse["times"])
+                         if e and e["choices"] and e["choices"][0].get("logprobs")]
+        stream_req = request_of(by_prompt[prompts["greedy streamed"]][0][1])
+        t_submit, box, _ = timing[id(stream_req)]
+        step_ms = (stats1["decode_s"] - stats0["decode_s"]) / max(
+            stats1["decode_steps"] - stats0["decode_steps"], 1) * 1e3
+        print(f"  {card}: 4 HD requests at once through the gateway in {together_s:.2f} s "
+              f"({steps} paged steps in all, K5 {launches['paged_attention']} launches, K1 "
+              f"{launches['vit_attention']} = {encodes} tower passes); streamed greedy "
+              f"request: TTFT {(sse['times'][0] - sse['sent']) * 1e3:.2f} ms at the SSE client "
+              f"(request sent to the first event) vs {(box['first'] - t_submit) * 1e3:.2f} ms "
+              f"submit-to-first-token on the batcher; "
+              f"{(content_times[-1] - content_times[0]) / max(len(content_times) - 1, 1) * 1e3:.2f}"
+              f" ms a token at the SSE client vs {step_ms:.2f} ms a batcher step (4 requests)")
+        print(f"  {card}: greedy ids equal to the plain run over the loaded weights for "
+              f"{greedy_agree} tokens (the rest past a margin within {LOGIT_BAND}); the seeded "
+              f"request's two runs agree for {seeded_agree} of {len(ids_a)} tokens; logprob "
+              f"entries within {lp_worst:.2e} of their logits; usage and finish_reason right "
+              f"on 7 streams; /metrics moved by {delta}; web chat logged {logs}")
+        print(f"  {card}: paged worker phase_timings {json.dumps(status['phase_timings'])}")
+
+        batcher._seat, batcher.submit = real_seat, real_submit
+        worker.drain(timeout=60)
+        if http_call(cbase + "/list_models", {})["json"]["models"] != []:
+            raise AssertionError("phase 31: the drained worker is still registered")
+        stop_http(wserver)
+        servers.remove(wserver)
+        del worker, batcher, rows, timing, wire, by_prompt, seat, lp_rows, submit
+        del request_of, params_loaded, stream_req, wserver
+        sched.logprob_rows = real_lp_rows
+        release_earlier_phases()
+
+        # -- the direct worker, with speculation -------------------------------
+        wport = free_port()
+        with api_stand_ins():
+            worker = model_worker.ModelWorker(
+                cbase, f"http://localhost:{wport}", str(model_dir), load_8bit=True,
+                scheduler="none", speculative_k=SPEC_K, kv_cache_dtype=torch.int8, warmup=True)
+        print(f"phase 31: {card}; direct worker (scheduler none, speculative_k {SPEC_K}): load "
+              f"{worker.load_s:.2f} s, warm-up {worker.warmup_s:.2f} s")
+        wbase, wserver = serve_http(model_worker.make_handler(worker), wport)
+        servers.append(wserver)
+        gen = worker.model.generator
+        streamed_toks, lp_rows_direct = {}, []
+        real_text = gen._stream_text
+
+        def stream_text(toks, stop_strings):
+            streamed_toks["last"] = list(toks)
+            return real_text(toks, stop_strings)
+
+        def entry(logits_row, tok, n_top):
+            lp_rows_direct.append(logits_row.float().cpu())
+            return real_entry(logits_row, tok, n_top)
+
+        gen._stream_text, gen_mod.token_logprob_entry = stream_text, entry
+        wire = []
+        wire_tee(worker, wire)
+        stream0 = dict(gen.stream_stats)
+        GLOBAL_STATS.reset()
+        reset_counts(counters)
+        greedy = http_call(gbase + "/v1/chat/completions", chat_body(SERVE_TEXTS[0], images[0]))
+        greedy_ids = streamed_toks["last"]
+        sampled = http_call(gbase + "/v1/chat/completions", chat_body(
+            SERVE_TEXTS[2], images[2], temperature=0.8, top_p=0.95, logprobs=True,
+            top_logprobs=3))
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+        stream1 = dict(gen.stream_stats)
+        d = {k: stream1[k] - stream0[k] for k in stream0}
+        want = {"vit_attention": tower_blocks(worker.cfg) * d["prefills"], "vit_block": 0,
+                "flash_attention": depth * d["prefills"], "decode_attention": 0,
+                "fused_decode": d["decode_steps"], "fused_verify": d["verify_rounds"],
+                "paged_attention": 0}
+        if (launches != want or d["prefills"] != 2 or not d["decode_steps"]
+                or not d["verify_rounds"]):
+            raise AssertionError(f"phase 31 direct worker: launches {launches} != {want} "
+                                 f"(streams {d})")
+        runs.append(launches)
+        if len(wire) != 2:
+            raise AssertionError(f"phase 31: the direct worker streamed {len(wire)} requests")
+        (gparams, gchunks), (sparams, schunks) = wire
+        final_g = check_stream("direct greedy", worker, gparams, gchunks, len(greedy_ids))
+        final_s = check_stream("direct sampled", worker, sparams, schunks,
+                               len(wire_ids(schunks)))
+        for res, final in ((greedy, final_g), (sampled, final_s)):
+            if res["status"] != 200 or res["json"]["usage"] != final["usage"]:
+                raise AssertionError(f"phase 31: the gateway's usage {res['json'].get('usage')}"
+                                     f" differs from the worker's {final['usage']}")
+        s_entries = [{"id": e["id"], "logprob": e["logprob"],
+                      "top": [(t[0], t[2]) for t in e["top"]]}
+                     for c in schunks for e in c.get("logprobs", [])]
+        lp_direct = check_logprob_entries("phase 31 direct sampled", s_entries,
+                                          lp_rows_direct[:len(s_entries)], 3)
+        batch, _ = worker.plan(gparams["prompt"], gparams["images"])
+        ref, margins = plain_reference(worker.model.params, worker.cfg, batch, device)
+        agree = decisive_agree("phase 31 direct greedy", greedy_ids, ref[0], margins[0])
+        print(f"  {card}: greedy (speculative: {d['verify_rounds']} verify rounds, "
+              f"{d['decode_steps']} plain steps in both streams) ids equal to the plain run for "
+              f"{agree} of {len(greedy_ids)} tokens; sampled logprob entries within "
+              f"{lp_direct:.2e}; launches {launches}; phase_timings "
+              f"{json.dumps(worker.get_status()['phase_timings'])}")
+        gen._stream_text = real_text
+        gen_mod.token_logprob_entry = real_entry
+        worker.drain(timeout=60)
+        del worker, gen, stream_text, entry
+    finally:
+        sched.logprob_rows, gen_mod.token_logprob_entry = real_lp_rows, real_entry
+        web_server.LOGDIR = real_logdir
+        for server in servers:
+            stop_http(server)
+        ctl.stop()
+        shutil.rmtree(logdir, ignore_errors=True)
+        release_earlier_phases()
+    return {k: sum(r.get(k, 0) for r in runs) for k in counters}
+
+
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible; this check runs only on a GPU")
@@ -5813,6 +6405,17 @@ def main() -> None:
     if "--sampling" in sys.argv[1:]:
         hd_batch, _ = make_hd_requests(preset_config(HD_PRESET), SEED)
         runs = phase_sampling(device, SEED, hd_batch, card.splitlines()[0] if card else "")
+        print(json.dumps({"launches": {name: sum(r.get(name, 0) for r in runs)
+                                       for name in sampling_counters()}}))
+        return
+    if "--serving" in sys.argv[1:]:
+        ckpt = write_phase28_checkpoint(device, SEED)
+        ckpt["params"] = None
+        try:
+            runs = [phase_serving(device, SEED, ckpt["path"], card.splitlines()[0] if card
+                                  else "")]
+        finally:
+            shutil.rmtree(ckpt["root"], ignore_errors=True)
         print(json.dumps({"launches": {name: sum(r.get(name, 0) for r in runs)
                                        for name in sampling_counters()}}))
         return
@@ -5912,7 +6515,7 @@ def main() -> None:
                           for name, row in rows.items()}))
         return
     # K2's full-bias form and the probes: no serving or training path
-    # reaches them; counted over all of the main-path phases 4-23 and 25-30
+    # reaches them; counted over all of the main-path phases 4-23 and 25-31
     unreached = probe_counters()
     reset_counts(unreached)
     runs = [phase_end_to_end(device, SEED)]
@@ -5936,9 +6539,15 @@ def main() -> None:
     runs.append(phase_mpt_train(device, SEED))
     phase_mpt_train_parity(device, SEED)
     runs += phase_sampling(device, SEED, hd_batch, card.splitlines()[0] if card else "")
-    runs.append(phase_checkpoint_load(device, SEED, hd_batch, hd_blocks))
-    runs.append(phase_checkpoint_layouts(device, SEED))
-    runs.append(phase_mpt_quantized(device, SEED))
+    ckpt = write_phase28_checkpoint(device, SEED)  # phases 28 and 31 read it
+    try:
+        runs.append(phase_checkpoint_load(device, SEED, hd_batch, hd_blocks, ckpt))
+        runs.append(phase_checkpoint_layouts(device, SEED))
+        runs.append(phase_mpt_quantized(device, SEED))
+        runs.append(phase_serving(device, SEED, ckpt["path"], card.splitlines()[0] if card
+                                  else ""))
+    finally:
+        shutil.rmtree(ckpt["root"], ignore_errors=True)
     counts = read_counts(unreached)
     counts["bitcast_pack"] += counts.pop("bitcast_unpack")
     runs.append(counts)
@@ -5992,12 +6601,13 @@ def main() -> None:
     }
     kernels = []
     for name, (source, replaces) in meta.items():
-        # launches: summed over the seventeen main-path runs (phases 4, 6,
-        # 8, 10, 12, 14, 16, 18, 20 and 22, phase 25's sampled Generator,
-        # phase 26's two batchers, phase 27's beams, phase 28's two loaded
-        # models, phase 29's chat and phase 30's nf4 MPT), each counted
-        # from 0 just before its run and read just after; the six that no
-        # path reaches over phases 4-23 and 25-30 as a whole (0)
+        # launches: summed over the main-path runs (phases 4, 6, 8, 10,
+        # 12, 14, 16, 18, 20 and 22, phase 25's sampled Generator, phase
+        # 26's two batchers, phase 27's beams, phase 28's two loaded
+        # models, phase 29's chat, phase 30's nf4 MPT and phase 31's two
+        # HTTP workers), each counted from 0 just before its run and read
+        # just after; the six that no path reaches over phases 4-23 and
+        # 25-31 as a whole (0)
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(r.get(name, 0) for r in runs), **rows[name]})
     print(json.dumps({"kernels": kernels}))

@@ -68,6 +68,8 @@ full-bias rows below -1e30 on either side of the tiles' edges (o = 0,
 lse = +inf: ROADMAP R9, accepted for the port).
 """
 
+import json
+
 import pytest
 import torch
 
@@ -1901,3 +1903,100 @@ def test_beam_reorder_moves_int8_scales_on_the_card(cuda):
         a = getattr(cache, name)
         assert torch.equal(a[:, :, :32], old[:, :, :32]) and torch.equal(a[:, :, 48:], old[:, :, 48:])
         assert torch.equal(a[:, :, 32:48], old[:, idx, 32:48])
+
+
+class _WordTokenizer:
+    """BOS, then one id a word from 100 up in order of first sight; decode
+    writes "<id>" for every id, so texts compare ids."""
+
+    bos_token_id, pad_token_id = 1, 0
+
+    def __init__(self):
+        self.vocab = {}
+
+    def convert_tokens_to_ids(self, token):
+        return self.vocab.setdefault(token, 100 + len(self.vocab))
+
+    def __call__(self, text):
+        from types import SimpleNamespace
+
+        return SimpleNamespace(input_ids=[1] + [self.convert_tokens_to_ids(w)
+                                                for w in text.replace("\n", " \n ").split(" ")
+                                                if w])
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(f"<{int(i)}>" for i in ids)
+
+
+@pytest.mark.cuda
+def test_paged_worker_on_the_card_matches_generator(cuda):
+    """The HTTP worker's paged scheduler on the card at tiny geometry (the
+    tower's heads of 64, the LM's of 128, an int8 pool): a greedy request
+    with an image streams through K1 and K5 (their counters move), and its
+    ids, read from its logprob entries, equal those of a `Generator` over
+    the same weights wherever the Generator's top-2 margin exceeds 0.1
+    (bf16 roundings differ between K5 and the dense decode attention)."""
+    import base64
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from tokenpacker_tpu_torch.config import VisionConfig, tiny_vlm_config
+    from tokenpacker_tpu_torch.generate import Generator
+    from tokenpacker_tpu_torch.io.weights import init_vlm_on_device
+    from tokenpacker_tpu_torch.serve.model_worker import ModelWorker
+
+    vc = VisionConfig(hidden_size=128, intermediate_size=256, num_hidden_layers=4,
+                      num_attention_heads=2, image_size=112, patch_size=14,
+                      multi_layers=(1, 2, 3, 4))
+    lc = LMConfig(vocab_size=512, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                  num_attention_heads=2, num_key_value_heads=2, max_position_embeddings=1024)
+    cfg = tiny_vlm_config(vision=vc, lm=lc, dtype=torch.bfloat16)
+    params = init_vlm_on_device(cfg, seed=3, device=cuda, dtype=torch.bfloat16)
+    tok = _WordTokenizer()
+    worker = ModelWorker.from_params(params, cfg, tok, "tiny", 1024, scheduler="paged",
+                                     scheduler_slots=2, scheduler_max_len=256,
+                                     kv_cache_dtype=torch.int8, warmup=True)
+    try:
+        buf = io.BytesIO()
+        Image.fromarray(np.random.default_rng(0).integers(0, 256, (90, 120, 3), np.uint8)).save(
+            buf, format="PNG")
+        payload = {"prompt": "USER: <image>\nwhat is in the picture ASSISTANT:",
+                   "images": [base64.b64encode(buf.getvalue()).decode()],
+                   "temperature": 0.0, "max_new_tokens": 12, "logprobs": 0}
+        k1, k5 = vit_attention.launches, paged_attention.launches
+        chunks = [json.loads(c[:-1]) for c in worker.generate_stream(dict(payload))]
+        assert all(c["error_code"] == 0 for c in chunks)
+        assert vit_attention.launches > k1 and paged_attention.launches > k5
+        ids = [e["id"] for c in chunks for e in c.get("logprobs", [])]
+        batch, spliced = worker.plan(payload["prompt"], payload["images"])
+        assert chunks[-1]["usage"]["prompt_tokens"] == spliced
+        ref = Generator(params, cfg, tok, kv_cache_dtype=torch.int8)
+        entries = [e for _, e in ref.generate_stream(batch, max_new_tokens=12, logprobs=2)]
+        want = [e["id"] for e in entries]
+        assert len(ids) > 1
+        for j, (a, b) in enumerate(zip(ids, want)):
+            if a != b:
+                (_, lp0), (_, lp1) = entries[j]["top"]
+                assert lp0 - lp1 <= 0.1, (j, ids, want)
+                break
+    finally:
+        worker.batcher.stop()
+
+
+@pytest.mark.cuda
+def test_worker_without_a_card_raises(cuda, tmp_path):
+    """With no card visible, a worker made for the card raises: it never
+    loads onto the CPU instead."""
+    import os
+    import subprocess
+    import sys
+
+    code = ("from tokenpacker_tpu_torch.serve.model_worker import ModelWorker\n"
+            f"ModelWorker('http://localhost:1', 'http://localhost:2', {str(tmp_path)!r}, "
+            "no_register=True, warmup=False)\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         timeout=300, cwd=os.path.dirname(os.path.dirname(__file__)))
+    assert out.returncode != 0 and "no CUDA device" in out.stderr

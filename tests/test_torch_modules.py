@@ -371,7 +371,7 @@ def test_constants_equal_jax():
     from tokenpacker_tpu_torch import constants
 
     names = [n for n in vars(constants) if n.isupper()]
-    assert len(names) == 10
+    assert len(names) == 13  # the model constants and the serving ones
     for name in names:
         assert getattr(constants, name) == getattr(jax_constants, name), name
 

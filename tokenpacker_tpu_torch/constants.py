@@ -1,5 +1,14 @@
-"""Model constants of the port (the values of `tokenpacker_tpu/constants.py`
+"""Constants of the port (the values of `tokenpacker_tpu/constants.py`
 that the serving and training paths use; a test holds them equal)."""
+
+import os as _os
+
+# serving: the controller drops a worker whose last heartbeat is older than
+# the expiration; workers beat every interval (reference llava/constants.py:1-2)
+CONTROLLER_HEART_BEAT_EXPIRATION = 30
+WORKER_HEART_BEAT_INTERVAL = 15
+
+LOGDIR = _os.environ.get("LOGDIR", ".")  # the web UI's conversation and vote logs
 
 IGNORE_INDEX = -100
 IMAGE_TOKEN_INDEX = -200

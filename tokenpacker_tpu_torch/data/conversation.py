@@ -6,14 +6,19 @@ The template registry and the rendered prompt strings of the reference
 are part of the released checkpoints' training distribution. This copy
 holds what training's `preprocess` needs (`SeparatorStyle`,
 `Conversation` with `get_prompt` / `append_message` / `copy`, every
-template of `conv_templates`); the image and base64 helpers of the web UI
-come with the serving front ends.
+template of `conv_templates`) and what the serving front ends use: the
+image process modes (`_resized_image`: Pad / Resize / Crop / Default and
+the size clamp), `get_images`, `to_gradio_chatbot` and `dict`, whose
+outputs are byte-equal to the JAX package's.
 """
 
 from __future__ import annotations
 
+import base64
 import dataclasses
 from enum import Enum, auto
+from io import BytesIO
+from typing import Any
 
 
 class SeparatorStyle(Enum):
@@ -128,6 +133,64 @@ class Conversation:
     def append_message(self, role, message) -> None:
         self.messages.append([role, message])
 
+    def _resized_image(self, image, image_process_mode):
+        from PIL import Image as PILImage
+
+        if image_process_mode == "Pad":
+            w, h = image.size
+            if w != h:
+                side = max(w, h)
+                sq = PILImage.new(image.mode, (side, side), (122, 116, 104))
+                sq.paste(image, ((side - w) // 2, (side - h) // 2))
+                image = sq
+        elif image_process_mode == "Resize":
+            image = image.resize((336, 336))
+        elif image_process_mode not in ("Default", "Crop"):
+            raise ValueError(f"Invalid image_process_mode: {image_process_mode}")
+        max_hw, min_hw = max(image.size), min(image.size)
+        aspect = max_hw / min_hw
+        shortest = int(min(800 / aspect, 400, min_hw))
+        longest = int(shortest * aspect)
+        w, h = image.size
+        if longest != max(image.size):
+            if h > w:
+                image = image.resize((shortest, longest))
+            else:
+                image = image.resize((longest, shortest))
+        return image
+
+    def get_images(self, return_pil: bool = False) -> list:
+        images = []
+        for i, (_, msg) in enumerate(self.messages[self.offset :]):
+            if i % 2 == 0 and isinstance(msg, tuple):
+                _, image, mode = msg
+                image = self._resized_image(image, mode)
+                if return_pil:
+                    images.append(image)
+                else:
+                    buf = BytesIO()
+                    image.save(buf, format="PNG")
+                    images.append(base64.b64encode(buf.getvalue()).decode())
+        return images
+
+    def to_gradio_chatbot(self) -> list:
+        ret: list[list[Any]] = []
+        for i, (_, msg) in enumerate(self.messages[self.offset :]):
+            if i % 2 == 0:
+                if isinstance(msg, tuple):
+                    text, image, _ = msg
+                    image = self._resized_image(image, "Default")
+                    buf = BytesIO()
+                    image.save(buf, format="JPEG")
+                    b64 = base64.b64encode(buf.getvalue()).decode()
+                    img_tag = f'<img src="data:image/png;base64,{b64}" alt="user upload image" />'
+                    ret.append([img_tag + text.replace("<image>", "").strip(), None])
+                else:
+                    ret.append([msg, None])
+            else:
+                ret[-1][-1] = msg
+        return ret
+
     def copy(self) -> "Conversation":
         return Conversation(
             system=self.system,
@@ -139,6 +202,21 @@ class Conversation:
             sep2=self.sep2,
             version=self.version,
         )
+
+    def dict(self) -> dict:
+        messages = (
+            [[r, m[0] if isinstance(m, tuple) else m] for r, m in self.messages]
+            if self.get_images()
+            else self.messages
+        )
+        return {
+            "system": self.system,
+            "roles": self.roles,
+            "messages": messages,
+            "offset": self.offset,
+            "sep": self.sep,
+            "sep2": self.sep2,
+        }
 
 
 _V0_SYSTEM = (

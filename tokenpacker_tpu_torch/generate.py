@@ -55,7 +55,10 @@ token-history penalties (`apply_penalties`) run before the filters and
 apply to greedy decoding too; logprob entries (`token_logprob_entry`)
 read the raw logits. Everything stays on the logits' device: the host
 syncs once per `check_every` chunk, as greedy decoding does. Beams run
-in `beam.py`.
+in `beam.py`. `Generator.generate_stream(seed=)` draws a seeded
+request's tokens by the same rule as the batchers (the HTTP worker's
+direct path), and `Generator.warmup` runs the kernels' build and one
+prefill and decode step when a server starts.
 """
 
 from __future__ import annotations
@@ -519,6 +522,9 @@ class Generator:
         self.vit_block = vit_block
         self.device = embedding_table(params["lm"]).device
         self.fused = fused_weights(params, cfg)
+        # generate_stream's work, summed over its calls (host counts): the
+        # prefills, the plain decode steps and the speculative verify rounds
+        self.stream_stats = {"prefills": 0, "decode_steps": 0, "verify_rounds": 0}
 
     def _prefill(self, batch: dict, s_max: int):
         dev = device_batch(batch, self.cfg.dtype, self.device)
@@ -528,24 +534,25 @@ class Generator:
 
     def _sampler(self, batch: dict, generator, temperature, top_p, top_k, min_p,
                  repetition_penalty, presence_penalty, frequency_penalty):
-        """logits [n, V] -> next tokens [n], on the device: the penalties
-        over the prompt and the tokens drawn so far (their counts stay on
-        the device), then `sample_tokens`. generator None: a fresh one
-        seeded 0 (JAX's PRNGKey(0)), so two calls give the same tokens."""
+        """logits [n, V] (and the keys of `seed_keys`, or None) -> next
+        tokens [n], on the device: the penalties over the prompt and the
+        tokens drawn so far (their counts stay on the device), then
+        `sample_tokens`. generator None: a fresh one seeded 0 (JAX's
+        PRNGKey(0)), so two calls give the same tokens."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         if repetition_penalty == 1.0 and presence_penalty == 0.0 and frequency_penalty == 0.0:
-            return lambda logits: sample_tokens(logits, temperature, top_p, top_k, min_p,
-                                                generator)
+            return lambda logits, keys=None: sample_tokens(logits, temperature, top_p, top_k,
+                                                           min_p, generator, keys)
         n, vocab = batch["token_ids"].shape[0], self.cfg.lm.vocab_size
         presence = torch.as_tensor(prompt_presence_mask(batch, vocab), device=self.device)
         counts = torch.zeros((n, vocab), dtype=torch.int32, device=self.device)
         ones = torch.ones((n, 1), dtype=torch.int32, device=self.device)
 
-        def sample(logits):
+        def sample(logits, keys=None):
             logits = apply_penalties(logits, counts, presence, repetition_penalty,
                                      presence_penalty, frequency_penalty)
-            tok = sample_tokens(logits, temperature, top_p, top_k, min_p, generator)
+            tok = sample_tokens(logits, temperature, top_p, top_k, min_p, generator, keys)
             counts.scatter_add_(1, tok[:, None], ones)
             return tok
 
@@ -733,6 +740,7 @@ class Generator:
         presence_penalty: float = 0.0,
         frequency_penalty: float = 0.0,
         logprobs: int | None = None,
+        seed: int | None = None,
     ):
         """Streaming of one request (batch 1): yields the decoded text so
         far after every token, or (text, entry) with `logprobs` set, the
@@ -741,7 +749,10 @@ class Generator:
         (its token is not shown) and a stop string cuts the text and ends
         it. speculative: greedy prompt-lookup speculation, accepted drafts
         arriving as a burst; ignored when sampling, penalized or with
-        logprobs, as in the JAX engine. Needs a tokenizer."""
+        logprobs, as in the JAX engine. seed: the OpenAI `seed`; token k
+        of a sampled stream then draws with `seed_keys(seed, k)` and
+        `seeded_uniform`, the rule of both batchers, whatever `generator`
+        is (None: noise from `generator`). Needs a tokenizer."""
         n, l = batch["token_ids"].shape
         if n != 1:
             raise ValueError(f"streaming is per request (batch 1), got a batch of {n}")
@@ -752,12 +763,16 @@ class Generator:
             yield from self._stream_speculative(batch, max_new_tokens, stop_strings, speculative)
             return
         dev, logits, cache = self._prefill(batch, l + max_new_tokens)
+        self.stream_stats["prefills"] += 1
         sample = self._sampler(batch, generator, temperature, top_p, top_k, min_p,
                                repetition_penalty, presence_penalty, frequency_penalty)
         eos = self.cfg.lm.eos_token_id
         toks: list[int] = []
         for step in range(max_new_tokens):
-            tok_t = sample(logits)
+            keys = None
+            if seed is not None and temperature > 0.0:
+                keys = torch.as_tensor(seed_keys([seed], [step]), device=self.device)
+            tok_t = sample(logits, keys)
             tok = int(tok_t[0])
             if tok == eos:
                 break
@@ -769,6 +784,7 @@ class Generator:
                 break
             logits, cache = decode_step(self.params, self.cfg, cache, tok_t, dev["lengths"], step,
                                         l, self.fused, self.w8a8)
+            self.stream_stats["decode_steps"] += 1
 
     def _stream_speculative(self, batch, max_new_tokens: int, stop_strings, k: int):
         """Greedy streaming by host-side prompt-lookup drafts and one verify
@@ -778,6 +794,7 @@ class Generator:
 
         l = batch["token_ids"].shape[1]
         dev, logits, cache = self._prefill(batch, l + max_new_tokens + k + 1)
+        self.stream_stats["prefills"] += 1
         lengths = dev["lengths"]
         eos = self.cfg.lm.eos_token_id
         true_len = int(batch["lengths"][0])
@@ -800,6 +817,7 @@ class Generator:
                 logits, cache = decode_step(
                     self.params, self.cfg, cache, torch.tensor([last], device=self.device),
                     lengths, step, l, self.fused, self.w8a8)
+                self.stream_stats["decode_steps"] += 1
                 burst = [int(logits[0].argmax())]
             else:
                 fed = np.full((1, k + 1), -1, np.int64)
@@ -808,6 +826,7 @@ class Generator:
                 logits, cache = verify_step(self.params, self.cfg, cache,
                                             torch.as_tensor(fed, device=self.device), lengths,
                                             step, l, self.fused, self.w8a8)
+                self.stream_stats["verify_rounds"] += 1
                 burst = accept_greedy(logits[0].argmax(-1).cpu().numpy(), draft, len(draft), eos)
                 zero_streak = zero_streak + 1 if len(burst) == 1 else 0
                 if zero_streak >= 4:
@@ -825,3 +844,41 @@ class Generator:
                 if stopped:
                     return
             last = burst[-1]
+
+    @torch.no_grad()
+    def warmup(self, buckets=(256, 512), batch_sizes=(1,), max_new_tokens: int = 128,
+               n_crops: int = 1, speculative: int = 0):
+        """What the first request would pay once, paid at start-up (the
+        counterpart of the JAX engine's `warmup`, which compiles its
+        executables): on the card, the kernels' build (`ops/_build.library()`);
+        then one prefill of `n_crops` views and one decode step at each
+        bucket length and batch size, and with `speculative` = k > 0 a
+        verify step of k + 1 tokens at batch 1, so that cuBLAS, the
+        allocator and every kernel of the streaming path have run once."""
+        if self.device.type == "cuda":
+            from tokenpacker_tpu_torch.ops import _build
+
+            _build.library()
+        cfg = self.cfg
+        size = cfg.vision.image_size
+        for l in buckets:
+            for n in batch_sizes:
+                token_ids = np.zeros((n, l), np.int64)
+                token_ids[:, 0] = cfg.lm.bos_token_id
+                batch = {"token_ids": token_ids, "is_image": np.zeros((n, l), bool),
+                         "image_slot": np.zeros((n, l), np.int64),
+                         "lengths": np.full((n,), 2, np.int32),
+                         "images": np.zeros((n_crops, size, size, 3), np.float32)}
+                s_max = l + max_new_tokens + (speculative + 1 if speculative > 0 else 0)
+                dev, logits, cache = self._prefill(batch, s_max)
+                tok = logits.argmax(dim=-1)
+                logits, cache = decode_step(self.params, cfg, cache, tok, dev["lengths"], 0, l,
+                                            self.fused, self.w8a8)
+                if speculative > 0 and n == 1:
+                    from tokenpacker_tpu_torch.speculative import verify_step
+
+                    fed = torch.zeros((1, speculative + 1), dtype=torch.int64, device=self.device)
+                    verify_step(self.params, cfg, cache, fed, dev["lengths"], 1, l, self.fused,
+                                self.w8a8)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
