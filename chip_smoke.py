@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py              # the smoke run, phases 1-31 (25-31 before 24)
+    python3 chip_smoke.py              # the smoke run, phases 1-33 (25-33 before 24)
     python3 chip_smoke.py --profile    # phases 1-2, then the profile below
     python3 chip_smoke.py --profile-train  # phases 1-2, then a traced training step
     python3 chip_smoke.py --profile-paged  # phases 1-2, then traced paged decode steps
@@ -16,6 +16,8 @@
     python3 chip_smoke.py --sampling       # phases 1-2, then 25-27
     python3 chip_smoke.py --checkpoints    # phases 1-2, K6 and K7 at MPT-7B's up/down, 28-30
     python3 chip_smoke.py --serving        # phases 1-2, phase 28's checkpoint write, 31
+    python3 chip_smoke.py --lora-train     # phases 1-2, K1 and K2 (training shape) of phase 3,
+                                           # phase 28's checkpoint write, 32-33
 
 Phases, one result line each or more (every failure raises, so any
 failure exits non-zero and prints no final line):
@@ -246,7 +248,25 @@ failure exits non-zero and prints no final line):
      within the band, logprob entries within 1e-3 of their raw logits,
      /metrics, the web server's logs, and K1, K2, K4, K4-verify and K5
      counted against the steps; TTFT and ms a token at the client beside
-     the batcher's, the loads' seconds and the phase timings printed.
+     the batcher's, the loads' seconds and the phase timings printed;
+ 32. configuration Q, QLoRA of TokenPacker-HD-7b from phase 28's directory
+     through `python -m tokenpacker_tpu_torch.train.train`'s `main`
+     (LLaVA's finetune_qlora.sh: --bits 4 --lora-enable, rank 128, alpha
+     256, lr 2e-4, mm_projector_lr 2e-5; slice mode, 9 patches, remat
+     full), 3 steps of 8 HD caption records padded to 2048, then 2 with
+     --bits 8: step ms, tok/s, peak GiB; K1, K2-fwd and K2-bwd against the
+     expected counts; the quantized base and the tower bitwise unchanged;
+     every B zero after step 1 (lr 0) and non-zero after the last; the
+     reference files with every target's keys. The nf4 run's checkpoint
+     then loads through `load_pretrained_model(ckpt, model_base=...,
+     load_8bit=True)` (its int8 codes within one step of the card's own
+     merge; greedy decoding, K4) and is served over the load_8bit base
+     through `load_adapter` and the dense batcher (K4-LoRA); first-step
+     logits of both against plain bf16 runs of the weights they stand for
+     (QLORA_DEEP_BAND, which the served run without its term must fail);
+ 33. full widths, 2 LM layers: one LoRA step over an nf4 base, card bf16
+     vs CPU fp32 (phase 9's bands, the adapters at the LM's), failing K2's
+     backward without dq, or dk and dv.
 Phase 3 also holds K2's full-bias form (no serving or training path
 reaches it) at MPT-7B's prefix-LM attention, [4, 2048, 32, 128], not
 causal: the prefix-LM mask with B's prompt lengths plus ALiBi as a [4, 32,
@@ -254,7 +274,7 @@ causal: the prefix-LM mask with B's prompt lengths plus ALiBi as a [4, 32,
 with rows below -1e30 (o = 0, lse = +inf), each failing the plain version
 with the bias's last key tile dropped; SDPA with the bias as a bf16 mask is
 its library column. The six kernels no path reaches (K2 full-bias and the
-probes' five) are counted over phases 4-23 and 25-31: 0.
+probes' five) are counted over phases 4-23 and 25-32: 0.
 Phase 3 also holds K9 at [8, 577, 1024] and [26, 577, 1024] by its
 block's update out - x per (image, 64 rows, 128-wide slice), failing the
 plain block that lost its last 64 keys or its MLP's last 128 units, with
@@ -304,7 +324,12 @@ each printing their kernel rows, and `--tower` K1's and K9's rows of
 phase 3 (with the 23-block tower fused and per op) and phases 4-5, 8-9
 and 16-17 (A, C and G, the paths that launch K1 and K9), and
 `--checkpoints` K6's and K7's rows at MPT-7B's up and down and phases
-28-30. None prints the final "ok" line; nor do `--sampling` (phases
+28-30, and `--lora-train` K1's row and K2's training-shape rows of phase
+3, phase 28's checkpoint write and phases 32-33 (configuration Q: QLoRA
+of TokenPacker-HD-7b from that checkpoint through the training CLI, nf4
+then int8, the round trip of its adapter through `load_pretrained_model`
+and `load_adapter`; then the card-vs-CPU LoRA step at 2 layers). None
+prints the final "ok" line; nor do `--sampling` (phases
 25-27, no phase 3) and `--serving` (phase 28's write and phase 31),
 which print their launch counts. Every K1, K2 and K9 row of phase 3 also prints its
 achieved TFLOP/s (the operations its bound counts over the kernel's
@@ -424,6 +449,29 @@ ZERO_GRAD_LEAVES = ("projector.attn.k.bias", "projector.ln_k.bias")
 # the share keeps its own size; no band changes.
 SMALL_LEAF_SHARE = 1e-3
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_RECORDS = 2048, 8, 24
+# phases 32-33 (configuration Q): LLaVA's scripts/v1_5/finetune_qlora.sh,
+# --bits 4 --lora_r 128 --lora_alpha 256 --learning_rate 2e-4
+# --mm_projector_lr 2e-5 --weight_decay 0.; 3 steps over the nf4 LM, then
+# 2 over the int8 one
+QLORA_RANK, QLORA_ALPHA, QLORA_LR, QLORA_PROJECTOR_LR = 128, 256, 2e-4, 2e-5
+QLORA_STEPS = {"4": 3, "8": 2}
+# phase 33's b: entries of this size, so that a's gradient is not 0 (b = 0
+# at init) and the adapters' term moves the hidden state as a trained one
+QLORA_B_SCALE = 0.01
+# phase 32's round trip: first-step logits (the prefill's and one decode
+# step's) of the trained adapter, served over the load_8bit base
+# (`load_adapter`, K4-LoRA) and merged into a load_8bit checkpoint (K4),
+# each against a plain bf16 run of the weights it holds (the int8 base
+# dequantized plus the delta; the merged int8 weights dequantized). At 32
+# layers a plain bf16 run of dequantized int8 weights and the int8
+# products (x @ q, then the scale) read 0.19 apart at the prefill with no
+# adapter at all (H100 80GB HBM3, 700 W), where LOGIT_BAND (0.1) was set
+# for 2 layers; that spread is printed beside each reading. The band must
+# fail the served run with the adapter's term dropped (8.9-9.5 there). The merge itself is held by its int8 codes, equal to
+# `quantize_lm_int8` of the card's own merge within one step, and its
+# projector, bit-equal to the trained one; the merged run against the
+# bf16 W + delta before the int8 rounding is printed, not held.
+QLORA_DEEP_BAND = 0.5
 SEED = 0  # random weights, images and token ids
 HD_PRESET = "tokenpacker-hd-7b-9patch-144token"
 # stand-ins for the Vicuna (LLaMA SentencePiece) ids of "," and "\n",
@@ -750,6 +798,10 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
         return rows
     if only == "flash":
         rows.update(k2_kernel_rows(device, case, first_and_worst))
+        return rows
+    if only == "lora-train":  # the kernels configuration Q launches: K1, K2 at the training shape
+        rows.update(k1_kernel_rows(device, case, first_and_worst))
+        rows.update(phase_kernels_training_shape(device, case))
         return rows
     if only == "tower":
         rows.update(k1_kernel_rows(device, case, first_and_worst))
@@ -1656,7 +1708,7 @@ def fingerprints(tree) -> list[int]:
 
     out = []
     for _, t in leaves_with_paths(tree):
-        bits = t.detach().reshape(-1).view(torch.int16).to(torch.int64)
+        bits = t.detach().reshape(-1).view(torch.uint8).to(torch.int64)
         weights = torch.arange(1, bits.numel() + 1, device=bits.device, dtype=torch.int64)
         out.append(int((bits * weights).sum()))
     return out
@@ -1767,7 +1819,7 @@ def phase_train_parity(device, seed: int) -> None:
 
 
 def stage2_parity(tag: str, cfg, device, seed: int, lossy: tuple, bwd_counter: tuple,
-                  attn_pattern: str, n_attn: int) -> None:
+                  attn_pattern: str, n_attn: int, qlora: bool = False) -> None:
     """One stage-2 step of `cfg` (2 LM layers) on the card and on the CPU
     from the same weights and batch: the loss within LOSS_BAND and every
     trained leaf's gradient within its group's band; the card's step with
@@ -1775,14 +1827,38 @@ def stage2_parity(tag: str, cfg, device, seed: int, lossy: tuple, bwd_counter: t
     must fail the bands. `bwd_counter`: the (wrapper, attribute) that
     counts the card step's K2 backward launches, one a layer;
     `attn_pattern`: the attention projections' leaf names (n_attn of
-    them), printed one by one."""
+    them), printed one by one. `qlora`: a LoRA step instead, over the LM
+    quantized to nf4 (`quantize_tree_4bit`, unfused) with QLORA_RANK
+    adapters (b drawn at QLORA_B_SCALE, so that a's gradient is not 0;
+    bf16 on both sides, the CPU computing in fp32), the adapters' leaves
+    named `lm.layers.i.<group>.<name>.<a|b>` and held at the LM's band,
+    the projector at its own."""
     from tokenpacker_tpu_torch.data.dataset import SupervisedDataset, collate
     from tokenpacker_tpu_torch.io.weights import init_vlm_on_device, params_to
     from tokenpacker_tpu_torch.models.vlm import vlm_loss
+    from tokenpacker_tpu_torch.ops.quantize import quantize_tree_4bit
+    from tokenpacker_tpu_torch.train.lora import (
+        LoraConfig,
+        init_lora,
+        lora_loss,
+        make_lora_optimizer,
+    )
     from tokenpacker_tpu_torch.train.step import TrainConfig, leaves_with_paths, make_optimizer
     from tokenpacker_tpu_torch.train.trainer import device_train_batch
 
     params = init_vlm_on_device(cfg, seed=seed + 2, device=device, dtype=torch.bfloat16)
+    lcfg = LoraConfig(r=QLORA_RANK, alpha=QLORA_ALPHA)
+    adapters = {}
+    if qlora:
+        params = {**params, "lm": quantize_tree_4bit(params["lm"])}
+        lora = init_lora(seed + 4, params, lcfg)
+        g = torch.Generator().manual_seed(seed + 5)
+        with torch.no_grad():
+            for layer in lora["layers"]:
+                for sub in layer.values():
+                    for ab in sub.values():
+                        ab["b"].copy_(torch.randn(ab["b"].shape, generator=g) * QLORA_B_SCALE)
+        adapters = {"gpu": lora, "cpu": params_to(lora, "cpu", torch.float32)}
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     cpu_params = params_to(params, "cpu", torch.float32)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1794,9 +1870,18 @@ def stage2_parity(tag: str, cfg, device, seed: int, lossy: tuple, bwd_counter: t
 
     def step(p, c, dev, update=True):
         """Loss and {leaf path: fp32 CPU gradient} of every trained leaf."""
-        opt = make_optimizer(tcfg, p)
         names = {id(t): ".".join(map(str, path)) for path, t in leaves_with_paths(p)}
-        loss, _ = vlm_loss(p, c, device_train_batch(batch, c.dtype, dev))
+        if qlora:
+            lora = adapters["cpu" if dev == "cpu" else "gpu"]
+            opt = make_lora_optimizer(tcfg, lcfg, lora, p["projector"], 1)
+            names.update({id(ab[part]): f"lm.layers.{i}.{group}.{name}.{part}"
+                          for i, layer in enumerate(lora["layers"])
+                          for group, sub in layer.items() for name, ab in sub.items()
+                          for part in ("a", "b")})
+            loss, _ = lora_loss(lora, p, c, lcfg, device_train_batch(batch, c.dtype, dev))
+        else:
+            opt = make_optimizer(tcfg, p)
+            loss, _ = vlm_loss(p, c, device_train_batch(batch, c.dtype, dev))
         grads = torch.autograd.grad(loss, opt.params)
         if update:
             opt.update(grads, opt.init())
@@ -1849,7 +1934,8 @@ def stage2_parity(tag: str, cfg, device, seed: int, lossy: tuple, bwd_counter: t
     attn = [k for k in rel if re.fullmatch(attn_pattern, k)]
     if len(attn) != n_attn:
         raise AssertionError(f"{tag}: attention projection leaves {attn}, expected {n_attn}")
-    print(f"{tag}: full widths, 2 LM layers, 2 records padded to 256, one stage-2 step: card bf16 "
+    kind = (f"one LoRA step (rank {QLORA_RANK}, nf4 LM)" if qlora else "one stage-2 step")
+    print(f"{tag}: full widths, 2 LM layers, 2 records padded to 256, {kind}: card bf16 "
           f"vs CPU fp32 ({time.perf_counter() - t0:.1f} s): loss {gl:.5f} vs {cl:.5f} (relative "
           f"{loss_rel:.2e}, band {LOSS_BAND}); gradient relative RMS difference of {len(rel)} "
           f"leaves, worst " + ", ".join(f"{k} {rel[k]:.4f} (band {GRAD_REL_RMS_BANDS[g]})"
@@ -1881,7 +1967,7 @@ def stage2_parity(tag: str, cfg, device, seed: int, lossy: tuple, bwd_counter: t
     for which, r in lost.items():
         if not beyond(r):
             raise AssertionError(f"{tag}: the bands do not see K2-bwd losing {which}")
-    del params, cpu_params, cpu_grads, gpu_grads
+    del params, cpu_params, cpu_grads, gpu_grads, adapters
     torch.cuda.empty_cache()
 
 
@@ -6369,6 +6455,385 @@ def phase_serving(device, seed: int, model_dir: Path, card: str) -> dict:
 
 
 
+def qlora_record_checks(out: Path, steps: int, depth: int, first: bool = True) -> dict:
+    """Phase 32's checks of one run's reference-layout checkpoints: each
+    checkpoint (with `first`, checkpoint-1 too) holds adapter_config.json
+    (r, alpha), adapter_model.bin with every target's lora_A / lora_B of
+    every layer, and non_lora_trainables.bin with the projector; every B
+    of checkpoint-1 is 0 (step 1 runs at lr 0) and every B of the last one
+    is not. Returns the last checkpoint's adapter dict."""
+    from tokenpacker_tpu_torch.train.lora import NAME_MAP
+
+    want = {f"base_model.model.model.layers.{i}.{mod}.lora_{p}.weight"
+            for i in range(depth) for mod in NAME_MAP.values() for p in "AB"}
+    sds = {}
+    for i in ((1, steps) if first else (steps,)):
+        ck = out / f"checkpoint-{i}"
+        acfg = json.loads((ck / "adapter_config.json").read_text())
+        if (acfg["r"], acfg["lora_alpha"]) != (QLORA_RANK, QLORA_ALPHA):
+            raise AssertionError(f"phase 32: {ck.name} adapter_config.json {acfg}")
+        sds[i] = torch.load(ck / "adapter_model.bin", weights_only=True)
+        if set(sds[i]) != want:
+            raise AssertionError(f"phase 32: {ck.name} holds {len(sds[i])} adapter keys, "
+                                 f"expected {len(want)}")
+        nlt = torch.load(ck / "non_lora_trainables.bin", weights_only=True)
+        if not nlt or not all(k.startswith("base_model.model.model.mm_projector.") for k in nlt):
+            raise AssertionError(f"phase 32: {ck.name} non_lora_trainables.bin keys {list(nlt)}")
+    zero1 = not first or all(not v.any() for k, v in sds[1].items() if "lora_B" in k)
+    moved = all(v.any() for k, v in sds[steps].items() if "lora_B" in k)
+    if not (zero1 and moved):
+        raise AssertionError(f"phase 32: every B zero after step 1: {zero1}, every B non-zero "
+                             f"after step {steps}: {moved}")
+    return sds[steps]
+
+
+def phase_qlora_train(device, seed: int, ckpt: dict, rows: dict, card: str) -> dict:
+    """Phase 32 (configuration Q): QLoRA of TokenPacker-HD-7b from phase 28's
+    checkpoint through the CLI, `train.main([...])` with LLaVA's
+    finetune_qlora.sh settings (--bits 4 --lora-enable --lora-r 128
+    --lora-alpha 256, lr 2e-4, mm_projector_lr 2e-5, no weight decay),
+    slice mode with 9 patches, remat full, 3 steps of TRAIN_BATCH HD
+    caption records padded to TRAIN_SEQ; then 2 steps with --bits 8. Each
+    run: step ms, valid and padded tok/s and peak GiB a step; K1, K2-fwd
+    and K2-bwd launches against the expected counts; the quantized base
+    and the tower bitwise unchanged; the reference files (`qlora_record_
+    checks`). Then the round trip of the nf4 run's last checkpoint
+    (`qlora_round_trip`). Returns the launches of the two runs and the
+    round trip's."""
+    from tokenpacker_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from tokenpacker_tpu_torch.ops.vit_attention import vit_attention
+    from tokenpacker_tpu_torch.train import train as train_cli
+    from tokenpacker_tpu_torch.train import trainer as trainer_mod
+
+    release_earlier_phases()
+    cfg, path = ckpt["cfg"], ckpt["path"]
+    depth = cfg.lm.num_hidden_layers
+    root = Path(tempfile.mkdtemp(prefix="phase32_", dir=ckpt["root"]))
+    data = write_caption_dataset(root, TRAIN_BATCH * QLORA_STEPS["4"], seed + 32)
+    records = json.loads(data.read_text())
+    data8 = root / "data8.json"
+    data8.write_text(json.dumps(records[:TRAIN_BATCH * QLORA_STEPS["8"]]))
+    counters = {"vit_attention": vit_attention, "flash_attention": flash_attention,
+                "flash_attention_bwd": flash_attention_bwd}
+    per_step = {"vit_attention": tower_blocks(cfg), "flash_attention": 2 * depth,
+                "flash_attention_bwd": depth}
+    print(f"phase 32 (Q): QLoRA of {HD_PRESET} from phase 28's checkpoint through "
+          f"tokenpacker_tpu_torch.train.train.main: rank {QLORA_RANK}, alpha {QLORA_ALPHA}, lr "
+          f"{QLORA_LR}, mm_projector_lr {QLORA_PROJECTOR_LR}, slice mode 9 patches, remat full, "
+          f"{TRAIN_BATCH} HD caption records a step padded to {TRAIN_SEQ}; {card}")
+    frozen = {}
+    real_train = trainer_mod.Trainer.train
+
+    def train_checked(self):
+        """Trainer.train with the frozen parts' fingerprints taken around it."""
+        frozen["before"] = {part: fingerprints(self.params[part]) for part in ("vision", "lm")}
+        out = real_train(self)
+        frozen["after"] = {part: fingerprints(self.params[part]) for part in ("vision", "lm")}
+        return out
+
+    runs, lora_run = [], None
+    trainer_mod.Trainer.train = train_checked
+    try:
+        for bits, data_path in (("4", data), ("8", data8)):
+            steps = QLORA_STEPS[bits]
+            out = root / f"bits{bits}"
+            argv = ["--model-path", str(path), "--data-path", str(data_path),
+                    "--image-folder", str(root), "--output-dir", str(out), "--version", "plain",
+                    "--image-aspect-ratio", "slice", "--patch-num", "9",
+                    "--model-max-length", str(TRAIN_SEQ), "--per-device-batch-size",
+                    str(TRAIN_BATCH), "--bits", bits, "--lora-enable", "--lora-r",
+                    str(QLORA_RANK), "--lora-alpha", str(QLORA_ALPHA), "--learning-rate",
+                    str(QLORA_LR), "--mm-projector-lr", str(QLORA_PROJECTOR_LR),
+                    "--weight-decay", "0", "--remat", "full",
+                    # nf4: every step, for the B-after-step-1 check; int8: the end only
+                    "--save-steps", "1" if bits == "4" else str(steps),
+                    "--save-total-limit", str(steps), "--seed", str(seed),
+                    "--device", torch.device(device).type]
+            with api_stand_ins():
+                torch.cuda.synchronize()
+                reset_counts(counters)
+                t0 = time.perf_counter()
+                trainer = train_cli.main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches = read_counts(counters)
+            want = {k: steps * v for k, v in per_step.items()}
+            print(f"  --bits {bits}: {steps} steps in {wall:.2f} s (the checkpoint's load, the "
+                  f"quantization and {steps} checkpoint writes included); launches {launches}, "
+                  f"expected {want} (per step: 1 tower pass, {depth} K2-fwd + {depth} "
+                  f"recomputed, {depth} K2-bwd)")
+            if launches != want:
+                raise AssertionError(f"phase 32 --bits {bits}: kernel launch counts {launches} "
+                                     f"!= {want}")
+            for r in trainer.history:
+                print(f"  step {r['step']}: loss {r['loss']:.4f}, {r['seconds'] * 1e3:.1f} ms, "
+                      f"{r['valid_tokens']} valid / {r['padded_tokens']} padded tokens = "
+                      f"{r['valid_tokens'] / r['seconds']:.1f} / "
+                      f"{r['padded_tokens'] / r['seconds']:.1f} tok/s, grad_norm "
+                      f"{r['grad_norm']:.4f}, peak {r.get('peak_bytes', 0) / 2**30:.3f} GiB")
+            if not all(np.isfinite(r["loss"]) for r in trainer.history):
+                raise AssertionError(f"phase 32 --bits {bits}: a non-finite loss")
+            if frozen["before"] != frozen["after"]:
+                raise AssertionError(f"phase 32 --bits {bits}: the quantized base or the tower "
+                                     "changed")
+            qlora_record_checks(out, steps, depth, first=bits == "4")
+            step_s = statistics.median(r["seconds"] for r in trainer.history[1:])
+            print(f"  --bits {bits}: quantized base and tower bitwise unchanged; "
+                  + ("every B zero after step 1 (lr 0), " if bits == "4" else "")
+                  + f"every B non-zero after step {steps}; the reference files hold "
+                  f"all {7 * depth} targets; step time (median of steps 2-{steps}) "
+                  f"{step_s * 1e3:.1f} ms; {card}")
+            runs.append(launches)
+            if bits == "4":
+                lora_run = {"lora": trainer.lora, "projector": trainer.params["projector"],
+                            "ckpt": out / f"checkpoint-{steps}"}
+            del trainer
+            release_earlier_phases()
+    finally:
+        trainer_mod.Trainer.train = real_train
+    runs.append(qlora_round_trip(device, seed, ckpt, lora_run))
+    shutil.rmtree(root, ignore_errors=True)
+    release_earlier_phases()
+    return {k: sum(r.get(k, 0) for r in runs) for k in set().union(*runs)}
+
+
+@torch.no_grad()
+def first_step_logits(params, cfg, dev, fed: torch.Tensor | None = None, slot_lora=None):
+    """The prefill's next-token logits and one decode step's (token `fed`,
+    by default the prefill's top-1) of a batch, fp32 on the host, bf16
+    cache: `decode_step` (K4 for an int8 tree, else per layer), or with
+    `slot_lora` (its slots set) the slot overlay's `decode_step_cb` (K4-LoRA
+    over an int8 tree). Returns ([prefill, step] logits, fed)."""
+    from tokenpacker_tpu_torch.generate import decode_step, decode_step_cb, fused_weights, prefill
+
+    l = dev["token_ids"].shape[1]
+    pp = params
+    if slot_lora is not None:
+        pp = {**slot_lora.overlay(params), "projector": slot_lora.projectors["q"]}
+    logits, cache = prefill(pp, cfg, dev, l + 8)
+    out = [logits.float().cpu()]
+    if fed is None:
+        fed = logits.argmax(-1)
+    if slot_lora is None:
+        logits, _ = decode_step(params, cfg, cache, fed, dev["lengths"], 0, l)
+    else:
+        over = slot_lora.overlay(params)
+        cur = dev["lengths"].clone().int()
+        active = torch.ones_like(cur, dtype=torch.bool)
+        logits, _ = decode_step_cb(over, cfg, cache, fed, cur, active, fused_weights(over, cfg))
+    out.append(logits.float().cpu())
+    return out, fed
+
+
+@torch.no_grad()
+def merged_dense(params, lora: dict | None, lcfg_scale: float, dequantize: bool) -> dict:
+    """A plain bf16 tree: the LM's kernels (fused qkv / gateup where the tree
+    has them; int8 ones dequantized when `dequantize`) with each target's
+    delta (alpha / r) a @ b added in fp32 on the card (none for `lora`
+    None), then cast to bf16. `lora`: the trainer's adapter tree; the
+    other leaves are shared."""
+    from tokenpacker_tpu_torch.ops.quantize import dequantize_int8, is_qleaf
+
+    parts = {"qkv": ("q", "k", "v"), "gateup": ("gate", "up")}
+    lm = params["lm"]
+    layers = []
+    for i, layer in enumerate(lm["layers"]):
+        new = dict(layer)
+        for group in ("attn", "mlp"):
+            sub = {}
+            for name, mod in layer[group].items():
+                k = mod["kernel"]
+                w = dequantize_int8(k["q"], k["scale"], torch.float32) if is_qleaf(k) else k.float()
+                if lora is not None:
+                    ab = [lora["layers"][i][group][t] for t in parts.get(name, (name,))]
+                    w += lcfg_scale * torch.cat([x["a"].float() @ x["b"].float() for x in ab],
+                                                dim=-1)
+                sub[name] = {**mod, "kernel": w.to(torch.bfloat16)}
+                del w
+            new[group] = sub
+        layers.append(new)
+    head = lm["lm_head"]["kernel"]
+    if is_qleaf(head):
+        head = dequantize_int8(head["q"], head["scale"], torch.bfloat16)
+    return {**params, "lm": {**lm, "layers": layers, "lm_head": {**lm["lm_head"],
+                                                                  "kernel": head}}}
+
+
+def qlora_round_trip(device, seed: int, ckpt: dict, run: dict) -> dict:
+    """Phase 32's round trip of the nf4 run's last checkpoint: (a)
+    `api.load_pretrained_model(ckpt, model_base=<phase 28's dir>,
+    load_8bit=True)` decodes phase 6's 4 HD requests greedily (K1, K2-fwd,
+    K4 once a step) and its int8 codes lie within one step of
+    `quantize_lm_int8` of the card's own merge of the trained adapters;
+    (b) the base loaded with load_8bit serves the adapter through
+    `ContinuousBatcher(adapters={"q": load_adapter(ckpt)})`, 32 greedy
+    tokens of the 4 requests (K4-LoRA once a step), the adapter's a and
+    alpha / r * b equal to the trained ones. First-step logits of (b)
+    against a plain bf16 run of the int8 base dequantized plus the delta,
+    and of (a) against one of its int8 weights dequantized, within
+    QLORA_DEEP_BAND, which (b) with the adapter's term dropped must fail;
+    the same comparison without the adapter is printed beside them."""
+    from tokenpacker_tpu_torch.generate import device_batch
+    from tokenpacker_tpu_torch.io.weights import params_to, quantize_lm_int8
+    from tokenpacker_tpu_torch.ops.decode_attention import decode_attention
+    from tokenpacker_tpu_torch.ops.flash_attention import flash_attention
+    from tokenpacker_tpu_torch.ops.fused_decode import fused_decode_hidden
+    from tokenpacker_tpu_torch.ops.vit_attention import vit_attention
+    from tokenpacker_tpu_torch.serve import scheduler as sched
+    from tokenpacker_tpu_torch.serve.multi_lora import SlotLora, load_adapter
+
+    cfg, path, lora, ck = ckpt["cfg"], ckpt["path"], run["lora"], run["ckpt"]
+    depth = cfg.lm.num_hidden_layers
+    scale = QLORA_ALPHA / QLORA_RANK
+    batch, blocks = make_hd_requests(cfg, seed)
+    dev = device_batch(batch, torch.bfloat16, device)
+    counters = {"vit_attention": vit_attention, "flash_attention": flash_attention,
+                "decode_attention": decode_attention, "fused_decode": fused_decode_hidden,
+                "fused_decode_lora": (fused_decode_hidden, "lora_launches")}
+    secs = {}
+    with api_stand_ins() as api:
+        t0 = time.perf_counter()
+        dense = api.load_pretrained_model(str(path))[1].params
+        torch.cuda.synchronize()
+        secs["bf16 base load"] = time.perf_counter() - t0
+    ref_a = {**merged_dense(dense, lora, scale, dequantize=False), "projector": run["projector"]}
+    del dense
+    exact_logits_a, fed = first_step_logits(ref_a, cfg, dev)
+    want_q = quantize_lm_int8(lm_copy(ref_a))
+    del ref_a
+    ref_a = merged_dense(want_q, None, scale, dequantize=True)
+    ref_logits_a, _ = first_step_logits(ref_a, cfg, dev, fed)
+    del ref_a
+    release_earlier_phases()
+    with api_stand_ins() as api:
+        t0 = time.perf_counter()
+        model = api.load_pretrained_model(str(ck), str(path), load_8bit=True)[1]
+        torch.cuda.synchronize()
+        secs["LoRA checkpoint load (merge on the host, load_8bit)"] = time.perf_counter() - t0
+    worst, differ, total = 0, 0, 0
+    for got_l, want_l in zip(model.params["lm"]["layers"], want_q["lm"]["layers"]):
+        for group in ("attn", "mlp"):
+            for name, mod in got_l[group].items():
+                g, w = mod["kernel"]["q"].int(), want_l[group][name]["kernel"]["q"].int()
+                worst = max(worst, int((g - w).abs().max()))
+                differ += int((g != w).sum())
+                total += g.numel()
+    del want_q
+    n_proj = trees_equal("phase 32 projector", model.params["projector"], run["projector"])
+    print(f"phase 32 round trip: {ck.name} over phase 28's directory, load_pretrained_model("
+          f"load_8bit=True): int8 codes of the targets {differ} of {total} one step from "
+          f"quantize_lm_int8 of the card's own merge, at most {worst} step; its projector's "
+          f"{n_proj} tensors bit-equal to the trained one")
+    if worst > 1:
+        raise AssertionError(f"phase 32: the loaded LoRA merge lies {worst} int8 steps off")
+    launches_a = check_generation("phase 32 load_8bit LoRA", model.generator, batch, cfg,
+                                  {"vit_attention": tower_blocks(cfg), "flash_attention": depth,
+                                   "decode_attention": 0, "fused_decode": NEW_TOKENS - 1,
+                                   "fused_decode_lora": 0}, counters)
+    got_a, _ = first_step_logits(model.params, cfg, dev, fed)
+    del model
+    release_earlier_phases()
+    with api_stand_ins() as api:
+        t0 = time.perf_counter()
+        base = api.load_pretrained_model(str(path), load_8bit=True)[1].params
+        torch.cuda.synchronize()
+        secs["base load (load_8bit)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    adapter = load_adapter(str(ck), cfg)
+    secs["load_adapter"] = time.perf_counter() - t0
+    same = all(np.array_equal(adapter.lora[(g, n)][0][i],
+                              lora["layers"][i][g][n]["a"].detach().float().cpu().numpy())
+               and np.array_equal(adapter.lora[(g, n)][1][i],
+                                  (lora["layers"][i][g][n]["b"].detach().float() * scale)
+                                  .cpu().numpy())
+               for (g, n) in adapter.lora for i in range(depth))
+    trees_equal("phase 32 load_adapter projector",
+                params_to(adapter.projector, device, torch.bfloat16), run["projector"])
+    if not same or len(adapter.lora) != 7:
+        raise AssertionError("phase 32: load_adapter's a and alpha / r * b differ from the trained "
+                             "adapters")
+    reqs = paged_requests(cfg, seed)[:4]
+    batcher = sched.ContinuousBatcher(base, cfg, num_slots=4, max_seq_len=SPEC_SEQ,
+                                      adapters={"q": adapter}, device=device)
+    try:
+        torch.cuda.synchronize()
+        reset_counts(counters)
+        batcher.start()
+        t1 = time.perf_counter()
+        futs = [batcher.submit(r, max_new_tokens=NEW_TOKENS, adapter="q") for r in reqs]
+        tokens = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t1
+        batcher.stop()
+        torch.cuda.synchronize()
+    finally:
+        batcher.stop()
+    launches_b = read_counts(counters)
+    steps = batcher.stats["decode_steps"]
+    print(f"  the load_8bit base with the adapter through ContinuousBatcher(adapters="
+          f"{{'q': load_adapter(ckpt)}}): phase 10's first 4 requests, tokens "
+          f"{[len(t) for t in tokens]} in {wall:.3f} s, {steps} K4-LoRA steps; launches "
+          f"{launches_b}; load_adapter's a and alpha / r * b equal the trained adapters; "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items()))
+    if launches_b["fused_decode_lora"] != steps or steps == 0 or any(
+            len(t) != NEW_TOKENS for t in tokens):
+        raise AssertionError(f"phase 32: the adapter's batcher run: launches {launches_b}, "
+                             f"{steps} steps, tokens {[len(t) for t in tokens]}")
+    del batcher
+    release_earlier_phases()
+    sl = SlotLora(base, cfg, {"q": adapter}, 4)
+    for i in range(4):
+        sl.set_slot(i, "q")
+    got_b, _ = first_step_logits(base, cfg, dev, fed, slot_lora=sl)
+    for i in range(4):
+        sl.set_slot(i, None)
+    dropped, _ = first_step_logits(base, cfg, dev, fed, slot_lora=sl)
+    ref_b = merged_dense(base, lora, scale, dequantize=True)
+    ref_b["projector"] = sl.projectors["q"]
+    ref_logits_b, _ = first_step_logits(ref_b, cfg, dev, fed)
+    del ref_b
+    ref_base_b = merged_dense(base, None, scale, dequantize=True)
+    ref_base_b["projector"] = sl.projectors["q"]
+    base_logits_b, _ = first_step_logits(ref_base_b, cfg, dev, fed)
+    del ref_base_b, base, sl
+    release_earlier_phases()
+
+    def reading(got, want):
+        return [round((g - w).abs().max().item(), 4) for g, w in zip(got, want)]
+
+    served, merged = reading(got_b, ref_logits_b), reading(got_a, ref_logits_a)
+    lost = reading(dropped, ref_logits_b)
+    print(f"  first-step logits, max|dlogit| (prefill, step 1), band {QLORA_DEEP_BAND}: the "
+          f"adapter served (K4-LoRA) vs plain bf16 of the int8 base dequantized + delta "
+          f"{served} (without the adapter on both sides {reading(dropped, base_logits_b)}; "
+          f"with the term dropped on the served side {lost}, which must exceed the band); the "
+          f"merged load_8bit (K4) vs plain bf16 of its int8 weights dequantized {merged} "
+          f"(against the bf16 base + delta, before the int8 rounding: "
+          f"{reading(got_a, exact_logits_a)}; the delta alone moves the plain run by "
+          f"{reading(ref_logits_b, base_logits_b)})")
+    for name, got, want in (("served", got_b, ref_logits_b), ("merged", got_a, ref_logits_a)):
+        for tag, g, w in zip(("prefill", "step 1"), got, want):
+            band_check(f"phase 32 {name} adapter, {tag}", g, w, QLORA_DEEP_BAND)
+    if not min(lost) > QLORA_DEEP_BAND:
+        raise AssertionError("phase 32: the band does not see the adapter's term dropped")
+    return {k: launches_a.get(k, 0) + launches_b.get(k, 0) for k in counters}
+
+
+def phase_qlora_parity(device, seed: int) -> None:
+    """Phase 33: full widths, 2 LM layers; one LoRA step over an nf4 base on
+    the card (bf16, kernels) and on the CPU (fp32, plain versions) from the
+    same weights, adapters and batch (`stage2_parity`'s QLoRA form), the
+    adapters at the LM's band, and K2's backward losing dq, or dk and dv,
+    must fail it."""
+    from tokenpacker_tpu_torch.config import preset_config
+    from tokenpacker_tpu_torch.ops.flash_attention import flash_attention_bwd
+
+    full = preset_config(HD_PRESET)
+    cfg = dataclasses.replace(full, lm=dataclasses.replace(full.lm, num_hidden_layers=2))
+    stage2_parity("phase 33", cfg, device, seed, ("dq", "dk, dv"),
+                  (flash_attention_bwd, "launches"), r"lm\.layers\.\d+\.attn\.[qkvo]\.[ab]", 16,
+                  qlora=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible; this check runs only on a GPU")
@@ -6453,15 +6918,28 @@ def main() -> None:
     quantized = "--quantized" in sys.argv[1:]
     speculative = "--speculative" in sys.argv[1:]
     lora = "--lora" in sys.argv[1:]
+    lora_train = "--lora-train" in sys.argv[1:]
     mpt = "--mpt" in sys.argv[1:]
     probes = "--probes" in sys.argv[1:]
     flash = "--flash" in sys.argv[1:]
     tower = "--tower" in sys.argv[1:]
     only = ("quantized" if quantized else "speculative" if speculative else "lora" if lora
-            else "mpt" if mpt else "probes" if probes else "flash" if flash
-            else "tower" if tower else "")
+            else "lora-train" if lora_train else "mpt" if mpt else "probes" if probes
+            else "flash" if flash else "tower" if tower else "")
     rows = phase_kernels(device, hd_batch["lengths"], s_hd, (l, l + NEW_TOKENS - 2), only)
     if "--kernels" in sys.argv[1:]:
+        return
+    card_line = card.splitlines()[0] if card else ""
+    if lora_train:
+        ckpt = write_phase28_checkpoint(device, SEED)
+        ckpt["params"] = None
+        try:
+            runs = [phase_qlora_train(device, SEED, ckpt, rows, card_line)]
+        finally:
+            shutil.rmtree(ckpt["root"], ignore_errors=True)
+        phase_qlora_parity(device, SEED)
+        print(json.dumps({name: {**row, "launches": sum(r.get(name, 0) for r in runs)}
+                          for name, row in rows.items()}))
         return
     if probes:
         rows.update(phase_probes(device))
@@ -6515,7 +6993,7 @@ def main() -> None:
                           for name, row in rows.items()}))
         return
     # K2's full-bias form and the probes: no serving or training path
-    # reaches them; counted over all of the main-path phases 4-23 and 25-31
+    # reaches them; counted over all of the main-path phases 4-23 and 25-32
     unreached = probe_counters()
     reset_counts(unreached)
     runs = [phase_end_to_end(device, SEED)]
@@ -6544,10 +7022,11 @@ def main() -> None:
         runs.append(phase_checkpoint_load(device, SEED, hd_batch, hd_blocks, ckpt))
         runs.append(phase_checkpoint_layouts(device, SEED))
         runs.append(phase_mpt_quantized(device, SEED))
-        runs.append(phase_serving(device, SEED, ckpt["path"], card.splitlines()[0] if card
-                                  else ""))
+        runs.append(phase_serving(device, SEED, ckpt["path"], card_line))
+        runs.append(phase_qlora_train(device, SEED, ckpt, rows, card_line))
     finally:
         shutil.rmtree(ckpt["root"], ignore_errors=True)
+    phase_qlora_parity(device, SEED)
     counts = read_counts(unreached)
     counts["bitcast_pack"] += counts.pop("bitcast_unpack")
     runs.append(counts)
@@ -6604,10 +7083,11 @@ def main() -> None:
         # launches: summed over the main-path runs (phases 4, 6, 8, 10,
         # 12, 14, 16, 18, 20 and 22, phase 25's sampled Generator, phase
         # 26's two batchers, phase 27's beams, phase 28's two loaded
-        # models, phase 29's chat, phase 30's nf4 MPT and phase 31's two
-        # HTTP workers), each counted from 0 just before its run and read
-        # just after; the six that no path reaches over phases 4-23 and
-        # 25-31 as a whole (0)
+        # models, phase 29's chat, phase 30's nf4 MPT, phase 31's two
+        # HTTP workers and phase 32's two training runs and its round
+        # trip's Generator and batcher), each counted from 0 just before
+        # its run and read just after; the six that no path reaches over
+        # phases 4-23 and 25-32 as a whole (0)
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": sum(r.get(name, 0) for r in runs), **rows[name]})
     print(json.dumps({"kernels": kernels}))

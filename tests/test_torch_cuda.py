@@ -2000,3 +2000,129 @@ def test_worker_without_a_card_raises(cuda, tmp_path):
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
                          timeout=300, cwd=os.path.dirname(os.path.dirname(__file__)))
     assert out.returncode != 0 and "no CUDA device" in out.stderr
+
+
+def _rel_rms(got, want):
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).square().sum().sqrt() / want.square().sum().sqrt())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["nf4", "int8"])
+def test_quantized_product_keeps_dx_on_the_card(cuda, form):
+    """`linear` over a frozen quantized leaf under autograd on the card (the
+    QLoRA base product): nf4 at M = 4 through K6 (its launch counted), int8
+    through the weight-only product. The output stays on the graph and dx
+    equals the dequantized product's: for nf4 the same dy @ deq(W)^T in
+    bf16, bit for bit; for int8 (dy * scale) @ q^T against dy @ bf16(q *
+    scale)^T, within 1e-2 relative RMS (bf16 rounds the dequantized weight
+    only in the second). The forward within BLOCK_REL_RMS of the dense
+    bf16 product."""
+    g = torch.Generator().manual_seed(7)
+    w = (torch.randn(4096, 1024, generator=g) * 0.02).to(cuda)
+    if form == "nf4":
+        leaf = quantize_4bit(w, 64, "nf4")
+        dense = dequantize_4bit(leaf, torch.bfloat16)
+    else:
+        q, scale = quantize_int8(w)
+        leaf = {"q": q, "scale": scale}
+        dense = (q.float() * scale).to(torch.bfloat16)
+    x = torch.randn(4, 4096, generator=g).to(cuda, torch.bfloat16).requires_grad_(True)
+    dy = torch.randn(4, 1024, generator=g).to(cuda, torch.bfloat16)
+    before = q4_matmul.launches
+    y = layers.linear({"kernel": leaf}, x)
+    assert y.grad_fn is not None
+    assert q4_matmul.launches == before + (form == "nf4")
+    (dx,) = torch.autograd.grad(y, x, dy)
+    x2 = x.detach().clone().requires_grad_(True)
+    want_y = x2 @ dense
+    (want,) = torch.autograd.grad(want_y, x2, dy)
+    if form == "nf4":
+        assert torch.equal(dx, want)
+    else:
+        assert _rel_rms(dx, want) < 1e-2
+    assert _rel_rms(y, want_y) < BLOCK_REL_RMS
+
+
+@pytest.mark.cuda
+def test_qlora_step_on_the_card_matches_the_cpu(cuda):
+    """One QLoRA step at a small size (the tower's heads of 64, the LM's of
+    128, its kernels nf4): loss and the gradients of every adapter and
+    projector leaf, card bf16 (K1, K2 both ways) against CPU fp32 (plain
+    versions). Bands as chip_smoke.py phase 9's: the loss within 1e-2
+    relative, each adapter leaf's gradient within 5e-2 relative RMS and
+    each projector leaf's within 1e-1 of its own norm or, for a leaf
+    below 1e-3 of the projector's gradient norm, of that share."""
+    import numpy as np
+
+    from tokenpacker_tpu_torch.config import VisionConfig, tiny_vlm_config
+    from tokenpacker_tpu_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+    from tokenpacker_tpu_torch.io.weights import init_vlm_on_device, params_to
+    from tokenpacker_tpu_torch.models.splice import build_splice_plan
+    from tokenpacker_tpu_torch.ops.quantize import quantize_tree_4bit
+    from tokenpacker_tpu_torch.train.lora import (
+        LoraConfig,
+        adapter_leaves,
+        init_lora,
+        lora_loss,
+    )
+    from tokenpacker_tpu_torch.train.step import leaves_with_paths
+
+    vc = VisionConfig(hidden_size=128, intermediate_size=256, num_hidden_layers=4,
+                      num_attention_heads=2, image_size=112, patch_size=14,
+                      multi_layers=(1, 2, 3, 4))
+    lc = LMConfig(vocab_size=512, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                  num_attention_heads=2, num_key_value_heads=2, max_position_embeddings=1024)
+    cfg = tiny_vlm_config(vision=vc, lm=lc, dtype=torch.bfloat16)
+    params = init_vlm_on_device(cfg, seed=5, device=cuda, dtype=torch.bfloat16)
+    params = {**params, "lm": quantize_tree_4bit(params["lm"])}
+    lcfg = LoraConfig(r=8, alpha=16)
+    lora = init_lora(1, params, lcfg)
+    g = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for t in adapter_leaves(lora)[1::2]:
+            t.copy_(torch.randn(t.shape, generator=g) * 0.01)
+    rng = np.random.default_rng(0)
+    ids, labels = [], []
+    for n in (90, 60):
+        text = rng.integers(3, lc.vocab_size, n)
+        ids.append(np.concatenate([[1, IMAGE_TOKEN_INDEX], text]).astype(np.int64))
+        labels.append(np.concatenate([[IGNORE_INDEX] * 2, text]).astype(np.int64))
+    plan = build_splice_plan(ids, [[(1, 1)]] * 2, cfg.tokens_per_view, labels=labels, pad_to=128)
+    host = {"images": torch.from_numpy(rng.standard_normal((2, 112, 112, 3)).astype(np.float32)),
+            "token_ids": torch.from_numpy(plan.token_ids).long(),
+            "is_image": torch.from_numpy(plan.is_image),
+            "image_slot": torch.from_numpy(plan.image_slot).long(),
+            "positions": torch.arange(128).expand(2, 128).contiguous(),
+            "labels": torch.from_numpy(plan.labels).long()}
+
+    def step(p, ad, dev, dtype):
+        leaves = adapter_leaves(ad) + [t for _, t in leaves_with_paths(p["projector"])]
+        for t in leaves:
+            t.requires_grad_(True)
+        batch = {k: v.to(dev, dtype) if v.is_floating_point() else v.to(dev)
+                 for k, v in host.items()}
+        loss, _ = lora_loss(ad, p, cfg if dtype == torch.bfloat16 else
+                            tiny_vlm_config(vision=vc, lm=lc, dtype=torch.float32), lcfg, batch)
+        return loss.item(), [x.float().cpu() for x in torch.autograd.grad(loss, leaves)]
+
+    cpu_loss, cpu_grads = step(params_to(params, "cpu", torch.float32),
+                               params_to(lora, "cpu", torch.float32), "cpu", torch.float32)
+    before = flash_attention_bwd.launches
+    loss, grads = step(params, lora, cuda, torch.bfloat16)
+    assert flash_attention_bwd.launches == before + 2
+    assert abs(loss - cpu_loss) <= 1e-2 * abs(cpu_loss)
+    n_ad = len(adapter_leaves(lora))
+    proj_norm = float(sum(x.square().sum() for x in cpu_grads[n_ad:]).sqrt())
+    # the key bias of the projector's attention and ln_k's bias have an exact
+    # gradient of 0 (chip_smoke.py ZERO_GRAD_LEAVES): held to the projector's
+    zero = {i + n_ad for i, (path, _) in enumerate(leaves_with_paths(params["projector"]))
+            if path in (("attn", "k", "bias"), ("ln_k", "bias"))}
+    for i, (got, want) in enumerate(zip(grads, cpu_grads)):
+        diff = float((got - want).square().sum().sqrt())
+        if i < n_ad:
+            assert diff <= 5e-2 * float(want.norm()), (i, diff, float(want.norm()))
+        elif i in zero:
+            assert diff <= 1e-1 * proj_norm, (i, diff)
+        else:
+            assert diff <= 1e-1 * max(float(want.norm()), 1e-3 * proj_norm), (i, diff)

@@ -209,12 +209,19 @@ def test_unported_lm_options_raise():
                               min_size=1)["lm"]
     assert mpt_lm["wte"] is wte and set(mpt_lm["layers"][0]["attn"]["wqkv"]["kernel"]) == {
         "q", "scale"}
-    lora = {"layers": [], "lm_head": {"kernel": {"q": torch.zeros((64, 8), dtype=torch.int8),
-                                                 "scale": torch.ones((1, 8)),
-                                                 "lora_a": torch.zeros((64, 2)),
+    # a quantized kernel in a form the port has not ported (the JAX
+    # package's u16-row-packed "qp" of its fused decode) raises; LoRA over
+    # an int8 head (train/lora) runs: zero adapters add an exact zero
+    head = {"q": torch.ones((64, 8), dtype=torch.int8), "scale": torch.ones((1, 8))}
+    packed = {"layers": [], "lm_head": {"kernel": {"qp": torch.zeros((32, 8), dtype=torch.int16),
+                                                   "scale": torch.ones((1, 8))}}}
+    with pytest.raises(NotImplementedError, match="not a ported leaf"):
+        llama.llama_logits(packed, torch.zeros(1, 64))
+    lora = {"layers": [], "lm_head": {"kernel": {**head, "lora_a": torch.zeros((64, 2)),
                                                  "lora_b": torch.zeros((2, 8))}}}
-    with pytest.raises(NotImplementedError, match="train/lora"):
-        llama.llama_logits(lora, torch.zeros(1, 64))
+    x = torch.randn(1, 64)
+    assert torch.equal(llama.llama_logits(lora, x),
+                       llama.llama_logits({"layers": [], "lm_head": {"kernel": head}}, x))
 
 
 # ---- models/splice -----------------------------------------------------------

@@ -290,11 +290,30 @@ def test_linear_slot_term_matches_jax(base, m):
 
 def test_qlora_over_a_quantized_base_stays_refused():
     """The JAX package's QLoRA `lora_a` on a quantized kernel is training's
-    (train/lora), not serving's: the port still refuses it."""
-    q4 = tq.quantize_4bit(torch.zeros((64, 128)))
+    (train/lora), apart from serving's slot term: a pair that is not [in,
+    r] / [r, out] is refused; a well-formed pair adds its term beside the
+    slot term, both as JAX's `linear` adds them."""
+    rng = np.random.default_rng(3)
+    q4 = tq.quantize_4bit(torch.from_numpy(rng.standard_normal((64, 128)).astype(np.float32)))
     w = torch.zeros((64, 128))
-    with pytest.raises(NotImplementedError, match="train/lora"):
+    with pytest.raises(RuntimeError):
         layers.linear({"kernel": {**q4, "lora_a": w, "lora_b": w}}, torch.zeros(1, 64))
+    arr = {"lora_a": rng.standard_normal((64, 2)), "lora_b": rng.standard_normal((2, 128)),
+           "slot_lora_a": rng.standard_normal((2, 64, 3)),
+           "slot_lora_b": rng.standard_normal((2, 3, 128)),
+           "slot_lora_sel": np.array([[0.0, 1.0], [1.0, 0.0]]), "x": rng.standard_normal((2, 64))}
+    arr = {k: v.astype(np.float32) for k, v in arr.items()}
+    t = {k: torch.from_numpy(v) for k, v in arr.items()}
+    got = layers.linear({"kernel": {**q4, "lora_a": t["lora_a"], "lora_b": t["lora_b"]},
+                         **{k: t[k] for k in ("slot_lora_a", "slot_lora_b", "slot_lora_sel")}},
+                        t["x"])
+    jq4 = {k: jnp.asarray(v.numpy()) for k, v in q4.items()}
+    want = jax_layers.linear({"kernel": {**jq4, "lora_a": jnp.asarray(arr["lora_a"]),
+                                         "lora_b": jnp.asarray(arr["lora_b"])},
+                              **{k: jnp.asarray(arr[k]) for k in ("slot_lora_a", "slot_lora_b",
+                                                                  "slot_lora_sel")}},
+                             jnp.asarray(arr["x"]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
 
 
 def test_zero_selection_is_the_base_exactly(vlm):

@@ -200,8 +200,13 @@ def test_linear_routes_4bit_by_rows(quant_type, monkeypatch):
 def test_linear_raises_for_lora_terms_on_quantized_bases():
     w = torch.zeros((64, 128))
     q4 = tq.quantize_4bit(w)
-    with pytest.raises(NotImplementedError, match="train/lora"):
+    # the QLoRA term (train/lora) takes lora_a [in, r] and lora_b [r, out]:
+    # a pair of other shapes raises; a pair of these shapes adds its term
+    with pytest.raises(RuntimeError):
         layers.linear({"kernel": {**q4, "lora_a": w, "lora_b": w}}, torch.zeros(1, 64))
+    y = layers.linear({"kernel": {**q4, "lora_a": torch.ones(64, 2), "lora_b": torch.ones(2, 128)}},
+                      torch.ones(1, 64))
+    torch.testing.assert_close(y, torch.full((1, 128), 128.0))
     # the slot term over a 4-bit base is multi-LoRA serving's
     # (tests/test_torch_multi_lora.py); a leaf with A but no selection
     # raises, as the JAX package's linear does

@@ -309,7 +309,9 @@ def test_trainer_refuses_what_is_not_ported(setup, tiny_data):
     params = _fresh(tree, cfg)
     with pytest.raises(NotImplementedError, match="tp"):
         Trainer(cfg, TrainConfig(), RunConfig(tp=2), params, ds, Tok(), device="cpu")
-    with pytest.raises(NotImplementedError, match="LoRA"):
+    with pytest.raises(ValueError, match="bits=4"):  # a quantized base needs LoRA
+        Trainer(cfg, TrainConfig(), RunConfig(bits=4), params, ds, Tok(), device="cpu")
+    with pytest.raises(TypeError, match="LoraConfig"):
         Trainer(cfg, TrainConfig(), RunConfig(lora=object()), params, ds, Tok(), device="cpu")
     with pytest.raises(ValueError, match="is on cpu"):
         Trainer(cfg, TrainConfig(), RunConfig(), params, ds, Tok())  # device="cuda" by default

@@ -90,6 +90,44 @@ def params_to_jax(params):
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
+def lora_from_jax(tree, n_layers: int) -> dict:
+    """The JAX package's adapter tree (`train/lora.init_lora`: the params'
+    nesting, None off the targets, {"a": [L, in, r], "b": [L, r, out]} at
+    each target kernel; numpy or JAX arrays) -> the port's per-layer tree
+    {"layers": [{group: {name: {"a", "b"}}}]} of CPU tensors, dtypes
+    kept."""
+    from tokenpacker_tpu_torch.train.lora import TARGETS
+
+    layers = [{} for _ in range(n_layers)]
+    stacked = (tree.get("lm") or {}).get("layers") or {}
+    found = []
+    for group, sub in stacked.items():
+        for name, mod in (sub or {}).items():
+            ab = mod.get("kernel") if isinstance(mod, dict) else None
+            if isinstance(ab, dict) and "a" in ab:
+                found.append((TARGETS.index(name), group, name, ab))
+    for _, group, name, ab in sorted(found, key=lambda x: x[0]):  # `init_lora`'s order
+        a, b = to_tensors(ab["a"]), to_tensors(ab["b"])
+        for i in range(n_layers):
+            layers[i].setdefault(group, {})[name] = {"a": a[i].clone(), "b": b[i].clone()}
+    return {"layers": layers}
+
+
+def lora_to_jax(lora) -> dict:
+    """Inverse of `lora_from_jax`, the parts off the targets left out:
+    {"lm": {"layers": {group: {name: {"kernel": {"a", "b"}}}}}} of numpy
+    arrays stacked over the layers (fp32 for bf16 tensors, as
+    `params_to_jax`)."""
+    layers = lora["layers"]
+    out: dict = {}
+    for group, sub in layers[0].items():
+        for name in sub:
+            out.setdefault(group, {})[name] = {"kernel": {
+                part: np.stack([params_to_jax(layer[group][name][part]) for layer in layers])
+                for part in ("a", "b")}}
+    return {"lm": {"layers": out}}
+
+
 def paged_from_jax(paged):
     """The JAX package's `PagedKV` (or its fields in order: k_pages,
     v_pages, page_table, lengths[, k_scales, v_scales]) -> the port's

@@ -18,6 +18,54 @@ from tokenpacker_tpu_torch.ops.quantize import dequantize_4bit, is_q4leaf, is_ql
 from tokenpacker_tpu_torch.ops.s8_gemm import w8a8_gemm
 
 
+def _quantized_product(x: torch.Tensor, k: dict, w8a8: bool) -> torch.Tensor:
+    """x @ the quantized leaf k (without any adapter keys), by `linear`'s
+    route for x's M; no autograd graph."""
+    m = x.numel() // x.shape[-1]
+    if is_q4leaf(k):
+        return q4_matmul(x, k) if m <= 32 else x @ dequantize_4bit(k, x.dtype)
+    if not is_qleaf(k):
+        raise NotImplementedError(f"quantized kernel {sorted(k)}: not a ported leaf")
+    if w8a8 and k["q"].dim() == 2 and m <= 64:
+        return w8a8_matmul(x, k)
+    if (w8a8 and k["q"].dim() == 2 and m >= 256 and x.shape[-1] % 128 == 0
+            and k["q"].shape[1] % 128 == 0):
+        return w8a8_gemm(x, k)
+    # The JAX package's default int8 branch, a plain product it leaves to
+    # XLA. On the card the cast makes a bf16 copy of the weight for each
+    # call (180 MB for Vicuna-7B's gateup); the decode step avoids it
+    # through K4 (ops/fused_decode) or, with w8a8, through K7.
+    return (x @ k["q"].to(x.dtype)) * k["scale"].squeeze(-2).to(x.dtype)
+
+
+class QuantizedProduct(torch.autograd.Function):
+    """The frozen quantized base product x @ W under autograd. The forward
+    takes `linear`'s route (K6, K7, K8 or a plain product); the Function
+    saves the quantized leaf, never a dense copy of W, and its backward
+    is dx = dy @ deq(W)^T from one layer's weight at a time, the
+    derivative JAX's autodiff takes through the weight-only product
+    ((dy * scale) @ q^T for int8, dy @ dequantize_4bit(W)^T for 4-bit).
+    For the w8a8 routes that is the straight-through derivative (the
+    activations' rounding passes the gradient unchanged). W gets no
+    gradient: the base is frozen."""
+
+    @staticmethod
+    def forward(ctx, x, w8a8, keys, *tensors):
+        leaf = dict(zip(keys, tensors))
+        ctx.keys = keys
+        ctx.save_for_backward(*tensors)
+        return _quantized_product(x, leaf, w8a8)
+
+    @staticmethod
+    def backward(ctx, dy):
+        k = dict(zip(ctx.keys, ctx.saved_tensors))
+        if is_q4leaf(k):
+            dx = dy @ dequantize_4bit(k, dy.dtype).transpose(-1, -2)
+        else:
+            dx = (dy * k["scale"].squeeze(-2).to(dy.dtype)) @ k["q"].to(dy.dtype).transpose(-1, -2)
+        return (dx, None, None) + (None,) * len(ctx.keys)
+
+
 def linear(params, x: torch.Tensor, w8a8: bool = False) -> torch.Tensor:
     """y = x @ kernel + bias. kernel: [in, out], the int8 leaf {"q" [in,
     out] int8, "scale" [1, out] f32} or a 4-bit leaf (`ops/quantize`);
@@ -32,6 +80,14 @@ def linear(params, x: torch.Tensor, w8a8: bool = False) -> torch.Tensor:
       (`w8a8_matmul`) for M <= 64, K8 (`w8a8_gemm`) for M >= 256 with
       in and out multiples of 128, else the weight-only product;
     - int8: the weight-only product.
+    When autograd records (x requires grad), the quantized product runs
+    inside `QuantizedProduct`, which keeps x's gradient and saves only the
+    quantized leaf.
+
+    LoRA training (`train/lora.merge_lora_params`): `lora_a` [in, r] and
+    `lora_b` [r, out] (alpha / r folded into b) inside a quantized kernel
+    leaf, as the JAX package attaches them, or beside a dense `kernel`,
+    add (x @ lora_a) @ lora_b in x's dtype after the base product.
 
     Multi-LoRA serving (`serve/multi_lora`): with `slot_lora_a` [n, in, r],
     `slot_lora_b` [n, r, out] and `slot_lora_sel` [N, n] (one row per
@@ -40,28 +96,19 @@ def linear(params, x: torch.Tensor, w8a8: bool = False) -> torch.Tensor:
     and before the bias, in x's dtype as the JAX package computes it: an
     all-zero row adds an exact zero."""
     k = params["kernel"]
+    lora = params
     if isinstance(k, dict):
-        if "lora_a" in k:
-            raise NotImplementedError("LoRA over a quantized base comes with train/lora")
-        m = x.numel() // x.shape[-1]
-        if is_q4leaf(k):
-            y = q4_matmul(x, k) if m <= 32 else x @ dequantize_4bit(k, x.dtype)
-        elif not is_qleaf(k):
-            raise NotImplementedError(f"quantized kernel {sorted(k)}: not a ported leaf")
-        elif w8a8 and k["q"].dim() == 2 and m <= 64:
-            y = w8a8_matmul(x, k)
-        elif (w8a8 and k["q"].dim() == 2 and m >= 256 and x.shape[-1] % 128 == 0
-              and k["q"].shape[1] % 128 == 0):
-            y = w8a8_gemm(x, k)
+        lora = k
+        base = {n: t for n, t in k.items() if n not in ("lora_a", "lora_b")}
+        if torch.is_grad_enabled() and x.requires_grad:
+            keys = tuple(base)
+            y = QuantizedProduct.apply(x, w8a8, keys, *(base[n] for n in keys))
         else:
-            # The JAX package's default int8 branch, a plain product it
-            # leaves to XLA. On the card the cast makes a bf16 copy of the
-            # weight for each call (180 MB for Vicuna-7B's gateup); the
-            # decode step avoids it through K4 (ops/fused_decode) or, with
-            # w8a8, through K7.
-            y = (x @ k["q"].to(x.dtype)) * k["scale"].squeeze(-2).to(x.dtype)
+            y = _quantized_product(x, base, w8a8)
     else:
         y = x @ k
+    if "lora_a" in lora:
+        y = y + (x @ lora["lora_a"].to(x.dtype)) @ lora["lora_b"].to(x.dtype)
     a = params.get("slot_lora_a")
     if a is not None:
         sel = params["slot_lora_sel"].to(x.dtype)

@@ -6,7 +6,10 @@ stage 1 ("pretrain") trains the projector only; stage 2 ("finetune") the
 LM and the projector, with an optional `mm_projector_lr`; the vision
 tower never trains. Each trained group runs the optax chain
 `clip_by_global_norm(max_grad_norm)` then `adamw(warmup_cosine_decay)`
-on its own gradients, so the clip is per group. The update is written
+on its own gradients, so the clip is per group. The LoRA path
+(`train/lora`, `Trainer._train_lora`) runs the same update over the
+adapters and the projector with one clip over both (`global_clip`), as
+the JAX package's single optax chain does. The update is written
 out here (not `torch.optim.AdamW`) to compute what optax computes:
 
 - the schedule is evaluated at the group's update count before the
@@ -81,12 +84,11 @@ def param_groups(params) -> dict[str, list[torch.Tensor]]:
     return groups
 
 
-def warmup_cosine_decay(base_lr: float, tcfg: TrainConfig):
-    """`optax.warmup_cosine_decay_schedule(0 -> base_lr over
-    max(int(total * warmup_ratio), 1) steps, cosine to 0 at total)` as a
-    function of the update count."""
-    warmup = max(int(tcfg.total_steps * tcfg.warmup_ratio), 1)
-    decay = max(tcfg.total_steps, warmup + 1) - warmup
+def warmup_cosine(base_lr: float, warmup: int, decay_steps: int):
+    """`optax.warmup_cosine_decay_schedule(0, base_lr, warmup, decay_steps)`
+    as a function of the update count: linear from 0 over `warmup` updates,
+    then a cosine to 0 at `decay_steps`."""
+    decay = decay_steps - warmup
 
     def lr(count: int) -> float:
         if count < warmup:
@@ -97,22 +99,35 @@ def warmup_cosine_decay(base_lr: float, tcfg: TrainConfig):
     return lr
 
 
-class Optimizer:
-    """The per-group optax chain of the JAX package's `make_optimizer`.
-    `init()` makes the state; `update(grads, state)` applies one
-    micro-step in place (the parameters move on every k-th)."""
+def warmup_cosine_decay(base_lr: float, tcfg: TrainConfig):
+    """The full path's schedule: warmup over max(int(total * warmup_ratio),
+    1) updates, cosine to 0 at total."""
+    warmup = max(int(tcfg.total_steps * tcfg.warmup_ratio), 1)
+    return warmup_cosine(base_lr, warmup, max(tcfg.total_steps, warmup + 1))
 
-    def __init__(self, tcfg: TrainConfig, params):
+
+def _clip(grads: list[torch.Tensor], max_norm: float) -> list[torch.Tensor]:
+    """optax's clip_by_global_norm over `grads` (fp32)."""
+    norm = torch.sqrt(sum(g.square().sum() for g in grads))
+    if not norm < max_norm:
+        return [g / norm * max_norm for g in grads]
+    return grads
+
+
+class Optimizer:
+    """An optax chain of clip_by_global_norm and AdamW over named groups of
+    leaves, each group with its schedule. The clip is per group
+    (`make_optimizer`, the full path) or over every group at once
+    (`global_clip`, the LoRA path). `init()` makes the state;
+    `update(grads, state)` applies one micro-step in place (the parameters
+    move on every k-th)."""
+
+    def __init__(self, tcfg: TrainConfig, groups: dict[str, list[torch.Tensor]],
+                 schedules: dict, global_clip: bool = False):
         self.tcfg = tcfg
-        trained = ("projector",) if tcfg.stage == "pretrain" else ("projector", "lm")
-        groups = param_groups(params)
-        for name, leaves in groups.items():
-            for leaf in leaves:
-                leaf.requires_grad_(name in trained)
-        self.groups = {name: groups[name] for name in trained if name in groups}
-        proj_lr = tcfg.mm_projector_lr or tcfg.learning_rate
-        self.schedules = {"projector": warmup_cosine_decay(proj_lr, tcfg),
-                          "lm": warmup_cosine_decay(tcfg.learning_rate, tcfg)}
+        self.groups = groups
+        self.schedules = schedules
+        self.global_clip = global_clip
 
     @property
     def params(self) -> list[torch.Tensor]:
@@ -145,15 +160,16 @@ class Optimizer:
             grads = [acc.clone() for acc in state["acc"]]
             for acc in state["acc"]:
                 acc.zero_()
-        grads = list(grads)
+        grads = [g.float() for g in grads]
+        if self.global_clip:
+            grads = _clip(grads, tcfg.max_grad_norm)
         b1, b2, eps, wd = tcfg.adam_b1, tcfg.adam_b2, tcfg.adam_eps, tcfg.weight_decay
         start = 0
         for name, leaves in self.groups.items():
-            group_grads = [g.float() for g in grads[start:start + len(leaves)]]
+            group_grads = grads[start:start + len(leaves)]
             start += len(leaves)
-            norm = torch.sqrt(sum(g.square().sum() for g in group_grads))
-            if not norm < tcfg.max_grad_norm:
-                group_grads = [g / norm * tcfg.max_grad_norm for g in group_grads]
+            if not self.global_clip:
+                group_grads = _clip(group_grads, tcfg.max_grad_norm)
             count = state["count"][name]
             lr = self.schedules[name](count)
             c1, c2 = 1.0 - b1 ** (count + 1), 1.0 - b2 ** (count + 1)
@@ -168,7 +184,18 @@ class Optimizer:
 
 
 def make_optimizer(tcfg: TrainConfig, params) -> Optimizer:
-    return Optimizer(tcfg, params)
+    """The full path's optimizer: the projector (stage 1) or the projector
+    and the LM (stage 2), each group clipped on its own, marked
+    `requires_grad_(True)` and every other leaf False."""
+    trained = ("projector",) if tcfg.stage == "pretrain" else ("projector", "lm")
+    groups = param_groups(params)
+    for name, leaves in groups.items():
+        for leaf in leaves:
+            leaf.requires_grad_(name in trained)
+    proj_lr = tcfg.mm_projector_lr or tcfg.learning_rate
+    schedules = {"projector": warmup_cosine_decay(proj_lr, tcfg),
+                 "lm": warmup_cosine_decay(tcfg.learning_rate, tcfg)}
+    return Optimizer(tcfg, {name: groups[name] for name in trained if name in groups}, schedules)
 
 
 def make_train_step(cfg: TokenPackerVLMConfig, opt: Optimizer, remat: str = ""):

@@ -19,16 +19,30 @@ directions; its tied `wte` takes the embedding's and the head's
 gradients in stage 2). `remat` is llama's: MPT has none, as in the JAX
 package, and a non-empty one raises.
 
+LoRA and QLoRA (`rcfg.lora`, a `train/lora.LoraConfig`; `bits` 8 or 4
+quantize the frozen LM unfused with `ops/quantize.quantize_tree(_4bit)`
+when the Trainer is made) train the adapters and the projector with one
+clip over both, AdamW and optax's `warmup_cosine_decay_schedule(0, lr,
+max(warmup, 1), total + 1)` (`_train_lora`, the JAX package's LoRA loop),
+and write the reference's LoRA layout (`save_lora_checkpoint`). Unlike
+the JAX package's loop (ROADMAP R15) it applies `weight_decay`,
+`mm_projector_lr` and `gradient_accumulation_steps`, and resumes from the
+latest LoRA checkpoint; with weight_decay 1e-4 (optax's default, which
+JAX always applies), no `mm_projector_lr` and no accumulation the two
+compute the same steps.
+
 `Trainer.train()` runs on the device the parameters live on, CUDA unless
 the caller asks for the CPU (`device="cpu"`); a parameter on another
-device raises. Tensor parallelism (`tp > 1`) and LoRA / QLoRA
-(`lora`, `bits`) are not ported yet (ROADMAP queue 1) and raise.
+device raises. Tensor parallelism (`tp > 1`) is not ported yet (ROADMAP
+queue 1) and raises; so does `bits` 8 or 4 without `lora` (the full path
+would train a quantized base).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import glob
+import json
 import logging
 import os
 import re
@@ -43,7 +57,16 @@ import torch
 from tokenpacker_tpu_torch.config import TokenPackerVLMConfig
 from tokenpacker_tpu_torch.data.dataset import LengthGroupedSampler, SupervisedDataset, collate
 from tokenpacker_tpu_torch.generate import device_batch
-from tokenpacker_tpu_torch.io.hf_import import export_tokenpacker
+from tokenpacker_tpu_torch.io.hf_import import export_tokenpacker, import_tokenpacker, strip_prefix
+from tokenpacker_tpu_torch.ops import quantize
+from tokenpacker_tpu_torch.train.lora import (
+    LoraConfig,
+    export_lora_state_dict,
+    import_lora_state_dict,
+    init_lora,
+    make_lora_optimizer,
+    make_lora_train_step,
+)
 from tokenpacker_tpu_torch.train.step import (
     TrainConfig,
     leaves_with_paths,
@@ -52,6 +75,9 @@ from tokenpacker_tpu_torch.train.step import (
 )
 
 logger = logging.getLogger(__name__)
+
+# the projector's keys in non_lora_trainables.bin
+LORA_PROJECTOR_PREFIX = "base_model.model.model.mm_projector."
 
 
 @dataclass
@@ -67,8 +93,8 @@ class RunConfig:
     seed: int = 42
     tp: int = 1
     seq_pad_to: int = 2048
-    bits: int = 16
-    lora: object = None
+    bits: int = 16  # 8 / 4: the frozen LM quantized for LoRA (QLoRA)
+    lora: LoraConfig | None = None
     remat: str = ""  # models/llama.llama_apply's per-layer rematerialization
 
 
@@ -121,9 +147,13 @@ class Trainer:
         if rcfg.tp > 1:
             raise NotImplementedError("tp > 1: tensor parallelism is not ported yet "
                                       "(ROADMAP queue 1, training and parallelism)")
-        if rcfg.lora is not None or rcfg.bits != 16:
-            raise NotImplementedError("LoRA / QLoRA training is not ported yet "
-                                      "(ROADMAP queue 1, with K6 and train/lora)")
+        if rcfg.bits not in (16, 8, 4):
+            raise ValueError(f"bits={rcfg.bits}: expected 16, 8 or 4")
+        if rcfg.bits != 16 and rcfg.lora is None:
+            raise ValueError(f"bits={rcfg.bits} quantizes a frozen base and needs lora "
+                             "(QLoRA); the full path trains the LM itself")
+        if rcfg.lora is not None and not isinstance(rcfg.lora, LoraConfig):
+            raise TypeError(f"lora: expected a train.lora.LoraConfig, got {type(rcfg.lora)}")
         if rcfg.remat and cfg.lm.model_family == "mpt":
             raise ValueError(f"remat={rcfg.remat!r}: MPT has no rematerialization (nor has the "
                              "JAX package's mpt_apply)")
@@ -135,7 +165,13 @@ class Trainer:
             if leaf.device.type != self.device.type:
                 raise ValueError(f"parameter {'/'.join(map(str, path))} is on {leaf.device}, "
                                  f"the trainer runs on {self.device}")
+        if rcfg.lora is not None and rcfg.bits != 16:
+            # unfused (a fused qkv / gateup leaf is never a target), as the
+            # JAX package's loop quantizes; the dense LM is dropped here
+            quant = quantize.quantize_tree if rcfg.bits == 8 else quantize.quantize_tree_4bit
+            params = {**params, "lm": quant(params["lm"])}
         self.params = params
+        self.lora = None  # the adapter tree after a LoRA train()
         self.dataset = dataset
         self.tokenizer = tokenizer
         self.sep_id = tokenizer.convert_tokens_to_ids(",")
@@ -239,21 +275,73 @@ class Trainer:
         logger.info("resumed from %s at step %d", ckpt, step)
         return int(step), opt_state
 
+    def save_lora_checkpoint(self, step: int, lora, lcfg: LoraConfig, opt_state=None):
+        """The reference's LoRA layout (train.py:998-1008) under
+        checkpoint-{step}: `adapter_config.json` (r, lora_alpha,
+        lora_dropout, peft_type), `adapter_model.bin` (`export_lora_state_dict`)
+        and `non_lora_trainables.bin` (the projector under
+        `base_model.model.model.mm_projector.`), as the JAX package writes
+        them; `config.json` (the reference's LoRA run saves the model's
+        config beside them), so that `api.load_pretrained_model(ckpt,
+        model_base=...)` reads the directory as it is; with `opt_state`,
+        also `optimizer.pt` (the step and the optimizer state, the port's
+        own, for `try_resume_lora`). Pruned to save_total_limit."""
+        out = os.path.join(self.rcfg.output_dir, f"checkpoint-{step}")
+        os.makedirs(out, exist_ok=True)
+
+        def tensors(sd):
+            return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+        proj = export_tokenpacker(self.params["projector"])
+        with open(os.path.join(out, "config.json"), "w") as f:
+            json.dump(self.cfg.to_hf_dict(), f, indent=2)
+        with open(os.path.join(out, "adapter_config.json"), "w") as f:
+            json.dump({"r": lcfg.r, "lora_alpha": lcfg.alpha, "lora_dropout": lcfg.dropout,
+                       "peft_type": "LORA"}, f)
+        torch.save(tensors(export_lora_state_dict(lora, lcfg)),
+                   os.path.join(out, "adapter_model.bin"))
+        torch.save(tensors({f"{LORA_PROJECTOR_PREFIX}{k}": v for k, v in proj.items()}),
+                   os.path.join(out, "non_lora_trainables.bin"))
+        if opt_state is not None:
+            torch.save({"step": step, "opt_state": _to_host(opt_state)},
+                       os.path.join(out, "optimizer.pt"))
+        self._prune_checkpoints()
+        logger.info("saved LoRA checkpoint-%d", step)
+
+    def try_resume_lora(self, lora, opt_state=None):
+        """Resume the adapters and the projector (copied into the live
+        tensors in place) from the latest checkpoint-* in the LoRA layout,
+        and the optimizer state and step from its `optimizer.pt` (without
+        one: the step of its name, `opt_state` as given). Returns (step,
+        opt_state); (0, opt_state) when there is nothing to resume."""
+        ckpt = _latest_checkpoint(self.rcfg.output_dir)
+        if ckpt is None or not os.path.isfile(os.path.join(ckpt, "adapter_model.bin")):
+            return 0, opt_state
+        import_lora_state_dict(torch.load(os.path.join(ckpt, "adapter_model.bin"),
+                                          map_location="cpu", weights_only=True), lora)
+        nlt = torch.load(os.path.join(ckpt, "non_lora_trainables.bin"), map_location="cpu",
+                         weights_only=True)
+        proj = self.params["projector"]
+        dtype = next(t for _, t in leaves_with_paths(proj)).dtype
+        _copy_into(proj, import_tokenpacker(strip_prefix(nlt, LORA_PROJECTOR_PREFIX),
+                                            self.cfg.projector, dtype))
+        step = int(re.search(r"checkpoint-(\d+)$", ckpt).group(1))
+        state_path = os.path.join(ckpt, "optimizer.pt")
+        if opt_state is not None and os.path.isfile(state_path):
+            restored = torch.load(state_path, map_location="cpu", weights_only=True)
+            opt_state = _copy_into(opt_state, restored["opt_state"])
+            step = int(restored["step"])
+        logger.info("resumed LoRA from %s at step %d", ckpt, step)
+        return step, opt_state
+
     # -- main loop ---------------------------------------------------------
 
-    def train(self):
-        rcfg, tcfg = self.rcfg, self.tcfg
-        n_batches = len(self.dataset) // rcfg.per_device_batch_size
-        total_steps = max(n_batches * rcfg.num_train_epochs, 1)
-        # the schedule advances once per optimizer update (every k micro-steps)
-        accum = max(tcfg.gradient_accumulation_steps, 1)
-        tcfg = dataclasses.replace(tcfg, total_steps=max(total_steps // accum, 1))
-
-        opt = make_optimizer(tcfg, self.params)
-        opt_state = opt.init()
-        step_fn = make_train_step(self.cfg, opt, rcfg.remat)
-        start_step, opt_state = self.try_resume(opt_state)
-        step = start_step
+    def _loop(self, run_step, save, start_step: int, total_steps: int) -> None:
+        """The epochs over `_batches()`: `run_step(device batch)` returns a
+        step's metrics; `save(step)` at every save_steps and at the end
+        (once where the last step was a save step). Fills `history`."""
+        rcfg = self.rcfg
+        step, saved = start_step, None
         cuda = self.device.type == "cuda"
         self.history = []
         for _ in range(rcfg.num_train_epochs):
@@ -261,8 +349,7 @@ class Trainer:
                 if cuda:
                     torch.cuda.reset_peak_memory_stats(self.device)
                 t0 = time.perf_counter()
-                dev_batch = device_train_batch(batch, self.cfg.dtype, self.device)
-                _, opt_state, metrics = step_fn(self.params, opt_state, dev_batch)
+                metrics = run_step(device_train_batch(batch, self.cfg.dtype, self.device))
                 loss = float(metrics["loss"])  # waits for the step
                 if cuda:
                     torch.cuda.synchronize(self.device)
@@ -278,8 +365,55 @@ class Trainer:
                     logger.info("step %d/%d loss %.4f (%.2fs)", step, total_steps, loss,
                                 record["seconds"])
                 if step % rcfg.save_steps == 0:
-                    self.save_checkpoint(step, opt_state)
-        self.save_checkpoint(step, opt_state)
+                    save(step)
+                    saved = step
+        if saved != step:
+            save(step)
+
+    def _total_steps(self) -> tuple[int, int]:
+        """(micro-steps of the run, optimizer updates: the micro-steps over
+        gradient_accumulation_steps, at least 1)."""
+        rcfg = self.rcfg
+        n_batches = len(self.dataset) // rcfg.per_device_batch_size
+        total = max(n_batches * rcfg.num_train_epochs, 1)
+        return total, max(total // max(self.tcfg.gradient_accumulation_steps, 1), 1)
+
+    def _train_lora(self):
+        """The LoRA / QLoRA loop (the JAX package's `_train_lora`, with R15's
+        settings applied): the adapters of `init_lora` over the frozen (and,
+        with bits 8 / 4, quantized) LM and the projector train; the tower
+        and the base stay as they are. Returns (adapter tree, projector)."""
+        rcfg, lcfg = self.rcfg, self.rcfg.lora
+        total, updates = self._total_steps()
+        for _, leaf in leaves_with_paths(self.params):
+            leaf.requires_grad_(False)
+        lora = init_lora(rcfg.seed, self.params, lcfg)
+        opt = make_lora_optimizer(self.tcfg, lcfg, lora, self.params["projector"], updates)
+        opt_state = opt.init()
+        start_step, opt_state = self.try_resume_lora(lora, opt_state)
+        step_fn = make_lora_train_step(self.cfg, lcfg, opt, rcfg.remat)
+        self.lora = lora
+        self._loop(lambda b: step_fn(lora, self.params, opt_state, b)[2],
+                   lambda step: self.save_lora_checkpoint(step, lora, lcfg, opt_state),
+                   start_step, total)
+        self.opt_state = opt_state
+        return lora, self.params["projector"]
+
+    def train(self):
+        """Train as `rcfg` says: the LoRA loop when `rcfg.lora` is set, else
+        the stage's full path. Returns the params (LoRA: the adapter tree
+        and the projector)."""
+        if self.rcfg.lora is not None:
+            return self._train_lora()
+        total, updates = self._total_steps()
+        # the schedule advances once per optimizer update (every k micro-steps)
+        tcfg = dataclasses.replace(self.tcfg, total_steps=updates)
+        opt = make_optimizer(tcfg, self.params)
+        opt_state = opt.init()
+        step_fn = make_train_step(self.cfg, opt, self.rcfg.remat)
+        start_step, opt_state = self.try_resume(opt_state)
+        self._loop(lambda b: step_fn(self.params, opt_state, b)[2],
+                   lambda step: self.save_checkpoint(step, opt_state), start_step, total)
         self.finish_pending_saves()
         self.opt_state = opt_state
         return self.params
