@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py              # the smoke run, phases 1-33 (25-33 before 24)
+    python3 chip_smoke.py              # the smoke run, phases 1-34 (25-34 before 24)
     python3 chip_smoke.py --profile    # phases 1-2, then the profile below
     python3 chip_smoke.py --profile-train  # phases 1-2, then a traced training step
     python3 chip_smoke.py --profile-paged  # phases 1-2, then traced paged decode steps
@@ -18,6 +18,8 @@
     python3 chip_smoke.py --serving        # phases 1-2, phase 28's checkpoint write, 31
     python3 chip_smoke.py --lora-train     # phases 1-2, K1 and K2 (training shape) of phase 3,
                                            # phase 28's checkpoint write, 32-33
+    python3 chip_smoke.py --eval           # phases 1-2, K1, K2-fwd, K4 and K4-verify of
+                                           # phase 3, phase 28's checkpoint write, 34
 
 Phases, one result line each or more (every failure raises, so any
 failure exits non-zero and prints no final line):
@@ -34,11 +36,11 @@ failure exits non-zero and prints no final line):
      events), and the least time the card could take (bound). K4 runs at
      the last decode step of phase 6: random Vicuna-7B layers quantized to
      int8, 4 requests, S=2080, the HD requests' ranges, int8 and bf16
-     caches. K5 runs at phase 10's pool shape: 8 sequences of 65-2080
-     keys over shuffled pages of 64, 32 and 8 kv heads, int8 and bf16
-     pools. K6 (nf4 and int4), K7 and K8 run at TokenPacker-HD-7b's
-     product shapes (`quantized_kernel_cases`): K6 held per (row,
-     128-wide slice), K7's int32 and K8's int8 rows and int32 sums bit
+     caches, and at phase 34's 16 and 14 rows with a bf16 cache. K5 runs
+     at phase 10's pool shape: 8 sequences of 65-2080 keys over shuffled
+     pages of 64, 32 and 8 kv heads, int8 and bf16 pools. K6 (nf4 and
+     int4), K7 and K8 run at TokenPacker-HD-7b's product shapes
+     (`quantized_kernel_cases`): K6 held per (row, 128-wide slice), K7's int32 and K8's int8 rows and int32 sums bit
      for bit, each shown to fail the product without the last 64 or 128
      rows of K; their bound is at the int8 rate for K7 and K8, their
      library yardstick torch._int_mm (K7, K8) or the bf16 product with
@@ -266,7 +268,22 @@ failure exits non-zero and prints no final line):
      (QLORA_DEEP_BAND, which the served run without its term must fail);
  33. full widths, 2 LM layers: one LoRA step over an nf4 base, card bf16
      vs CPU fp32 (phase 9's bands, the adapters at the LM's), failing K2's
-     backward without dq, or dk and dv.
+     backward without dq, or dk and dv;
+ 34. configuration R, the evaluation harness over phase 28's directory
+     (before it is deleted): the port's eval CLIs through their `main`s
+     with --load-8bit, each loading the model anew: `benchmarks vqa` with
+     gqa.sh's flags over 32 GQA-style questions (batch 16, 128 new tokens,
+     PNGs of 320-800 px), `mmbench --all-rounds --single-pred-prompt`
+     over a 4-row TSV, `docvqa` (1700 x 2200 pages), `ocrbench`, `textqa`,
+     `run_demo` with 4 beams and with --speculative-k 4, `mmmu.run` over 4
+     records from a list, then `mmmu score`, `convert` and `score_cli`.
+     Answers files one line a question in order; each run's K1, K2-fwd,
+     K4 and K4-verify launches against its `generate` calls (real views
+     only, K4 at the batch's rows, none of K1 for textqa); GQA answers
+     0-3 and 12-15 (both of K4's 8-row tiles at 16 rows) by token id
+     against batch-1 `Generator.generate` runs where their margin is
+     decisive; the load, questions/s, ms a question, peak
+     GiB and each batch's host preparation and its overlap printed.
 Phase 3 also holds K2's full-bias form (no serving or training path
 reaches it) at MPT-7B's prefix-LM attention, [4, 2048, 32, 128], not
 causal: the prefix-LM mask with B's prompt lengths plus ALiBi as a [4, 32,
@@ -274,7 +291,7 @@ causal: the prefix-LM mask with B's prompt lengths plus ALiBi as a [4, 32,
 with rows below -1e30 (o = 0, lse = +inf), each failing the plain version
 with the bias's last key tile dropped; SDPA with the bias as a bf16 mask is
 its library column. The six kernels no path reaches (K2 full-bias and the
-probes' five) are counted over phases 4-23 and 25-32: 0.
+probes' five) are counted over phases 4-23 and 25-34: 0.
 Phase 3 also holds K9 at [8, 577, 1024] and [26, 577, 1024] by its
 block's update out - x per (image, 64 rows, 128-wide slice), failing the
 plain block that lost its last 64 keys or its MLP's last 128 units, with
@@ -331,7 +348,9 @@ then int8, the round trip of its adapter through `load_pretrained_model`
 and `load_adapter`; then the card-vs-CPU LoRA step at 2 layers). None
 prints the final "ok" line; nor do `--sampling` (phases
 25-27, no phase 3) and `--serving` (phase 28's write and phase 31),
-which print their launch counts. Every K1, K2 and K9 row of phase 3 also prints its
+which print their launch counts. `--eval` (K1's row, K2's serving rows,
+K4's and K4-verify's of phase 3, phase 28's write and phase 34) ends with
+the kernels line of those four and the "ok" line. Every K1, K2 and K9 row of phase 3 also prints its
 achieved TFLOP/s (the operations its bound counts over the kernel's
 time), every K8 row its TOPS and every K3, K5 and K6 row its TB/s, each
 against the card's rate, and the bound's share of the kernel's time (K3,
@@ -753,7 +772,8 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
     "quantized": K6-K8 alone; "speculative": the int8 rows' bit
     check, K9 and K4's verify form alone; "lora": K4-LoRA alone; "mpt":
     K2-bias and K3-ALiBi alone; "flash": every K2 row, and K3-ALiBi;
-    "tower": K1 and K9, with the 23-block tower fused and per op)."""
+    "tower": K1 and K9, with the 23-block tower fused and per op; "eval":
+    K1, K2's forward at the serving shapes, K4 and K4-verify)."""
     from tokenpacker_tpu_torch.config import preset_config
     from tokenpacker_tpu_torch.io.weights import init_lm_on_device, quantize_lm_int8
 
@@ -779,7 +799,7 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
         row["max_abs_err"] = max(c["max_abs_err"] for c in cases)
         return row
 
-    def every_case(cases):  # K5-K7: the first row, and every case's own times
+    def every_case(cases):  # K4-K7: the first row, and every case's own times
         keep = ("case", "ms", "library_ms", "bound_ms", "max_abs_err")
         return {**first_and_worst(cases), "cases": [
             {k: round(c[k], 5) if isinstance(c[k], float) else c[k] for k in keep} for c in cases]}
@@ -807,6 +827,9 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
         rows.update(k1_kernel_rows(device, case, first_and_worst))
         rows["vit_block"] = first_and_worst(k9_cases(device, case))
         return rows
+    if only == "eval":  # configuration R's kernels: K1, K2's forward, then K4 and K4-verify
+        rows.update(k1_kernel_rows(device, case, first_and_worst))
+        rows.update(k2_serving_rows(device, case, first_and_worst))
     if only == "checkpoints":  # K6 and K7 at MPT-7B's up and down, which phase 30 launches
         return {name: every_case(cases)
                 for name, cases in quantized_kernel_cases(device, case, ("mpt",)).items()}
@@ -823,9 +846,11 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
     # Vicuna-7B layers quantized to int8, the HD requests' ranges
     lc = preset_config(HD_PRESET).lm
     layers = quantize_lm_int8({"lm": init_lm_on_device(lc, SEED + 5, device)})["lm"]["layers"]
-    if only == "":
-        rows["fused_decode"] = first_and_worst(k4_cases(device, lc, layers, hd_lengths, s_hd, span))
-    if only in ("", "speculative"):
+    if only in ("", "eval"):  # and at phase 34's batches of 16 and 14 rows
+        rows["fused_decode"] = every_case(
+            k4_cases(device, lc, layers, hd_lengths, s_hd, span)
+            + k4_batch_cases(device, lc, layers, hd_lengths, s_hd, span))
+    if only in ("", "speculative", "eval"):
         rows["fused_verify"] = verify_kernel_cases(device, lc, layers, hd_lengths, s_hd, span)
     if only in ("", "lora"):
         rows.update(lora_kernel_cases(device, lc, layers, hd_lengths, s_hd, span))
@@ -913,8 +938,9 @@ def k3_kernel_rows(device, case, first_and_worst) -> dict:
 
 
 def k4_cases(device, lc, layers, hd_lengths: np.ndarray, s_hd: int,
-             span: tuple[int, int]) -> list[dict]:
-    """Phase 3, K4 at phase 6's last decode step, int8 and bf16 caches."""
+             span: tuple[int, int], caches: tuple = (True, False)) -> list[dict]:
+    """Phase 3, K4 at phase 6's last decode step, at int8 and bf16 caches
+    (`caches`: int8 or not, in turn), one row a request of `hd_lengths`."""
     from tokenpacker_tpu_torch.models.llama import KVCache
     from tokenpacker_tpu_torch.ops import fused_decode as k4
     from tokenpacker_tpu_torch.ops.kv_quant import dequantize_kv
@@ -932,7 +958,7 @@ def k4_cases(device, lc, layers, hd_lengths: np.ndarray, s_hd: int,
                              generator=torch.Generator(device=device).manual_seed(SEED + 6))).bfloat16()
     keys = int(np.minimum(hd_lengths, s_hd).sum()) + b * (span[1] - span[0])
     cases = []
-    for int8 in (True, False):
+    for int8 in caches:
         cache = random_cache(lc, b, s_hd, int8, SEED + 7, device)
         tag = f"K4 fused_decode B={b} S={s_hd} {'int8' if int8 else 'bf16'} cache"
 
@@ -1000,8 +1026,24 @@ def k4_cases(device, lc, layers, hd_lengths: np.ndarray, s_hd: int,
               f"ms, library none, bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.0%} of the kernel's "
               f"time; {keys} valid cache rows)")
         cases.append({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                      "bound_ms": b_ms, "bound_by": b_by})
+                      "bound_ms": b_ms, "bound_by": b_by, "case": tag})
         del cache, c2, kc, vc, weights, lm
+    return cases
+
+
+def k4_batch_cases(device, lc, layers, hd_lengths: np.ndarray, s_hd: int,
+                   span: tuple[int, int]) -> list[dict]:
+    """Phase 3, K4 at the rows of phase 34's batches: 16 (a GQA batch) and
+    14 (MMBench's rounds), where the kernel takes two 8-row tiles of x a
+    pass, the second ragged at 14. The bf16 cache of `load_pretrained_model`'s
+    Generator; the prompt lengths are the HD requests' repeated, 37 shorter
+    at each repeat, so that no two tiles see the same rows."""
+    cases = []
+    for rows in (16, 14):
+        lengths = np.array([hd_lengths[i % len(hd_lengths)] - 37 * (i // len(hd_lengths))
+                            for i in range(rows)], dtype=hd_lengths.dtype)
+        cases += k4_cases(device, lc, layers, lengths, s_hd, span, caches=(False,))
+        torch.cuda.empty_cache()
     return cases
 
 
@@ -1261,8 +1303,16 @@ def quantized_kernel_cases(device, case, which: tuple = ("hd", "mpt")) -> dict:
 
 def k2_kernel_rows(device, case, first_and_worst) -> dict:
     """Phase 3's rows of K2 without a bias: the forward at the serving
-    shapes (A's bucket of 512, and 700 with 32 and 8 kv heads), then both
-    directions at the training shape (`phase_kernels_training_shape`)."""
+    shapes (`k2_serving_rows`), then both directions at the training shape
+    (`phase_kernels_training_shape`)."""
+    rows = k2_serving_rows(device, case, first_and_worst)
+    rows.update(phase_kernels_training_shape(device, case))
+    return rows
+
+
+def k2_serving_rows(device, case, first_and_worst) -> dict:
+    """Phase 3's row of K2's forward at the serving shapes: A's bucket of
+    512, and 700 with 32 and 8 kv heads."""
     from tokenpacker_tpu_torch.ops import flash_attention as k2
 
     cases = []
@@ -1276,9 +1326,7 @@ def k2_kernel_rows(device, case, first_and_worst) -> dict:
             library=lambda q=q, kk=kk, vv=vv: sdpa(q, kk, vv, is_causal=True,
                                                    enable_gqa=hkv != 32),
             work=(nbytes, 4 * 2 * 32 * 128 * t * (t + 1) / 2), achieved="ops"))
-    rows = {"flash_attention": first_and_worst(cases)}
-    rows.update(phase_kernels_training_shape(device, case))
-    return rows
+    return {"flash_attention": first_and_worst(cases)}
 
 
 def phase_kernels_training_shape(device, case) -> dict:
@@ -2818,10 +2866,11 @@ def verify_kernel_cases(device, lc, layers, hd_lengths: np.ndarray, s_hd: int,
 
 
 def plain_reference(params, cfg, batch, device, kv_cache_dtype=torch.int8,
-                    vit_block: bool = False, repetition_penalty: float = 1.0) -> tuple[list, list]:
+                    vit_block: bool = False, repetition_penalty: float = 1.0,
+                    new_tokens: int = NEW_TOKENS) -> tuple[list, list]:
     """Phase 6's plain run of the HD requests, recorded: a batched prefill
     (the per-op tower, or the fused one with `vit_block`) and decode steps
-    (K4 on an int8 tree, else per layer), NEW_TOKENS greedy tokens (of the
+    (K4 on an int8 tree, else per layer), `new_tokens` greedy tokens (of the
     logits penalized by `repetition_penalty`, `generate.apply_penalties`).
     Per request its tokens and the top-2 margin of the logits behind
     each."""
@@ -2836,20 +2885,20 @@ def plain_reference(params, cfg, batch, device, kv_cache_dtype=torch.int8,
 
     n, l = batch["token_ids"].shape
     dev = device_batch(batch, torch.bfloat16, device)
-    logits, cache = prefill(params, cfg, dev, l + NEW_TOKENS, kv_cache_dtype,
+    logits, cache = prefill(params, cfg, dev, l + new_tokens, kv_cache_dtype,
                             vit_block=vit_block)
     fused = fused_weights(params, cfg)
     presence = torch.as_tensor(prompt_presence_mask(batch, cfg.lm.vocab_size), device=device)
     counts = torch.zeros((n, cfg.lm.vocab_size), dtype=torch.int32, device=device)
     toks, margins = [], []
-    for step in range(NEW_TOKENS):
+    for step in range(new_tokens):
         if repetition_penalty != 1.0:
             logits = apply_penalties(logits, counts, presence, repetition_penalty)
         top2 = logits.float().topk(2, dim=-1).values
         margins.append(top2[:, 0] - top2[:, 1])
         toks.append(logits.argmax(dim=-1))
         counts[torch.arange(n, device=device), toks[-1]] += 1
-        if step < NEW_TOKENS - 1:
+        if step < new_tokens - 1:
             logits, cache = decode_step(params, cfg, cache, toks[-1], dev["lengths"], step, l,
                                         fused)
     del cache
@@ -6834,6 +6883,492 @@ def phase_qlora_parity(device, seed: int) -> None:
                   qlora=True)
 
 
+# -- phase 34: the evaluation harness (configuration R) ------------------------
+
+EVAL_GQA, EVAL_GQA_BATCH = 32, 16  # (a): questions, and gqa.sh's --batch-size
+EVAL_SMALL = 4  # (b)'s TSV rows, (c)'s questions of each benchmark, (e)'s MMMU records
+# (a)'s answers held against batch-1 runs: rows of both 8-row tiles that
+# K4 takes at the batch's 16 rows
+EVAL_REF = (0, 1, 2, 3, 12, 13, 14, 15)
+EVAL_MAX_NEW = 128  # the CLIs' default --max-new-tokens
+GQA_OBJECTS = ("car", "man", "table", "dog", "shirt", "sign", "tree", "bus", "cup", "horse",
+               "window", "bag", "fence", "boat", "chair", "plate")
+GQA_FORMS = ("What color is the {} on the left?", "Is the {} to the right of the person?",
+             "Which side of the picture is the {} on?", "What is the {} made of?")
+GQA_PROMPT = "\nAnswer the question using a single word or phrase."
+
+
+def photo(rng, w: int, h: int):
+    """A synthetic photo: a coarse random field, smoothed up to w x h, with
+    per-pixel noise (an RGB PIL image)."""
+    from PIL import Image
+
+    small = rng.integers(0, 256, (max(2, h // 48), max(2, w // 48), 3), dtype=np.uint8)
+    base = np.asarray(Image.fromarray(small).resize((w, h), Image.BILINEAR), dtype=np.int16)
+    noise = rng.integers(-10, 11, (h, w, 1), dtype=np.int16)
+    return Image.fromarray(np.clip(base + noise, 0, 255).astype(np.uint8))
+
+
+def document_page(rng, w: int = 1700, h: int = 2200):
+    """A synthetic scanned page (or, small, a word crop): dark word boxes
+    in lines on white."""
+    from PIL import Image
+
+    page = np.full((h, w, 3), 248, dtype=np.uint8)
+    mx, my = min(130, w // 10), min(140, h // 6)
+    for y in range(my, h - my - 22, 46):
+        x = mx
+        while x < w - mx - 200:
+            width = int(rng.integers(30, 200))
+            page[y:y + 22, x:x + width] = int(rng.integers(10, 70))
+            x += width + int(rng.integers(14, 28))
+    return Image.fromarray(page)
+
+
+def png_b64(img) -> str:
+    import base64
+    import io
+
+    buf = io.BytesIO()
+    img.save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def write_eval_fixtures(root: Path, seed: int) -> dict:
+    """The inputs of phase 34's steps under root: (a) EVAL_GQA GQA-style
+    questions over PNGs of 320-800 px a side (mixed aspect, so the HD grids
+    of a batch are ragged) and their labels; (b) an MMBench TSV of
+    EVAL_SMALL rows with base64 PNGs (an empty hint, a row of 2 options, a
+    row of numeric options); (c) DocVQA pages of 1700 x 2200, OCRBench
+    word crops, text-only questions; (d) one photo; (e) MMMU records
+    (2 multiple-choice, 2 open) with their answer dict. Returns the paths
+    and the records."""
+    rng = np.random.default_rng(seed)
+    imgs = root / "images"
+    imgs.mkdir(parents=True)
+    questions, labels = [], {}
+    for i in range(EVAL_GQA):
+        w, h = (int(x) for x in rng.integers(320, 801, 2))
+        photo(rng, w, h).save(imgs / f"gqa{i}.png")
+        text = GQA_FORMS[i % len(GQA_FORMS)].format(GQA_OBJECTS[i % len(GQA_OBJECTS)])
+        questions.append({"question_id": f"gqa{i}", "image": f"gqa{i}.png",
+                          "text": text + GQA_PROMPT})
+        labels[f"gqa{i}"] = {"answer": ("left", "yes", "right", "wood")[i % 4]}
+    (root / "gqa.jsonl").write_text("".join(json.dumps(q) + "\n" for q in questions))
+    (root / "gqa_labels.json").write_text(json.dumps(labels))
+    tsv = ["index\tquestion\thint\tA\tB\tC\tD\tanswer\tcategory\timage"]
+    rows = [(0, "Which animal is shown?", "", "cat", "dog", "horse", "bird", "B"),
+            (1, "Is the light on?", "Look at the lamp.", "yes", "no", "", "", "A"),
+            (2, "How many people are in the picture?", "Count them.", "1", "2", "3", "4", "C"),
+            (3, "Which season is it?", "nan", "spring", "summer", "autumn", "winter", "D")]
+    for idx, q, hint, a, b, c, d, ans in rows:
+        w, h = (int(x) for x in rng.integers(400, 641, 2))
+        tsv.append("\t".join([str(idx), q, hint, a, b, c, d, ans, "attribute",
+                              png_b64(photo(rng, w, h))]))
+    (root / "mmbench.tsv").write_text("\n".join(tsv) + "\n")
+    docs = {"data": []}
+    for i in range(EVAL_SMALL):
+        document_page(rng).save(imgs / f"doc{i}.png")
+        docs["data"].append({"questionId": 100 + i, "image": f"doc{i}.png",
+                             "question": ("What is the date?", "Who signed the letter?",
+                                          "What is the total?", "What is the title?")[i]})
+    (root / "docvqa.json").write_text(json.dumps(docs))
+    ocr = []
+    for i in range(EVAL_SMALL):
+        document_page(rng, 400 + 60 * i, 140).save(imgs / f"ocr{i}.png")
+        ocr.append({"question": "what is written in the image?", "image_path": f"ocr{i}.png",
+                    "type": ("Regular Text Recognition", "Key Information Extraction")[i % 2],
+                    "answers": ["hello", "world"][: 1 + i % 2], "dataset_name": "synthetic"})
+    (root / "ocrbench.json").write_text(json.dumps(ocr))
+    (root / "textqa.jsonl").write_text("".join(
+        json.dumps({"question_id": i, "text": t}) + "\n" for i, t in enumerate(
+            ("What is the capital of France?", "Name a prime number larger than ten.",
+             "Why is the sky blue?", "Write one sentence about the sea."))))
+    photo(rng, 640, 480).save(imgs / "demo.png")
+    mc = "multiple-choice"
+    records = [
+        {"id": "validation_Art_1", "question": "<image 1> Which style is this painting?",
+         "question_type": mc, "options": "['Baroque', 'Cubism', 'Impressionism', 'Gothic']",
+         "answer": "C"},
+        {"id": "validation_Biology_2", "question": "What does the diagram <image 1> show?",
+         "question_type": mc, "options": "['Mitosis', 'Meiosis']", "answer": "A"},
+        {"id": "validation_Math_3", "question": "<image 1> What is the area of the square?",
+         "question_type": "open", "options": "[]", "answer": "16"},
+        {"id": "validation_Physics_4", "question": "<image 1> What is the speed in m/s?",
+         "question_type": "open", "options": "[]", "answer": "3.5"}]
+    for r in records:
+        r["image_1"] = photo(rng, int(rng.integers(300, 700)), int(rng.integers(300, 700)))
+    (root / "mmmu_answer_dict.json").write_text(json.dumps(
+        {r["id"]: {"ground_truth": r["answer"], "question_type": r["question_type"]}
+         for r in records}))
+    return {"root": root, "images": imgs, "records": records}
+
+
+@contextlib.contextmanager
+def eval_recorder(keep_model: bool = False):
+    """While open, records every `Generator.generate` call (its batch's
+    rows, views and image tokens, num_beams, result and host clock), the
+    rows of each K4 and K4-verify call made in it, every
+    `EvalRunner._prepare` (host clock, from the prefetch thread) and each
+    `api.load_pretrained_model` (seconds; the model if `keep_model`)."""
+    from tokenpacker_tpu_torch import api
+    from tokenpacker_tpu_torch import generate as gen_mod
+    from tokenpacker_tpu_torch import speculative as spec_mod
+    from tokenpacker_tpu_torch.eval import runner as runner_mod
+
+    rec = {"calls": [], "preps": [], "loads": []}
+    real = (gen_mod.Generator.generate, runner_mod.EvalRunner._prepare,
+            gen_mod.fused_decode_hidden, spec_mod.fused_verify_hidden, api.load_pretrained_model)
+
+    def generate(self, batch, *a, **kw):
+        images = batch.get("images")
+        call = {"rows": batch["token_ids"].shape[0],
+                "views": None if images is None else images.shape[0],
+                "image_tokens": int(np.asarray(batch["is_image"]).sum()),
+                "num_beams": kw.get("num_beams", 1), "k4_rows": [], "verify_rows": []}
+        rec["calls"].append(call)
+        call["start"] = time.perf_counter()
+        call["result"] = real[0](self, batch, *a, **kw)
+        call["end"] = time.perf_counter()
+        return call["result"]
+
+    def prepare(self, samples):
+        t0 = time.perf_counter()
+        out = real[1](self, samples)
+        rec["preps"].append((t0, time.perf_counter()))
+        return out
+
+    def k4(lm, lc, emb, *a, **kw):
+        rec["calls"][-1]["k4_rows"].append(emb.shape[0])
+        return real[2](lm, lc, emb, *a, **kw)
+
+    def k4_verify(lm, lc, emb, *a, **kw):
+        rec["calls"][-1]["verify_rows"].append(tuple(emb.shape[:2]))
+        return real[3](lm, lc, emb, *a, **kw)
+
+    def load(*a, **kw):
+        t0 = time.perf_counter()
+        out = real[4](*a, **kw)
+        torch.cuda.synchronize()
+        rec["loads"].append({"seconds": time.perf_counter() - t0,
+                             **({"tokenizer": out[0], "model": out[1]} if keep_model else {})})
+        return out
+
+    (gen_mod.Generator.generate, runner_mod.EvalRunner._prepare, gen_mod.fused_decode_hidden,
+     spec_mod.fused_verify_hidden, api.load_pretrained_model) = (generate, prepare, k4, k4_verify,
+                                                                 load)
+    try:
+        yield rec
+    finally:
+        (gen_mod.Generator.generate, runner_mod.EvalRunner._prepare, gen_mod.fused_decode_hidden,
+         spec_mod.fused_verify_hidden, api.load_pretrained_model) = real
+
+
+def eval_launches(name: str, rec: dict, cfg, counters: dict) -> dict:
+    """The launches the recorded calls imply: per `generate` one tower pass
+    over the batch's views (K1 on each of its blocks; none without an
+    image), one prefill (K2-fwd a layer), one K4 call a decode step at the
+    batch's rows (n x k with beams) and one K4-verify call a speculative
+    round. Raises where a batch's views are not exactly those its image
+    tokens read (a padded or unread view), or where K4's calls disagree
+    with the steps `generate` reports."""
+    want = {k: 0 for k in counters}
+    for i, c in enumerate(rec["calls"]):
+        stats = c["result"].stats
+        want["flash_attention"] += cfg.lm.num_hidden_layers
+        if c["views"] is not None:
+            want["vit_attention"] += tower_blocks(cfg)
+            if c["image_tokens"] != c["views"] * cfg.tokens_per_view:
+                raise AssertionError(f"{name} call {i}: {c['views']} views for "
+                                     f"{c['image_tokens']} image tokens")
+        rows = c["rows"] * max(c["num_beams"], 1)
+        if any(r != rows for r in c["k4_rows"]):
+            raise AssertionError(f"{name} call {i}: K4 at rows {sorted(set(c['k4_rows']))}, "
+                                 f"expected {rows}")
+        if c["num_beams"] <= 1 and len(c["k4_rows"]) != stats["decode_steps"]:
+            raise AssertionError(f"{name} call {i}: {len(c['k4_rows'])} K4 calls for "
+                                 f"{stats['decode_steps']} decode steps")
+        if len(c["verify_rows"]) != stats.get("verify_rounds", 0):
+            raise AssertionError(f"{name} call {i}: {len(c['verify_rows'])} K4-verify calls for "
+                                 f"{stats.get('verify_rounds', 0)} rounds")
+        want["fused_decode"] += len(c["k4_rows"])
+        want["fused_verify"] += len(c["verify_rows"])
+    return want
+
+
+def answers_in_order(name: str, path: Path, ids: list) -> list[dict]:
+    rows = [json.loads(line) for line in path.read_text().splitlines()]
+    got = [r["question_id"] for r in rows]
+    if got != ids:
+        raise AssertionError(f"{name}: answers for {got}, expected {ids}")
+    if not all(isinstance(r["text"], str) for r in rows):
+        raise AssertionError(f"{name}: an answer without text")
+    return rows
+
+
+def phase_eval(device, seed: int, ckpt: dict, card: str) -> dict:
+    """Phase 34 (configuration R, the evaluation harness): phase 28's
+    TokenPacker-HD-7b directory through the port's eval CLIs, each called
+    through its `main([...])` with --load-8bit and the device, under
+    `api_stand_ins()`, each loading the model anew and freeing it before
+    the next:
+
+    (a) `benchmarks vqa` with gqa.sh's flags (--batch-size 16, vicuna_v1,
+        128 new tokens) over EVAL_GQA GQA-style questions; (b)
+        `benchmarks mmbench --all-rounds --single-pred-prompt` (batch 16)
+        over the TSV; (c) `docvqa` (slice, batch 8), `ocrbench` (batch 16)
+        and `textqa`; (d) `run_demo` at temperature 0 with --num-beams 4,
+        then with --speculative-k 4; (e) `mmmu.run` over the records from a
+        list, then `mmmu score`, `convert gqa` + `score_cli gqa` on (a),
+        `score_cli mmbench` (majority and strict) and `convert mmbench` on
+        (b).
+
+    Checks: each answers file holds one line a question (a round for
+    (b)), ids in order; the launches of each CLI run equal what its
+    `generate` calls imply (`eval_launches`: every view real, K4 once a
+    step at the batch's rows, K4-verify once a round, none of K1 for
+    textqa); (a)'s answers EVAL_REF, by token id, equal a batch-1
+    `Generator.generate` of the same sample on the same loaded model up to
+    the first token where that run's top-2 margin is within LOGIT_BAND
+    (`plain_reference`, the same steps, records the margins; its tokens
+    equal the batch-1 run's). Prints (a)'s load, wall, questions/s, ms a
+    question and peak GiB, and each batch's host preparation and how much
+    of it ran under the previous batch's generate, beside `card`."""
+    import io
+
+    from tokenpacker_tpu_torch.eval import benchmarks, convert, mmmu, run_demo, score_cli
+    from tokenpacker_tpu_torch.eval.runner import EvalRunner
+
+    release_earlier_phases()
+    cfg, path = ckpt["cfg"], str(ckpt["path"])
+    root = Path(tempfile.mkdtemp(prefix="phase34_", dir=ckpt["root"]))
+    t0 = time.perf_counter()
+    fx = write_eval_fixtures(root, seed + 34)
+    imgs, out = str(fx["images"]), root / "answers"
+    print(f"phase 34 (R): the eval harness over phase 28's {HD_PRESET} directory, each CLI "
+          f"through its main() with --load-8bit; fixtures written in "
+          f"{time.perf_counter() - t0:.2f} s; {card}")
+    dev = ["--load-8bit", "--device", torch.device(device).type]
+    counters = sampling_counters()
+    runs = []
+
+    def cli(step: str, fn, argv: list, keep_model: bool = False):
+        release_earlier_phases()
+        printed = io.StringIO()
+        with api_stand_ins(), eval_recorder(keep_model) as rec:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(counters)
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                fn(argv + dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = read_counts(counters)
+        peak = torch.cuda.max_memory_allocated()
+        want = eval_launches(f"phase 34 {step}", rec, cfg, counters)
+        load_s = rec["loads"][0]["seconds"]
+        gen_s = sum(c["end"] - c["start"] for c in rec["calls"])
+        print(f"  {step}: {len(rec['calls'])} generate calls (rows "
+              f"{[c['rows'] for c in rec['calls']]}, views {[c['views'] for c in rec['calls']]}) "
+              f"in {wall:.2f} s: load {load_s:.2f} s, generate {gen_s:.2f} s; peak "
+              f"{peak / 2**30:.2f} GiB; launches {launches}")
+        if launches != want:
+            raise AssertionError(f"phase 34 {step}: kernel launch counts {launches} != {want}")
+        runs.append(launches)
+        return rec, wall, printed.getvalue()
+
+    # (a) GQA through `benchmarks vqa`, gqa.sh's flags
+    qids = [f"gqa{i}" for i in range(EVAL_GQA)]
+    rec, wall, _ = cli("(a) vqa", benchmarks.main, [
+        "vqa", "--model-path", path, "--question-file", str(root / "gqa.jsonl"),
+        "--image-folder", imgs, "--answers-file", str(out / "gqa.jsonl"),
+        "--batch-size", str(EVAL_GQA_BATCH), "--conv-mode", "vicuna_v1"], keep_model=True)
+    answers_in_order("phase 34 (a)", out / "gqa.jsonl", qids)
+    load_s = rec["loads"][0]["seconds"]
+    gen_wall = wall - load_s
+    print(f"  (a) {EVAL_GQA} questions, batch {EVAL_GQA_BATCH}: load {load_s:.2f} s, wall "
+          f"{wall:.2f} s, {EVAL_GQA / gen_wall:.2f} questions/s and "
+          f"{gen_wall / EVAL_GQA * 1e3:.1f} ms a question after the load; {card}")
+    preps, calls = rec["preps"], rec["calls"]
+    for i, (c, (p0, p1)) in enumerate(zip(calls, preps)):
+        if i == 0:
+            hidden, waited = "nothing to hide it under", c["start"] - p1
+        else:
+            prev = calls[i - 1]
+            under = max(0.0, min(p1, prev["end"]) - max(p0, prev["start"]))
+            hidden, waited = f"{under * 1e3:.1f} ms of it under batch {i - 1}'s generate", \
+                c["start"] - prev["end"]
+        print(f"  (a) batch {i}: host preparation {(p1 - p0) * 1e3:.1f} ms ({hidden}); generate "
+              f"{(c['end'] - c['start']) * 1e3:.1f} ms ({c['result'].stats['decode_steps']} "
+              f"decode steps); the loop waited {max(waited, 0.0) * 1e3:.1f} ms before it")
+    # answers from both of K4's 8-row tiles against batch-1 runs of the same
+    # samples on the same model
+    model, tokenizer = rec["loads"][0]["model"], rec["loads"][0]["tokenizer"]
+    runner = EvalRunner(model, tokenizer, conv_mode="vicuna_v1")
+    samples = list(benchmarks.iter_vqa_jsonl(str(root / "gqa.jsonl"), imgs))
+    agree = []
+    for i in EVAL_REF:
+        s = samples[i]
+        plan, images = runner._prepare([s])
+        batch = {"token_ids": plan.token_ids, "is_image": plan.is_image,
+                 "image_slot": plan.image_slot, "lengths": plan.lengths, "images": images}
+        one = model.generator.generate(batch, max_new_tokens=EVAL_MAX_NEW,
+                                       stop_strings=runner.stop_strings()).sequences[0]
+        toks, margins = plain_reference(model.params, model.cfg, batch, device,
+                                        kv_cache_dtype=None, new_tokens=EVAL_MAX_NEW)
+        if toks[0][:len(one)] != one:
+            raise AssertionError(f"phase 34 (a) question {i}: batch-1 generate {one[:8]}... "
+                                 f"differs from its plain steps {toks[0][:8]}...")
+        got = calls[0]["result"].sequences[i]
+        agree.append((decisive_agree(f"phase 34 (a) question {i}", got, one, margins[0]),
+                      len(got), len(one)))
+    print(f"  (a) answers {list(EVAL_REF)} by token id against batch-1 Generator.generate on "
+          f"the loaded model: (leading tokens equal, batch-16 tokens, batch-1 tokens) {agree}, "
+          f"any difference at a margin within LOGIT_BAND {LOGIT_BAND}")
+    del rec, model, tokenizer, runner
+    # (b) MMBench: all rounds, single-prediction prompt
+    rec, _, _ = cli("(b) mmbench", benchmarks.main, [
+        "mmbench", "--model-path", path, "--question-file", str(root / "mmbench.tsv"),
+        "--answers-file", str(out / "mmbench.jsonl"), "--all-rounds", "--single-pred-prompt",
+        "--batch-size", str(EVAL_GQA_BATCH), "--conv-mode", "vicuna_v1"])
+    rounds = answers_in_order("phase 34 (b)", out / "mmbench.jsonl",
+                              [0] * 4 + [1] * 2 + [2] * 4 + [3] * 4)
+    if [r["round_id"] for r in rounds] != [0, 1, 2, 3, 0, 1, 0, 1, 2, 3, 0, 1, 2, 3]:
+        raise AssertionError("phase 34 (b): rounds out of order")
+    # (c) DocVQA (slice, docvqa.sh's batch 8), OCRBench, text-only QA
+    rec, _, _ = cli("(c) docvqa", benchmarks.main, [
+        "docvqa", "--model-path", path, "--question-file", str(root / "docvqa.json"),
+        "--image-folder", imgs, "--answers-file", str(out / "docvqa.jsonl"),
+        "--image-aspect-ratio", "slice", "--batch-size", "8", "--conv-mode", "vicuna_v1"])
+    answers_in_order("phase 34 (c) docvqa", out / "docvqa.jsonl", [100, 101, 102, 103])
+    rec, _, printed = cli("(c) ocrbench", benchmarks.main, [
+        "ocrbench", "--model-path", path, "--question-file", str(root / "ocrbench.json"),
+        "--image-folder", imgs, "--answers-file", str(out / "ocrbench.jsonl"),
+        "--batch-size", str(EVAL_GQA_BATCH), "--conv-mode", "vicuna_v1"])
+    scored = answers_in_order("phase 34 (c) ocrbench", out / "ocrbench.jsonl", [0, 1, 2, 3])
+    if json.loads(printed)["total"] != sum(r["score"] for r in scored):
+        raise AssertionError("phase 34 (c) ocrbench: the printed total differs from the scores")
+    rec, _, _ = cli("(c) textqa", benchmarks.main, [
+        "textqa", "--model-path", path, "--question-file", str(root / "textqa.jsonl"),
+        "--answers-file", str(out / "textqa.jsonl"), "--conv-mode", "vicuna_v1"])
+    answers_in_order("phase 34 (c) textqa", out / "textqa.jsonl", [0, 1, 2, 3])
+    if runs[-1]["vit_attention"] != 0:
+        raise AssertionError("phase 34 (c) textqa: the tower ran")
+    # (d) run_demo: beams, then speculation
+    demo = ["--model-path", path, "--image-file", str(fx["images"] / "demo.png"), "--query",
+            "Describe this image in detail.", "--temperature", "0"]
+    for flags in (["--num-beams", "4"], ["--speculative-k", str(SPEC_K)]):
+        rec, _, printed = cli(f"(d) run_demo {' '.join(flags)}", run_demo.main, demo + flags)
+        if len(printed.splitlines()) != 1:
+            raise AssertionError(f"phase 34 (d) {flags}: printed {printed!r}")
+        print(f"  (d) run_demo {' '.join(flags)}: {len(rec['calls'][0]['result'].sequences[0])} "
+              f"tokens, {len(rec['calls'][0]['k4_rows'])} K4 calls at rows "
+              f"{sorted(set(rec['calls'][0]['k4_rows']))}, "
+              f"{rec['calls'][0]['result'].stats.get('verify_rounds', 0)} verify rounds")
+    # (e) MMMU from a list of records, then the scorers and converters
+    rec, _, _ = cli("(e) mmmu run", lambda argv: mmmu.run(mmmu.build_parser().parse_args(argv),
+                                                          fx["records"]),
+                    ["run", "--model-path", path, "--output", str(out / "mmmu.json")])
+    parsed = json.loads((out / "mmmu.json").read_text())
+    if list(parsed) != [r["id"] for r in fx["records"]] or \
+            parsed["validation_Art_1"] not in "ABCD" or parsed["validation_Biology_2"] not in "AB":
+        raise AssertionError(f"phase 34 (e): parsed answers {parsed}")
+    del rec
+    release_earlier_phases()
+    host = io.StringIO()
+    with contextlib.redirect_stdout(host):
+        mmmu.main(["score", "--answers", str(out / "mmmu.json"), "--answer-dict",
+                   str(root / "mmmu_answer_dict.json")])
+        mmmu_scores = json.loads(host.getvalue())
+        convert.main(["gqa", "--src", str(out / "gqa.jsonl"), "--dst", str(out / "gqa_pred.json")])
+        score_cli.main(["gqa", "--result-file", str(out / "gqa_pred.json"), "--questions",
+                        str(root / "gqa_labels.json")])
+        for strict in ([], ["--all-rounds-strict"]):
+            score_cli.main(["mmbench", "--annotation-file", str(root / "mmbench.tsv"),
+                            "--result-file", str(out / "mmbench.jsonl"), *strict])
+        convert.main(["mmbench", "--annotation-file", str(root / "mmbench.tsv"), "--result-file",
+                      str(out / "mmbench.jsonl"), "--dst", str(out / "upload" / "mmbench.xlsx")])
+    if mmmu_scores["Overall"]["num"] != len(fx["records"]):
+        raise AssertionError(f"phase 34 (e): MMMU scored {mmmu_scores}")
+    if len(json.loads((out / "gqa_pred.json").read_text())) != EVAL_GQA:
+        raise AssertionError("phase 34 (e): convert gqa lost answers")
+    lines = host.getvalue().splitlines()
+    accuracies = [line for line in lines if line.startswith("Accuracy:")]
+    upload = sorted(p.name for p in (out / "upload").iterdir())
+    if len(accuracies) != 3 or not upload:
+        raise AssertionError(f"phase 34 (e): score and convert printed {lines}")
+    print(f"  (e) MMMU overall {mmmu_scores['Overall']}; score_cli gqa / mmbench majority / "
+          f"strict: {[a.split()[1] for a in accuracies]} (random weights); convert mmbench "
+          f"wrote {upload}")
+    shutil.rmtree(root, ignore_errors=True)
+    release_earlier_phases()
+    return {k: sum(r.get(k, 0) for r in runs) for k in counters}
+
+
+# each kernel's source in the port and the TPU kernel it replaces (the kernels line)
+KERNEL_META = {
+    "vit_attention": ("tokenpacker_tpu_torch/csrc/vit_attention.cu",
+                      "tokenpacker_tpu/ops/vit_attention.py:75"),
+    "flash_attention": ("tokenpacker_tpu_torch/csrc/flash_fwd.cu",
+                        "tokenpacker_tpu/ops/flash_attention.py:183"),
+    "decode_attention": ("tokenpacker_tpu_torch/csrc/decode_attention.cu",
+                         "tokenpacker_tpu/ops/decode_attention.py:120"),
+    "fused_decode": ("tokenpacker_tpu_torch/csrc/fused_decode.cu",
+                     "tokenpacker_tpu/ops/fused_decode.py:1295"),
+    "flash_attention_bwd": ("tokenpacker_tpu_torch/csrc/flash_bwd.cu",
+                            "tokenpacker_tpu/ops/flash_attention.py:356"),
+    "paged_attention": ("tokenpacker_tpu_torch/csrc/paged_attention.cu",
+                        "tokenpacker_tpu/ops/paged_attention.py:127"),
+    "q4_matmul": ("tokenpacker_tpu_torch/csrc/q4_matmul.cu",
+                  "tokenpacker_tpu/ops/q4_matmul.py:132"),
+    "s8_matmul": ("tokenpacker_tpu_torch/csrc/s8_matmul.cu",
+                  "tokenpacker_tpu/ops/q8_matmul.py:59"),
+    "s8_gemm": ("tokenpacker_tpu_torch/csrc/s8_gemm.cu", "tokenpacker_tpu/ops/s8_gemm.py:108"),
+    "vit_block": ("tokenpacker_tpu_torch/csrc/vit_block.cu",
+                  "tokenpacker_tpu/ops/vit_block.py:125"),
+    "fused_verify": ("tokenpacker_tpu_torch/csrc/fused_decode.cu",
+                     "tokenpacker_tpu/ops/fused_decode.py:1390"),
+    "fused_decode_lora": ("tokenpacker_tpu_torch/csrc/fused_decode.cu",
+                          "tokenpacker_tpu/ops/fused_decode.py:1162"),
+    "fused_verify_lora": ("tokenpacker_tpu_torch/csrc/fused_decode.cu",
+                          "tokenpacker_tpu/ops/fused_decode.py:1390"),
+    "flash_attention_bias": ("tokenpacker_tpu_torch/csrc/flash_fwd.cu",
+                             "tokenpacker_tpu/ops/flash_attention.py:183"),
+    "flash_attention_bias_bwd": ("tokenpacker_tpu_torch/csrc/flash_bwd.cu",
+                                 "tokenpacker_tpu/ops/flash_attention.py:356"),
+    "decode_attention_alibi": ("tokenpacker_tpu_torch/csrc/decode_attention.cu",
+                               "tokenpacker_tpu/ops/decode_attention.py:120"),
+    "flash_attention_full_bias": ("tokenpacker_tpu_torch/csrc/flash_fwd.cu",
+                                  "tokenpacker_tpu/ops/flash_attention.py:183"),
+    "dma_stride": ("tokenpacker_tpu_torch/csrc/stream_probes.cu",
+                   "scripts/probe_dma_stride.py:74"),
+    "int4_ring": ("tokenpacker_tpu_torch/csrc/stream_probes.cu",
+                  "scripts/probe_int4_ring.py:76"),
+    "bitcast_pack": ("tokenpacker_tpu_torch/csrc/stream_probes.cu",
+                     "scripts/probe_bitcast_pack.py:34"),
+    "bitcast_stream": ("tokenpacker_tpu_torch/csrc/stream_probes.cu",
+                       "scripts/probe_bitcast_pack.py:133"),
+    "stream_dtype": ("tokenpacker_tpu_torch/csrc/stream_probes.cu",
+                     "scripts/probe_stream_dtype.py:68"),
+}
+
+
+def kernels_line(rows: dict, runs: list) -> str:
+    """The kernels JSON line: each row of `rows` with its source, the TPU
+    kernel it replaces and its launches summed over the main-path `runs`."""
+    return json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": KERNEL_META[name][0],
+         "replaces": KERNEL_META[name][1], "launches": sum(r.get(name, 0) for r in runs),
+         **rows[name]} for name in KERNEL_META if name in rows]})
+
+
+def ok_line() -> str:
+    return json.dumps({"ok": True, "device": {"platform": "gpu",
+                                              "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}})
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible; this check runs only on a GPU")
@@ -6923,13 +7458,24 @@ def main() -> None:
     probes = "--probes" in sys.argv[1:]
     flash = "--flash" in sys.argv[1:]
     tower = "--tower" in sys.argv[1:]
+    evals = "--eval" in sys.argv[1:]
     only = ("quantized" if quantized else "speculative" if speculative else "lora" if lora
             else "lora-train" if lora_train else "mpt" if mpt else "probes" if probes
-            else "flash" if flash else "tower" if tower else "")
+            else "flash" if flash else "tower" if tower else "eval" if evals else "")
     rows = phase_kernels(device, hd_batch["lengths"], s_hd, (l, l + NEW_TOKENS - 2), only)
     if "--kernels" in sys.argv[1:]:
         return
     card_line = card.splitlines()[0] if card else ""
+    if only == "eval":
+        ckpt = write_phase28_checkpoint(device, SEED)
+        ckpt["params"] = None
+        try:
+            runs = [phase_eval(device, SEED, ckpt, card_line)]
+        finally:
+            shutil.rmtree(ckpt["root"], ignore_errors=True)
+        print(kernels_line(rows, runs))
+        print(ok_line())
+        return
     if lora_train:
         ckpt = write_phase28_checkpoint(device, SEED)
         ckpt["params"] = None
@@ -6993,7 +7539,7 @@ def main() -> None:
                           for name, row in rows.items()}))
         return
     # K2's full-bias form and the probes: no serving or training path
-    # reaches them; counted over all of the main-path phases 4-23 and 25-32
+    # reaches them; counted over all of the main-path phases 4-23 and 25-34
     unreached = probe_counters()
     reset_counts(unreached)
     runs = [phase_end_to_end(device, SEED)]
@@ -7024,6 +7570,7 @@ def main() -> None:
         runs.append(phase_mpt_quantized(device, SEED))
         runs.append(phase_serving(device, SEED, ckpt["path"], card_line))
         runs.append(phase_qlora_train(device, SEED, ckpt, rows, card_line))
+        runs.append(phase_eval(device, SEED, ckpt, card_line))
     finally:
         shutil.rmtree(ckpt["root"], ignore_errors=True)
     phase_qlora_parity(device, SEED)
@@ -7033,68 +7580,16 @@ def main() -> None:
     release_earlier_phases()
     rows.update(phase_probes(device))
 
-    meta = {
-        "vit_attention": ("tokenpacker_tpu_torch/csrc/vit_attention.cu",
-                          "tokenpacker_tpu/ops/vit_attention.py:75"),
-        "flash_attention": ("tokenpacker_tpu_torch/csrc/flash_fwd.cu",
-                            "tokenpacker_tpu/ops/flash_attention.py:183"),
-        "decode_attention": ("tokenpacker_tpu_torch/csrc/decode_attention.cu",
-                             "tokenpacker_tpu/ops/decode_attention.py:120"),
-        "fused_decode": ("tokenpacker_tpu_torch/csrc/fused_decode.cu",
-                         "tokenpacker_tpu/ops/fused_decode.py:1295"),
-        "flash_attention_bwd": ("tokenpacker_tpu_torch/csrc/flash_bwd.cu",
-                                "tokenpacker_tpu/ops/flash_attention.py:356"),
-        "paged_attention": ("tokenpacker_tpu_torch/csrc/paged_attention.cu",
-                            "tokenpacker_tpu/ops/paged_attention.py:127"),
-        "q4_matmul": ("tokenpacker_tpu_torch/csrc/q4_matmul.cu",
-                      "tokenpacker_tpu/ops/q4_matmul.py:132"),
-        "s8_matmul": ("tokenpacker_tpu_torch/csrc/s8_matmul.cu",
-                      "tokenpacker_tpu/ops/q8_matmul.py:59"),
-        "s8_gemm": ("tokenpacker_tpu_torch/csrc/s8_gemm.cu", "tokenpacker_tpu/ops/s8_gemm.py:108"),
-        "vit_block": ("tokenpacker_tpu_torch/csrc/vit_block.cu",
-                      "tokenpacker_tpu/ops/vit_block.py:125"),
-        "fused_verify": ("tokenpacker_tpu_torch/csrc/fused_decode.cu",
-                         "tokenpacker_tpu/ops/fused_decode.py:1390"),
-        "fused_decode_lora": ("tokenpacker_tpu_torch/csrc/fused_decode.cu",
-                              "tokenpacker_tpu/ops/fused_decode.py:1162"),
-        "fused_verify_lora": ("tokenpacker_tpu_torch/csrc/fused_decode.cu",
-                              "tokenpacker_tpu/ops/fused_decode.py:1390"),
-        "flash_attention_bias": ("tokenpacker_tpu_torch/csrc/flash_fwd.cu",
-                                 "tokenpacker_tpu/ops/flash_attention.py:183"),
-        "flash_attention_bias_bwd": ("tokenpacker_tpu_torch/csrc/flash_bwd.cu",
-                                     "tokenpacker_tpu/ops/flash_attention.py:356"),
-        "decode_attention_alibi": ("tokenpacker_tpu_torch/csrc/decode_attention.cu",
-                                   "tokenpacker_tpu/ops/decode_attention.py:120"),
-        "flash_attention_full_bias": ("tokenpacker_tpu_torch/csrc/flash_fwd.cu",
-                                      "tokenpacker_tpu/ops/flash_attention.py:183"),
-        "dma_stride": ("tokenpacker_tpu_torch/csrc/stream_probes.cu",
-                       "scripts/probe_dma_stride.py:74"),
-        "int4_ring": ("tokenpacker_tpu_torch/csrc/stream_probes.cu",
-                      "scripts/probe_int4_ring.py:76"),
-        "bitcast_pack": ("tokenpacker_tpu_torch/csrc/stream_probes.cu",
-                         "scripts/probe_bitcast_pack.py:34"),
-        "bitcast_stream": ("tokenpacker_tpu_torch/csrc/stream_probes.cu",
-                           "scripts/probe_bitcast_pack.py:133"),
-        "stream_dtype": ("tokenpacker_tpu_torch/csrc/stream_probes.cu",
-                         "scripts/probe_stream_dtype.py:68"),
-    }
-    kernels = []
-    for name, (source, replaces) in meta.items():
-        # launches: summed over the main-path runs (phases 4, 6, 8, 10,
-        # 12, 14, 16, 18, 20 and 22, phase 25's sampled Generator, phase
-        # 26's two batchers, phase 27's beams, phase 28's two loaded
-        # models, phase 29's chat, phase 30's nf4 MPT, phase 31's two
-        # HTTP workers and phase 32's two training runs and its round
-        # trip's Generator and batcher), each counted from 0 just before
-        # its run and read just after; the six that no path reaches over
-        # phases 4-23 and 25-32 as a whole (0)
-        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": sum(r.get(name, 0) for r in runs), **rows[name]})
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
-
+    # launches: summed over the main-path runs (phases 4, 6, 8, 10, 12, 14,
+    # 16, 18, 20 and 22, phase 25's sampled Generator, phase 26's two
+    # batchers, phase 27's beams, phase 28's two loaded models, phase 29's
+    # chat, phase 30's nf4 MPT, phase 31's two HTTP workers, phase 32's two
+    # training runs and its round trip's Generator and batcher, and phase
+    # 34's eval CLIs), each counted from 0 just before its run and read
+    # just after; the six that no path reaches over phases 4-23 and 25-34
+    # as a whole (0)
+    print(kernels_line(rows, runs))
+    print(ok_line())
 
 if __name__ == "__main__":
     main()

@@ -66,10 +66,15 @@ both directions at lengths on either side of those tiles (127-129, 255,
 groups of 4 at 2048 keys, full biases broadcast over N and over H, and
 full-bias rows below -1e30 on either side of the tiles' edges (o = 0,
 lse = +inf: ROADMAP R9, accepted for the port).
+
+The eval harness's `DevicePrefetcher(to_device=True)` copies on a side
+stream: its test holds that copy back on the card and checks that the
+consumer's stream waits for it.
 """
 
 import json
 
+import numpy as np
 import pytest
 import torch
 
@@ -2126,3 +2131,57 @@ def test_qlora_step_on_the_card_matches_the_cpu(cuda):
             assert diff <= 1e-1 * proj_norm, (i, diff)
         else:
             assert diff <= 1e-1 * max(float(want.norm()), 1e-3 * proj_norm), (i, diff)
+
+
+@pytest.mark.cuda
+def test_prefetcher_copies_to_the_card_before_the_consumer_reads(cuda, monkeypatch):
+    """`DevicePrefetcher(to_device=True)` on the card: nested items (dict,
+    namedtuple, list, numpy arrays and tensors) arrive on the card with
+    their values and structure, and the consumer's stream waits for each
+    item's side-stream copy. The copy is held back behind a ~0.1 s spin on
+    the side stream, so work the consumer queues right after the yield
+    finishes before that copy only if the wait is missing."""
+    from collections import namedtuple
+
+    from tokenpacker_tpu_torch.data import prefetch
+
+    pair = namedtuple("pair", "ids masks")
+    copied = []
+    move = prefetch._move
+
+    def slow_move(item, device, pin):
+        if not (isinstance(item, dict) and "step" in item):  # nested parts
+            return move(item, device, pin)
+        torch.cuda._sleep(200_000_000)  # on the prefetcher's side stream
+        moved = move(item, device, pin)
+        done = torch.cuda.Event()
+        done.record()
+        copied.append(done)
+        return moved
+
+    monkeypatch.setattr(prefetch, "_move", slow_move)
+
+    def make(i):
+        return {"step": i, "x": np.full((1024, 1024), i + 0.5, np.float32),
+                "pair": pair(torch.arange(4096, dtype=torch.int32) * (i + 1),
+                             [np.arange(8) + i, torch.ones(3, dtype=torch.bool)]),
+                "name": f"batch{i}"}
+
+    got = []
+    for i, item in enumerate(prefetch.DevicePrefetcher(range(4), transform=make, depth=1,
+                                                       to_device=True, device=cuda)):
+        read = item["x"].sum()  # queued on the consumer's stream at once
+        after = torch.cuda.Event()
+        after.record()
+        after.synchronize()
+        assert copied[i].query(), f"item {i}: the consumer read before the copy ended"
+        assert read.item() == (i + 0.5) * 1024 * 1024
+        assert isinstance(item["pair"], pair) and isinstance(item["pair"].masks, list)
+        assert item["name"] == f"batch{i}" and item["step"] == i
+        tensors = (item["x"], item["pair"].ids, *item["pair"].masks)
+        assert all(t.device.type == "cuda" for t in tensors)
+        want = make(i)
+        assert torch.equal(item["pair"].ids.cpu(), want["pair"].ids)
+        assert torch.equal(item["pair"].masks[0].cpu(), torch.from_numpy(want["pair"].masks[0]))
+        got.append(i)
+    assert got == [0, 1, 2, 3]
