@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py              # the smoke run, phases 1-34 (25-34 before 24)
+    python3 chip_smoke.py              # the smoke run, phases 1-35 (25-35 before 24)
     python3 chip_smoke.py --profile    # phases 1-2, then the profile below
     python3 chip_smoke.py --profile-train  # phases 1-2, then a traced training step
     python3 chip_smoke.py --profile-paged  # phases 1-2, then traced paged decode steps
@@ -20,6 +20,7 @@
                                            # phase 28's checkpoint write, 32-33
     python3 chip_smoke.py --eval           # phases 1-2, K1, K2-fwd, K4 and K4-verify of
                                            # phase 3, phase 28's checkpoint write, 34
+    python3 chip_smoke.py --parallel       # phases 1-2, phase 3's per-rank rows, 35
 
 Phases, one result line each or more (every failure raises, so any
 failure exits non-zero and prints no final line):
@@ -284,6 +285,17 @@ failure exits non-zero and prints no final line):
      against batch-1 `Generator.generate` runs where their margin is
      decisive; the load, questions/s, ms a question, peak
      GiB and each batch's host preparation and its overlap printed.
+ 35. configuration S, the sharded programs as two ranks on the one card
+     (`phase_parallel`): the native library against numpy and PIL, NCCL
+     at a world of one, NCCL asked for two ranks on cuda:0 (its answer
+     printed, choosing nothing), then two gloo ranks staged through
+     pinned host memory (this script spawned twice with `--rank`, `--device
+     cuda --one-device --backend gloo`): HD-13b int8 at 8
+     layers, tp 2 (tokens against one rank's where its margin is
+     decisive), a 7B stage-2 step at 2 layers, tp 2 (phase 9's bands),
+     the pipeline at pp 2 (4 layers of 7B width), ring attention [1,
+     4096, 32, 128] against K2 block by block, the paged batcher scenario
+     at HD-7b width; the `*_rank` kernels' launches read on rank 0.
 Phase 3 also holds K2's full-bias form (no serving or training path
 reaches it) at MPT-7B's prefix-LM attention, [4, 2048, 32, 128], not
 causal: the prefix-LM mask with B's prompt lengths plus ALiBi as a [4, 32,
@@ -350,7 +362,10 @@ prints the final "ok" line; nor do `--sampling` (phases
 25-27, no phase 3) and `--serving` (phase 28's write and phase 31),
 which print their launch counts. `--eval` (K1's row, K2's serving rows,
 K4's and K4-verify's of phase 3, phase 28's write and phase 34) ends with
-the kernels line of those four and the "ok" line. Every K1, K2 and K9 row of phase 3 also prints its
+the kernels line of those four and the "ok" line. `--parallel` (phase
+3's per-rank rows: K2 both ways, K3 and K5 at one rank's heads of a tp =
+2 run, K7 and K8 at Vicuna-13B's per-rank widths; then phase 35) prints
+its rows with their launches. Every K1, K2 and K9 row of phase 3 also prints its
 achieved TFLOP/s (the operations its bound counts over the kernel's
 time), every K8 row its TOPS and every K3, K5 and K6 row its TB/s, each
 against the card's rate, and the bound's share of the kernel's time (K3,
@@ -812,6 +827,12 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
             full_bias_kernel_cases(device, case, hd_lengths))
     if only == "probes":
         return rows
+    if only in ("", "parallel"):  # configuration S's per-rank shapes
+        rows.update(rank_kernel_rows(device, case, first_and_worst))
+    if only == "parallel":
+        rows.update({name: every_case(cases)
+                     for name, cases in rank_quantized_cases(device, case).items()})
+        return rows
     if only in ("", "mpt", "flash"):
         rows.update(mpt_kernel_cases(device, case, hd_lengths, span))
     if only == "mpt":
@@ -839,6 +860,9 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
         return rows
     if only == "":
         rows.update(earlier_kernel_rows(device, case, first_and_worst, every_case))
+        # K7's and K8's per-rank cases (configuration S) join their rows' cases
+        for name, cases in rank_quantized_cases(device, case).items():
+            rows[name].setdefault("cases", []).extend(every_case(cases)["cases"])
     if only in ("", "speculative"):
         check_int8_rows(device)
         rows["vit_block"] = first_and_worst(k9_cases(device, case))
@@ -7306,6 +7330,678 @@ def phase_eval(device, seed: int, ckpt: dict, card: str) -> dict:
     return {k: sum(r.get(k, 0) for r in runs) for k in counters}
 
 
+# -- configuration S: the sharded programs as two ranks on the one card --------------
+
+PARALLEL_TIMEOUT = 600  # phase 35's two ranks, their start and the weights' init included
+
+
+# Phase 35's two ranks: `phase_parallel` spawns this script twice with
+# `--rank` (through `dryrun.launch(script=...)`), and each runs the
+# scenarios below through `dryrun.main(argv, S_RUNNERS)`. Full widths on
+# the card; rank 0 also does the single-process work each run is held
+# to, and returns what `phase_parallel` checks with its own measures and
+# the kernel launches of each sharded run.
+
+S_LAYERS = {"hd13b": 8, "train7b": 2, "pipeline7b": 4, "batcher7b": 2}
+S_NEW_TOKENS = 16
+
+
+def s_config(kind: str):
+    from tokenpacker_tpu_torch.config import preset_config
+
+    preset = {"hd13b": "tokenpacker-hd-13b-9patch-144token",
+              "train7b": "tokenpacker-7b-144token", "pipeline7b": "tokenpacker-7b-144token",
+              "batcher7b": "tokenpacker-hd-7b-9patch-144token"}[kind]
+    cfg = preset_config(preset)
+    lm = dataclasses.replace(cfg.lm, num_hidden_layers=S_LAYERS[kind])
+    return dataclasses.replace(cfg, lm=lm, dtype=torch.bfloat16)
+
+
+def s_launch_counters() -> dict:
+    """The kernel wrappers the sharded runs launch, by kernel-line name."""
+    from tokenpacker_tpu_torch.ops.decode_attention import decode_attention
+    from tokenpacker_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from tokenpacker_tpu_torch.ops.paged_attention import paged_attention
+    from tokenpacker_tpu_torch.ops.vit_attention import vit_attention
+
+    return {"flash_attention_rank": flash_attention, "flash_attention_bwd_rank":
+            flash_attention_bwd, "decode_attention_rank": decode_attention,
+            "paged_attention_rank": paged_attention, "vit_attention": vit_attention}
+
+
+def s_counted(run):
+    """run() with the launch counters set to 0 just before and read just
+    after: (its result, {name: launches})."""
+    counters = s_launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {k: c.launches for k, c in counters.items()}
+
+
+def s_weights(cfg, seed: int, device, int8: bool):
+    from tokenpacker_tpu_torch.io.weights import init_vlm_on_device, quantize_lm_int8
+
+    params = init_vlm_on_device(cfg, seed, device, cfg.dtype)
+    return quantize_lm_int8(params) if int8 else params
+
+
+def s_hd_batch(cfg, seed: int):
+    """One HD request: a 2 x 2 grid and the global view of random pixels,
+    30 text tokens before the image and 20 after."""
+    from tokenpacker_tpu_torch.constants import IMAGE_TOKEN_INDEX
+    from tokenpacker_tpu_torch.models.splice import build_splice_plan
+
+    rng = np.random.default_rng(seed)
+    v = min(cfg.lm.vocab_size, 32000)
+    ids = np.concatenate([[1], rng.integers(3, v, 30), [IMAGE_TOKEN_INDEX],
+                          rng.integers(3, v, 20)]).astype(np.int64)
+    plan = build_splice_plan([ids], [[(2, 2)]], cfg.tokens_per_view, "slice", sep_id=3,
+                             newline_id=4, pad_id=0)
+    imgs = rng.standard_normal((5, cfg.vision.image_size, cfg.vision.image_size, 3))
+    return {"token_ids": plan.token_ids, "is_image": plan.is_image,
+            "image_slot": plan.image_slot, "lengths": plan.lengths,
+            "images": imgs.astype(np.float32)}
+
+
+def s_greedy_with_margins(params, cfg, batch: dict, new: int, device):
+    """Greedy tokens of one rank's run over the per-layer decode path (K3),
+    with the top-2 margin of the logits behind each."""
+    from tokenpacker_tpu_torch.generate import decode_step, device_batch, prefill
+
+    l = batch["token_ids"].shape[1]
+    dev = device_batch(batch, cfg.dtype, device)
+    logits, cache = prefill(params, cfg, dev, l + new)
+    toks, margins = [], []
+    for step in range(new):
+        top2 = logits.float().topk(2, dim=-1).values
+        margins.append(float(top2[0, 0] - top2[0, 1]))
+        toks.append(int(logits[0].argmax()))
+        if step < new - 1:
+            logits, cache = decode_step(params, cfg, cache,
+                                        torch.tensor([toks[-1]], device=device),
+                                        dev["lengths"], step, l, False)
+    return toks, margins
+
+
+def s_hd13b(ctx):
+    """(a) HD-13b int8 (fused layout) HD prefill and greedy decode at
+    tp = 2 through `Generator`, and the same on one rank."""
+    import torch.distributed as dist
+
+    from tokenpacker_tpu_torch.generate import Generator
+    from tokenpacker_tpu_torch.parallel.mesh import make_mesh
+    from tokenpacker_tpu_torch.parallel.sharding import shard_params
+
+    cfg, device = s_config("hd13b"), ctx["device"]
+    mesh = make_mesh(tp=2, device=device, backend=ctx["backend"])
+    params = s_weights(cfg, 0, device, int8=True)
+    batch = s_hd_batch(cfg, 0)
+    sharded = shard_params(params, mesh, cfg)
+    if ctx["rank"] != 0:
+        del params
+    with mesh:
+        res, launches = s_counted(lambda: Generator(sharded, cfg).generate(
+            batch, max_new_tokens=S_NEW_TOKENS))
+    del sharded
+    out = {}
+    if ctx["rank"] == 0:
+        toks, margins = s_greedy_with_margins(params, cfg, batch, S_NEW_TOKENS, device)
+        out = {"tokens": res.sequences[0], "ref_tokens": toks, "ref_margins": margins,
+               "launches": launches, "positions": int(batch["lengths"][0]),
+               "layers": cfg.lm.num_hidden_layers}
+    dist.barrier()
+    return out
+
+
+def s_leaf_norms(got: dict, want: dict) -> dict:
+    """{leaf: (||got - want||, ||want||)} in fp32."""
+    return {k: (float((got[k].float() - w.float()).norm()), float(w.float().norm()))
+            for k, w in want.items()}
+
+
+def s_train7b(ctx):
+    """(b) One stage-2 step's loss and gradients of TokenPacker-7b at 2 LM
+    layers on tp = 2 (dp = 1 on two ranks) and on one rank."""
+    import torch.distributed as dist
+
+    from tokenpacker_tpu_torch.data.dataset import SupervisedDataset, collate
+    from tokenpacker_tpu_torch.models.vlm import vlm_loss
+    from tokenpacker_tpu_torch.parallel import dryrun
+    from tokenpacker_tpu_torch.parallel.mesh import make_mesh
+    from tokenpacker_tpu_torch.parallel.sharding import (
+        placement,
+        shard_params,
+        sync_grads,
+        unshard_leaf,
+    )
+    from tokenpacker_tpu_torch.train.step import leaves_with_paths
+    from tokenpacker_tpu_torch.train.trainer import device_train_batch
+
+    cfg, device = s_config("train7b"), ctx["device"]
+    mesh = make_mesh(tp=2, device=device, backend=ctx["backend"])
+    work = tempfile.mkdtemp(prefix=f"card-train-{ctx['rank']}-")
+    data_path, img_dir = dryrun.write_dataset(work, 2)
+    ds = SupervisedDataset(data_path, dryrun.WordTokenizer(), image_folder=img_dir,
+                           image_size=cfg.vision.image_size)
+    batch = device_train_batch(collate([ds[0], ds[1]], cfg.tokens_per_view, 3, 4, 0, pad_to=256),
+                               cfg.dtype, device)
+
+    def grads_of(params, m):
+        named = [(".".join(map(str, p)), t) for p, t in leaves_with_paths(params)
+                 if p[0] != "vision"]
+        for _, t in named:
+            t.requires_grad_(True)
+        with m if m is not None else contextlib.nullcontext():
+            loss, metrics = vlm_loss(params, cfg, batch)
+            g = torch.autograd.grad(loss, [t for _, t in named])
+            g = sync_grads(g, [t for _, t in named], m)
+        return float(metrics["loss"]), {k: unshard_leaf(x, placement(t)).float().cpu()
+                                        for (k, t), x in zip(named, g)}
+
+    params = s_weights(cfg, 2, device, int8=False)
+    sharded = shard_params(params, mesh, cfg)
+    (loss, got), launches = s_counted(lambda: grads_of(sharded, mesh))
+    del sharded
+    out = {}
+    if ctx["rank"] == 0:
+        ref_loss, want = grads_of(params, None)
+        out = {"loss": loss, "ref_loss": ref_loss, "norms": s_leaf_norms(got, want),
+               "launches": launches}
+    shutil.rmtree(work, ignore_errors=True)
+    dist.barrier()
+    return out
+
+
+def s_pipeline7b(ctx):
+    """(c) The pipeline at pp = 2 over a 7B-width stack of 4 layers, forward
+    and backward of mean(h^2), and the stack on one rank; every rank
+    holds its own layers to its own single-rank run."""
+    import torch.distributed as dist
+
+    from tokenpacker_tpu_torch.io.weights import init_lm_on_device
+    from tokenpacker_tpu_torch.parallel import dryrun
+    from tokenpacker_tpu_torch.parallel.pipeline import make_pp_mesh
+
+    cfg, device = s_config("pipeline7b"), ctx["device"]
+    lm = cfg.lm
+    mesh = make_pp_mesh(pp=2, dp=1, device=device, backend=ctx["backend"])
+    params = init_lm_on_device(lm, 4, device, cfg.dtype)
+    b, t = 4, 512
+    x = (torch.randn((b, t, lm.hidden_size), generator=torch.Generator().manual_seed(5))
+         .to(device=device, dtype=cfg.dtype))
+    (loss, got), launches = s_counted(lambda: dryrun.pipeline_grads(params, lm, x, mesh, 2,
+                                                                    device))
+    ref_loss, want = dryrun.reference_stack_grads(params, lm, x, device)
+    mine = {k: (float((g.float() - want[k].float()).norm()), float(want[k].float().norm()))
+            for k, g in got.items() if k.startswith("layers")}
+    everything = [None] * ctx["n"]
+    dist.all_gather_object(everything, mine)
+    out = {}
+    if ctx["rank"] == 0:
+        norms = {}
+        for part in everything:
+            norms.update(part)
+        heads = {k: (float((g.float() - want[k].float()).norm()), float(want[k].float().norm()))
+                 for k, g in got.items() if not k.startswith("layers")
+                 and float(want[k].float().norm()) > 0}
+        out = {"loss": float(loss.detach()), "ref_loss": float(ref_loss.detach()),
+               "norms": {**norms, **heads}, "launches": launches,
+               "shape": [b, t, lm.hidden_size], "layers": lm.num_hidden_layers}
+    dist.barrier()
+    return out
+
+
+def s_ring(ctx):
+    """(d) Ring attention over two ranks at [1, 4096, 32, 128] bf16 (causal),
+    and K2's causal attention on one rank."""
+    import torch.distributed as dist
+
+    from tokenpacker_tpu_torch.ops.flash_attention import flash_attention
+    from tokenpacker_tpu_torch.ops.ring_attention import ring_attention
+    from tokenpacker_tpu_torch.parallel import comm
+    from tokenpacker_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
+
+    device, n = ctx["device"], ctx["n"]
+    shape = (1, 4096, 32, 128)
+    g = torch.Generator().manual_seed(9)
+    q, k, v = (torch.randn(shape, generator=g).to(device=device, dtype=torch.bfloat16)
+               for _ in range(3))
+    mesh = make_mesh(dp=n, tp=1, device=device, backend=ctx["backend"])
+    ax = mesh.axis(DATA_AXIS)
+    mine = [x.chunk(n, dim=1)[ax.index].contiguous() for x in (q, k, v)]
+    got = comm.all_gather(ring_attention(*mine, mesh, "data", True), 1, ax)
+    out = {}
+    if ctx["rank"] == 0:
+        want = flash_attention(q, k, v, True)[0]
+        out = {"got": got.cpu(), "want": want.cpu(), "shape": list(shape)}
+    dist.barrier()
+    return out
+
+
+def s_margin_at(params, cfg, prompt: list, toks: list, j: int, device) -> float:
+    """The top-2 margin of one rank's logits for token j after `prompt` and
+    toks[:j] (teacher-forced)."""
+    from tokenpacker_tpu_torch.generate import device_batch, prefill
+    from tokenpacker_tpu_torch.parallel import dryrun
+
+    seq = list(prompt) + list(toks[:j])
+    b = dryrun.text_request(seq)
+    logits, _ = prefill(params, cfg, device_batch(b, cfg.dtype, device), len(seq) + 1)
+    top2 = logits.float().topk(2, dim=-1).values
+    return float(top2[0, 0] - top2[0, 1])
+
+
+def s_batcher7b(ctx):
+    """(e) The paged batcher scenario over HD-7b int8 (fused) at 2 layers,
+    tp = 2, pages of 16, chunks of 32, and the same on one rank; where a
+    token differs, the one-rank margin there."""
+    import torch.distributed as dist
+
+    from tokenpacker_tpu_torch.parallel import dryrun
+    from tokenpacker_tpu_torch.parallel.mesh import make_mesh
+    from tokenpacker_tpu_torch.parallel.sharding import shard_params
+
+    cfg, device = s_config("batcher7b"), ctx["device"]
+    mesh = make_mesh(tp=2, device=device, backend=ctx["backend"])
+    params = s_weights(cfg, 3, device, int8=True)
+    rng = np.random.default_rng(3)
+    v = min(cfg.lm.vocab_size, 32000)
+    prompts = ([1] + rng.integers(3, v, 39).tolist(), [1] + rng.integers(3, v, 47).tolist())
+    kw = dict(page_size=16, chunk=32, prompts=prompts, new=12)
+    leader = ctx["rank"] == 0
+    got, launches = s_counted(lambda: dryrun.batcher_scenario(
+        shard_params(params, mesh, cfg), cfg, device, leader, **kw))
+    out = {}
+    if leader:
+        ref = dryrun.batcher_scenario(params, cfg, device, True, **kw)
+        margins = {}
+        for key, prompt in (("cold", prompts[0]), ("warm", prompts[0]), ("other", prompts[0]),
+                            ("cancelled", prompts[1])):
+            diff = [j for j, (a, b) in enumerate(zip(got[key], ref[key])) if a != b]
+            if diff:
+                margins[key] = (diff[0], s_margin_at(params, cfg, prompt, ref[key], diff[0],
+                                                     device))
+        out = {"got": got, "ref": ref, "margins": margins, "launches": launches}
+    dist.barrier()
+    return out
+
+
+S_RUNNERS = {"hd13b": s_hd13b, "train7b": s_train7b, "pipeline7b": s_pipeline7b,
+             "ring": s_ring, "batcher7b": s_batcher7b}
+
+
+def s_hd13b_length() -> int:
+    """The prompt length of phase 35 (a)'s HD request (HD-13b, 2 x 2 crops
+    and the global view)."""
+    return int(s_hd_batch(s_config("hd13b"), 0)["token_ids"].shape[1])
+
+
+def rank_kernel_rows(device, case, first_and_worst) -> dict:
+    """Phase 3's per-rank rows (configuration S): each kernel at the shapes
+    one rank of a tp = 2 run gives it. K2's forward at 13B's 20 heads
+    (phase 35 (a)'s HD prefill, [1, L, 20, 128]) and 7B's 16 ([2, 256, 16,
+    128], (b)'s step), K2's backward at 16, K3 at 20 heads over (a)'s
+    cache at its last decode step, K5 at 16 kv heads over (e)'s pool (bf16,
+    pages of 16); each held and timed as its phase-3 row is. Returns
+    {kernel-line name: row}."""
+    from tokenpacker_tpu_torch.ops import decode_attention as k3
+    from tokenpacker_tpu_torch.ops import flash_attention as k2
+    from tokenpacker_tpu_torch.ops import paged_attention as k5
+    from tokenpacker_tpu_torch.parallel import dryrun
+
+    rows = {}
+    l13 = s_hd13b_length()
+    fwd = []
+    for n, t, h in ((1, l13, 20), (2, 256, 16)):
+        q, kk, vv = (bf16((n, t, h, 128), 50 + i, device) for i in range(3))
+        fwd.append(case(
+            f"K2 flash causal q[{n},{t},{h},128] (one rank of tp 2)", k2.flash_attention,
+            k2.flash_attention_plain, (q, kk, vv, True), check=compare_flash_fwd,
+            library=lambda q=q, kk=kk, vv=vv: sdpa(q, kk, vv, is_causal=True),
+            work=(4 * n * t * h * 128 * 2 + n * h * t * 4, 4 * n * h * 128 * t * (t + 1) / 2),
+            achieved="ops"))
+    rows["flash_attention_rank"] = first_and_worst(fwd)
+
+    n, t, h, d = 2, 256, 16, 128
+    q, k, v, do = (bf16((n, t, h, d), 60 + i, device) for i in range(4))
+    o, lse = k2.flash_attention(q, k, v, True)
+    tag = f"K2-bwd flash causal q[{n},{t},{h},{d}] (one rank of tp 2)"
+    got = k2.flash_attention_bwd(q, k, v, o, lse, do, True)
+    want = k2.flash_attention_bwd_plain(q, k, v, o, lse, do, True)
+    err = max(compare_tiles(f"{tag} {name}", g, w)
+              for g, w, name in zip(got, want, ("dq", "dk", "dv")))
+    ql, kl, vl = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    dol = do.transpose(1, 2)
+    ms = time_ms(lambda: k2.flash_attention_bwd(q, k, v, o, lse, do, True))
+    plain_ms = time_ms(lambda: k2.flash_attention_bwd_plain(q, k, v, o, lse, do, True))
+    lib_ms = time_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), dol, retain_graph=True))
+    pairs, elems = n * h * t * (t + 1) / 2, n * t * h * d
+    b_ms, b_by = bound(8 * elems * 2 + n * h * t * 4, 5 * 2 * d * pairs)
+    print(f"  {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms (SDPA "
+          f"backward), bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.0%} of the kernel's time)")
+    rows["flash_attention_bwd_rank"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                        "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                                        "case": tag}
+    del q, k, v, do, o, lse, got, want, ql, kl, vl, out
+
+    # K3 at (a)'s last decode step: the prompt [0, L) and the span [L, L + 15)
+    h, s = 20, -(-(l13 + S_NEW_TOKENS) // 8) * 8
+    q = bf16((1, h, 128), 70, device)
+    ck, cv = bf16((1, s, h, 128), 71, device), bf16((1, s, h, 128), 72, device)
+    lengths = torch.tensor([l13], dtype=torch.int32, device=device)
+    needed = lengths + S_NEW_TOKENS - 1
+    keys = int(needed[0])
+    mask = (torch.arange(s, device=device) < needed[:, None])[:, None, None, :]
+    rows["decode_attention_rank"] = first_and_worst([case(
+        f"K3 decode q[1,{h},128] cache S={s} span [{l13}, {keys}) (one rank of tp 2)",
+        k3.decode_attention, k3.decode_attention_plain, (q, ck, cv, lengths, needed, l13),
+        library=lambda: sdpa(q[:, None], ck, cv, attn_mask=mask),
+        work=(2 * keys * h * 128 * 2 + 2 * h * 128 * 2 + 8, 4 * keys * h * 128),
+        check=lambda name, out, want: compare_rows(
+            name, out, want, k3.decode_attention_plain(q, ck, cv, lengths, lengths, l13)),
+        graph=True, library_graph=True, achieved="bytes")])
+    del q, ck, cv
+
+    # K5 over (e)'s pool: 2 sequences, pages of 16, 16 blocks each
+    n, h, d, ps, mp = 2, 16, 128, 16, 16
+    lens = torch.tensor([52, 61], dtype=torch.int32, device=device)
+    dropped = lens - ((lens - 1) % ps + 1)
+    g = torch.Generator(device=device).manual_seed(SEED + 9)
+    table = (torch.randperm(n * mp, generator=g, device=device) + 1).view(n, mp).int()
+    kp, vp = (torch.randn((n * mp + 1, ps, h, d), generator=g, device=device).bfloat16()
+              for _ in range(2))
+    kd, vd = (x[table.long()].view(n, -1, h, d) for x in (kp, vp))
+    valid = torch.arange(mp * ps, device=device)[None, :] < lens[:, None]
+    q = bf16((n, h, d), 73, device)
+    args = (q, kp, vp, table, lens, None, None)
+    keys = int(lens.sum())
+    rows["paged_attention_rank"] = first_and_worst([case(
+        f"K5 paged_attention q[{n},{h},{d}] pages of {ps} x {mp} blocks, {h} kv heads, bf16 "
+        f"pool, {keys} valid keys (one rank of tp 2)", k5.paged_attention,
+        k5.paged_attention_plain, args,
+        library=lambda: sdpa(q[:, None], kd, vd, attn_mask=valid[:, None, None, :]),
+        work=(2 * keys * h * d * 2 + 2 * n * h * d * 2 + table.numel() * 4 + n * 4,
+              4 * keys * h * d),
+        check=lambda name, out, want: compare_rows(
+            name, out, want, k5.paged_attention_plain(*args[:4], dropped, *args[5:])),
+        graph=True, library_graph=True, achieved="bytes")])
+    del kp, vp, kd, vd
+    torch.cuda.empty_cache()
+    return rows
+
+
+# one rank's [K, N] of Vicuna-13B's products at tp = 2: the column-parallel
+# qkv and gateup keep half their columns, the row-parallel o and down half
+# their rows
+RANK_13B_SHAPES = {"qkv/2": (5120, 7680), "o/2": (2560, 5120), "gateup/2": (5120, 13824),
+                   "down/2": (6912, 5120)}
+
+
+def rank_quantized_cases(device, case) -> dict:
+    """Phase 3, K7 at M = 8 and K8 at M = 256 on one rank's share of
+    Vicuna-13B's products (`RANK_13B_SHAPES`), held bit for bit and timed
+    as their phase-3 cases are. Returns {kernel name: [case rows]}."""
+    from tokenpacker_tpu_torch.ops import q8_matmul as k7
+    from tokenpacker_tpu_torch.ops import s8_gemm as k8
+    from tokenpacker_tpu_torch.ops.quantize import quantize_int8
+
+    g = torch.Generator(device=device).manual_seed(SEED + 12)
+    out = {"s8_matmul": [], "s8_gemm": []}
+    for name, (k, n) in RANK_13B_SHAPES.items():
+        wq, ws = quantize_int8(torch.randn((k, n), generator=g, device=device) * 0.02)
+        x = torch.randn((256, k), generator=g, device=device).bfloat16()
+        xq8, _ = k7.quantize_activations(x[:8])
+        out["s8_matmul"].append(case(
+            f"K7 s8_matmul 13B {name} xq[8,{k}] wq[{k},{n}] (one rank of tp 2)", k7.s8_matmul,
+            k7.s8_matmul_plain, (xq8, wq), library=int_mm_call(xq8, wq), rate=INT8_OPS_PER_S,
+            graph=True, work=(8 * k + k * n + 8 * n * 4, 2 * 8 * k * n),
+            check=lambda nm, got, want, xq=xq8, wq=wq: compare_exact(
+                nm, got, want, k7.s8_matmul_plain(xq[:, :-128], wq[:-128]))))
+        xq, _ = k7.quantize_activations(x)
+        out["s8_gemm"].append(case(
+            f"K8 s8_gemm 13B {name} x[256,{k}] wq[{k},{n}] (one rank of tp 2)", k8.s8_gemm,
+            k8.s8_gemm_plain, (x, wq, ws), library=int_mm_call(xq, wq), rate=INT8_OPS_PER_S,
+            work=(256 * k * 2 + k * n + n * 4 + 256 * n * 2, 2 * 256 * k * n),
+            check=lambda nm, got, want, args=(x, wq, ws): compare_s8_gemm(nm, *args),
+            graph=True, library_graph=True, achieved="ops"))
+        del wq, ws, x, xq, xq8
+    torch.cuda.empty_cache()
+    return out
+
+
+def native_check() -> None:
+    """Phase 35 (f): the port's native preprocessing library built here
+    with g++ (`image/native`), held against the plain numpy resize and
+    normalization, numpy's HD slicing and PIL's JPEG decode (or, built
+    without libjpeg, `load_image`'s PIL path), with the host times of the
+    native and the plain resize."""
+    from tokenpacker_tpu_torch.image import native
+
+    # built into a directory of its own and loaded for this check only: a
+    # library left in the package's build directory would send every later
+    # process's slice_image and load_image through it
+    saved, build_dir = native._LIB, tempfile.mkdtemp(prefix="native-")
+    native._LIB = None
+    try:
+        native_check_in(build_dir)
+    finally:
+        native._LIB = saved
+        shutil.rmtree(build_dir, ignore_errors=True)
+
+
+def native_check_in(build_dir: str) -> None:
+    import io
+
+    from PIL import Image
+
+    from tokenpacker_tpu_torch.image import hd_tiler, native
+    from tokenpacker_tpu_torch.image.io import load_image
+
+    t0 = time.perf_counter()
+    path = native.build(build_dir)
+    native.load(build_dir)
+    built = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    img = rng.standard_normal((3, 1008, 1008)).astype(np.float32)
+    got, want = native.resize_bilinear(img, 672, 1008), hd_tiler._resize_bilinear(img, 672, 1008)
+    resize_err = float(np.abs(got - want).max())
+    nat_ms = statistics.median(timed(lambda: native.resize_bilinear(img, 672, 1008))
+                               for _ in range(5))
+    np_ms = statistics.median(timed(lambda: hd_tiler._resize_bilinear(img, 672, 1008))
+                              for _ in range(3))
+    u8 = rng.integers(0, 255, (600, 900, 3), dtype=np.uint8)
+    mean, std = (0.48145466, 0.4578275, 0.40821073), (0.26862954, 0.26130258, 0.27577711)
+    norm_want = ((u8.astype(np.float32) / 255.0 - np.asarray(mean, np.float32))
+                 / np.asarray(std, np.float32)).transpose(2, 0, 1)
+    norm_err = float(np.abs(native.normalize_u8(u8, mean, std) - norm_want).max())
+    tiled = rng.standard_normal((3, 600, 1100)).astype(np.float32)
+    crops, hb, wb = hd_tiler.slice_image(tiled)
+    plain, hb2, wb2 = hd_tiler.slice_image(tiled, use_native=False)
+    slice_err = float(np.abs(crops - plain).max()) if crops.shape == plain.shape else np.inf
+    buf = io.BytesIO()
+    Image.fromarray(u8).save(buf, "JPEG", quality=95)
+    with tempfile.TemporaryDirectory() as tmp:
+        jpg = Path(tmp) / "x.jpg"
+        jpg.write_bytes(buf.getvalue())
+        pil = np.asarray(Image.open(jpg).convert("RGB"))
+        if native.jpeg_available():
+            jpeg_err = float(np.mean(np.abs(native.decode_jpeg(jpg.read_bytes()).astype(int)
+                                            - pil.astype(int))))
+            jpeg = f"libjpeg decode vs PIL mean |diff| {jpeg_err:.4f} (limit 1)"
+        else:
+            jpeg_err = float(np.mean(np.abs(np.asarray(load_image(str(jpg))).astype(int)
+                                            - pil.astype(int))))
+            jpeg = ("built without libjpeg (no jpeglib.h on this machine): load_image takes "
+                    f"PIL, mean |diff| {jpeg_err:.4f}")
+    print(f"  (f) native library {path.name} built in {built:.2f} s (g++); resize [3,1008,1008] "
+          f"-> 672x1008 max |diff| {resize_err:.2e} vs the plain resize (limit 1e-4), native "
+          f"{nat_ms:.2f} ms vs numpy {np_ms:.2f} ms (host, 4 threads); normalize max |diff| "
+          f"{norm_err:.2e} (limit 1e-5); HD slice {hb}x{wb} max |diff| {slice_err:.2e} (limit "
+          f"2e-4); {jpeg}")
+    if not (resize_err <= 1e-4 and norm_err <= 1e-5 and slice_err <= 2e-4 and jpeg_err < 1.0
+            and (hb, wb) == (hb2, wb2)):
+        raise AssertionError("phase 35 (f): the native library disagrees with its references")
+
+
+def timed(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def nccl_world_of_one(device) -> None:
+    """The NCCL path at a world of one through the same entry points
+    (`make_mesh`, `ring_attention`, `comm`): ring attention over one rank
+    against K2 causal, block by block."""
+    import torch.distributed as dist
+
+    from tokenpacker_tpu_torch.ops.flash_attention import flash_attention
+    from tokenpacker_tpu_torch.ops.ring_attention import ring_attention
+    from tokenpacker_tpu_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+                            rank=0)
+    try:
+        mesh = make_mesh(tp=1, device=device)
+        t = torch.arange(8.0, device=device)
+        dist.all_reduce(t)
+        q, k, v = (bf16((1, 1024, 32, 128), 80 + i, device) for i in range(3))
+        with torch.no_grad():
+            got = ring_attention(q, k, v, mesh, "data", True)
+            want = flash_attention(q, k, v, True)[0]
+        print(f"  NCCL world of one ({mesh.backend}): all_reduce {t.tolist() == list(range(8))}; "
+              "ring_attention over 1 rank vs K2 causal:")
+        compare_tiles("ring_attention [1,1024,32,128] world of one", got, want)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(device, card: str) -> dict:
+    """Phase 35, configuration S: the sharded programs as two ranks on the
+    one card. NCCL refuses two ranks on one device ("Duplicate GPU
+    detected"), so the ranks run a gloo group whose CUDA tensors
+    `parallel/comm` stages through pinned host memory (`--backend gloo`,
+    named explicitly; the phase first asks NCCL and prints its answer,
+    which chooses nothing); compute stays on the card, in the port's
+    kernels. The two ranks are this script spawned twice with `--rank`
+    (`dryrun.launch(script=...)`, `--device cuda --one-device --backend
+    gloo`), each running the scenarios of `S_RUNNERS`, rank 0 also the
+    single-process work each is held to:
+    (a) HD-13b int8 (fused) at 8 of its 40 layers, one HD request (2 x 2
+        crops and the global view): HD prefill and 16 greedy tokens at
+        tp = 2 through `Generator` (K1, K2 at 20 heads, K3 at 20 heads), the
+        tokens equal the single-process run's wherever its margin exceeds
+        LOGIT_BAND;
+    (b) TokenPacker-7b at 2 LM layers: one stage-2 step at tp = 2 (dp = 1),
+        the loss within LOSS_BAND and every trained leaf's gradient within
+        its group's band (phase 9's measure, against the single-process
+        bf16 step);
+    (c) the pipeline at pp = 2 over a 7B-width stack of 4 layers, forward
+        and backward of mean(h^2) over [4, 512, 4096], loss within
+        LOSS_BAND and each leaf's gradient within the LM's band;
+    (d) ring attention at [1, 4096, 32, 128] bf16 (causal) against K2, per
+        64-position block (`compare_tiles`);
+    (e) the paged batcher scenario (`__graft_entry__`'s cold, warm,
+        cancelled, concurrent; prefix hit, no page leaked) over HD-7b int8
+        (fused) at 2 layers, pages of 16, chunks of 32: tokens equal the
+        single-process run's wherever its margin exceeds LOGIT_BAND;
+    (f) the native library (`native_check`);
+    and the NCCL path at a world of one (`nccl_world_of_one`). Launches
+    counted on rank 0 from 0 just before each sharded run and read just
+    after: {kernel-line name: launches}."""
+    from tokenpacker_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    print(f"phase 35: configuration S, the sharded programs as 2 ranks on one card ({card})")
+    native_check()
+    nccl_world_of_one(device)
+    try:
+        dryrun.launch(2, ["--device", "cuda", "--one-device", "--backend", "nccl",
+                          "--scenarios", "probe"], 120)
+        nccl = "accepted"
+    except RuntimeError as e:
+        found = re.search(r"Duplicate GPU detected[^\n]*", str(e))
+        nccl = f"refused ({found.group(0) if found else str(e).splitlines()[0]})"
+    print(f"  NCCL with two ranks on cuda:0: {nccl}")
+    print("  transport: gloo (named: --backend gloo), CUDA tensors staged through pinned host "
+          "memory; compute on cuda:0 in both ranks")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "s.pt"
+        log = dryrun.launch(2, ["--device", "cuda", "--one-device", "--backend", "gloo",
+                                "--scenarios", ",".join(S_RUNNERS), "--out", str(out)],
+                            PARALLEL_TIMEOUT, script=__file__)[0]
+        res = torch.load(out, weights_only=False)
+    print("  " + "\n  ".join(line for line in log.splitlines() if "s)" in line))
+
+    a = res["hd13b"]
+    agree = decisive_agree("phase 35 (a)", a["tokens"], a["ref_tokens"], a["ref_margins"])
+    print(f"  (a) HD-13b int8, {a['layers']} layers, {a['positions']} positions, tp 2: tokens "
+          f"{a['tokens'][:8]}..., {agree}/{len(a['ref_tokens'])} equal to one rank's "
+          f"(least margin {min(a['ref_margins']):.4f}); launches on rank 0 {a['launches']}")
+    b = res["train7b"]
+    groups = {g: sum(n ** 2 for k, (_, n) in b["norms"].items() if k.startswith(g + ".")) ** 0.5
+              for g in GRAD_REL_RMS_BANDS}
+
+    def rel(k, diff, norm):
+        group = groups[k.split(".")[0]]
+        scale = group if k in ZERO_GRAD_LEAVES else max(norm, SMALL_LEAF_SHARE * group)
+        return diff / scale
+
+    b_rel = {k: rel(k, dn, n) for k, (dn, n) in b["norms"].items()}
+    b_loss = abs(b["loss"] - b["ref_loss"]) / abs(b["ref_loss"])
+    b_out = [k for k, r in b_rel.items() if not r <= GRAD_REL_RMS_BANDS[k.split(".")[0]]]
+    worst = max(b_rel, key=b_rel.get)
+    print(f"  (b) TokenPacker-7b, 2 LM layers, tp 2 step vs one rank: loss {b['loss']:.5f} vs "
+          f"{b['ref_loss']:.5f} (relative {b_loss:.2e}, band {LOSS_BAND}); {len(b_rel)} leaves, "
+          f"worst {worst} {b_rel[worst]:.4f}; launches on rank 0 {b['launches']}")
+    c = res["pipeline7b"]
+    c_rel = {k: dn / n for k, (dn, n) in c["norms"].items()}
+    c_loss = abs(c["loss"] - c["ref_loss"]) / abs(c["ref_loss"])
+    c_worst = max(c_rel, key=c_rel.get)
+    print(f"  (c) pipeline pp 2, {c['layers']} layers of 7B width, x {c['shape']}: loss "
+          f"{c['loss']:.6f} vs {c['ref_loss']:.6f} (relative {c_loss:.2e}); {len(c_rel)} leaves, "
+          f"worst {c_worst} {c_rel[c_worst]:.4f} (band {GRAD_REL_RMS_BANDS['lm']}); launches on "
+          f"rank 0 {c['launches']}")
+    d = res["ring"]
+    print(f"  (d) ring attention {d['shape']} bf16 over 2 ranks vs K2 causal:")
+    compare_tiles("ring_attention [1,4096,32,128] 2 ranks", d["got"].to(device),
+                  d["want"].to(device))
+    e = res["batcher7b"]
+    got, ref = e["got"], e["ref"]
+    print(f"  (e) paged batcher, HD-7b int8 2 layers, tp 2: cold {got['cold']}, cancelled after "
+          f"{len(got['cancelled'])}, prefix tokens reused {got['reused']}, pages leaked "
+          f"{got['leaked']} (one rank: {ref['reused']}, {ref['leaked']}); first differences "
+          f"(token, one rank's margin) {e['margins'] or 'none'}; launches on rank 0 "
+          f"{e['launches']}")
+    failures = []
+    if not b_loss <= LOSS_BAND or b_out:
+        failures.append(f"(b) loss {b_loss}, leaves outside their band {b_out}")
+    if not c_loss <= LOSS_BAND or not c_rel[c_worst] <= GRAD_REL_RMS_BANDS["lm"]:
+        failures.append(f"(c) loss {c_loss}, worst leaf {c_worst} {c_rel[c_worst]}")
+    for key, (j, margin) in e["margins"].items():
+        if margin > LOGIT_BAND:
+            failures.append(f"(e) {key} differs at token {j}, one rank's margin {margin}")
+    if not (got["reused"] > 0 and got["leaked"] == 0 and ref["leaked"] == 0
+            and len(got["cancelled"]) >= 2):
+        failures.append(f"(e) reused {got['reused']}, leaked {got['leaked']}")
+    launches = {}
+    for r in (a, b, c, e):
+        for name, count in r["launches"].items():
+            launches[name] = launches.get(name, 0) + count
+    for name, need in (("flash_attention_rank", a), ("decode_attention_rank", a),
+                       ("flash_attention_bwd_rank", b), ("paged_attention_rank", e)):
+        if need["launches"][name] == 0:
+            failures.append(f"{name} never launched in its sharded run")
+    if failures:
+        raise AssertionError("phase 35: " + "; ".join(failures))
+    print(f"  phase 35 took {time.perf_counter() - t0:.1f} s")
+    release_earlier_phases()
+    return launches
+
+
 # each kernel's source in the port and the TPU kernel it replaces (the kernels line)
 KERNEL_META = {
     "vit_attention": ("tokenpacker_tpu_torch/csrc/vit_attention.cu",
@@ -7351,6 +8047,16 @@ KERNEL_META = {
                        "scripts/probe_bitcast_pack.py:133"),
     "stream_dtype": ("tokenpacker_tpu_torch/csrc/stream_probes.cu",
                      "scripts/probe_stream_dtype.py:68"),
+    # configuration S: the same kernels at one rank's shapes of a tp = 2 run
+    # (phase 3's per-rank rows), launched by phase 35's sharded runs
+    "flash_attention_rank": ("tokenpacker_tpu_torch/csrc/flash_fwd.cu",
+                             "tokenpacker_tpu/ops/flash_attention.py:183"),
+    "flash_attention_bwd_rank": ("tokenpacker_tpu_torch/csrc/flash_bwd.cu",
+                                 "tokenpacker_tpu/ops/flash_attention.py:356"),
+    "decode_attention_rank": ("tokenpacker_tpu_torch/csrc/decode_attention.cu",
+                              "tokenpacker_tpu/ops/decode_attention.py:120"),
+    "paged_attention_rank": ("tokenpacker_tpu_torch/csrc/paged_attention.cu",
+                             "tokenpacker_tpu/ops/paged_attention.py:127"),
 }
 
 
@@ -7459,13 +8165,20 @@ def main() -> None:
     flash = "--flash" in sys.argv[1:]
     tower = "--tower" in sys.argv[1:]
     evals = "--eval" in sys.argv[1:]
+    parallel = "--parallel" in sys.argv[1:]
     only = ("quantized" if quantized else "speculative" if speculative else "lora" if lora
             else "lora-train" if lora_train else "mpt" if mpt else "probes" if probes
-            else "flash" if flash else "tower" if tower else "eval" if evals else "")
+            else "flash" if flash else "tower" if tower else "eval" if evals
+            else "parallel" if parallel else "")
     rows = phase_kernels(device, hd_batch["lengths"], s_hd, (l, l + NEW_TOKENS - 2), only)
     if "--kernels" in sys.argv[1:]:
         return
     card_line = card.splitlines()[0] if card else ""
+    if parallel:
+        runs = [phase_parallel(device, card_line)]
+        print(json.dumps({name: {**row, "launches": sum(r.get(name, 0) for r in runs)}
+                          for name, row in rows.items()}))
+        return
     if only == "eval":
         ckpt = write_phase28_checkpoint(device, SEED)
         ckpt["params"] = None
@@ -7574,6 +8287,7 @@ def main() -> None:
     finally:
         shutil.rmtree(ckpt["root"], ignore_errors=True)
     phase_qlora_parity(device, SEED)
+    runs.append(phase_parallel(device, card_line))
     counts = read_counts(unreached)
     counts["bitcast_pack"] += counts.pop("bitcast_unpack")
     runs.append(counts)
@@ -7585,11 +8299,16 @@ def main() -> None:
     # batchers, phase 27's beams, phase 28's two loaded models, phase 29's
     # chat, phase 30's nf4 MPT, phase 31's two HTTP workers, phase 32's two
     # training runs and its round trip's Generator and batcher, and phase
-    # 34's eval CLIs), each counted from 0 just before its run and read
-    # just after; the six that no path reaches over phases 4-23 and 25-34
-    # as a whole (0)
+    # 34's eval CLIs, phase 35's sharded runs on rank 0), each counted from 0
+    # just before its run and read just after; the six that no path reaches
+    # over phases 4-23 and 25-34 as a whole (0)
     print(kernels_line(rows, runs))
     print(ok_line())
 
 if __name__ == "__main__":
-    main()
+    if "--rank" in sys.argv[1:]:  # one of phase 35's two ranks, spawned by phase_parallel
+        from tokenpacker_tpu_torch.parallel import dryrun
+
+        dryrun.main(sys.argv[1:], S_RUNNERS)
+    else:
+        main()

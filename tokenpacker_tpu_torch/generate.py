@@ -59,6 +59,17 @@ in `beam.py`. `Generator.generate_stream(seed=)` draws a seeded
 request's tokens by the same rule as the batchers (the HTTP worker's
 direct path), and `Generator.warmup` runs the kernels' build and one
 prefill and decode step when a server starts.
+
+Over a sharded tree (`parallel/sharding.shard_params`, one process a
+rank) every rank runs the same calls in lockstep on its part: the cache
+holds the rank's local kv heads, the tower splits the crops over 'data'
+under an active mesh, and the logits are gathered whole on every rank, so
+the host's decisions (tokens, stops) agree. K4 runs one device's full
+width and reads whole weights, so the decode dispatch is written here:
+on a sharded tree `fused_weights` is False and every step takes the
+per-layer path (K3 attention, K7 / K6 / plain products, an all-reduce
+over 'model' after `o` and `down`); K4 under tensor parallelism is later
+work (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -74,6 +85,7 @@ from tokenpacker_tpu_torch.models.llama import KVCache, make_attention_bias
 from tokenpacker_tpu_torch.models.lm_api import embedding_table, lm_apply, lm_embed, lm_logits
 from tokenpacker_tpu_torch.models.splice import assemble_embeds
 from tokenpacker_tpu_torch.models.vlm import vlm_hidden
+from tokenpacker_tpu_torch.parallel.sharding import local_config, mesh_of
 from tokenpacker_tpu_torch.ops.fused_decode import FusedWeights, fused_decode_hidden, fused_eligible
 from tokenpacker_tpu_torch.ops.layers import rms_norm
 from tokenpacker_tpu_torch.serve.multi_lora import has_slot_lora
@@ -118,6 +130,7 @@ def prefill(params, cfg: TokenPackerVLMConfig, batch: dict, s_max: int,
     storage, cfg.dtype by default or torch.int8; w8a8: `ops/layers.linear`'s
     w8a8 mode; vit_block: the tower's blocks through K9. Returns (next-token
     logits [N, V], cache) with the prompt's keys in cache slots [0, L)."""
+    cfg = local_config(cfg, params)
     dtype = kv_cache_dtype or cfg.dtype
     tile = cache_len_tile(dtype)
     s_max = -(-s_max // tile) * tile
@@ -167,9 +180,10 @@ def fused_weights(params, cfg: TokenPackerVLMConfig) -> FusedWeights | bool:
     """How decode steps of these params run: K4's weight table for an
     eligible tree on the card, True for one on the CPU (its plain version
     needs no table), False for the per-layer path (also for slot-LoRA
-    leaves without K4's bundle, as in the JAX package)."""
+    leaves without K4's bundle, as in the JAX package, and for a sharded
+    tree: module docstring)."""
     lm = params["lm"]
-    if not fused_eligible(lm, cfg.lm):
+    if mesh_of(lm) is not None or not fused_eligible(lm, cfg.lm):
         return False
     if lm.get("fd_slot_lora") is None and has_slot_lora(lm):
         return False
@@ -515,13 +529,13 @@ class Generator:
                  kv_cache_dtype: torch.dtype | None = None, w8a8: bool = False,
                  vit_block: bool = False):
         self.params = params
-        self.cfg = cfg
+        self.cfg = local_config(cfg, params)
         self.tokenizer = tokenizer
         self.kv_cache_dtype = kv_cache_dtype
         self.w8a8 = w8a8
         self.vit_block = vit_block
         self.device = embedding_table(params["lm"]).device
-        self.fused = fused_weights(params, cfg)
+        self.fused = fused_weights(params, self.cfg)
         # generate_stream's work, summed over its calls (host counts): the
         # prefills, the plain decode steps and the speculative verify rounds
         self.stream_stats = {"prefills": 0, "decode_steps": 0, "verify_rounds": 0}

@@ -100,13 +100,23 @@ def _fit_into(h: int, w: int, canvas_h: int, canvas_w: int) -> tuple[int, int]:
     return min(canvas_h, round(h * w_ratio)), canvas_w
 
 
-def slice_image(img: np.ndarray, patch_num: int = 9,
-                block: int = BLOCK_SIZE) -> tuple[np.ndarray, int, int]:
+def slice_image(img: np.ndarray, patch_num: int = 9, block: int = BLOCK_SIZE,
+                use_native: bool = True) -> tuple[np.ndarray, int, int]:
     """img: [C, H, W] float (already CLIP-normalized) -> (crops
     [n_crops (+1), C, block, block], h_block, w_block): row-major crops of
-    a zero-padded canvas, plus a global view when there is more than one."""
+    a zero-padded canvas, plus a global view when there is more than one.
+    With `use_native`, the C++ library (`image/native`) slices when it is
+    built, as the JAX package's does; numpy otherwise."""
     c, h, w = img.shape
     hb, wb = choose_grid(h, w, patch_num, block)
+    if use_native:
+        from tokenpacker_tpu_torch.image import native
+
+        if native.available():
+            th, tw = _fit_into(h, w, block * hb, block * wb)
+            gh, gw = _fit_into(h, w, block, block)
+            return native.hd_slice(np.ascontiguousarray(img, np.float32), hb, wb, block, th, tw,
+                                   gh, gw), hb, wb
     th, tw = _fit_into(h, w, block * hb, block * wb)
     canvas = np.zeros((c, block * hb, block * wb), dtype=img.dtype)
     canvas[:, :th, :tw] = _resize_bilinear(img, th, tw)

@@ -52,7 +52,15 @@ from tokenpacker_tpu_torch.config import LMConfig
 from tokenpacker_tpu_torch.ops.decode_attention import decode_attention
 from tokenpacker_tpu_torch.ops.flash_attention import FlashAttention
 from tokenpacker_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
-from tokenpacker_tpu_torch.ops.layers import linear, rms_norm, silu
+from tokenpacker_tpu_torch.ops.layers import linear, rms_norm, row_linear, silu
+from tokenpacker_tpu_torch.parallel import comm
+from tokenpacker_tpu_torch.parallel.sharding import (
+    gather_features,
+    gathered,
+    gathered_leaf,
+    head_axis,
+    local_lm_config,
+)
 
 
 @dataclass
@@ -130,12 +138,22 @@ def qkv_proj(p_attn, cfg: LMConfig, h: torch.Tensor, w8a8: bool = False):
 
 
 def mlp_block(p_mlp, cfg: LMConfig, h: torch.Tensor, w8a8: bool = False) -> torch.Tensor:
-    """SwiGLU MLP, gate/up or the fused `gateup` layout."""
+    """SwiGLU MLP, gate/up or the fused `gateup` layout; tensor-parallel
+    over `cfg.mlp_axis` on a rank's slice of the width (a
+    `parallel/sharding.LocalLMConfig`)."""
+    axis = getattr(cfg, "mlp_axis", None)
+    h = comm.copy_to(h, axis)
     if "gateup" in p_mlp:
         gate, up = linear(p_mlp["gateup"], h, w8a8).split(cfg.intermediate_size, dim=-1)
     else:
         gate, up = linear(p_mlp["gate"], h, w8a8), linear(p_mlp["up"], h, w8a8)
-    return linear(p_mlp["down"], silu(gate) * up, w8a8)
+    return row_linear(p_mlp["down"], silu(gate) * up, axis, w8a8)
+
+
+def attn_out(p_attn, cfg: LMConfig, attn: torch.Tensor, w8a8: bool = False) -> torch.Tensor:
+    """The `o` product of [N, T, H * d] attention rows, all-reduced over
+    `cfg.attn_axis` in a tensor-parallel block."""
+    return row_linear(p_attn["o"], attn, getattr(cfg, "attn_axis", None), w8a8)
 
 
 def make_attention_bias(positions: torch.Tensor, key_valid: torch.Tensor) -> torch.Tensor:
@@ -164,8 +182,10 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor) 
 
 def _layer(p, cfg: LMConfig, x, cos, sin, cache: KVCache | None, layer: int,
            decode_info=None, attn_bias=None, w8a8: bool = False):
+    p = gathered(p)
     h = rms_norm(p["input_ln"], x, cfg.rms_norm_eps)
     n, t, _ = h.shape
+    h = comm.copy_to(h, getattr(cfg, "attn_axis", None))
     q, k, v = qkv_proj(p["attn"], cfg, h, w8a8)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -196,7 +216,7 @@ def _layer(p, cfg: LMConfig, x, cos, sin, cache: KVCache | None, layer: int,
             ck = dequantize_kv(ck, cache.k_scale[layer], q.dtype)
             cv = dequantize_kv(cv, cache.v_scale[layer], q.dtype)
         attn = decode_attention(q[:, 0].contiguous(), ck, cv, lengths, needed, span_start)[:, None]
-    x = x + linear(p["attn"]["o"], attn.reshape(n, t, -1), w8a8)
+    x = x + attn_out(p["attn"], cfg, attn.reshape(n, t, -1), w8a8)
     h = rms_norm(p["post_ln"], x, cfg.rms_norm_eps)
     return x + mlp_block(p["mlp"], cfg, h, w8a8)
 
@@ -236,7 +256,9 @@ def llama_apply(params, cfg: LMConfig, inputs_embeds: torch.Tensor,
     cache instead of K2 over the current tokens. `remat` applies to the
     cache-less path only (module docstring). `w8a8`: `ops/layers.linear`'s
     w8a8 mode for the int8 kernels. Returns the final-norm hidden states
-    [N, T, D]."""
+    [N, T, D]. A tree of `parallel/sharding.shard_params` runs as this
+    rank's part (`local_lm_config`)."""
+    cfg = local_lm_config(cfg, params)
     x = inputs_embeds
     # cast once here rather than in every layer's apply_rope (same values)
     cos, sin = (c.to(x.dtype) for c in rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta))
@@ -254,11 +276,27 @@ def llama_apply(params, cfg: LMConfig, inputs_embeds: torch.Tensor,
     return rms_norm(params["norm"], x, cfg.rms_norm_eps)
 
 
+def _payload(kernel):
+    """The tensor that carries a kernel's placement (a quantized leaf's
+    int8 or 4-bit payload)."""
+    if isinstance(kernel, dict):
+        return kernel["q"] if "q" in kernel else next(
+            (v for k, v in kernel.items() if k.startswith("q4:")), None)
+    return kernel
+
+
 def llama_logits(params, hidden: torch.Tensor, w8a8: bool = False) -> torch.Tensor:
-    return linear(params["lm_head"], hidden, w8a8)
+    """The head; vocab-parallel logits are gathered over 'model'."""
+    head = params["lm_head"]
+    hidden = comm.copy_to(hidden, head_axis(_payload(head["kernel"])))
+    y = linear(gathered(head), hidden, w8a8)
+    return gather_features(y, _payload(head["kernel"]))
 
 
 def embed_tokens(params, input_ids: torch.Tensor) -> torch.Tensor:
     """Embedding lookup; negative ids (IMAGE_TOKEN_INDEX) clamp to 0 and are
-    overwritten by the projector output before use."""
-    return params["embed"][input_ids.clamp(0, params["embed"].shape[0] - 1)]
+    overwritten by the projector output before use. A sharded table's
+    features are gathered over 'model' after the lookup."""
+    table = gathered_leaf(params["embed"])
+    x = table[input_ids.clamp(0, table.shape[0] - 1)]
+    return gather_features(x, params["embed"])

@@ -51,7 +51,14 @@ from tokenpacker_tpu_torch.config import LMConfig
 from tokenpacker_tpu_torch.models.llama import KVCache, sdpa
 from tokenpacker_tpu_torch.ops.decode_attention import decode_attention
 from tokenpacker_tpu_torch.ops.flash_attention import FlashAttention
-from tokenpacker_tpu_torch.ops.layers import gelu, layer_norm, linear
+from tokenpacker_tpu_torch.ops.layers import gelu, layer_norm, linear, row_linear
+from tokenpacker_tpu_torch.parallel import comm
+from tokenpacker_tpu_torch.parallel.sharding import (
+    gather_features,
+    gathered,
+    gathered_leaf,
+    local_lm_config,
+)
 
 
 def mpt_config(d_model=4096, n_heads=32, n_layers=32, expansion_ratio=4, vocab_size=50432,
@@ -146,11 +153,13 @@ def init_mpt(cfg: LMConfig, generator: torch.Generator, dtype=torch.float32):
 
 
 def _layer(p, cfg: LMConfig, x, cache: KVCache | None, layer: int, route: dict, w8a8: bool):
-    n, t, d = x.shape
-    h = cfg.num_attention_heads
-    y = layer_norm(p["norm_1"], x)
-    q, k, v = (z.reshape(n, t, h, d // h)
-               for z in linear(p["attn"]["wqkv"], y, w8a8).split(d, dim=-1))
+    p = gathered(p)
+    n, t, _ = x.shape
+    h, hd = cfg.num_attention_heads, cfg.head_dim
+    attn_axis, mlp_axis = getattr(cfg, "attn_axis", None), getattr(cfg, "mlp_axis", None)
+    y = comm.copy_to(layer_norm(p["norm_1"], x), attn_axis)
+    q, k, v = (z.reshape(n, t, h, hd)
+               for z in linear(p["attn"]["wqkv"], y, w8a8).split(h * hd, dim=-1))
     if cache is not None:
         at = cache.write_index(n, t)
         cache.k[layer][at] = k
@@ -164,9 +173,9 @@ def _layer(p, cfg: LMConfig, x, cache: KVCache | None, layer: int, route: dict, 
         lengths, needed, span_start = route["decode_info"]
         attn = decode_attention(q[:, 0].contiguous(), cache.k[layer], cache.v[layer], lengths,
                                 needed, span_start, route["slopes"])[:, None]
-    x = x + linear(p["attn"]["out"], attn.reshape(n, t, d), w8a8)
-    y = layer_norm(p["norm_2"], x)
-    return x + linear(p["ffn"]["down"], gelu(linear(p["ffn"]["up"], y, w8a8)), w8a8)
+    x = x + row_linear(p["attn"]["out"], attn.reshape(n, t, h * hd), attn_axis, w8a8)
+    y = comm.copy_to(layer_norm(p["norm_2"], x), mlp_axis)
+    return x + row_linear(p["ffn"]["down"], gelu(linear(p["ffn"]["up"], y, w8a8)), mlp_axis, w8a8)
 
 
 def mpt_apply(params, cfg: LMConfig, inputs_embeds: torch.Tensor, cache: KVCache | None = None,
@@ -185,8 +194,12 @@ def mpt_apply(params, cfg: LMConfig, inputs_embeds: torch.Tensor, cache: KVCache
                          "package's mpt_apply)")
     if cache is not None and cache.k_scale is not None:
         raise ValueError("MPT keeps a float KV cache (the model dtype), not int8")
+    cfg = local_lm_config(cfg, params)
     n, t, _ = inputs_embeds.shape
-    h = cfg.num_attention_heads
+    # a tensor-parallel rank's heads are [off, off + h) of the model's
+    h = getattr(cfg, "full_heads", 0) or cfg.num_attention_heads
+    off = getattr(cfg, "head_offset", 0)
+    mine = slice(off, off + cfg.num_attention_heads)
     device = inputs_embeds.device
     if t > 1 and attn_bias is not None:
         if cache is None:
@@ -194,13 +207,14 @@ def mpt_apply(params, cfg: LMConfig, inputs_embeds: torch.Tensor, cache: KVCache
         if key_positions is None:
             key_positions = torch.arange(cache.k.shape[2], device=device).expand(n, -1)
         # [N, H, T, S]: `sdpa` adds it per head (MHA: one query head a kv head)
-        route = {"bias": attn_bias + alibi_bias_from_positions(h, key_positions)}
+        route = {"bias": attn_bias + alibi_bias_from_positions(h, key_positions)[:, mine]}
     elif t > 1:
-        route = {"flash_bias": alibi_bias(h, t, device)}
+        route = {"flash_bias": alibi_bias(h, t, device)[:, mine].contiguous()}
     else:
         if cache is None or decode_info is None:
             raise ValueError("a single-token step needs the cache and decode_info")
-        route = {"decode_info": decode_info, "slopes": alibi_slopes(h, device=device)}
+        route = {"decode_info": decode_info,
+                 "slopes": alibi_slopes(h, device=device)[mine].contiguous()}
     x = inputs_embeds
     for i, p in enumerate(params["layers"]):
         x = _layer(p, cfg, x, cache, i, route, w8a8)
@@ -211,14 +225,15 @@ def mpt_apply(params, cfg: LMConfig, inputs_embeds: torch.Tensor, cache: KVCache
 
 
 def mpt_logits(params, hidden: torch.Tensor) -> torch.Tensor:
-    """Weight-tied logits: h @ wte^T."""
-    return hidden @ params["wte"].T
+    """Weight-tied logits: h @ wte^T (a sharded wte gathered whole)."""
+    return hidden @ gathered_leaf(params["wte"], full=True).T
 
 
 def mpt_embed(params, input_ids: torch.Tensor) -> torch.Tensor:
     """Embedding lookup; negative ids (IMAGE_TOKEN_INDEX) clamp to 0 and are
     overwritten by the projector output before use."""
-    return params["wte"][input_ids.clamp(0, params["wte"].shape[0] - 1)]
+    table = gathered_leaf(params["wte"])
+    return gather_features(table[input_ids.clamp(0, table.shape[0] - 1)], params["wte"])
 
 
 def import_mpt(sd, cfg: LMConfig, dtype=torch.float32):

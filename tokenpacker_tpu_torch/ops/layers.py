@@ -16,6 +16,7 @@ from tokenpacker_tpu_torch.ops.q4_matmul import q4_matmul
 from tokenpacker_tpu_torch.ops.q8_matmul import w8a8_matmul
 from tokenpacker_tpu_torch.ops.quantize import dequantize_4bit, is_q4leaf, is_qleaf
 from tokenpacker_tpu_torch.ops.s8_gemm import w8a8_gemm
+from tokenpacker_tpu_torch.parallel import comm
 
 
 def _quantized_product(x: torch.Tensor, k: dict, w8a8: bool) -> torch.Tensor:
@@ -118,6 +119,17 @@ def linear(params, x: torch.Tensor, w8a8: bool = False) -> torch.Tensor:
     if params.get("bias") is not None:
         y = y + params["bias"]
     return y
+
+
+def row_linear(params, x: torch.Tensor, axis, w8a8: bool = False) -> torch.Tensor:
+    """A row-parallel product: x holds this rank's slice of the input
+    features and the kernel its rows; the partial products are summed over
+    `axis` ('model', `parallel/comm.reduce_from`) before the bias. Plain
+    `linear` when axis is None (a replicated block)."""
+    if axis is None:
+        return linear(params, x, w8a8)
+    y = comm.reduce_from(linear({k: v for k, v in params.items() if k != "bias"}, x, w8a8), axis)
+    return y if params.get("bias") is None else y + params["bias"]
 
 
 def layer_norm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

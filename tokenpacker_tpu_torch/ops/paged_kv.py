@@ -35,6 +35,7 @@ from tokenpacker_tpu_torch.generate import prefill_chunk
 from tokenpacker_tpu_torch.models.llama import (
     KVCache,
     apply_rope,
+    attn_out,
     mlp_block,
     qkv_proj,
     rope_cos_sin,
@@ -42,8 +43,10 @@ from tokenpacker_tpu_torch.models.llama import (
 )
 from tokenpacker_tpu_torch.models.lm_api import lm_embed, lm_logits
 from tokenpacker_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
-from tokenpacker_tpu_torch.ops.layers import linear, rms_norm
+from tokenpacker_tpu_torch.ops.layers import rms_norm
 from tokenpacker_tpu_torch.ops.paged_attention import paged_attention
+from tokenpacker_tpu_torch.parallel import comm
+from tokenpacker_tpu_torch.parallel import sharding
 
 
 @dataclass
@@ -129,7 +132,8 @@ def _paged_layer(p, cfg: LMConfig, x, cos, sin, paged: PagedKV, layer: int, cur_
     n = x.shape[0]
     kp, vp = paged.k_pages[layer], paged.v_pages[layer]
     off = (cur_lens % paged.page_size).long()
-    h = rms_norm(p["input_ln"], x, cfg.rms_norm_eps)
+    p = sharding.gathered(p)
+    h = comm.copy_to(rms_norm(p["input_ln"], x, cfg.rms_norm_eps), getattr(cfg, "attn_axis", None))
     q, k, v = qkv_proj(p["attn"], cfg, h, w8a8)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -142,7 +146,7 @@ def _paged_layer(p, cfg: LMConfig, x, cos, sin, paged: PagedKV, layer: int, cur_
         kp[write_page, off] = k[:, 0].to(kp.dtype)
         vp[write_page, off] = v[:, 0].to(vp.dtype)
     attn = paged_attention(q[:, 0].contiguous(), kp, vp, paged.page_table, cur_lens + 1, ks, vs)
-    x = x + linear(p["attn"]["o"], attn.reshape(n, 1, -1), w8a8)
+    x = x + attn_out(p["attn"], cfg, attn.reshape(n, 1, -1), w8a8)
     h2 = rms_norm(p["post_ln"], x, cfg.rms_norm_eps)
     return x + mlp_block(p["mlp"], cfg, h2, w8a8)
 
@@ -183,7 +187,8 @@ def _paged_verify_layer(p, cfg: LMConfig, x, cos, sin, paged: PagedKV, layer: in
     dequantized for an int8 pool) under `bias` [N, 1, T, S]."""
     n, t, _ = x.shape
     kp, vp = paged.k_pages[layer], paged.v_pages[layer]
-    h = rms_norm(p["input_ln"], x, cfg.rms_norm_eps)
+    p = sharding.gathered(p)
+    h = comm.copy_to(rms_norm(p["input_ln"], x, cfg.rms_norm_eps), getattr(cfg, "attn_axis", None))
     q, k, v = qkv_proj(p["attn"], cfg, h, w8a8)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -205,7 +210,7 @@ def _paged_verify_layer(p, cfg: LMConfig, x, cos, sin, paged: PagedKV, layer: in
         vp[write_page, write_off] = v.to(vp.dtype)
         kg, vg = gathered(kp), gathered(vp)
     attn = sdpa(q, kg, vg, bias)
-    x = x + linear(p["attn"]["o"], attn.reshape(n, t, -1), w8a8)
+    x = x + attn_out(p["attn"], cfg, attn.reshape(n, t, -1), w8a8)
     h2 = rms_norm(p["post_ln"], x, cfg.rms_norm_eps)
     return x + mlp_block(p["mlp"], cfg, h2, w8a8)
 

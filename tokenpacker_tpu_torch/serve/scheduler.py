@@ -28,6 +28,23 @@ decode steps.
     tokens = fut.result()          # list[int]
     batcher.stop()
 
+Over a sharded tree (`parallel/sharding.shard_params`, one process a
+rank) every rank of the mesh runs the batcher, and the ranks' steps must
+meet in the same collectives, in lockstep. Submissions and cancellations
+reach rank 0 at times no other rank sees, so rank 0's loop decides: at
+the top of each iteration it broadcasts a step plan over the mesh (every
+rank: over 'data' the ZeRO gathers need them all) holding the requests
+it took from its queue (their tokens, images, sampling settings and
+seeds), the requests cancelled since the last plan, and whether to stop.
+The other ranks replay each plan into their own slots, allocator and
+prefix cache, which stay equal to rank 0's because everything else the
+loop decides (admission order, chunk bounds, page allocation and
+eviction, speculation's backoff, sampled tokens) follows from the plans
+and the replicated logits alone: no clock or thread timing enters a
+decision outside the plan. Only rank 0 takes `submit` and `cancel`; the
+others `start()` and then `stop()`, which returns once rank 0 has
+stopped. A KV cache or page pool holds a rank's local kv heads.
+
 `splice_batch` is one request's splice plan (numpy token_ids / is_image /
 image_slot [1, L], lengths [1], images [views, H, W, 3] or None).
 Streaming: `on_token=callable(token_id)`; `cancel(fut)` stops a request
@@ -91,6 +108,7 @@ different adapters never share pages.
 
 from __future__ import annotations
 
+import collections
 import math
 import queue
 import threading
@@ -132,6 +150,8 @@ from tokenpacker_tpu_torch.ops.paged_kv import (
     paged_verify_step,
     prefix_admit,
 )
+from tokenpacker_tpu_torch.parallel import comm
+from tokenpacker_tpu_torch.parallel.sharding import local_config, mesh_of
 from tokenpacker_tpu_torch.serve.multi_lora import SlotLora
 from tokenpacker_tpu_torch.serve.prefix_cache import PrefixCache, block_hashes, image_digest
 from tokenpacker_tpu_torch.speculative import accept_greedy, propose_ngram_host, verify_step_cb
@@ -163,6 +183,7 @@ class _Request:
     tokens: list = field(default_factory=list)
     ctx: list = field(default_factory=list)  # prompt-lookup context (speculation)
     adapter: str | None = None  # multi-LoRA serving (serve/multi_lora)
+    rid: int = -1  # a lockstep batcher's request id (its plans name requests by it)
 
     @property
     def has_penalties(self) -> bool:
@@ -191,6 +212,20 @@ class _SlotBatcher:
         if adapters and cfg.lm.model_family != "llama":
             raise NotImplementedError("multi-LoRA serving (adapters=) is llama-only, as the JAX "
                                       "package's serve/multi_lora is")
+        mesh = mesh_of(params)
+        if adapters and mesh is not None:
+            raise NotImplementedError("multi-LoRA serving over a sharded tree is not ported "
+                                      "(ROADMAP queue 1)")
+        cfg = local_config(cfg, params)
+        # lockstep over the mesh's ranks (module docstring)
+        self.plan_axis = mesh.world_axis if mesh is not None and mesh.size > 1 else None
+        self.leader = self.plan_axis is None or self.plan_axis.index == 0
+        self._inbox: collections.deque = collections.deque()  # requests the plans took
+        self._by_id: dict = {}  # id -> request, until it leaves the batcher
+        self._next_id = 0
+        self._cancel_ids: list = []  # cancellations since the last plan (rank 0)
+        self._cancel_lock = threading.Lock()
+        self._planned_stop = False
         self.device = torch.device(device)
         have = embedding_table(params["lm"]).device
         if have.type != self.device.type or (self.device.index is not None
@@ -271,6 +306,8 @@ class _SlotBatcher:
             except KeyError as e:
                 fut.set_exception(e)
                 return fut
+        if not self.leader:
+            raise RuntimeError("a lockstep batcher takes requests on rank 0 only")
         self._check_prompt(batch)  # refused here: inside the loop it would fail every request
         req = _Request(batch=batch, max_new_tokens=max_new_tokens, future=fut, on_token=on_token,
                        temperature=self.temperature if temperature is None else temperature,
@@ -278,6 +315,10 @@ class _SlotBatcher:
                        repetition_penalty=repetition_penalty, presence_penalty=presence_penalty,
                        frequency_penalty=frequency_penalty, logprobs=logprobs, adapter=adapter)
         fut._tp_request = req  # handle for cancel()
+        if self.plan_axis is not None:
+            with self._cancel_lock:
+                req.rid = self._next_id
+                self._next_id += 1
         self.queue.put(req)
         return fut
 
@@ -288,6 +329,10 @@ class _SlotBatcher:
         req = getattr(fut, "_tp_request", None)
         if req is None:
             return False
+        if self.plan_axis is not None:  # every rank applies it from the next plan
+            with self._cancel_lock:
+                self._cancel_ids.append(req.rid)
+            return True
         req.cancelled = True
         return True
 
@@ -296,9 +341,70 @@ class _SlotBatcher:
         self._thread.start()
 
     def stop(self):
-        self._stop.set()
+        """Stop the loop (rank 0; on another rank of a lockstep batcher:
+        wait until rank 0's plan has stopped it)."""
+        if self.leader:
+            self._stop.set()
         if self._thread is not None:
-            self._thread.join(timeout=30)
+            self._thread.join(timeout=30 if self.leader else None)
+
+    # -- lockstep plans (module docstring) -------------------------------------
+
+    _PLAN_FIELDS = ("batch", "max_new_tokens", "temperature", "top_p", "top_k", "min_p", "seed",
+                    "repetition_penalty", "presence_penalty", "frequency_penalty", "logprobs",
+                    "adapter")
+
+    def _running(self) -> bool:
+        if self.plan_axis is None:
+            return not self._stop.is_set()
+        return not self._planned_stop
+
+    def _exchange_plan(self):
+        """Rank 0 makes this iteration's plan and every rank applies it:
+        the new requests join the inbox in order, the cancellations mark
+        their requests, a stop ends the loop. An idle rank 0 waits up to 50
+        ms for a request first, as the loop does without a mesh."""
+        plan = None
+        if self.leader:
+            new = []
+            idle = (not self._inbox and self._pending is None
+                    and all(r is None for r in self.slots))
+            if idle and not self._stop.is_set():
+                try:
+                    new.append(self.queue.get(timeout=0.05))
+                except queue.Empty:
+                    pass
+            while True:
+                try:
+                    new.append(self.queue.get_nowait())
+                except queue.Empty:
+                    break
+            with self._cancel_lock:
+                cancel, self._cancel_ids = self._cancel_ids, []
+            plan = {"stop": self._stop.is_set(), "cancel": cancel,
+                    "new": [(r.rid, {f: getattr(r, f) for f in self._PLAN_FIELDS}) for r in new]}
+            mine = new
+        plan = comm.broadcast_object(plan, self.plan_axis)
+        if not self.leader:
+            mine = [_Request(future=Future(), **fields) for _, fields in plan["new"]]
+        for (rid, _), req in zip(plan["new"], mine):
+            req.rid = rid
+            self._by_id[rid] = req
+            self._inbox.append(req)
+        for rid in plan["cancel"]:
+            req = self._by_id.get(rid)
+            if req is not None:
+                req.cancelled = True
+        self._planned_stop = plan["stop"]
+
+    def _take(self) -> _Request:
+        """The next queued request (queue.Empty when there is none): from
+        the inbox the plans fill in lockstep, else from the queue."""
+        if self.plan_axis is None:
+            return self.queue.get_nowait()
+        if not self._inbox:
+            raise queue.Empty
+        return self._inbox.popleft()
 
     # -- crash nets --------------------------------------------------------
 
@@ -621,7 +727,11 @@ class _SlotBatcher:
 
     def _loop(self):
         chunked = self.prefill_chunk_size is not None
-        while not self._stop.is_set():
+        while True:
+            if self.plan_axis is not None:
+                self._exchange_plan()
+            if not self._running():
+                break
             self._reap_cancelled()
             admitting = False  # admission work ran in this iteration
             if chunked:
@@ -629,7 +739,7 @@ class _SlotBatcher:
                     for slot in range(self.num_slots):
                         if self.slots[slot] is None:
                             try:
-                                req = self.queue.get_nowait()
+                                req = self._take()
                             except queue.Empty:
                                 break
                             self._start_pending_safe(slot, req)
@@ -642,7 +752,7 @@ class _SlotBatcher:
                 for slot in range(self.num_slots):
                     if self.slots[slot] is None:
                         try:
-                            req = self.queue.get_nowait()
+                            req = self._take()
                         except queue.Empty:
                             break
                         self._admit_safe(slot, req)
@@ -652,7 +762,7 @@ class _SlotBatcher:
                 if chunked and self._pending is not None:
                     continue  # keep chunking the admission
                 try:
-                    req = self.queue.get(timeout=0.05)
+                    req = self.queue.get(timeout=0.05) if self.plan_axis is None else self._take()
                 except queue.Empty:
                     continue
                 if chunked:
@@ -703,9 +813,9 @@ class ContinuousBatcher(_SlotBatcher):
         super().__init__(params, cfg, tokenizer, num_slots, temperature, speculative_k,
                          prefill_chunk_size, adapters, kv_cache_dtype, w8a8, vit_block, device)
         self.max_seq_len = max_seq_len
-        self.cache = KVCache.create(cfg.lm, num_slots, max_seq_len, self.kv_cache_dtype,
+        self.cache = KVCache.create(self.cfg.lm, num_slots, max_seq_len, self.kv_cache_dtype,
                                     self.device)
-        self.fused = fused_weights(self.params, cfg)
+        self.fused = fused_weights(self.params, self.cfg)
 
     def _check_prompt(self, batch: dict):
         l = batch["token_ids"].shape[1]
@@ -820,7 +930,7 @@ class PagedContinuousBatcher(_SlotBatcher):
         self.num_pages = num_pages
         self.page_size = page_size
         self.max_pages_per_seq = max_pages_per_seq
-        self.paged = PagedKV.create(cfg.lm, num_pages, page_size, num_slots, max_pages_per_seq,
+        self.paged = PagedKV.create(self.cfg.lm, num_pages, page_size, num_slots, max_pages_per_seq,
                                     self.kv_cache_dtype, self.device)
         self.allocator = PageAllocator(num_pages)
         self.slot_pages: list[list[int]] = [[] for _ in range(num_slots)]

@@ -27,6 +27,7 @@ Differences from the JAX package (ROADMAP R14, R15):
 
 from __future__ import annotations
 
+import contextlib
 import zlib
 from dataclasses import dataclass
 
@@ -40,6 +41,7 @@ from tokenpacker_tpu_torch.train.step import (
     Optimizer,
     TrainConfig,
     leaves_with_paths,
+    mesh_grads,
     warmup_cosine,
 )
 
@@ -160,14 +162,18 @@ def make_lora_train_step(vlm_cfg: TokenPackerVLMConfig, lcfg: LoraConfig, opt, r
     metrics): the loss, the gradients of the optimizer's leaves (the
     adapters, then the projector when it trains) and one optimizer
     micro-step in place (`train/step.Optimizer`). `grad_norm` is the
-    global norm of those gradients."""
+    global norm of those gradients. On the optimizer's mesh the batch is
+    this rank's 'data' rows of the global batch and the adapters'
+    gradients are all-reduced over 'data': the JAX loop shards no
+    parameter and uses its mesh for the global batch alone, and this
+    computes the same step."""
 
     def step(lora, base_params, opt_state, batch):
-        loss, metrics = lora_loss(lora, base_params, vlm_cfg, lcfg, batch, remat)
-        grads = torch.autograd.grad(loss, opt.params, allow_unused=True, materialize_grads=True)
-        grad_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
-        opt.update(grads, opt_state)
-        return lora, opt_state, {"loss": loss.detach(), "n_tokens": metrics["n_tokens"],
+        with opt.mesh if opt.mesh is not None else contextlib.nullcontext():
+            loss, metrics = lora_loss(lora, base_params, vlm_cfg, lcfg, batch, remat)
+            grads, grad_norm = mesh_grads(loss, opt)
+            opt.update(grads, opt_state)
+        return lora, opt_state, {"loss": metrics["loss"].detach(), "n_tokens": metrics["n_tokens"],
                                  "grad_norm": grad_norm}
 
     return step
@@ -219,7 +225,7 @@ def lora_schedule(base_lr: float, warmup_ratio: float, total: int):
 
 
 def make_lora_optimizer(tcfg: TrainConfig, lcfg: LoraConfig, lora, projector,
-                        total: int) -> Optimizer:
+                        total: int, mesh=None) -> Optimizer:
     """AdamW over the adapters (lr `learning_rate`) and, when it trains, the
     projector (`mm_projector_lr`, else `learning_rate`), with one global
     clip over both and `lora_schedule` over `total` updates; those leaves
@@ -234,4 +240,4 @@ def make_lora_optimizer(tcfg: TrainConfig, lcfg: LoraConfig, lora, projector,
     for leaves in groups.values():
         for t in leaves:
             t.requires_grad_(True)
-    return Optimizer(tcfg, groups, schedules, global_clip=True)
+    return Optimizer(tcfg, groups, schedules, global_clip=True, mesh=mesh)

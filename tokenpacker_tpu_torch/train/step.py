@@ -31,6 +31,7 @@ an update runs in fp32.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 
@@ -38,6 +39,7 @@ import torch
 
 from tokenpacker_tpu_torch.config import TokenPackerVLMConfig
 from tokenpacker_tpu_torch.models.vlm import vlm_loss
+from tokenpacker_tpu_torch.parallel.sharding import global_norm, sync_grads
 
 
 @dataclass(frozen=True)
@@ -106,9 +108,10 @@ def warmup_cosine_decay(base_lr: float, tcfg: TrainConfig):
     return warmup_cosine(base_lr, warmup, max(tcfg.total_steps, warmup + 1))
 
 
-def _clip(grads: list[torch.Tensor], max_norm: float) -> list[torch.Tensor]:
-    """optax's clip_by_global_norm over `grads` (fp32)."""
-    norm = torch.sqrt(sum(g.square().sum() for g in grads))
+def _clip(grads: list[torch.Tensor], max_norm: float, leaves=None, mesh=None) -> list[torch.Tensor]:
+    """optax's clip_by_global_norm over `grads` (fp32), the norm over the
+    whole gradients of sharded `leaves` on a mesh."""
+    norm = global_norm(grads, leaves or [None] * len(grads), mesh)
     if not norm < max_norm:
         return [g / norm * max_norm for g in grads]
     return grads
@@ -120,14 +123,17 @@ class Optimizer:
     (`make_optimizer`, the full path) or over every group at once
     (`global_clip`, the LoRA path). `init()` makes the state;
     `update(grads, state)` applies one micro-step in place (the parameters
-    move on every k-th)."""
+    move on every k-th). On a `mesh` (`parallel/mesh`) the leaves are this
+    rank's shards, the state is sharded like them, and the clip's norm is
+    over the whole gradients (`parallel/sharding.global_norm`)."""
 
     def __init__(self, tcfg: TrainConfig, groups: dict[str, list[torch.Tensor]],
-                 schedules: dict, global_clip: bool = False):
+                 schedules: dict, global_clip: bool = False, mesh=None):
         self.tcfg = tcfg
         self.groups = groups
         self.schedules = schedules
         self.global_clip = global_clip
+        self.mesh = mesh
 
     @property
     def params(self) -> list[torch.Tensor]:
@@ -162,14 +168,14 @@ class Optimizer:
                 acc.zero_()
         grads = [g.float() for g in grads]
         if self.global_clip:
-            grads = _clip(grads, tcfg.max_grad_norm)
+            grads = _clip(grads, tcfg.max_grad_norm, self.params, self.mesh)
         b1, b2, eps, wd = tcfg.adam_b1, tcfg.adam_b2, tcfg.adam_eps, tcfg.weight_decay
         start = 0
         for name, leaves in self.groups.items():
             group_grads = grads[start:start + len(leaves)]
             start += len(leaves)
             if not self.global_clip:
-                group_grads = _clip(group_grads, tcfg.max_grad_norm)
+                group_grads = _clip(group_grads, tcfg.max_grad_norm, leaves, self.mesh)
             count = state["count"][name]
             lr = self.schedules[name](count)
             c1, c2 = 1.0 - b1 ** (count + 1), 1.0 - b2 ** (count + 1)
@@ -183,7 +189,7 @@ class Optimizer:
             state["count"][name] = count + 1
 
 
-def make_optimizer(tcfg: TrainConfig, params) -> Optimizer:
+def make_optimizer(tcfg: TrainConfig, params, mesh=None) -> Optimizer:
     """The full path's optimizer: the projector (stage 1) or the projector
     and the LM (stage 2), each group clipped on its own, marked
     `requires_grad_(True)` and every other leaf False."""
@@ -195,7 +201,17 @@ def make_optimizer(tcfg: TrainConfig, params) -> Optimizer:
     proj_lr = tcfg.mm_projector_lr or tcfg.learning_rate
     schedules = {"projector": warmup_cosine_decay(proj_lr, tcfg),
                  "lm": warmup_cosine_decay(tcfg.learning_rate, tcfg)}
-    return Optimizer(tcfg, {name: groups[name] for name in trained if name in groups}, schedules)
+    return Optimizer(tcfg, {name: groups[name] for name in trained if name in groups}, schedules,
+                     mesh=mesh)
+
+
+def mesh_grads(loss, opt: Optimizer):
+    """The gradients of `loss` for the optimizer's leaves, made whole for
+    their shards on the optimizer's mesh (`sync_grads`), and their global
+    norm."""
+    grads = torch.autograd.grad(loss, opt.params, allow_unused=True, materialize_grads=True)
+    grads = sync_grads(grads, opt.params, opt.mesh)
+    return grads, global_norm(grads, opt.params, opt.mesh)
 
 
 def make_train_step(cfg: TokenPackerVLMConfig, opt: Optimizer, remat: str = ""):
@@ -203,14 +219,17 @@ def make_train_step(cfg: TokenPackerVLMConfig, opt: Optimizer, remat: str = ""):
     loss and its gradients for the trained leaves, then one optimizer
     micro-step in place. `grad_norm` is the global norm of the trained
     groups' gradients (the JAX step's norm also counts the frozen LM's
-    gradients in stage 1, which the update never reads: ROADMAP R7)."""
+    gradients in stage 1, which the update never reads: ROADMAP R7). On
+    the optimizer's mesh the batch is this rank's 'data' rows and the
+    params its shards (`parallel/sharding.shard_params`): the step runs
+    under the mesh, and `loss` is the global batch's."""
 
     def step(params, opt_state, batch):
-        loss, metrics = vlm_loss(params, cfg, batch, remat=remat)
-        grads = torch.autograd.grad(loss, opt.params, allow_unused=True, materialize_grads=True)
-        grad_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
-        opt.update(grads, opt_state)
-        return params, opt_state, {"loss": loss.detach(), "n_tokens": metrics["n_tokens"],
-                                   "grad_norm": grad_norm}
+        with opt.mesh if opt.mesh is not None else contextlib.nullcontext():
+            loss, metrics = vlm_loss(params, cfg, batch, remat=remat)
+            grads, grad_norm = mesh_grads(loss, opt)
+            opt.update(grads, opt_state)
+        return params, opt_state, {"loss": metrics["loss"].detach(),
+                                   "n_tokens": metrics["n_tokens"], "grad_norm": grad_norm}
 
     return step

@@ -14,8 +14,18 @@ writing the reference's LoRA layout (`adapter_model.bin`,
 `serve/multi_lora.load_adapter` read.
 
 The flags are the JAX CLI's, plus `--device` (default cuda; cpu on
-request). `--remat` goes to `RunConfig.remat`; `--tp` above 1 raises (not
-ported). The model loads through `api.load_pretrained_model` in bf16.
+request). `--remat` goes to `RunConfig.remat`. The model loads through
+`api.load_pretrained_model` in bf16.
+
+Across ranks (`parallel/mesh`): run it under torchrun, one process per
+card, and the trainer builds a ('data', 'model') mesh over the world
+with `--tp` ranks to a 'model' row (each rank on `cuda:LOCAL_RANK`, NCCL;
+`--device cpu` runs gloo):
+
+  torchrun --nproc-per-node 8 -m tokenpacker_tpu_torch.train.train \
+      --tp 2 --model-path ... --data-path ... --output-dir ...
+
+Without torchrun the world is one rank, as before.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
+import os
 
 import torch
 
@@ -84,7 +95,9 @@ def build_parser():
                    help="block on checkpoint disk writes (default: stage-2 writes overlap "
                         "the next steps)")
     p.add_argument("--logging-steps", type=int, default=1)
-    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks per 'model' row of the mesh; the world "
+                        "(torchrun's processes) must be a multiple of it, the rest is 'data'")
     p.add_argument("--seed", type=int, default=42)
     # quantized / LoRA training (reference train.py:100-111, 827-874)
     p.add_argument("--bits", type=int, default=16, choices=[16, 8, 4])
@@ -108,6 +121,9 @@ def main(argv=None) -> Trainer:
 
     from tokenpacker_tpu_torch import api
     from tokenpacker_tpu_torch.io.hf_import import import_tokenpacker, strip_prefix
+
+    if args.device == "cuda" and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        args.device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"  # a rank of torchrun's
 
     tokenizer, model, _, _ = api.load_pretrained_model(args.model_path, args.model_base,
                                                        device=args.device)

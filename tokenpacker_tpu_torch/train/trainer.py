@@ -33,9 +33,23 @@ compute the same steps.
 
 `Trainer.train()` runs on the device the parameters live on, CUDA unless
 the caller asks for the CPU (`device="cpu"`); a parameter on another
-device raises. Tensor parallelism (`tp > 1`) is not ported yet (ROADMAP
-queue 1) and raises; so does `bits` 8 or 4 without `lora` (the full path
+device raises, and so does `bits` 8 or 4 without `lora` (the full path
 would train a quantized base).
+
+Across ranks the Trainer builds `parallel/mesh.make_mesh(tp=rcfg.tp)`
+over the world (one process a rank, `torchrun` or `parallel/multihost`),
+as the JAX Trainer builds its mesh over every device. Every rank collates
+the same global batch of `per_device_batch_size x dp` rows from the same
+seed and takes its 'data' rows (the image crops split over 'data' as
+well, `models/vlm`). The full path shards the params
+(`parallel/sharding.shard_params`: ZeRO-3 over 'data', tensor-parallel
+blocks over 'model'), so each gradient reaches its shard reduce-scattered
+and the optimizer state is sharded like the params; the clip's norm is
+over the whole gradients. The LoRA path keeps JAX's meaning: no
+parameter is sharded, the mesh splits the global batch over 'data' and
+the adapters' gradients are all-reduced. Rank 0 writes the same
+checkpoint files as a single process does (the shards gathered first);
+every rank resumes from them.
 """
 
 from __future__ import annotations
@@ -59,6 +73,14 @@ from tokenpacker_tpu_torch.data.dataset import LengthGroupedSampler, SupervisedD
 from tokenpacker_tpu_torch.generate import device_batch
 from tokenpacker_tpu_torch.io.hf_import import export_tokenpacker, import_tokenpacker, strip_prefix
 from tokenpacker_tpu_torch.ops import quantize
+from tokenpacker_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
+from tokenpacker_tpu_torch.parallel.sharding import (
+    placement,
+    shard_like,
+    shard_params,
+    unshard_leaf,
+    unshard_params,
+)
 from tokenpacker_tpu_torch.train.lora import (
     LoraConfig,
     export_lora_state_dict,
@@ -144,9 +166,6 @@ def device_train_batch(batch: dict, dtype: torch.dtype, device) -> dict:
 class Trainer:
     def __init__(self, cfg: TokenPackerVLMConfig, tcfg: TrainConfig, rcfg: RunConfig, params,
                  dataset: SupervisedDataset, tokenizer, device: str | torch.device = "cuda"):
-        if rcfg.tp > 1:
-            raise NotImplementedError("tp > 1: tensor parallelism is not ported yet "
-                                      "(ROADMAP queue 1, training and parallelism)")
         if rcfg.bits not in (16, 8, 4):
             raise ValueError(f"bits={rcfg.bits}: expected 16, 8 or 4")
         if rcfg.bits != 16 and rcfg.lora is None:
@@ -161,6 +180,9 @@ class Trainer:
         self.tcfg = tcfg
         self.rcfg = rcfg
         self.device = torch.device(device)
+        self.mesh = make_mesh(tp=rcfg.tp, device=self.device)
+        self.dp = self.mesh.shape[DATA_AXIS]
+        self.rank0 = self.mesh.rank == 0
         for path, leaf in leaves_with_paths(params):
             if leaf.device.type != self.device.type:
                 raise ValueError(f"parameter {'/'.join(map(str, path))} is on {leaf.device}, "
@@ -184,17 +206,27 @@ class Trainer:
         # and on CUDA the step's peak allocated bytes
         self.history: list[dict] = []
         self.opt_state = None  # the optimizer state after the last train()
+        self._opt = None  # the full path's optimizer (its leaves place the state's shards)
+
+    @property
+    def _step_mesh(self):
+        """The mesh the step runs on; None for a world of one."""
+        return self.mesh if self.mesh.size > 1 else None
 
     # -- data --------------------------------------------------------------
 
     def _batches(self):
+        """Global batches of per_device_batch_size x dp rows, the same on
+        every rank."""
         rcfg = self.rcfg
-        bs = rcfg.per_device_batch_size
+        bs = rcfg.per_device_batch_size * self.dp
         if len(self.dataset) < bs:
-            raise ValueError(f"dataset ({len(self.dataset)} samples) smaller than one batch "
-                             f"({bs}); training would silently run zero steps")
+            raise ValueError(f"dataset ({len(self.dataset)} samples) smaller than one global "
+                             f"batch ({rcfg.per_device_batch_size} x {self.dp} devices = {bs}); "
+                             "training would silently run zero steps")
         if rcfg.group_by_modality_length:
-            order = list(iter(LengthGroupedSampler(bs, 1, self.dataset.modality_lengths,
+            order = list(iter(LengthGroupedSampler(rcfg.per_device_batch_size, self.dp,
+                                                   self.dataset.modality_lengths,
                                                    group_by_modality=True, seed=rcfg.seed)))
         else:
             order = np.random.default_rng(rcfg.seed).permutation(len(self.dataset)).tolist()
@@ -213,18 +245,49 @@ class Trainer:
         except Exception as e:  # re-raised by finish_pending_saves
             self._write_error = e
 
+    def _local_rows(self, batch: dict) -> dict:
+        """This rank's 'data' rows of a global device batch (the images stay
+        whole: the tower splits its crops over 'data' itself)."""
+        if self.dp == 1:
+            return batch
+        n = batch["token_ids"].shape[0]
+        i, per = self.mesh.coords[DATA_AXIS], n // self.dp
+        return {k: (v[i * per:(i + 1) * per] if isinstance(v, torch.Tensor) and k != "images"
+                    and v.dim() and v.shape[0] == n else v) for k, v in batch.items()}
+
+    def _whole_opt_state(self, opt_state):
+        """The optimizer state with every moment gathered from its shards
+        (collective: every rank calls it)."""
+        opt = self._opt
+        if self._step_mesh is None or opt is None:
+            return opt_state
+        out = dict(opt_state)
+        for key in ("mu", "nu"):
+            out[key] = {name: [unshard_leaf(m, placement(p))
+                               for m, p in zip(opt_state[key][name], opt.groups[name])]
+                        for name in opt_state[key]}
+        if "acc" in opt_state:
+            out["acc"] = [unshard_leaf(a, placement(p))
+                          for a, p in zip(opt_state["acc"], opt.params)]
+        return out
+
     def save_checkpoint(self, step: int, opt_state=None):
         out = os.path.join(self.rcfg.output_dir, f"checkpoint-{step}")
-        os.makedirs(out, exist_ok=True)
+        if self.rank0:
+            os.makedirs(out, exist_ok=True)
         if self.tcfg.stage == "pretrain":
             self.save_mm_projector(os.path.join(out, "mm_projector.bin"))
         else:
             # one write in flight: the host copy is taken here, so training
             # may update the parameters in place while the file is written
             self.finish_pending_saves()
-            state = {"params": _to_host(self.params), "step": step}
-            if opt_state is not None:
-                state["opt_state"] = _to_host(opt_state)
+            params = unshard_params(self.params) if self._step_mesh else self.params
+            whole = self._whole_opt_state(opt_state) if opt_state is not None else None
+            if not self.rank0:
+                return
+            state = {"params": _to_host(params), "step": step}
+            if whole is not None:
+                state["opt_state"] = _to_host(whole)
             self._writer = threading.Thread(target=self._write,
                                             args=(state, os.path.join(out, "state.pt")))
             self._writer.start()
@@ -246,10 +309,15 @@ class Trainer:
             raise RuntimeError("checkpoint write failed") from err
 
     def save_mm_projector(self, path: str):
-        sd = export_tokenpacker(self.params["projector"])
+        proj = self.params["projector"]
+        sd = export_tokenpacker(unshard_params(proj) if self._step_mesh else proj)
+        if not self.rank0:
+            return
         torch.save({f"model.mm_projector.{k}": torch.from_numpy(v) for k, v in sd.items()}, path)
 
     def _prune_checkpoints(self):
+        if not self.rank0:
+            return
         cands = sorted(
             glob.glob(os.path.join(self.rcfg.output_dir, "checkpoint-*")),
             key=lambda p: int(re.search(r"checkpoint-(\d+)$", p).group(1)),
@@ -268,6 +336,16 @@ class Trainer:
         if not os.path.isfile(path):
             return 0, opt_state
         restored = torch.load(path, map_location="cpu", weights_only=True)
+        if self._step_mesh is not None:
+            restored["params"] = shard_params(restored["params"], self.mesh, self.cfg)
+            if "opt_state" in restored and self._opt is not None:
+                st, opt = restored["opt_state"], self._opt
+                for key in ("mu", "nu"):
+                    st[key] = {name: [shard_like(m, p) for m, p in zip(st[key][name],
+                                                                        opt.groups[name])]
+                               for name in st[key]}
+                if "acc" in st:
+                    st["acc"] = [shard_like(a, p) for a, p in zip(st["acc"], opt.params)]
         _copy_into(self.params, restored["params"])
         if opt_state is not None and "opt_state" in restored:
             opt_state = _copy_into(opt_state, restored["opt_state"])
@@ -287,6 +365,8 @@ class Trainer:
         also `optimizer.pt` (the step and the optimizer state, the port's
         own, for `try_resume_lora`). Pruned to save_total_limit."""
         out = os.path.join(self.rcfg.output_dir, f"checkpoint-{step}")
+        if not self.rank0:
+            return
         os.makedirs(out, exist_ok=True)
 
         def tensors(sd):
@@ -349,7 +429,8 @@ class Trainer:
                 if cuda:
                     torch.cuda.reset_peak_memory_stats(self.device)
                 t0 = time.perf_counter()
-                metrics = run_step(device_train_batch(batch, self.cfg.dtype, self.device))
+                metrics = run_step(self._local_rows(device_train_batch(batch, self.cfg.dtype,
+                                                                       self.device)))
                 loss = float(metrics["loss"])  # waits for the step
                 if cuda:
                     torch.cuda.synchronize(self.device)
@@ -374,7 +455,7 @@ class Trainer:
         """(micro-steps of the run, optimizer updates: the micro-steps over
         gradient_accumulation_steps, at least 1)."""
         rcfg = self.rcfg
-        n_batches = len(self.dataset) // rcfg.per_device_batch_size
+        n_batches = len(self.dataset) // (rcfg.per_device_batch_size * self.dp)
         total = max(n_batches * rcfg.num_train_epochs, 1)
         return total, max(total // max(self.tcfg.gradient_accumulation_steps, 1), 1)
 
@@ -388,7 +469,8 @@ class Trainer:
         for _, leaf in leaves_with_paths(self.params):
             leaf.requires_grad_(False)
         lora = init_lora(rcfg.seed, self.params, lcfg)
-        opt = make_lora_optimizer(self.tcfg, lcfg, lora, self.params["projector"], updates)
+        opt = make_lora_optimizer(self.tcfg, lcfg, lora, self.params["projector"], updates,
+                                  self._step_mesh)
         opt_state = opt.init()
         start_step, opt_state = self.try_resume_lora(lora, opt_state)
         step_fn = make_lora_train_step(self.cfg, lcfg, opt, rcfg.remat)
@@ -408,7 +490,10 @@ class Trainer:
         total, updates = self._total_steps()
         # the schedule advances once per optimizer update (every k micro-steps)
         tcfg = dataclasses.replace(self.tcfg, total_steps=updates)
-        opt = make_optimizer(tcfg, self.params)
+        if self._step_mesh is not None:
+            self.params = shard_params(self.params, self.mesh, self.cfg)
+        opt = make_optimizer(tcfg, self.params, self._step_mesh)
+        self._opt = opt
         opt_state = opt.init()
         step_fn = make_train_step(self.cfg, opt, self.rcfg.remat)
         start_step, opt_state = self.try_resume(opt_state)
