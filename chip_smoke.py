@@ -295,7 +295,12 @@ failure exits non-zero and prints no final line):
      decisive), a 7B stage-2 step at 2 layers, tp 2 (phase 9's bands),
      the pipeline at pp 2 (4 layers of 7B width), ring attention [1,
      4096, 32, 128] against K2 block by block, the paged batcher scenario
-     at HD-7b width; the `*_rank` kernels' launches read on rank 0.
+     at HD-7b width, and two LoRA adapters (ranks 16 and 8) and the base
+     model served over HD-7b int8 at 8 layers, tp 2, through both
+     batchers (tokens against one rank's where its margin is decisive,
+     the base against a run with no adapter, the paged prefix cache
+     keeping the adapters apart); the `*_rank` kernels' launches read on
+     rank 0.
 Phase 3 also holds K2's full-bias form (no serving or training path
 reaches it) at MPT-7B's prefix-LM attention, [4, 2048, 32, 128], not
 causal: the prefix-LM mask with B's prompt lengths plus ALiBi as a [4, 32,
@@ -828,7 +833,7 @@ def phase_kernels(device, hd_lengths: np.ndarray, s_hd: int, span: tuple[int, in
     if only == "probes":
         return rows
     if only in ("", "parallel"):  # configuration S's per-rank shapes
-        rows.update(rank_kernel_rows(device, case, first_and_worst))
+        rows.update(rank_kernel_rows(device, case, every_case))
     if only == "parallel":
         rows.update({name: every_case(cases)
                      for name, cases in rank_quantized_cases(device, case).items()})
@@ -7342,8 +7347,19 @@ PARALLEL_TIMEOUT = 600  # phase 35's two ranks, their start and the weights' ini
 # to, and returns what `phase_parallel` checks with its own measures and
 # the kernel launches of each sharded run.
 
-S_LAYERS = {"hd13b": 8, "train7b": 2, "pipeline7b": 4, "batcher7b": 2}
+S_LAYERS = {"hd13b": 8, "train7b": 2, "pipeline7b": 4, "batcher7b": 2, "lora7b": 8}
 S_NEW_TOKENS = 16
+# (g)'s batchers (`dryrun.lora_batcher`), its adapters' ranks and entries:
+# A and B both at 0.015 x sqrt(alpha / r), the products of phase 18's
+# adapters (A at LORA_SERVE_SCALE, B at it times alpha / r), a term of ~1/10
+# of the base products. At 0.03 for both (an H100 80GB HBM3 run at 700 W),
+# ad_a left the base at token 0 by a gap of 4.49, but the larger logits'
+# bf16 ties parted the streams from one rank's early (68 of 128 tokens
+# compared)
+S_LORA_SIZES = dict(page_size=16, chunk=32, max_seq_len=128)
+S_LORA_RANKS = {"ad_a": 16, "ad_b": 8}
+S_LORA_SCALES = {"ad_a": 0.0212, "ad_b": 0.03}
+S_LORA_PROMPTS = (40, 48)  # (g)'s two prompt lengths
 
 
 def s_config(kind: str):
@@ -7351,7 +7367,8 @@ def s_config(kind: str):
 
     preset = {"hd13b": "tokenpacker-hd-13b-9patch-144token",
               "train7b": "tokenpacker-7b-144token", "pipeline7b": "tokenpacker-7b-144token",
-              "batcher7b": "tokenpacker-hd-7b-9patch-144token"}[kind]
+              "batcher7b": "tokenpacker-hd-7b-9patch-144token",
+              "lora7b": "tokenpacker-hd-7b-9patch-144token"}[kind]
     cfg = preset_config(preset)
     lm = dataclasses.replace(cfg.lm, num_hidden_layers=S_LAYERS[kind])
     return dataclasses.replace(cfg, lm=lm, dtype=torch.bfloat16)
@@ -7580,16 +7597,21 @@ def s_ring(ctx):
     return out
 
 
-def s_margin_at(params, cfg, prompt: list, toks: list, j: int, device) -> float:
+def s_margin_at(params, cfg, prompt: list, toks: list, j: int, device,
+                against: int | None = None) -> float:
     """The top-2 margin of one rank's logits for token j after `prompt` and
-    toks[:j] (teacher-forced)."""
+    toks[:j] (teacher-forced); with `against`, the top logit less that
+    token's."""
     from tokenpacker_tpu_torch.generate import device_batch, prefill
     from tokenpacker_tpu_torch.parallel import dryrun
 
     seq = list(prompt) + list(toks[:j])
     b = dryrun.text_request(seq)
     logits, _ = prefill(params, cfg, device_batch(b, cfg.dtype, device), len(seq) + 1)
-    top2 = logits.float().topk(2, dim=-1).values
+    logits = logits.float()
+    if against is not None:
+        return float(logits[0].max() - logits[0, against])
+    top2 = logits.topk(2, dim=-1).values
     return float(top2[0, 0] - top2[0, 1])
 
 
@@ -7628,8 +7650,64 @@ def s_batcher7b(ctx):
     return out
 
 
+def s_lora7b(ctx):
+    """(g) Multi-LoRA serving over the tp = 2 tree: HD-7b's LM int8 (fused)
+    at 8 of its 32 layers, two adapters over all seven targets at full
+    width (ranks 16 and 8, seed 0), `dryrun.serve_adapters`' four text
+    requests (ad_a, ad_b beside it, the base, ad_a again on ad_a's prompt;
+    16 greedy tokens each) through `ContinuousBatcher` and
+    `PagedContinuousBatcher` (pages of 16, prefix cache, chunks of 32), and
+    the base request through each with no adapter loaded; rank 0 also the
+    single-process greedy tokens and margins of each (prompt, adapter),
+    and where ad_a's stream first leaves the base's, ad_a's top logit less
+    that of the base's token there."""
+    import torch.distributed as dist
+
+    from tokenpacker_tpu_torch.parallel import dryrun
+    from tokenpacker_tpu_torch.parallel.mesh import make_mesh
+    from tokenpacker_tpu_torch.parallel.sharding import shard_params
+    from tokenpacker_tpu_torch.serve.multi_lora import Adapter, SlotLora
+
+    t0 = time.perf_counter()
+    cfg, device = s_config("lora7b"), ctx["device"]
+    mesh = make_mesh(tp=2, device=device, backend=ctx["backend"])
+    params = s_weights(cfg, 4, device, int8=True)
+    adapters = {n: Adapter(lora, r) for n, (lora, r) in dryrun.lora_adapters(
+        cfg.lm, SEED, S_LORA_RANKS, S_LORA_SCALES).items()}
+    rng = np.random.default_rng(4)
+    v = min(cfg.lm.vocab_size, 32000)
+    prompts = tuple([1] + rng.integers(3, v, n - 1).tolist() for n in S_LORA_PROMPTS)
+    leader = ctx["rank"] == 0
+    sharded = shard_params(params, mesh, cfg)
+    got, launches = {}, {}
+    for kind in ("dense", "paged"):
+        got[kind], launches[kind] = s_counted(lambda kind=kind: dryrun.lora_batcher_scenario(
+            sharded, cfg, kind, adapters, device, leader, prompts=prompts, new=S_NEW_TOKENS,
+            **S_LORA_SIZES))
+        alone = dryrun.lora_batcher_scenario(sharded, cfg, kind, None, device, leader,
+                                             prompts=prompts, new=S_NEW_TOKENS, **S_LORA_SIZES)
+        got[kind + " no adapter"] = alone and alone["tokens"][0]
+    sharded_s = time.perf_counter() - t0
+    out = {}
+    if leader:
+        sl = SlotLora(params, cfg, adapters, 1, dtype=cfg.dtype)
+        refs = {name: s_greedy_with_margins(sl.prefill_params(params, name), cfg,
+                                            dryrun.text_request(prompt), S_NEW_TOKENS, device)
+                for prompt, name in ((prompts[0], "ad_a"), (prompts[1], "ad_b"),
+                                     (prompts[0], None))}
+        ad_a, base = refs["ad_a"][0], refs[None][0]
+        j = next((i for i, (x, y) in enumerate(zip(ad_a, base)) if x != y), None)
+        gap = None if j is None else s_margin_at(sl.prefill_params(params, "ad_a"), cfg,
+                                                 prompts[0], ad_a, j, device, against=base[j])
+        out = {"got": got, "refs": refs, "launches": launches, "sharded_s": sharded_s,
+               "layers": cfg.lm.num_hidden_layers, "prompts": [len(p) for p in prompts],
+               "leaves": (j, gap)}
+    dist.barrier()
+    return out
+
+
 S_RUNNERS = {"hd13b": s_hd13b, "train7b": s_train7b, "pipeline7b": s_pipeline7b,
-             "ring": s_ring, "batcher7b": s_batcher7b}
+             "ring": s_ring, "batcher7b": s_batcher7b, "lora7b": s_lora7b}
 
 
 def s_hd13b_length() -> int:
@@ -7638,14 +7716,16 @@ def s_hd13b_length() -> int:
     return int(s_hd_batch(s_config("hd13b"), 0)["token_ids"].shape[1])
 
 
-def rank_kernel_rows(device, case, first_and_worst) -> dict:
+def rank_kernel_rows(device, case, every_case) -> dict:
     """Phase 3's per-rank rows (configuration S): each kernel at the shapes
     one rank of a tp = 2 run gives it. K2's forward at 13B's 20 heads
     (phase 35 (a)'s HD prefill, [1, L, 20, 128]) and 7B's 16 ([2, 256, 16,
-    128], (b)'s step), K2's backward at 16, K3 at 20 heads over (a)'s
-    cache at its last decode step, K5 at 16 kv heads over (e)'s pool (bf16,
-    pages of 16); each held and timed as its phase-3 row is. Returns
-    {kernel-line name: row}."""
+    128], (b)'s step; [1, 40|48, 16, 128], (g)'s admissions), K2's
+    backward at 16, K3 at 20 heads over (a)'s cache at its last decode
+    step and at 16 over (g)'s dense batcher's two slots at theirs, K5 at
+    16 kv heads over (e)'s pool and (g)'s (bf16, pages of 16); each held
+    and timed as its phase-3 row is, every case with its own times.
+    Returns {kernel-line name: row}."""
     from tokenpacker_tpu_torch.ops import decode_attention as k3
     from tokenpacker_tpu_torch.ops import flash_attention as k2
     from tokenpacker_tpu_torch.ops import paged_attention as k5
@@ -7654,7 +7734,7 @@ def rank_kernel_rows(device, case, first_and_worst) -> dict:
     rows = {}
     l13 = s_hd13b_length()
     fwd = []
-    for n, t, h in ((1, l13, 20), (2, 256, 16)):
+    for n, t, h in ((1, l13, 20), (2, 256, 16)) + tuple((1, t, 16) for t in S_LORA_PROMPTS):
         q, kk, vv = (bf16((n, t, h, 128), 50 + i, device) for i in range(3))
         fwd.append(case(
             f"K2 flash causal q[{n},{t},{h},128] (one rank of tp 2)", k2.flash_attention,
@@ -7662,7 +7742,7 @@ def rank_kernel_rows(device, case, first_and_worst) -> dict:
             library=lambda q=q, kk=kk, vv=vv: sdpa(q, kk, vv, is_causal=True),
             work=(4 * n * t * h * 128 * 2 + n * h * t * 4, 4 * n * h * 128 * t * (t + 1) / 2),
             achieved="ops"))
-    rows["flash_attention_rank"] = first_and_worst(fwd)
+    rows["flash_attention_rank"] = every_case(fwd)
 
     n, t, h, d = 2, 256, 16, 128
     q, k, v, do = (bf16((n, t, h, d), 60 + i, device) for i in range(4))
@@ -7687,48 +7767,70 @@ def rank_kernel_rows(device, case, first_and_worst) -> dict:
                                         "case": tag}
     del q, k, v, do, o, lse, got, want, ql, kl, vl, out
 
-    # K3 at (a)'s last decode step: the prompt [0, L) and the span [L, L + 15)
-    h, s = 20, -(-(l13 + S_NEW_TOKENS) // 8) * 8
-    q = bf16((1, h, 128), 70, device)
-    ck, cv = bf16((1, s, h, 128), 71, device), bf16((1, s, h, 128), 72, device)
-    lengths = torch.tensor([l13], dtype=torch.int32, device=device)
-    needed = lengths + S_NEW_TOKENS - 1
-    keys = int(needed[0])
-    mask = (torch.arange(s, device=device) < needed[:, None])[:, None, None, :]
-    rows["decode_attention_rank"] = first_and_worst([case(
-        f"K3 decode q[1,{h},128] cache S={s} span [{l13}, {keys}) (one rank of tp 2)",
-        k3.decode_attention, k3.decode_attention_plain, (q, ck, cv, lengths, needed, l13),
-        library=lambda: sdpa(q[:, None], ck, cv, attn_mask=mask),
-        work=(2 * keys * h * 128 * 2 + 2 * h * 128 * 2 + 8, 4 * keys * h * 128),
-        check=lambda name, out, want: compare_rows(
-            name, out, want, k3.decode_attention_plain(q, ck, cv, lengths, lengths, l13)),
-        graph=True, library_graph=True, achieved="bytes")])
-    del q, ck, cv
+    # K3 at (a)'s last decode step (the prompt [0, L) and the span [L, L +
+    # 15)) and at (g)'s dense batcher's (2 slots of 128 positions, both
+    # prompts and 15 decoded rows); the lossy version drops the decoded rows
+    dec = []
+    pl = torch.tensor(S_LORA_PROMPTS, dtype=torch.int32, device=device)
+    for n, h, s, lengths, span, tag in (
+            (1, 20, -(-(l13 + S_NEW_TOKENS) // 8) * 8,
+             torch.tensor([l13], dtype=torch.int32, device=device), l13, ""),
+            (2, 16, S_LORA_SIZES["max_seq_len"], pl + S_NEW_TOKENS - 1, 0,
+             ", (g)'s dense batcher")):
+        q = bf16((n, h, 128), 70, device)
+        ck, cv = bf16((n, s, h, 128), 71, device), bf16((n, s, h, 128), 72, device)
+        needed = lengths + S_NEW_TOKENS - 1 if span else lengths
+        prompt = lengths if span else pl
+        keys = int(needed.sum())
+        mask = (torch.arange(s, device=device) < needed[:, None])[:, None, None, :]
+        args = (q, ck, cv, lengths, needed, span)
+        keys_at = f"span [{span}, {keys})" if span else f"lengths {needed.tolist()}"
+        dec.append(case(
+            f"K3 decode q[{n},{h},128] cache S={s} {keys_at}{tag} (one rank of tp 2)",
+            k3.decode_attention, k3.decode_attention_plain, args,
+            library=lambda q=q, ck=ck, cv=cv, mask=mask: sdpa(q[:, None], ck, cv,
+                                                              attn_mask=mask),
+            work=(2 * keys * h * 128 * 2 + 2 * n * h * 128 * 2 + 8 * n, 4 * keys * h * 128),
+            check=lambda name, out, want, args=args, prompt=prompt: compare_rows(
+                name, out, want, k3.decode_attention_plain(*args[:3], prompt, prompt, args[5])),
+            graph=True, library_graph=True, achieved="bytes"))
+        del q, ck, cv, args
+    rows["decode_attention_rank"] = every_case(dec)
 
-    # K5 over (e)'s pool: 2 sequences, pages of 16, 16 blocks each
-    n, h, d, ps, mp = 2, 16, 128, 16, 16
-    lens = torch.tensor([52, 61], dtype=torch.int32, device=device)
-    dropped = lens - ((lens - 1) % ps + 1)
-    g = torch.Generator(device=device).manual_seed(SEED + 9)
-    table = (torch.randperm(n * mp, generator=g, device=device) + 1).view(n, mp).int()
-    kp, vp = (torch.randn((n * mp + 1, ps, h, d), generator=g, device=device).bfloat16()
-              for _ in range(2))
-    kd, vd = (x[table.long()].view(n, -1, h, d) for x in (kp, vp))
-    valid = torch.arange(mp * ps, device=device)[None, :] < lens[:, None]
-    q = bf16((n, h, d), 73, device)
-    args = (q, kp, vp, table, lens, None, None)
-    keys = int(lens.sum())
-    rows["paged_attention_rank"] = first_and_worst([case(
-        f"K5 paged_attention q[{n},{h},{d}] pages of {ps} x {mp} blocks, {h} kv heads, bf16 "
-        f"pool, {keys} valid keys (one rank of tp 2)", k5.paged_attention,
-        k5.paged_attention_plain, args,
-        library=lambda: sdpa(q[:, None], kd, vd, attn_mask=valid[:, None, None, :]),
-        work=(2 * keys * h * d * 2 + 2 * n * h * d * 2 + table.numel() * 4 + n * 4,
-              4 * keys * h * d),
-        check=lambda name, out, want: compare_rows(
-            name, out, want, k5.paged_attention_plain(*args[:4], dropped, *args[5:])),
-        graph=True, library_graph=True, achieved="bytes")])
-    del kp, vp, kd, vd
+    # K5 over (e)'s pool (16 blocks a sequence) and (g)'s (64 pages, 8
+    # blocks a sequence): 2 sequences, pages of 16, 16 kv heads, bf16
+    paged = []
+    h, d, ps = 16, 128, 16
+    for n, mp, pages, lens, seed, tag in (
+            (2, 16, 33, (52, 61), SEED + 9, ""),
+            (2, S_LORA_SIZES["max_seq_len"] // ps, 64,
+             tuple(t + S_NEW_TOKENS - 1 for t in S_LORA_PROMPTS), SEED + 10,
+             " of a pool of 64 pages, (g)'s paged batcher")):
+        lens = torch.tensor(lens, dtype=torch.int32, device=device)
+        dropped = lens - ((lens - 1) % ps + 1)
+        g = torch.Generator(device=device).manual_seed(seed)
+        table = (torch.randperm(pages - 1, generator=g, device=device)[:n * mp] + 1).view(
+            n, mp).int()
+        kp, vp = (torch.randn((pages, ps, h, d), generator=g, device=device).bfloat16()
+                  for _ in range(2))
+        kd, vd = (x[table.long()].view(n, -1, h, d) for x in (kp, vp))
+        valid = torch.arange(mp * ps, device=device)[None, :] < lens[:, None]
+        q = bf16((n, h, d), 73, device)
+        args = (q, kp, vp, table, lens, None, None)
+        keys = int(lens.sum())
+        paged.append(case(
+            f"K5 paged_attention q[{n},{h},{d}] pages of {ps} x {mp} blocks{tag}, {h} kv "
+            f"heads, bf16 pool, {keys} valid keys (one rank of tp 2)",
+            k5.paged_attention, k5.paged_attention_plain, args,
+            library=lambda q=q, kd=kd, vd=vd, valid=valid: sdpa(
+                q[:, None], kd, vd, attn_mask=valid[:, None, None, :]),
+            work=(2 * keys * h * d * 2 + 2 * n * h * d * 2 + table.numel() * 4 + n * 4,
+                  4 * keys * h * d),
+            check=lambda name, out, want, args=args, dropped=dropped: compare_rows(
+                name, out, want, k5.paged_attention_plain(*args[:4], dropped, *args[5:])),
+            graph=True, library_graph=True, achieved="bytes"))
+        del kp, vp, kd, vd, q, args
+    rows["paged_attention_rank"] = every_case(paged)
     torch.cuda.empty_cache()
     return rows
 
@@ -7846,6 +7948,51 @@ def native_check_in(build_dir: str) -> None:
         raise AssertionError("phase 35 (f): the native library disagrees with its references")
 
 
+def check_lora7b(g: dict) -> list:
+    """Phase 35 (g)'s checks and its line; returns the failures (a token
+    that differs where the reference's margin is decisive raises)."""
+    failures, agree, total, each = [], 0, 0, []
+    order = ("ad_a", "ad_b", None, "ad_a")  # `dryrun.serve_adapters`' four requests
+    for kind in ("dense", "paged"):
+        run = g["got"][kind]
+        for i, name in enumerate(order):
+            ref, margins = g["refs"][name]
+            each.append(decisive_agree(f"phase 35 (g) {kind} request {i} ({name or 'base'})",
+                                       run["tokens"][i], ref, margins))
+            agree += each[-1]
+            total += len(ref)
+        if run["tokens"][2] != g["got"][kind + " no adapter"]:
+            failures.append(f"(g) {kind}: the base request {run['tokens'][2]} differs from the "
+                            f"run with no adapter {g['got'][kind + ' no adapter']}")
+        if run["tokens"][2] in (run["tokens"][0], run["tokens"][3]):
+            failures.append(f"(g) {kind}: ad_a's tokens equal the base request's "
+                            f"{run['tokens'][2]}")
+        need = (("flash_attention_rank", "decode_attention_rank") if kind == "dense"
+                else ("paged_attention_rank",))
+        failures += [f"(g) {kind}: {n} never launched" for n in need
+                     if g["launches"][kind][n] == 0]
+    paged = g["got"]["paged"]
+    if not (paged["reused"][0] == 0 < paged["reused"][1] and paged["leaked"] == 0):
+        failures.append(f"(g) paged: prefix tokens reused {paged['reused']} (base, ad_a's "
+                        f"repeat), pages leaked {paged['leaked']}")
+    j, gap = g["leaves"]
+    if j is None or not gap > LOGIT_BAND:
+        failures.append(f"(g) on one rank ad_a's stream leaves the base's at token {j} by a "
+                        f"logit gap of {gap}, not above LOGIT_BAND")
+    least = min(min(m) for _, m in g["refs"].values())
+    print(f"  (g) multi-LoRA serving, HD-7b int8 {g['layers']} layers, tp 2, adapters of rank "
+          f"{S_LORA_RANKS['ad_a']} and {S_LORA_RANKS['ad_b']} and the base, prompts "
+          f"{g['prompts']}, {S_NEW_TOKENS} tokens each: {agree}/{total} tokens equal to one "
+          f"rank's before a first difference within the band (dense then paged, per request "
+          f"{each}; least margin {least:.4f}); on one rank ad_a leaves the "
+          f"base at token {j} by a logit gap of {gap}; base == no adapter loaded "
+          f"(dense {g['got']['dense']['tokens'][2] == g['got']['dense no adapter']}, paged "
+          f"{paged['tokens'][2] == g['got']['paged no adapter']}); paged prefix tokens reused "
+          f"{paged['reused']} (base, ad_a's repeat), pages leaked {paged['leaked']}; sharded "
+          f"runs {g['sharded_s']:.1f} s; launches on rank 0 {g['launches']}")
+    return failures
+
+
 def timed(fn) -> float:
     t0 = time.perf_counter()
     fn()
@@ -7909,6 +8056,15 @@ def phase_parallel(device, card: str) -> dict:
         (fused) at 2 layers, pages of 16, chunks of 32: tokens equal the
         single-process run's wherever its margin exceeds LOGIT_BAND;
     (f) the native library (`native_check`);
+    (g) multi-LoRA serving over HD-7b int8 (fused) at 8 layers, tp = 2:
+        two adapters (ranks 16 and 8) and the base model through the dense
+        and the paged batcher (`s_lora7b`); each request's tokens equal
+        the single-process run's with its adapter wherever its margin
+        exceeds LOGIT_BAND, the base request's equal a run with no adapter
+        loaded, ad_a's differ from the base's (and on one rank leave them by
+        a logit gap above LOGIT_BAND), and on the paged batcher the base
+        takes none of ad_a's cached pages, ad_a's repeat takes them, and no
+        page leaks;
     and the NCCL path at a world of one (`nccl_world_of_one`). Launches
     counted on rank 0 from 0 just before each sharded run and read just
     after: {kernel-line name: launches}."""
@@ -7995,6 +8151,10 @@ def phase_parallel(device, card: str) -> dict:
                        ("flash_attention_bwd_rank", b), ("paged_attention_rank", e)):
         if need["launches"][name] == 0:
             failures.append(f"{name} never launched in its sharded run")
+    failures += check_lora7b(res["lora7b"])
+    for counts in res["lora7b"]["launches"].values():
+        for name, count in counts.items():
+            launches[name] = launches.get(name, 0) + count
     if failures:
         raise AssertionError("phase 35: " + "; ".join(failures))
     print(f"  phase 35 took {time.perf_counter() - t0:.1f} s")

@@ -38,6 +38,7 @@ def build_dir(tmp_path_factory):
 def lib(build_dir, monkeypatch):
     monkeypatch.setattr(native, "_LIB", None)
     monkeypatch.setattr(native, "BUILD_DIR", build_dir)
+    native.build(build_dir)
     return native.load(build_dir)
 
 

@@ -6,11 +6,14 @@ One module fixture spawns a world of 4 ranks (dp 2 x tp 2) once, through
 never JAX), and runs its scenarios there: two Trainer steps of stage 2
 and two LoRA steps, HD prefill with the crops split over 'data',
 tensor-parallel `Generator` greedy and speculative decoding on the tiny
-config and on the 13B-width int8 fused tree at 2 layers, and the paged
-batcher scenario of `__graft_entry__._dryrun_tp_serving_batcher`. Each
+config and on the 13B-width int8 fused tree at 2 layers, the paged
+batcher scenario of `__graft_entry__._dryrun_tp_serving_batcher`, and
+multi-LoRA serving (two adapters and the base model) through both
+batchers over the tiny config's dense tree and its int8 fused tree. Each
 child holds its result to the port's world of one (rank 0 runs the same
 work without a mesh); the tests here hold rank 0's results to the JAX
-package (the batcher's tokens to JAX's single-device greedy ones). The
+package (the batcher's tokens to JAX's single-device greedy ones, the
+multi-LoRA batchers' to JAX's batchers on its dp 4 x tp 2 mesh). The
 weights are the port's seeded ones, written to a file the children read,
 and given to JAX through `params_to_jax`. Every child has a timeout and
 the whole group is killed on a failure.
@@ -43,6 +46,9 @@ from tokenpacker_tpu.models.vlm import vlm_hidden as jax_vlm_hidden
 from tokenpacker_tpu.ops import quantize as jax_quantize
 from tokenpacker_tpu.parallel import mesh as jax_mesh
 from tokenpacker_tpu.parallel import sharding as jax_sharding
+from tokenpacker_tpu.serve import multi_lora as jax_multi_lora
+from tokenpacker_tpu.serve.scheduler import ContinuousBatcher as JaxBatcher
+from tokenpacker_tpu.serve.scheduler import PagedContinuousBatcher as JaxPaged
 from tokenpacker_tpu.train import lora as jax_lora
 from tokenpacker_tpu.train import step as jax_step
 from tokenpacker_tpu_torch.config import LMConfig, tiny_vlm_config
@@ -55,6 +61,7 @@ from tokenpacker_tpu_torch.io.weights import (
 from tokenpacker_tpu_torch.ops.quantize import fuse_llama_layers
 from tokenpacker_tpu_torch.parallel import dryrun, sharding
 from tokenpacker_tpu_torch.parallel.mesh import Mesh, make_mesh, single_device_mesh
+from tokenpacker_tpu_torch.serve.multi_lora import Adapter, SlotLora
 from tokenpacker_tpu_torch.train.lora import LoraConfig, init_lora
 
 CHILD_TIMEOUT = 120
@@ -87,7 +94,7 @@ def world(tmp_path_factory):
     def run():
         try:
             box["outs"] = dryrun.launch(4, [
-                "--device", "cpu", "--scenarios", "train,hd,serving,batcher",
+                "--device", "cpu", "--scenarios", "train,hd,serving,batcher,lora_batcher",
                 "--weights", str(work / "weights.pt"), "--out", str(work / "out.pt")],
                 CHILD_TIMEOUT, env={"OMP_NUM_THREADS": "2"})
         except Exception as e:  # noqa: BLE001 - re-raised in the tests
@@ -128,11 +135,43 @@ def world(tmp_path_factory):
                               ("batcher_p2", list(range(3, 15)), 64)):
         refs[name] = JaxGenerator(batcher_j, cfg_j).generate(
             dryrun.text_request(prompt), max_new_tokens=new).sequences[0]
+    refs["lora"] = _jax_lora_batchers(weights)
     thread.join(CHILD_TIMEOUT + 30)
     if "error" in box:
         raise box["error"]
     out = torch.load(work / "out.pt", weights_only=False)
     return {"out": out, "refs": refs, "weights": weights, "log": box["outs"][0]}
+
+
+def _jax_lora_batchers(weights) -> dict:
+    """The `lora_batcher` scenario in the JAX package: both batchers with
+    the same two adapters over the trees `shard_params` puts on JAX's
+    dp 4 x tp 2 mesh of the 8-device CPU, and the base model's greedy
+    tokens on one device with no adapter loaded."""
+    mesh = jax_mesh.make_mesh(dp=4, tp=2, devices=jax.devices()[:8])
+    ads = {n: jax_multi_lora.Adapter(lora, r)
+           for n, (lora, r) in dryrun.lora_adapters(tiny_vlm_config().lm).items()}
+    out = {}
+    cfg_j = jax_tiny_config()
+    for tree, (params, _) in dryrun.lora_trees(weights.get).items():
+        tree_j = _jax_tree(params)
+        out[f"{tree}/base"] = JaxGenerator(tree_j, cfg_j).generate(
+            dryrun.text_request(dryrun.LORA_PROMPTS[0]), max_new_tokens=6).sequences[0]
+        with jax.set_mesh(mesh):
+            sharded = jax_sharding.shard_params(tree_j, mesh)
+        for kind in ("dense", "paged"):
+            batcher = (JaxBatcher(sharded, cfg_j, num_slots=2, max_seq_len=64, adapters=ads)
+                       if kind == "dense" else
+                       JaxPaged(sharded, cfg_j, num_slots=2, num_pages=64, page_size=4,
+                                max_pages_per_seq=16, prefix_cache=True, prefill_chunk_size=8,
+                                adapters=ads))
+            batcher.start()
+            try:
+                out[f"{tree}/{kind}"] = dryrun.serve_adapters(batcher, dryrun.LORA_PROMPTS, 6,
+                                                              kind == "paged")
+            finally:
+                batcher.stop()
+    return out
 
 
 def _torch_tree(node):
@@ -242,6 +281,26 @@ def test_tp_paged_batcher_scenario(world):
     assert got["cancelled"] == longer[:len(got["cancelled"])], (got["cancelled"], longer)
     dryrun.check_batcher(got, ref)
     assert got["reused"] > 0 and got["leaked"] == 0
+
+
+@pytest.mark.parametrize("case", ["fp32/dense", "fp32/paged", "int8/dense", "int8/paged"])
+def test_tp_lora_batchers_match_jax(world, case):
+    """Two adapters (ranks 4 and 2) and the base model through the port's
+    dense or paged batcher over the sharded dense or int8 fused tree (dp 2
+    x tp 2): every request's greedy tokens, the prefix tokens reused and
+    the pages leaked equal those of JAX's batcher of the same kind on its
+    dp 4 x tp 2 mesh (and, in the child, the port's world of one). The
+    base request equals JAX's run with no adapter loaded; the paged
+    batcher's base request takes none of ad_a's cached pages, and ad_a's
+    repeat takes them."""
+    got, want = world["out"]["lora_batcher"][case], world["refs"]["lora"][case]
+    assert got == want, (got, want)
+    tokens = got["tokens"]
+    assert tokens[2] == world["refs"]["lora"][case.split("/")[0] + "/base"]
+    assert tokens[0] != tokens[2] and tokens[0] == tokens[3]
+    assert got["leaked"] == 0
+    if case.endswith("paged"):
+        assert got["reused"][0] == 0 < got["reused"][1], got["reused"]
 
 
 # -- the rules, without processes -------------------------------------------------
@@ -381,3 +440,55 @@ def test_presets_and_mesh_errors():
     with pytest.raises(ValueError, match=r"dp\*tp = 6 != 8 devices"):
         jax_mesh.make_mesh(dp=3, tp=2)
     assert single_device_mesh("cpu").shape == {"data": 1, "model": 1}
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("dp,tp", [(2, 2), (4, 2)])
+def test_local_slot_lora_follows_the_kernels_placement(dp, tp, fused):
+    """`SlotLora` over a rank's shards holds the full stacks cut as that
+    rank's kernels are cut (`sharding.local_slot_lora`): b's columns of a
+    column-parallel target, q, k and v (gate and up) each by its own
+    columns on a fused leaf, and a's rows of a row-parallel one; the
+    selection stays whole. The same columns of the full kernel are the
+    rank's kernel, and the row-parallel terms of a 'data' row's ranks sum
+    to the whole term."""
+    cfg = tiny_vlm_config()
+    lm = cfg.lm
+    params = init_vlm_on_device(cfg, 4, "cpu", torch.float32)
+    if fused:
+        params = {**params, "lm": fuse_llama_layers(params["lm"])}
+    ads = {n: Adapter(lora, r) for n, (lora, r) in dryrun.lora_adapters(lm).items()}
+    full = SlotLora(params, cfg, ads, 2, dtype=torch.float32)
+    hq, hkv, f = lm.num_attention_heads * lm.head_dim, lm.kv_heads * lm.head_dim, \
+        lm.intermediate_size
+    column_parts = {"qkv": (hq, hkv, hkv), "gateup": (f, f), "q": (hq,), "k": (hkv,),
+                    "v": (hkv,), "gate": (f,), "up": (f,)}
+    partial, whole = {}, {}
+    for rank in range(dp * tp):
+        mesh = _port_mesh(dp, tp, rank)
+        m, d = mesh.axis("model").index, mesh.axis("data").index
+        sharded = sharding.shard_params(params, mesh, cfg)
+        local = SlotLora(sharded, cfg, ads, 2, dtype=torch.float32)
+        assert local.sel.shape == full.sel.shape
+        for i, (mine, theirs) in enumerate(zip(local.stacks, full.stacks)):
+            assert mine.keys() == theirs.keys()
+            for (grp, leaf), (a, b) in mine.items():
+                fa, fb = theirs[(grp, leaf)]
+                if leaf in column_parts:
+                    starts = np.cumsum((0,) + column_parts[leaf][:-1])
+                    cols = torch.cat([torch.arange(o + m * w // tp, o + (m + 1) * w // tp)
+                                      for o, w in zip(starts, column_parts[leaf])])
+                    assert torch.equal(a, fa) and torch.equal(b, fb[..., cols]), (rank, leaf)
+                    w_full = params["lm"]["layers"][i][grp][leaf]["kernel"]
+                    w_local = sharded["lm"]["layers"][i][grp][leaf]["kernel"]
+                    assert torch.equal(w_local, w_full.chunk(dp)[d][:, cols]), (rank, leaf)
+                else:  # o, down
+                    rows = torch.arange(fa.shape[1]).chunk(tp)[m]
+                    assert torch.equal(a, fa[:, rows]) and torch.equal(b, fb), (rank, leaf)
+                    x = torch.randn(3, fa.shape[1], generator=torch.Generator().manual_seed(i))
+                    partial.setdefault((i, leaf, d), []).append(
+                        torch.einsum("bd,ndr,nro->bno", x[:, rows], a, b))
+                    whole[(i, leaf)] = torch.einsum("bd,ndr,nro->bno", x, fa, fb)
+    for (i, leaf, _), terms in partial.items():
+        assert len(terms) == tp
+        torch.testing.assert_close(sum(terms), whole[(i, leaf)], rtol=1e-5, atol=1e-5)

@@ -3,20 +3,28 @@
 normalization, HD slicing and libjpeg decoding on host threads.
 
 The library is the port's copy of the JAX package's C++
-(`tokenpacker_tpu_torch/native/preprocess.cpp`), built with g++ at the
-first call of one of its functions (`load`) into `_kernels_build/` beside
-the package, named by a hash of the source and flags. Where libjpeg's
-header is missing it is built without `tpp_jpeg_decode`, as the JAX
-bindings allow (`jpeg_available()` then says False).
+(`tokenpacker_tpu_torch/native/preprocess.cpp`). It is built only on
+request, as the JAX package's is built only by `make -C native`:
 
-`available()` tells whether the library is built, as the JAX package's
-tells whether `native/libtpp.so` exists; `hd_tiler.slice_image` and
-`io.load_image` take the native path when it is, as the JAX package's
-do. `resize_bilinear` and `normalize_u8` fall back to numpy without g++.
+    python -m tokenpacker_tpu_torch.image.native [--build-dir DIR]
+
+(or `build()`) compiles it with g++ into `_kernels_build/` beside the
+package, named by a hash of the source and flags. Where libjpeg's header
+is missing it is built without `tpp_jpeg_decode`, as the JAX bindings
+allow (`jpeg_available()` then says False).
+
+`load()` opens a library that is already built: the file that
+`TOKENPACKER_NATIVE_LIB` names first, as in the JAX package, else the
+build in `_kernels_build/`. Nothing else builds one. `available()` tells
+whether there is one to load; `hd_tiler.slice_image`, `io.load_image`,
+`resize_bilinear` and `normalize_u8` take the native path when there is,
+as the JAX package's do, and numpy or PIL otherwise: also in an install
+that has no C++ source.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import hashlib
 import os
@@ -38,7 +46,11 @@ _LIB = None
 _LOCK = threading.Lock()
 
 
-def _name(jpeg: bool) -> str:
+def _name(jpeg: bool) -> str | None:
+    """The library's file name for this source and these flags (None
+    without the source: nothing can be built, and nothing built matches)."""
+    if not SOURCE.is_file():
+        return None
     flags = FLAGS + (JPEG_FLAGS if jpeg else ())
     digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     return f"libtpp-{digest}{'-jpeg' if jpeg else ''}.so"
@@ -46,16 +58,28 @@ def _name(jpeg: bool) -> str:
 
 def _built(build_dir: Path) -> Path | None:
     for jpeg in (True, False):
-        path = build_dir / _name(jpeg)
-        if path.exists():
-            return path
+        name = _name(jpeg)
+        if name is not None and (build_dir / name).exists():
+            return build_dir / name
     return None
 
 
-def build(build_dir: Path | str = BUILD_DIR) -> Path:
-    """Compile the library (with libjpeg where its header is found) unless
-    it is built; returns its path. Raises without g++."""
-    build_dir = Path(build_dir)
+def _find() -> Path | None:
+    """The library to load: TOKENPACKER_NATIVE_LIB's file where it exists,
+    else the build in BUILD_DIR, else None."""
+    env = os.environ.get("TOKENPACKER_NATIVE_LIB")
+    if env and os.path.exists(env):
+        return Path(env)
+    return _built(BUILD_DIR)
+
+
+def build(build_dir: Path | str | None = None) -> Path:
+    """Compile the library (with libjpeg where its header is found) into
+    `build_dir` (default BUILD_DIR) unless it is built there; returns its
+    path. Raises without g++ or the source."""
+    build_dir = Path(BUILD_DIR if build_dir is None else build_dir)
+    if not SOURCE.is_file():
+        raise RuntimeError(f"the native library's source {SOURCE} is not installed")
     have = _built(build_dir)
     if have is not None:
         return have
@@ -96,17 +120,23 @@ def _bind(path: Path):
     return lib
 
 
-def load(build_dir: Path | str = BUILD_DIR):
-    """The library, built first where it is not (thread-safe)."""
+def load(build_dir: Path | str | None = None):
+    """The library, opened once (thread-safe): the one built in
+    `build_dir`, or by default `_find()`'s. It never builds; raises
+    RuntimeError when there is nothing to open."""
     global _LIB
     with _LOCK:
         if _LIB is None:
-            _LIB = _bind(build(build_dir))
+            path = _find() if build_dir is None else _built(Path(build_dir))
+            if path is None:
+                raise RuntimeError("the native library is not built (python -m "
+                                   "tokenpacker_tpu_torch.image.native builds it)")
+            _LIB = _bind(path)
         return _LIB
 
 
 def _lib_or_none():
-    """The library if it can be had (built now if g++ is there), else None."""
+    """The library where one is built, else None (numpy's path)."""
     try:
         return load()
     except RuntimeError:
@@ -114,12 +144,13 @@ def _lib_or_none():
 
 
 def available() -> bool:
-    """Whether the library is built (and so the native paths are taken)."""
-    return _LIB is not None or _built(BUILD_DIR) is not None
+    """Whether a library is built (and so the native paths are taken)."""
+    return _LIB is not None or _find() is not None
 
 
 def jpeg_available() -> bool:
-    return available() and hasattr(load(), "tpp_jpeg_decode")
+    lib = _lib_or_none()
+    return lib is not None and hasattr(lib, "tpp_jpeg_decode")
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
@@ -147,7 +178,8 @@ def _fp(a: np.ndarray):
 
 def resize_bilinear(img: np.ndarray, dst_h: int, dst_w: int, n_threads: int = 4) -> np.ndarray:
     """img [C, H, W] float32 -> [C, dst_h, dst_w] (torch interpolate
-    semantics); numpy (`hd_tiler._resize_bilinear`) without g++."""
+    semantics); numpy (`hd_tiler._resize_bilinear`) where no library is
+    built."""
     img = np.ascontiguousarray(img, np.float32)
     lib = _lib_or_none()
     if lib is None:
@@ -161,7 +193,8 @@ def resize_bilinear(img: np.ndarray, dst_h: int, dst_w: int, n_threads: int = 4)
 
 
 def normalize_u8(img_hwc: np.ndarray, mean, std, n_threads: int = 4) -> np.ndarray:
-    """uint8 [H, W, 3] -> normalized float32 [3, H, W]; numpy without g++."""
+    """uint8 [H, W, 3] -> normalized float32 [3, H, W]; numpy where no
+    library is built."""
     img_hwc = np.ascontiguousarray(img_hwc, np.uint8)
     mean = np.asarray(mean, np.float32)
     std = np.asarray(std, np.float32)
@@ -188,3 +221,17 @@ def hd_slice(img: np.ndarray, hb: int, wb: int, block: int, fit_h: int, fit_w: i
     n = lib.tpp_hd_slice(_fp(img), h, w, hb, wb, block, fit_h, fit_w, g_fit_h, g_fit_w,
                          _fp(out), n_threads)
     return out[:n]
+
+
+def main(argv=None) -> None:
+    """Build the library (the counterpart of `make -C native`) and print
+    its path."""
+    ap = argparse.ArgumentParser(description="Build the port's native preprocessing library "
+                                             "with g++.")
+    ap.add_argument("--build-dir", default=None,
+                    help="where to put it (default: the package's _kernels_build/)")
+    print(build(ap.parse_args(argv).build_dir))
+
+
+if __name__ == "__main__":
+    main()

@@ -19,6 +19,10 @@ rank, each held to the port's world-of-one result:
 - `batcher`: the paged batcher over a sharded int8 fused tree (prefix
   cache, chunked admission, a cancellation, a concurrent request, no
   page leaked), token for token against the unsharded batcher;
+- `lora_batcher`: two adapters and the base model through both batchers
+  over the sharded dense and int8 fused trees (`serve_adapters`: on the
+  paged batcher the base takes none of an adapter's cached pages), token
+  for token against the unsharded batchers;
 - `ring`: ring attention over 'data' (causal and not) against full
   attention.
 
@@ -55,7 +59,7 @@ import torch.distributed as dist
 from tokenpacker_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
 from tokenpacker_tpu_torch.parallel.multihost import _to
 
-SCENARIOS = ("train", "hd", "serving", "pipeline", "batcher", "ring")
+SCENARIOS = ("train", "hd", "serving", "pipeline", "batcher", "lora_batcher", "ring")
 
 
 def free_port() -> int:
@@ -480,16 +484,108 @@ def batcher_scenario(params, cfg, device, leader: bool = True, page_size: int = 
         batcher.cancel(fut_c)
         cancelled = fut_c.result(timeout=300)
         other = fut_d.result(timeout=300)
-        deadline = time.time() + 120
-        retained = len(batcher.prefix.blocks)
-        while batcher.allocator.available() != free0 - retained and time.time() < deadline:
-            time.sleep(0.05)
-            retained = len(batcher.prefix.blocks)
-        leaked = free0 - retained - batcher.allocator.available()
+        leaked = pages_leaked(batcher, free0)
     finally:
         batcher.stop()
     return {"cold": cold, "warm": warm, "cancelled": cancelled, "other": other,
             "reused": reused, "leaked": leaked}
+
+
+def pages_leaked(batcher, free0: int) -> int:
+    """The pages a paged batcher holds beyond its prefix cache's once its
+    slots drain (waits up to 120 s for them to)."""
+    deadline = time.time() + 120
+    retained = len(batcher.prefix.blocks)  # one page a block
+    while batcher.allocator.available() != free0 - retained and time.time() < deadline:
+        time.sleep(0.05)
+        retained = len(batcher.prefix.blocks)
+    return free0 - retained - batcher.allocator.available()
+
+
+def lora_adapters(lm_cfg, seed: int = 21, ranks=None, scales=None) -> dict:
+    """{name: (lora, r)}, float32 numpy from one seeded generator, each over
+    the seven targets: by default "ad_a" of rank 4 at scale 0.3 and "ad_b"
+    of rank 2 at scale 0.02 (the mixed-rank pair of the JAX package's
+    multi-LoRA tests), else one adapter per name of `ranks` at
+    `scales[name]`. `serve/multi_lora.Adapter(lora, r)` takes them, as the
+    JAX package's Adapter does."""
+    from tokenpacker_tpu_torch.serve.multi_lora import TARGETS, target_dims
+
+    ranks = ranks or {"ad_a": 4, "ad_b": 2}
+    scales = scales or {"ad_a": 0.3, "ad_b": 0.02}
+    rng = np.random.default_rng(seed)
+    dims, n_layers = target_dims(lm_cfg), lm_cfg.num_hidden_layers
+
+    def make(r, scale):
+        return {t: ((scale * rng.standard_normal((n_layers, dims[t][0], r))).astype(np.float32),
+                    (scale * rng.standard_normal((n_layers, r, dims[t][1]))).astype(np.float32))
+                for t in TARGETS}
+
+    return {name: (make(r, scales[name]), r) for name, r in ranks.items()}
+
+
+def serve_adapters(batcher, prompts, new: int, paged: bool, base_only: bool = False) -> dict:
+    """Multi-LoRA traffic through a started batcher (either package's):
+    adapter "ad_a" on prompts[0] beside "ad_b" on prompts[1], then the base
+    model on prompts[0], then "ad_a" on prompts[0] again. Returns the four
+    requests' greedy tokens and, on a paged batcher, the prompt tokens the
+    last two took from the prefix cache (the base none of ad_a's pages,
+    the repeat ad_a's) and the pages leaked. `base_only` (a batcher with
+    no adapter loaded): the base request alone."""
+    p1, p2 = prompts
+    free0 = batcher.allocator.available() if paged else 0
+
+    def base():
+        return batcher.submit(text_request(p1), max_new_tokens=new,
+                              temperature=0.0).result(timeout=300)
+
+    if base_only:
+        return {"tokens": [base()], "reused": [],
+                "leaked": pages_leaked(batcher, free0) if paged else 0}
+    futs = [batcher.submit(text_request(p), max_new_tokens=new, temperature=0.0, adapter=a)
+            for p, a in ((p1, "ad_a"), (p2, "ad_b"))]
+    tokens = [f.result(timeout=300) for f in futs]
+    reused = []
+    for adapter in (None, "ad_a"):
+        before = batcher.prefix.tokens_reused if paged else 0
+        tokens.append(batcher.submit(text_request(p1), max_new_tokens=new, temperature=0.0,
+                                     adapter=adapter).result(timeout=300))
+        reused.append(batcher.prefix.tokens_reused - before if paged else 0)
+    return {"tokens": tokens, "reused": reused,
+            "leaked": pages_leaked(batcher, free0) if paged else 0}
+
+
+LORA_PROMPTS = (list(range(2, 10)), list(range(30, 42)))
+
+
+def lora_batcher(params, cfg, kind: str, adapters: dict | None, device, page_size: int = 4,
+                 chunk: int = 8, max_seq_len: int = 64):
+    """The port's dense ("dense") or paged ("paged": prefix cache, chunked
+    admission) batcher of the `lora_batcher` scenario, over 2 slots."""
+    from tokenpacker_tpu_torch.serve.scheduler import ContinuousBatcher, PagedContinuousBatcher
+
+    if kind == "dense":
+        return ContinuousBatcher(params, cfg, num_slots=2, max_seq_len=max_seq_len,
+                                 adapters=adapters, device=device)
+    return PagedContinuousBatcher(params, cfg, num_slots=2, num_pages=64, page_size=page_size,
+                                  max_pages_per_seq=max_seq_len // page_size, prefix_cache=True,
+                                  prefill_chunk_size=chunk, adapters=adapters, device=device)
+
+
+def lora_batcher_scenario(params, cfg, kind: str, adapters: dict | None, device,
+                          leader: bool = True, prompts=LORA_PROMPTS, new: int = 6, **sizes):
+    """`serve_adapters` through `lora_batcher(..., **sizes)` (with adapters
+    None: the base request alone, no adapter loaded); on a lockstep
+    batcher's other ranks: start and wait for rank 0's stop."""
+    batcher = lora_batcher(params, cfg, kind, adapters, device, **sizes)
+    batcher.start()
+    if not leader:
+        batcher.stop()
+        return None
+    try:
+        return serve_adapters(batcher, prompts, new, kind == "paged", adapters is None)
+    finally:
+        batcher.stop()
 
 
 def check_batcher(got: dict, ref: dict):
@@ -518,6 +614,43 @@ def scenario_batcher(ctx):
                f"admission, cancellation) sharded == world of one OK (tokens={got['cold']}, "
                f"reused={got['reused']})")
     return {"got": got, "ref": ref}
+
+
+def lora_trees(weights) -> dict:
+    """The `lora_batcher` scenario's trees, {name: (params, cfg)}: the tiny
+    config's dense tree ("fp32", the `tiny` weights) and its int8 fused
+    tree ("int8", the `batcher` weights). Both keep the tiny config's fp32
+    activations: in bf16 the tiny LM's top-2 logits lie within a rounding
+    of each other (0.002 apart under ad_a), so a rank's partial sums flip
+    tokens that no exact comparison could hold."""
+    cfg = _tiny()
+    return {"fp32": (weights("tiny"), cfg), "int8": (weights("batcher"), cfg)}
+
+
+def scenario_lora_batcher(ctx):
+    from tokenpacker_tpu_torch.parallel.sharding import shard_params
+    from tokenpacker_tpu_torch.serve.multi_lora import Adapter
+
+    mesh, device = _mesh(ctx), ctx["device"]
+    adapters = {n: Adapter(lora, r) for n, (lora, r) in lora_adapters(_tiny().lm).items()}
+    leader = ctx["rank"] == 0
+    out = {}
+    for tree, (weights, cfg) in lora_trees(ctx["weights"]).items():
+        sharded = _to(shard_params(weights, mesh, cfg), device)
+        for kind in ("dense", "paged"):
+            got = lora_batcher_scenario(sharded, cfg, kind, adapters, device, leader)
+            if not leader:
+                continue
+            ref = lora_batcher_scenario(_to(weights, device), cfg, kind, adapters, device)
+            assert got == ref, (tree, kind, got, ref)
+            assert got["leaked"] == 0 and got["tokens"][0] == got["tokens"][3], got
+            if kind == "paged":
+                assert got["reused"][0] == 0 < got["reused"][1], got["reused"]
+            out[f"{tree}/{kind}"] = got
+    ctx["say"](f"dryrun lora_batcher: mesh={dict(mesh.shape)} two adapters and the base through "
+               f"both batchers on the dense and the int8 fused tree, sharded == world of one OK "
+               f"({out.get('int8/paged')})")
+    return out
 
 
 def pipeline_inputs(lm_cfg, b: int, t: int = 16, seed: int = 3):
@@ -648,7 +781,7 @@ def scenario_probe(ctx):
 
 RUNNERS = {"train": scenario_train, "hd": scenario_hd, "serving": scenario_serving,
            "pipeline": scenario_pipeline, "batcher": scenario_batcher, "ring": scenario_ring,
-           "probe": scenario_probe}
+           "lora_batcher": scenario_lora_batcher, "probe": scenario_probe}
 
 
 def child(args, runners: dict = RUNNERS):

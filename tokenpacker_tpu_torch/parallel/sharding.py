@@ -355,17 +355,39 @@ def head_axis(table: torch.Tensor):
     return pl.mesh.axis(MODEL_AXIS)
 
 
+def kernel_placement(leaf: dict) -> Placement | None:
+    """The placement of a linear leaf's kernel (a quantized kernel's
+    payload)."""
+    k = leaf["kernel"]
+    if isinstance(k, dict):
+        k = k["q" if "q" in k else next(x for x in k if x.startswith("q4:"))]
+    return placement(k)
+
+
 def _first_kernel_placement(block: dict, roles) -> Placement | None:
     for role in roles:
-        leaf = block.get(role)
-        if leaf is None:
-            continue
-        k = leaf["kernel"]
-        if isinstance(k, dict):
-            key = "q" if "q" in k else next(x for x in k if x.startswith("q4:"))
-            k = k[key]
-        return placement(k)
+        if block.get(role) is not None:
+            return kernel_placement(block[role])
     return None
+
+
+def local_slot_lora(leaf: dict, a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """A slot-LoRA stack of the target `leaf` (`serve/multi_lora.SlotLora`:
+    a [n, in, r], b [n, r, out] at the model's widths) cut to what this
+    rank holds, as `_gathered_quant` cuts an int8 `scale` with its columns.
+    A column-parallel target keeps b's columns of the kernel's own
+    (`Placement.local_index`: a fused qkv or gateup part by part); a
+    row-parallel one keeps a's rows of the kernel's rows, so each rank's
+    term is a partial sum that `row_linear`'s reduction over 'model' adds
+    up with the base product. A replicated block (or an unsharded leaf)
+    keeps the whole stack."""
+    pl = kernel_placement(leaf)
+    if pl is None or pl.keep is None:
+        return a, b
+    if pl.keep == len(pl.spec) - 1:
+        return a, b.index_select(-1, pl.local_index(pl.keep).to(b.device))
+    axis = pl.mesh.axis(MODEL_AXIS)
+    return a.chunk(axis.size, dim=1)[axis.index].contiguous(), b
 
 
 @dataclass(frozen=True)

@@ -19,6 +19,11 @@ many adapters over one shared base, chosen per request.
 - An adapter's non-LoRA trainables (the projector of a LLaVA LoRA
   checkpoint) apply to its requests' admissions only
   (`prefill_params`).
+- Over a sharded tree (`parallel/sharding.shard_params`) each rank holds
+  its target's share of every stack (`parallel/sharding.local_slot_lora`:
+  b's columns of a column-parallel target, a's rows of a row-parallel
+  one) and the selection and projector whole. Such a tree decodes per
+  layer (`generate.fused_weights`), so no K4 bundle is built.
 
 The adapter set is fixed when the batcher is built. `set_slot` writes one
 host row and the one [slots, n] device tensor in place: the stacks, the
@@ -37,6 +42,7 @@ import torch
 from tokenpacker_tpu_torch.io.hf_import import import_tokenpacker, strip_prefix
 from tokenpacker_tpu_torch.io.weights import params_to
 from tokenpacker_tpu_torch.ops.fused_decode import build_fd_lora, fused_eligible
+from tokenpacker_tpu_torch.parallel.sharding import local_slot_lora, mesh_of
 
 TARGETS = (
     ("attn", "q"), ("attn", "k"), ("attn", "v"), ("attn", "o"),
@@ -164,7 +170,9 @@ def _bundle_views(fd: dict, n: int) -> list[dict]:
 class SlotLora:
     """Per-slot adapter selection and the parameter overlays of the
     continuous batchers (module docstring). params: the base tree on its
-    device; adapters: {name: Adapter}; num_slots: the batcher's slots."""
+    device, whole or a rank's shards; cfg: the model's config (its full
+    widths, also over a sharded tree); adapters: {name: Adapter};
+    num_slots: the batcher's slots."""
 
     def __init__(self, params, cfg, adapters: dict[str, Adapter], num_slots: int,
                  dtype=torch.bfloat16):
@@ -226,13 +234,14 @@ class SlotLora:
         # device then holds the adapters once: the per-layer stacks are
         # views into the bundle.
         self._fd = None
-        if fused_eligible(lm, cfg.lm):
+        if mesh_of(lm) is None and fused_eligible(lm, cfg.lm):
             fd = build_fd_lora(stacks, cfg.lm, dtype)
             self._fd = {k: v.to(device) if torch.is_tensor(v) else v for k, v in fd.items()}
             self.stacks = _bundle_views(self._fd, len(self.names))
         else:
-            self.stacks = [{k: (a.to(device), b.to(device)) for k, (a, b) in st.items()}
-                           for st in stacks]
+            self.stacks = [{(grp, leaf): tuple(t.to(device) for t in local_slot_lora(
+                layer[grp][leaf], a, b)) for (grp, leaf), (a, b) in st.items()}
+                for layer, st in zip(layers, stacks)]
         n = len(self.names)
         self._sel = np.zeros((num_slots, n), np.float32)  # host truth
         self.sel = torch.zeros((num_slots, n), dtype=torch.float32, device=device)

@@ -103,7 +103,9 @@ fused tree, the paged batcher's through `ops/layers.linear`'s term. An
 admission runs on `SlotLora.prefill_params` (the request's row alone and
 its adapter's projector, whole or in chunks), and the adapter's name
 seeds the paged batcher's prefix hashes, so that equal prompts under
-different adapters never share pages.
+different adapters never share pages. Over a sharded tree each rank's
+overlay holds its share of the stacks, and rank 0's plans carry each
+request's adapter, so every rank selects, admits and hashes alike.
 """
 
 from __future__ import annotations
@@ -213,10 +215,7 @@ class _SlotBatcher:
             raise NotImplementedError("multi-LoRA serving (adapters=) is llama-only, as the JAX "
                                       "package's serve/multi_lora is")
         mesh = mesh_of(params)
-        if adapters and mesh is not None:
-            raise NotImplementedError("multi-LoRA serving over a sharded tree is not ported "
-                                      "(ROADMAP queue 1)")
-        cfg = local_config(cfg, params)
+        model_cfg, cfg = cfg, local_config(cfg, params)
         # lockstep over the mesh's ranks (module docstring)
         self.plan_axis = mesh.world_axis if mesh is not None and mesh.size > 1 else None
         self.leader = self.plan_axis is None or self.plan_axis.index == 0
@@ -261,17 +260,20 @@ class _SlotBatcher:
         # rounds and the tokens they emitted
         self.stats = {"decode_steps": 0, "decode_s": 0.0, "alone_steps": 0, "alone_s": 0.0,
                       "verify_rounds": 0, "verify_s": 0.0, "verify_tokens": 0}
-        self._init_slot_lora(adapters)
+        self._init_slot_lora(adapters, model_cfg)
 
     # -- multi-LoRA serving (serve/multi_lora) ---------------------------------
 
-    def _init_slot_lora(self, adapters: dict | None):
+    def _init_slot_lora(self, adapters: dict | None, model_cfg):
         """With adapters, every step runs on SlotLora's overlay of the base
-        params, made once (its selection tensor is updated in place)."""
+        params, made once (its selection tensor is updated in place). Over
+        a sharded tree the stacks are this rank's shares, made from the
+        model's widths (`model_cfg`), and the plans carry each request's
+        adapter, so every rank selects alike."""
         self.base_params = self.params
         self.slot_lora = None
         if adapters:
-            self.slot_lora = SlotLora(self.base_params, self.cfg, adapters, self.num_slots,
+            self.slot_lora = SlotLora(self.base_params, model_cfg, adapters, self.num_slots,
                                       dtype=self.cfg.dtype)
             self.params = self.slot_lora.overlay(self.base_params)
 
