@@ -76,6 +76,21 @@ plain-greedy slot are accepted on average (an EMA over rounds), the batcher deco
 plainly for SPEC_BACKOFF_ROUNDS steps (doubling on each repeat) before it
 tries again.
 
+Spans (`utils/profiling`), kept in `GLOBAL_STATS`'s ring with the
+batcher's step count and its id: each request's `batcher.queue` (submit()
+to the start of its admission) and `batcher.admit` (from there to its
+first token), the same request id on both and on its admission's
+spans, `batcher.admit.visual` (a chunked admission's start: its inputs
+and cache on the device, the tower and projector), `batcher.admit.chunk`
+(one chunk) and `batcher.admit.seat` (the dense batcher's cache copy and
+first token); a plain step's `batcher.decode` (as
+`stats["decode_s"]` times it) with `batcher.decode.inputs` (the sampling
+rows, tokens and active mask copied to the device: a copy from pageable
+memory waits for the device work queued before it, such as an admission
+chunk's), `batcher.decode.launch` (from there to the start of the tokens'
+copy to the host) and `batcher.decode.wait` (that copy), then
+`batcher.emit` (logprob entries, emission, the callers' `on_token`).
+
 The cache dtype is the explicit `kv_cache_dtype` (JAX reads
 TOKENPACKER_KV_CACHE), the w8a8 mode of the int8 products the explicit
 `w8a8` (JAX reads TOKENPACKER_W8A8: K8 for the tower and admission chunks
@@ -111,6 +126,7 @@ request's adapter, so every rank selects, admits and hashes alike.
 from __future__ import annotations
 
 import collections
+import itertools
 import math
 import queue
 import threading
@@ -157,12 +173,17 @@ from tokenpacker_tpu_torch.parallel.sharding import local_config, mesh_of
 from tokenpacker_tpu_torch.serve.multi_lora import SlotLora
 from tokenpacker_tpu_torch.serve.prefix_cache import PrefixCache, block_hashes, image_digest
 from tokenpacker_tpu_torch.speculative import accept_greedy, propose_ngram_host, verify_step_cb
+from tokenpacker_tpu_torch.utils.profiling import GLOBAL_STATS, Span
 
 # speculative backoff: below SPEC_EMA_THRESHOLD accepted drafts a slot a
 # round (an EMA over rounds), decode plainly for SPEC_BACKOFF_ROUNDS steps
 # (doubled on each repeat, at most 512) before trying again
 SPEC_EMA_THRESHOLD = 0.15
 SPEC_BACKOFF_ROUNDS = 32
+
+# span ids (utils/profiling): a request's `req`, a batcher's `owner`
+_REQUEST_IDS = itertools.count()
+_BATCHER_IDS = itertools.count()
 
 
 @dataclass
@@ -186,6 +207,9 @@ class _Request:
     ctx: list = field(default_factory=list)  # prompt-lookup context (speculation)
     adapter: str | None = None  # multi-LoRA serving (serve/multi_lora)
     rid: int = -1  # a lockstep batcher's request id (its plans name requests by it)
+    sid: int = field(default_factory=_REQUEST_IDS.__next__)  # its spans' request id
+    t_submit: int = field(default_factory=time.perf_counter_ns)  # submit() (a plan, off rank 0)
+    queued: Span | None = None  # its `batcher.queue` record, made when admission begins
 
     @property
     def has_penalties(self) -> bool:
@@ -260,6 +284,7 @@ class _SlotBatcher:
         # rounds and the tokens they emitted
         self.stats = {"decode_steps": 0, "decode_s": 0.0, "alone_steps": 0, "alone_s": 0.0,
                       "verify_rounds": 0, "verify_s": 0.0, "verify_tokens": 0}
+        self._owner = next(_BATCHER_IDS)  # the `owner` of its spans
         self._init_slot_lora(adapters, model_cfg)
 
     # -- multi-LoRA serving (serve/multi_lora) ---------------------------------
@@ -296,6 +321,7 @@ class _SlotBatcher:
                min_p: float | None = None, seed: int | None = None, adapter: str | None = None,
                repetition_penalty: float = 1.0, presence_penalty: float = 0.0,
                frequency_penalty: float = 0.0, logprobs: int | None = None) -> Future:
+        t_submit = time.perf_counter_ns()
         fut: Future = Future()
         if self.dead is not None:
             fut.set_exception(RuntimeError(f"batcher loop died: {self.dead!r}"))
@@ -315,7 +341,8 @@ class _SlotBatcher:
                        temperature=self.temperature if temperature is None else temperature,
                        top_p=top_p, top_k=top_k, min_p=min_p, seed=seed,
                        repetition_penalty=repetition_penalty, presence_penalty=presence_penalty,
-                       frequency_penalty=frequency_penalty, logprobs=logprobs, adapter=adapter)
+                       frequency_penalty=frequency_penalty, logprobs=logprobs, adapter=adapter,
+                       t_submit=t_submit)
         fut._tp_request = req  # handle for cancel()
         if self.plan_axis is not None:
             with self._cancel_lock:
@@ -441,20 +468,37 @@ class _SlotBatcher:
             raise
 
     def _admit_safe(self, slot: int, req: _Request):
+        self._admission_begins(req)
         self._failing(req, self._admit, slot, req)
 
     def _start_pending_safe(self, slot: int, req: _Request):
-        self._failing(req, self._start_pending, slot, req)
+        self._admission_begins(req)
+        with self._span("batcher.admit.visual", req):
+            self._failing(req, self._start_pending, slot, req)
 
     def _step_pending_safe(self):
         p = self._pending
         try:
-            self._step_pending()
+            with self._span("batcher.admit.chunk", p["req"]):
+                self._step_pending()
         except BaseException as e:  # noqa: BLE001
             self._pending = None
             if not p["req"].future.done():
                 p["req"].future.set_exception(RuntimeError(f"batcher loop died: {e!r}"))
             raise
+
+    # -- spans (utils/profiling) ------------------------------------------------
+
+    def _span(self, name: str, req: _Request | None = None):
+        """A span at this batcher's step, of `req` where given."""
+        return GLOBAL_STATS.span(name, -1 if req is None else req.sid,
+                                 self.stats["decode_steps"], self._owner)
+
+    def _admission_begins(self, req: _Request):
+        """The request leaves the queue: its `batcher.queue` record, from
+        submit() to now, at the step its admission begins."""
+        req.queued = GLOBAL_STATS.add("batcher.queue", req.t_submit, time.perf_counter_ns(),
+                                      req.sid, self.stats["decode_steps"], self._owner)
 
     # -- admission and emission ----------------------------------------------
 
@@ -494,6 +538,9 @@ class _SlotBatcher:
             im = np.asarray(b["is_image"])[0, :true_len]
             req.ctx = [-1 if m else int(t) for t, m in zip(ids, im)]
         self.next_tokens[slot] = tok
+        q = req.queued
+        GLOBAL_STATS.add("batcher.admit", q.end, time.perf_counter_ns(), req.sid, q.step,
+                         self._owner)
         self._emit(slot, tok)
 
     def _emit(self, slot: int, tok: int):
@@ -630,24 +677,30 @@ class _SlotBatcher:
 
     def _decode(self, active: np.ndarray, alone: bool):
         t0 = time.perf_counter()
-        rows = self._sampling_rows()
-        logits = self._decode_step(torch.as_tensor(self.next_tokens, device=self.device),
-                                   torch.as_tensor(active, device=self.device))
-        toks_dev = self._sample(logits, rows)
-        lp = self._lp_rows(logits, toks_dev)
-        toks = toks_dev.cpu().numpy()
-        seconds = time.perf_counter() - t0
-        self.stats["decode_s"] += seconds
-        self.stats["decode_steps"] += 1
-        if alone:
-            self.stats["alone_s"] += seconds
-            self.stats["alone_steps"] += 1
-        self.lengths += active
-        self._lp_record(lp, toks)
-        for slot in range(self.num_slots):
-            if self.slots[slot] is not None:
-                self.next_tokens[slot] = int(toks[slot])
-                self._emit(slot, int(toks[slot]))
+        with self._span("batcher.decode"):
+            with self._span("batcher.decode.inputs"):
+                rows = self._sampling_rows()
+                tokens = torch.as_tensor(self.next_tokens, device=self.device)
+                act = torch.as_tensor(active, device=self.device)
+            with self._span("batcher.decode.launch"):
+                logits = self._decode_step(tokens, act)
+                toks_dev = self._sample(logits, rows)
+                lp = self._lp_rows(logits, toks_dev)
+            with self._span("batcher.decode.wait"):
+                toks = toks_dev.cpu().numpy()
+            seconds = time.perf_counter() - t0
+            self.stats["decode_s"] += seconds
+            self.stats["decode_steps"] += 1
+            if alone:
+                self.stats["alone_s"] += seconds
+                self.stats["alone_steps"] += 1
+            self.lengths += active
+        with self._span("batcher.emit"):
+            self._lp_record(lp, toks)
+            for slot in range(self.num_slots):
+                if self.slots[slot] is not None:
+                    self.next_tokens[slot] = int(toks[slot])
+                    self._emit(slot, int(toks[slot]))
 
     def _propose_fed(self):
         """Per-slot verify inputs [slots, k + 1]: the last token, the drafts
@@ -848,8 +901,9 @@ class ContinuousBatcher(_SlotBatcher):
         logits, small = prefill(self._admission_params(req), self.cfg, dev,
                                 b["token_ids"].shape[1], self.kv_cache_dtype, self.w8a8,
                                 self.vit_block)
-        insert_into_cache(self.cache, small, slot)
-        self._seat(slot, req, logits, int(np.asarray(b["lengths"])[0]))
+        with self._span("batcher.admit.seat", req):
+            insert_into_cache(self.cache, small, slot)
+            self._seat(slot, req, logits, int(np.asarray(b["lengths"])[0]))
 
     def _start_pending(self, slot: int, req: _Request):
         """Begin a chunked admission: the vision encode now, the prompt
@@ -884,8 +938,9 @@ class ContinuousBatcher(_SlotBatcher):
             logits = lm_logits(p["params"]["lm"], self.cfg.lm,
                                hidden[:, p["true_len"] - 1 - start], self.w8a8)
             self._pending = None
-            insert_into_cache(self.cache, p["cache"], p["slot"])
-            self._seat(p["slot"], p["req"], logits, p["true_len"])
+            with self._span("batcher.admit.seat", p["req"]):
+                insert_into_cache(self.cache, p["cache"], p["slot"])
+                self._seat(p["slot"], p["req"], logits, p["true_len"])
 
     def _decode_step(self, tokens: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
         cur = torch.as_tensor(self.lengths, dtype=torch.int32, device=self.device)
